@@ -1,0 +1,119 @@
+"""The Mamba-H-Net encoder, Type A at N = 1, counterpart of
+``hnet_mamba_asr_tpu/models/encoder.py``.
+
+conv subsample x4 (100 -> 25 Hz) -> enc Mamba stack (d_outer) -> [chunk ->
+proj_in -> main Mamba stack (d_main) -> proj_out -> dechunk] -> residual
+``x_enc + x_dech`` (the fine-detail bypass) -> dec Mamba stack. At N = 1 the
+chunker is the identity. Type B and N > 1 raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from hnet_mamba_asr_torch.models.hnet_chunk import identity_chunk
+from hnet_mamba_asr_torch.models.mamba2 import dense, lecun_normal_, new_linear
+from hnet_mamba_asr_torch.models.mamba_block import MambaStack
+
+CHUNKERS = ("dynamic", "fixed")
+
+
+class EncoderOutput(NamedTuple):
+    features: torch.Tensor      # [B, L0, d_outer] frame-rate output
+    lengths: torch.Tensor       # [B] valid frames after subsampling
+    ratio_loss: torch.Tensor    # scalar, summed over stages (0 at N=1)
+    boundaries: tuple           # per stage: (p [B,L], b [B,L])
+    chunk_embeddings: tuple     # per stage: z [B, M, d]
+    kept_fractions: tuple       # per stage: scalar realized keep fraction
+
+
+def subsampled_length(lengths):
+    """Valid length after two k=3, s=2 VALID convs: ((L-1)//2 - 1)//2."""
+    n = ((lengths - 1) // 2 - 1) // 2
+    return n.clamp(min=0) if torch.is_tensor(n) else np.maximum(n, 0)
+
+
+def lengths_to_mask(lengths: torch.Tensor, T: int) -> torch.Tensor:
+    return torch.arange(T, device=lengths.device)[None, :] < lengths[:, None]
+
+
+def _new_conv(c_in: int, c_out: int, generator) -> nn.Conv2d:
+    conv = nn.Conv2d(c_in, c_out, kernel_size=3, stride=2)
+    lecun_normal_(conv.weight, 9 * c_in, generator)
+    nn.init.zeros_(conv.bias)
+    return conv
+
+
+class ConvSubsampling4(nn.Module):
+    """x4 time downsample: two Conv(k=3, s=2, VALID) + ReLU, flatten F x C ->
+    Linear. The flatten runs over [B, T, F, C], the JAX layout, so JAX
+    weights load unscrambled."""
+
+    def __init__(self, n_mels: int, d_model: int, dtype: torch.dtype = torch.float32,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.dtype = dtype
+        self.conv1 = _new_conv(1, d_model, generator)
+        self.conv2 = _new_conv(d_model, d_model, generator)
+        f_out = ((n_mels - 1) // 2 - 1) // 2
+        self.proj = new_linear(f_out * d_model, d_model, True, generator)
+
+    def forward(self, feats: torch.Tensor, lengths: torch.Tensor):
+        cd = self.dtype
+        x = feats.to(cd)[:, None]                                   # [B, 1, T, F]
+        for conv in (self.conv1, self.conv2):
+            x = F.relu(F.conv2d(x, conv.weight.to(cd), conv.bias.to(cd), stride=2))
+        B, C, T, Fq = x.shape
+        x = x.permute(0, 2, 3, 1).reshape(B, T, Fq * C)             # [B, T, F*C]
+        # a long reduction (F*C = 7296 at full width): see dense()
+        x = dense(x, self.proj, cd, row_multiple=1024)
+        return x, subsampled_length(lengths)
+
+
+class DCASREncoder(nn.Module):
+    """Type A encoder at N = 1 (one identity chunk level)."""
+
+    def __init__(self, n_mels: int = 80, d_outer: int = 384, d_main: int = 512,
+                 n_enc: int = 4, n_main: int = 12, n_dec: int = 4,
+                 arch_type: str = "A", N: float = 1, bidirectional: bool = True,
+                 chunker: str = "dynamic", d_state: int = 128, headdim: int = 64,
+                 chunk_size: int = 256, ssd_out_compute_dtype: bool = False,
+                 dtype: torch.dtype = torch.float32,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        if arch_type not in ("A", "B"):
+            raise ValueError(f"arch_type must be 'A' or 'B', got {arch_type!r}")
+        if str(chunker).lower() not in CHUNKERS:
+            raise ValueError(f"unknown chunker {chunker!r}; choices: {sorted(CHUNKERS)}")
+        if arch_type != "A" or N != 1:
+            raise NotImplementedError(
+                f"the PyTorch port serves Type A at N=1 only (got Type {arch_type}, "
+                f"N={N}); H-Net chunking and Type B come in a later slice")
+        self.d_outer = d_outer
+        self.dtype = dtype
+        stack_kw = dict(bidirectional=bidirectional, d_state=d_state, headdim=headdim,
+                        chunk_size=chunk_size,
+                        ssd_out_compute_dtype=ssd_out_compute_dtype,
+                        dtype=dtype, generator=generator)
+        self.subsample = ConvSubsampling4(n_mels, d_outer, dtype, generator)
+        self.enc = MambaStack(n_enc, d_outer, **stack_kw)
+        self.proj_in = new_linear(d_outer, d_main, True, generator)
+        self.main = MambaStack(n_main, d_main, **stack_kw)
+        self.proj_out = new_linear(d_main, d_outer, True, generator)
+        self.dec = MambaStack(n_dec, d_outer, **stack_kw)
+
+    def forward(self, feats: torch.Tensor, feat_lengths: torch.Tensor) -> EncoderOutput:
+        x, lengths = self.subsample(feats, feat_lengths)
+        mask = lengths_to_mask(lengths, x.shape[1])
+        x_enc = self.enc(x, lengths)
+        co = identity_chunk(x_enc, mask)
+        z = dense(co.z, self.proj_in, self.dtype)
+        z = self.main(z, co.z_mask.sum(dim=1))
+        x_dech = dense(z, self.proj_out, self.dtype)            # identity dechunk
+        x_out = self.dec(x_enc + x_dech, lengths)               # fine-detail bypass
+        return EncoderOutput(x_out, lengths, co.ratio_loss, ((co.p, co.b),),
+                             (co.z,), (co.kept_fraction,))

@@ -1,0 +1,151 @@
+"""Mamba-2 layer (selective SSM with the SSD scan), counterpart of
+``hnet_mamba_asr_tpu/models/mamba2.py``:
+
+    u --in_proj--> [z | xBC | dt]
+    xBC --causal depthwise conv(d_conv) + bias -> SiLU--> [x | B | C]
+    dt = softplus(dt + dt_bias);  A = -exp(a_log)            (fp32)
+    y = SSD(x, dt, A, B, C) + D * x
+    y = RMSNorm(y * SiLU(z)) * g             (gated RMSNorm, fp32 statistics)
+    out = y @ out_proj
+
+Parameters keep the JAX names and are stored in fp32; ``dtype`` is the
+compute dtype (bf16 for the gate config), to which weights are cast at use,
+as flax does with ``param_dtype=float32``. Initialization follows the same
+recipes: flax's lecun-normal for projections and the conv, A ~ U(1, 16) via
+its log, and dt ~ LogUniform(1e-3, 0.1) through inverse softplus with a 1e-4
+floor.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from hnet_mamba_asr_torch.ops.ssd import ssd
+
+
+def lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator | None):
+    """flax ``lecun_normal``: truncated normal (+-2 std) with variance 1/fan_in."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    with torch.no_grad():
+        return nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
+                                     generator=generator)
+
+
+def new_linear(d_in: int, d_out: int, bias: bool, generator) -> nn.Linear:
+    """nn.Linear with flax Dense's init: lecun-normal weight, zero bias."""
+    layer = nn.Linear(d_in, d_out, bias=bias)
+    lecun_normal_(layer.weight, d_in, generator)
+    if bias:
+        nn.init.zeros_(layer.bias)
+    return layer
+
+
+def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype, *,
+          row_multiple: int = 1, col_multiple: int = 1) -> torch.Tensor:
+    """``layer(x)`` in the compute ``dtype`` from fp32 weights, as a flax
+    Dense with ``param_dtype=float32`` computes.
+
+    ``row_multiple`` / ``col_multiple`` keep each row's result independent
+    of how many rows the batch has. cuBLAS picks its GEMM kernel, and with it
+    the summation order, by the shape. For most of the model's GEMMs one
+    kernel serves every row count, but for a long reduction over few rows it
+    splits K, and for an odd N it takes other kernels at other row counts; in
+    bf16 a one-ulp difference then grows through the encoder into different
+    transcripts for one request alone and inside a batch. Padding the rows
+    to a multiple of ``row_multiple`` (one multiple at least) and N to a
+    multiple of ``col_multiple`` keeps one kernel for every batch (measured
+    on an H100).
+    """
+    w, b = layer.weight.to(dtype), layer.bias
+    b = None if b is None else b.to(dtype)
+    n_out = w.shape[0]
+    if col_multiple > 1 and n_out % col_multiple:
+        pad = col_multiple - n_out % col_multiple
+        w = F.pad(w, (0, 0, 0, pad))
+        b = None if b is None else F.pad(b, (0, pad))
+    rows = x.reshape(-1, x.shape[-1]).to(dtype)
+    m = rows.shape[0]
+    if row_multiple > 1:
+        rows = F.pad(rows, (0, 0, 0, max(row_multiple, -(-m // row_multiple) * row_multiple) - m))
+    return F.linear(rows, w, b)[:m, :n_out].reshape(*x.shape[:-1], n_out)
+
+
+class Mamba2(nn.Module):
+    """One Mamba-2 mixing layer: [B, L, d_model] -> [B, L, d_model].
+
+    ``ssd_out_compute_dtype`` is accepted for config compatibility and
+    ignored: in the JAX layer it compiles to the same program.
+    """
+
+    def __init__(self, d_model: int, d_state: int = 128, d_conv: int = 4,
+                 expand: int = 2, headdim: int = 64, ngroups: int = 1,
+                 chunk_size: int = 256, ssd_out_compute_dtype: bool = False,
+                 dtype: torch.dtype = torch.float32,
+                 a_init_range: tuple[float, float] = (1.0, 16.0),
+                 dt_min: float = 0.001, dt_max: float = 0.1,
+                 dt_init_floor: float = 1e-4,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        d_inner = expand * d_model
+        if d_inner % headdim != 0:
+            raise ValueError(f"expand*d_model ({d_inner}) must be divisible by "
+                             f"headdim ({headdim})")
+        self.d_inner, self.headdim, self.d_state = d_inner, headdim, d_state
+        self.n_heads = d_inner // headdim
+        self.ngroups, self.d_conv, self.chunk_size = ngroups, d_conv, chunk_size
+        self.dtype = dtype
+        d_bc = ngroups * d_state
+        conv_dim = d_inner + 2 * d_bc
+        H = self.n_heads
+
+        self.in_proj = new_linear(d_model, 2 * d_inner + 2 * d_bc + H, False, generator)
+        # depthwise conv weight [C, 1, d_conv]; JAX keeps it as [d_conv, C]
+        # with fan_in d_conv
+        self.conv_w = nn.Parameter(lecun_normal_(torch.empty(conv_dim, 1, d_conv),
+                                                 d_conv, generator))
+        self.conv_b = nn.Parameter(torch.zeros(conv_dim))
+        u = torch.rand(H, generator=generator)
+        dt = torch.exp(u * (math.log(dt_max) - math.log(dt_min)) + math.log(dt_min))
+        dt = torch.clamp(dt, min=dt_init_floor)
+        # inverse softplus, so that softplus(dt_bias) == dt at init
+        self.dt_bias = nn.Parameter(dt + torch.log(-torch.expm1(-dt)))
+        lo, hi = a_init_range
+        self.a_log = nn.Parameter(torch.log(lo + (hi - lo) * torch.rand(H, generator=generator)))
+        self.d_skip = nn.Parameter(torch.ones(H))
+        self.norm_scale = nn.Parameter(torch.ones(d_inner))
+        self.out_proj = new_linear(d_inner, d_model, False, generator)
+
+    def forward(self, u: torch.Tensor) -> torch.Tensor:
+        cd = self.dtype
+        Bsz, L, _ = u.shape
+        H, P, N, G = self.n_heads, self.headdim, self.d_state, self.ngroups
+        d_bc = G * N
+        zxbcdt = dense(u, self.in_proj, cd)
+        z, xBC, dt_raw = torch.split(
+            zxbcdt, [self.d_inner, self.d_inner + 2 * d_bc, H], dim=-1)
+
+        # causal depthwise conv over the concatenated x|B|C channels
+        conv = F.conv1d(xBC.transpose(1, 2), self.conv_w.to(cd), self.conv_b.to(cd),
+                        padding=self.d_conv - 1, groups=xBC.shape[-1])
+        xBC = F.silu(conv[..., :L].transpose(1, 2))
+
+        x, B_mat, C_mat = torch.split(xBC, [self.d_inner, d_bc, d_bc], dim=-1)
+        x = x.reshape(Bsz, L, H, P).contiguous()
+        B_mat = B_mat.reshape(Bsz, L, G, N).contiguous()
+        C_mat = C_mat.reshape(Bsz, L, G, N).contiguous()
+
+        dt = F.softplus(dt_raw.float() + self.dt_bias)               # [B,L,H] fp32
+        A = -torch.exp(self.a_log)                                   # [H], < 0
+        y = ssd(x, dt, A, B_mat, C_mat, chunk_size=self.chunk_size)  # [B,L,H,P]
+        y = y + self.d_skip[None, None, :, None].to(y.dtype) * x
+        y = y.reshape(Bsz, L, self.d_inner)
+
+        # gated RMSNorm (norm after gating): statistics in fp32
+        gated = y * F.silu(z).to(y.dtype)
+        g32 = gated.float()
+        rms = torch.rsqrt(g32.square().mean(dim=-1, keepdim=True) + 1e-5)
+        y = (g32 * rms * self.norm_scale).to(cd)
+        return dense(y, self.out_proj, cd)

@@ -1,0 +1,82 @@
+"""Pre-norm residual Mamba-2 blocks and stacks with length-aware
+bidirection, counterpart of ``hnet_mamba_asr_tpu/models/mamba_block.py``.
+
+A block is ``y = x + Mamba2_fwd(LN(x)) [+ reverse(Mamba2_bwd(reverse(LN(x))))]``
+where ``reverse`` flips only the valid span of each sequence (padding stays
+in place), so the causal scan never sees padding on valid outputs. A stack
+is N blocks and a final LayerNorm. LayerNorms use flax's eps of 1e-6 and
+fp32 statistics.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from hnet_mamba_asr_torch.models.mamba2 import Mamba2
+
+LN_EPS = 1e-6        # flax nn.LayerNorm default (torch's is 1e-5)
+
+
+def reverse_sequences(x: torch.Tensor, lengths: torch.Tensor | None = None) -> torch.Tensor:
+    """Reverse along time; with lengths, only each row's valid span [0, L) is
+    reversed and padding positions are untouched."""
+    if lengths is None:
+        return torch.flip(x, dims=[1])
+    B, T = x.shape[0], x.shape[1]
+    pos = torch.arange(T, device=x.device)[None, :]
+    L = lengths.reshape(B, 1).to(x.device)
+    idx = torch.where(pos < L, L - 1 - pos, pos).clamp(0, T - 1)
+    return torch.gather(x, 1, idx[:, :, None].expand(-1, -1, x.shape[2]))
+
+
+def layer_norm(x: torch.Tensor, norm: nn.LayerNorm, dtype: torch.dtype) -> torch.Tensor:
+    """LayerNorm in fp32, cast to the compute dtype (flax's promotion)."""
+    return F.layer_norm(x.float(), norm.normalized_shape, norm.weight, norm.bias,
+                        norm.eps).to(dtype)
+
+
+class MambaBlock(nn.Module):
+    """Pre-norm residual Mamba-2 layer; bidirectional adds a reversed pass."""
+
+    def __init__(self, d_model: int, bidirectional: bool = True, d_state: int = 128,
+                 d_conv: int = 4, expand: int = 2, headdim: int = 64,
+                 chunk_size: int = 256, ssd_out_compute_dtype: bool = False,
+                 dtype: torch.dtype = torch.float32,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        kw = dict(d_model=d_model, d_state=d_state, d_conv=d_conv, expand=expand,
+                  headdim=headdim, chunk_size=chunk_size,
+                  ssd_out_compute_dtype=ssd_out_compute_dtype, dtype=dtype,
+                  generator=generator)
+        self.dtype = dtype
+        self.norm = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.fwd = Mamba2(**kw)
+        self.bwd = Mamba2(**kw) if bidirectional else None
+
+    def forward(self, x: torch.Tensor, lengths: torch.Tensor | None = None) -> torch.Tensor:
+        h = layer_norm(x, self.norm, self.dtype)
+        y = self.fwd(h)
+        if self.bwd is not None:
+            hr = reverse_sequences(h, lengths)
+            y = y + reverse_sequences(self.bwd(hr), lengths)
+        return x + y
+
+
+class MambaStack(nn.Module):
+    """n_layers MambaBlocks and a final LayerNorm; shape-preserving. Serving
+    needs no recomputation, so there is no remat here."""
+
+    def __init__(self, n_layers: int, d_model: int, dtype: torch.dtype = torch.float32,
+                 generator: torch.Generator | None = None, **block_kw):
+        super().__init__()
+        self.dtype = dtype
+        self.blocks = nn.ModuleList(
+            MambaBlock(d_model, dtype=dtype, generator=generator, **block_kw)
+            for _ in range(n_layers))
+        self.norm = nn.LayerNorm(d_model, eps=LN_EPS)
+
+    def forward(self, x: torch.Tensor, lengths: torch.Tensor | None = None) -> torch.Tensor:
+        for block in self.blocks:
+            x = block(x, lengths)
+        return layer_norm(x, self.norm, self.dtype)

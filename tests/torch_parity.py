@@ -1,0 +1,62 @@
+"""Shared set-up for the parity tests of the PyTorch port against the JAX
+package (tests/test_torch_*.py): one seeded param tree in the JAX layout,
+fed to both packages, in fp32 with TF32 off."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+import jax
+
+torch.set_num_threads(1)                 # tier-1 runs several workers
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+NARROW_CONFIG = {
+    "encoder_conf": {"arch_type": "A", "d_outer": 32, "d_main": 48, "n_enc": 1,
+                     "n_main": 2, "n_dec": 1, "d_state": 16, "headdim": 16,
+                     "hnet": {"compression_N": 1}},
+    "model_conf": {"ctc_weight": 1.0, "aed_weight": 0.0},
+    "train": {"precision": "fp32"},
+}
+NARROW_VOCAB = 30
+
+
+def seeded_tree(shapes, seed: int = 0):
+    """A JAX param tree of the given shapes (e.g. from ``jax.eval_shape`` of
+    an init) filled from numpy by leaf name. Unlike flax's init it gives the
+    biases and norm scales non-trivial values, so the converter's handling
+    of each is exercised."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, s):
+        name = path[-1].key
+        if name == "a_log":
+            a = np.log(rng.uniform(1.0, 16.0, s.shape))
+        elif name == "dt_bias":
+            dt = np.exp(rng.uniform(np.log(1e-3), np.log(0.1), s.shape))
+            a = dt + np.log(-np.expm1(-dt))
+        elif name in ("kernel", "conv_w"):
+            a = rng.normal(size=s.shape) / np.sqrt(np.prod(s.shape[:-1]))
+        elif name in ("scale", "norm_scale", "d_skip"):
+            a = 1.0 + 0.1 * rng.normal(size=s.shape)
+        else:
+            a = 0.1 * rng.normal(size=s.shape)
+        return a.astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
+def module_tree(module, *example_args, seed: int = 0):
+    """Seeded params for a flax module, shaped by an abstract init."""
+    shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0), *example_args)
+    return seeded_tree(shapes["params"], seed)
+
+
+def ragged_waves(rng, lengths, total=None):
+    """[B, total] float32 speech-scale noise, zero past each row's length."""
+    total = total or max(lengths)
+    wave = np.zeros((len(lengths), total), np.float32)
+    for i, n in enumerate(lengths):
+        wave[i, :n] = 0.1 * rng.normal(size=n)
+    return wave, np.asarray(lengths, np.int32)
