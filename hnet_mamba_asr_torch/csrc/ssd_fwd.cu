@@ -2,63 +2,128 @@
 //
 // Replaces the Pallas TPU kernel hnet_mamba_asr_tpu/ops/ssd_pallas.py
 // (`_ssd_kernel`, launched by `ssd_pallas`). It computes what
-// hnet_mamba_asr_torch/ops/ssd.py::ssd_chunked computes:
+// hnet_mamba_asr_torch/ops/ssd.py::ssd_chunked computes with chunk_size kQ:
 //
-//   per (batch b, head h), over chunks of kQ positions, S [N, P] fp32:
+//   per (batch b, head h), over chunks k of kQ positions, S [N, P] fp32:
 //     ac    = within-chunk cumsum of a = dt * A_h            (<= 0)
 //     W     = (C B^T) * exp(ac_q - ac_s) * dt_s  for s <= q   (masked BEFORE exp)
-//     y     = W x + exp(ac_q) * (C S)
-//     S     = exp(ac_last) * S + (B * exp(ac_last - ac) * dt)^T x
+//     dS_k  = (B * exp(ac_last - ac) * dt)^T x                (chunk k's own term)
+//     S_k   = exp(ac_last) * S_{k-1} + dS_k                   (S_{-1}: initial state)
+//     y     = W x + exp(ac_q) * (C S_{k-1})
 //
 // x, B, C are fp32 or bf16; dt and A are fp32; accumulation and S are fp32;
 // y is written in x's type. G <= H groups share B and C through index
 // arithmetic (g = h / (H / G)), so the grouped tensors are never expanded.
+// With bf16 inputs the operands of the products are rounded to bf16 where
+// ssd_chunked rounds them: W (under intra_dtype bf16 also the scores, the
+// decays and dt, and W is formed in bf16), B * exp(ac_last - ac) * dt, and
+// S_{k-1}. With fp32 inputs only intra_dtype bf16 rounds (the scores, the
+// decays, dt and their first product).
 //
-// What bounds it on the card. At the serving shapes (P 64, N 128, L 248 to
-// 873, H 12 or 16, B up to 8) one (b, h) pair is ~1.8M multiply-adds per
-// 64-position chunk, ~15 MFLOP at L 248. B * H is 12 to 128 pairs, fewer
-// than the 132 SMs, so the kernel is latency-bound: one wave of blocks,
-// each walking its chunks in order, with the shared-memory loads that feed
-// the FMAs as the limit inside a block.
+// What bounds it on the card. At the serving shapes (bf16, P 64, N 128,
+// L 248 to 1000, H 12 or 16, batch 1 to 8) a call reads x, B, C and dt once
+// and writes y once: 7 to 33 MB, 2 to 10 us at 3.35 TB/s, against 1.4 to
+// 6.6 GFLOP in the chunked form, 1.4 to 6.7 us at 989 TFLOP/s. So the bound
+// is bytes. The first version of this kernel reached ~2 % of it: one block
+// per (b, h) walked its chunks in order on SIMT FMAs, 12 to 128 blocks on
+// 132 SMs, with scalar loads not overlapped with the math.
 //
-// What the design does about it:
-// - One block per (b, h) keeps S on chip for the whole sequence and loops
-//   over the chunks itself; the TPU's sequential grid axis has no
-//   counterpart on the card, and nothing needs to cross blocks.
-// - The chunk is 64 positions, not the TPU's 256: the [Q, Q] fp32 weight
-//   tile is then 16 KB, and x, B, C, S and W together take ~130 KB of the
-//   227 KB a block may use (set with cudaFuncSetAttribute).
-// - The within-chunk cumsum is a warp-shuffle scan in the kernel, so dt
-//   and A go in as they are and no auxiliary tensor is built outside.
-// - Each thread of a 16 x 16 grid owns a strided register tile of every
-//   product, so each shared-memory value it loads feeds 4 to 8 FMAs. B and C
-//   rows are padded by one float so the column reads of B hit distinct
-//   banks.
-// Tensor cores (wgmma) and TMA loads are later work; this version is the
-// simple, exact one.
+// Measured (NVIDIA H100 80GB HBM3, 700 W; PERF.md): 7.6-9 % of that bound
+// at batch 8 and 2.4-5.4 % at batch 1, 3.5-5.2x and 11-23x faster than the
+// first version. A round of one chunk per CTA takes ~11 us, spread over loads,
+// state term, two cluster barriers, chain and output; no one phase holds
+// more than a third of it.
+//
+// What the bf16 kernel does about it:
+// - Work spread across chunks. One thread-block cluster of up to 8 CTAs per
+//   (b, h), one launch per call. Each CTA owns one chunk of every round of
+//   8 chunks (L 512; a longer L takes several rounds, the state passing
+//   from one to the next in shared memory) and computes its chunk's dS_k
+//   from zero. After a cluster barrier the chain S_k = exp(ac_last) S_{k-1}
+//   + dS_k runs in order of k, in fp32, every CTA on its own slice of the
+//   N * P elements, reading dS_k from the owning CTA's shared memory and
+//   writing bf16(S_{k-1}) back to it through distributed shared memory.
+//   After a second barrier each CTA finishes y for its chunk. Every position's
+//   arithmetic is fixed by kQ alone (chunks start at multiples of kQ from
+//   t = 0, dS_k from zero, the chain in order of k), so a row's result
+//   depends neither on the batch nor on L.
+// - Tensor cores. The four products (C B^T, W x, C S_{k-1}, (B coef)^T x)
+//   are mma.sync.m16n8k16 bf16 MMAs with fp32 accumulation, fed by ldmatrix
+//   from padded shared-memory rows (conflict-free). W stays in registers
+//   between C B^T and W x (the accumulator layout of one is the A-operand
+//   layout of the next). mma.sync rather than wgmma: at ~2 GFLOP per call
+//   the math is not the bound, and the 16-row warp tiles map onto the
+//   causal 64 x 64 W without the 64-row warpgroup tiles wgmma needs.
+// - Asynchronous loads. x, B, C and dt arrive by cp.async (16 bytes a copy,
+//   zero-filled past L, so padding has dt = 0) in two commit groups: C's
+//   copies fly while the chunk's state term is computed from x, B and dt.
+//   One chunk per CTA keeps a CTA at ~100 KB of shared memory and <= 128
+//   registers a thread, so two CTAs (two clusters) share each SM and one's
+//   loads overlap the other's MMAs and barriers; a second chunk buffer per
+//   CTA would have left room for one CTA per SM.
+//
+// The fp32 kernel is not on the serving path. It keeps the first version's
+// SIMT loops (a TF32 tensor-core product would not be fp32), one block per
+// (b, h), and takes the same intra_dtype epilogue.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace cg = cooperative_groups;
+
+#ifdef SSD_PHASE_CLOCKS
+// Built with -DSSD_PHASE_CLOCKS (hnet_mamba_asr_torch/tools/measure.py
+// phases): thread 0 of each bf16 CTA stamps the global timer at the phase
+// bounds of round 0. Off by default, and then it costs nothing.
+constexpr int kPhaseCtas = 16384;
+__device__ unsigned long long g_phase_ns[kPhaseCtas][8];
+#define PHASE_STAMP(j, round)                                                        \
+  do {                                                                               \
+    const unsigned cta = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z); \
+    if (threadIdx.x == 0 && (round) == 0 && cta < kPhaseCtas) {                      \
+      unsigned long long t;                                                          \
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));                          \
+      g_phase_ns[cta][j] = t;                                                        \
+    }                                                                                \
+  } while (0)
+#else
+#define PHASE_STAMP(j, round) do {} while (0)
+#endif
 
 namespace {
 
 constexpr int kQ = 64;         // chunk length
-constexpr int kTile = 16;      // threads per side of the thread grid
-constexpr int kThreads = kTile * kTile;
-constexpr int kQT = kQ / kTile;
+constexpr int kP = 64;         // headdim the library is built for
+constexpr int kN = 128;        // d_state the library is built for
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16(v));
 }
+
+// Inclusive scan over a warp (all 32 lanes call it). The chunk's cumsum is
+// two of these, the second warp then adding the first warp's total.
+__device__ __forceinline__ float warp_inclusive_scan(float v) {
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float u = __shfl_up_sync(0xffffffffu, v, off);
+    if ((threadIdx.x & 31) >= off) v += u;
+  }
+  return v;
+}
+
+// =========================================================================
+// fp32: one block per (b, h), SIMT FMAs (the first version of the kernel)
+// =========================================================================
+
+constexpr int kTile = 16;      // threads per side of the thread grid
+constexpr int kThreads32 = kTile * kTile;
+constexpr int kQT = kQ / kTile;
 
 // Shared-memory layout, in floats.
 template <int P, int N>
-struct Smem {
+struct Smem32 {
   static constexpr int kBStride = N + 1;                  // padded B / C rows
   static constexpr int kX = 0;                            // x    [Q][P]
   static constexpr int kB = kX + kQ * P;                  // B    [Q][N+1]
@@ -73,30 +138,29 @@ struct Smem {
   static constexpr size_t kBytes = sizeof(float) * kFloats;
 };
 
-template <typename T, int P, int N>
-__global__ void __launch_bounds__(kThreads)
-ssd_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-               const float* __restrict__ A, const T* __restrict__ Bm,
-               const T* __restrict__ Cm, const float* __restrict__ s0,
-               T* __restrict__ y, float* __restrict__ s_final,
-               int L, int H, int G) {
+template <int P, int N>
+__global__ void __launch_bounds__(kThreads32)
+ssd_fwd_fp32_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+                    const float* __restrict__ A, const float* __restrict__ Bm,
+                    const float* __restrict__ Cm, const float* __restrict__ s0,
+                    float* __restrict__ y, float* __restrict__ s_final,
+                    int L, int H, int G, int intra_bf16) {
   static_assert(P % kTile == 0 && N % kTile == 0, "P and N must be multiples of 16");
-  static_assert(kQ % 32 == 0, "the cumsum scans whole warps");
   constexpr int kPT = P / kTile;
   constexpr int kNT = N / kTile;
-  using Lay = Smem<P, N>;
+  using Lay = Smem32<P, N>;
   constexpr int kBS = Lay::kBStride;
 
-  extern __shared__ float smem[];
-  float* sx = smem + Lay::kX;
-  float* sB = smem + Lay::kB;
-  float* sC = smem + Lay::kC;
-  float* sS = smem + Lay::kS;
-  float* sW = smem + Lay::kW;
-  float* sdt = smem + Lay::kDt;
-  float* sac = smem + Lay::kAc;
-  float* sscan = smem + Lay::kScan;
-  float* scoef = smem + Lay::kCoef;
+  extern __shared__ float smem32[];
+  float* sx = smem32 + Lay::kX;
+  float* sB = smem32 + Lay::kB;
+  float* sC = smem32 + Lay::kC;
+  float* sS = smem32 + Lay::kS;
+  float* sW = smem32 + Lay::kW;
+  float* sdt = smem32 + Lay::kDt;
+  float* sac = smem32 + Lay::kAc;
+  float* sscan = smem32 + Lay::kScan;
+  float* scoef = smem32 + Lay::kCoef;
 
   const int h = blockIdx.x;
   const int b = blockIdx.y;
@@ -108,50 +172,39 @@ ssd_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 
   const size_t x_row = (size_t)H * P;      // elements between time steps of x / y
   const size_t bc_row = (size_t)G * N;     // ... of B / C
-  const T* xb = x + (size_t)b * L * x_row + (size_t)h * P;
-  const T* Bb = Bm + (size_t)b * L * bc_row + (size_t)g * N;
-  const T* Cb = Cm + (size_t)b * L * bc_row + (size_t)g * N;
+  const float* xb = x + (size_t)b * L * x_row + (size_t)h * P;
+  const float* Bb = Bm + (size_t)b * L * bc_row + (size_t)g * N;
+  const float* Cb = Cm + (size_t)b * L * bc_row + (size_t)g * N;
   const float* dtb = dt + (size_t)b * L * H + h;
-  T* yb = y + (size_t)b * L * x_row + (size_t)h * P;
+  float* yb = y + (size_t)b * L * x_row + (size_t)h * P;
   const size_t state_off = ((size_t)b * H + h) * N * P;
 
-  for (int i = tid; i < N * P; i += kThreads) {
+  for (int i = tid; i < N * P; i += kThreads32) {
     sS[i] = s0 != nullptr ? s0[state_off + i] : 0.f;
   }
 
   for (int t0 = 0; t0 < L; t0 += kQ) {
     // 1. Load the chunk; positions past L load as zeros (dt = 0 is an exact
     //    no-op for the recurrence).
-    for (int i = tid; i < kQ * P; i += kThreads) {
+    for (int i = tid; i < kQ * P; i += kThreads32) {
       const int q = i / P, p = i % P, t = t0 + q;
-      sx[i] = t < L ? to_f32(xb[(size_t)t * x_row + p]) : 0.f;
+      sx[i] = t < L ? xb[(size_t)t * x_row + p] : 0.f;
     }
-    for (int i = tid; i < kQ * N; i += kThreads) {
+    for (int i = tid; i < kQ * N; i += kThreads32) {
       const int q = i / N, n = i % N, t = t0 + q;
       const bool in = t < L;
-      sB[q * kBS + n] = in ? to_f32(Bb[(size_t)t * bc_row + n]) : 0.f;
-      sC[q * kBS + n] = in ? to_f32(Cb[(size_t)t * bc_row + n]) : 0.f;
+      sB[q * kBS + n] = in ? Bb[(size_t)t * bc_row + n] : 0.f;
+      sC[q * kBS + n] = in ? Cb[(size_t)t * bc_row + n] : 0.f;
     }
-    // 2. Within-chunk inclusive cumsum of a = dt * A: a shuffle scan per
-    //    warp, then each warp adds the totals of the warps before it.
+    // 2. Within-chunk inclusive cumsum of a = dt * A.
     if (tid < kQ) {
       const int t = t0 + tid;
       const float d = t < L ? dtb[(size_t)t * H] : 0.f;
       sdt[tid] = d;
-      float v = d * a_h;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const float u = __shfl_up_sync(0xffffffffu, v, off);
-        if ((tid & 31) >= off) v += u;
-      }
-      sscan[tid] = v;
+      sscan[tid] = warp_inclusive_scan(d * a_h);
     }
     __syncthreads();
-    if (tid < kQ) {
-      float v = sscan[tid];
-      for (int w = 0; w < tid / 32; ++w) v += sscan[w * 32 + 31];
-      sac[tid] = v;
-    }
+    if (tid < kQ) sac[tid] = tid < 32 ? sscan[tid] : sscan[tid] + sscan[31];
     __syncthreads();
     if (tid < kQ) scoef[tid] = expf(sac[kQ - 1] - sac[tid]) * sdt[tid];
 
@@ -179,8 +232,14 @@ ssd_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll
         for (int j = 0; j < kQT; ++j) {
           const int s = tx + kTile * j;
-          // only s <= q reaches the exp: the masked differences are positive
-          sW[q * kQ + s] = s <= q ? acc[i][j] * expf(sac[q] - sac[s]) * sdt[s] : 0.f;
+          float w = 0.f;
+          if (s <= q) {          // only s <= q reaches the exp
+            const float decay = expf(sac[q] - sac[s]);
+            w = intra_bf16 ? round_bf16(round_bf16(acc[i][j]) * round_bf16(decay)) *
+                                 round_bf16(sdt[s])
+                           : acc[i][j] * decay * sdt[s];
+          }
+          sW[q * kQ + s] = w;
         }
       }
     }
@@ -223,7 +282,7 @@ ssd_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
           const float e = expf(sac[q]);
 #pragma unroll
           for (int j = 0; j < kPT; ++j) {
-            yb[(size_t)t * x_row + tx + kTile * j] = from_f32<T>(acc[i][j] + e * inter[i][j]);
+            yb[(size_t)t * x_row + tx + kTile * j] = acc[i][j] + e * inter[i][j];
           }
         }
       }
@@ -260,29 +319,458 @@ ssd_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   }
 
   if (s_final != nullptr) {
-    for (int i = tid; i < N * P; i += kThreads) s_final[state_off + i] = sS[i];
+    for (int i = tid; i < N * P; i += kThreads32) s_final[state_off + i] = sS[i];
   }
 }
 
-template <typename T, int P, int N>
-int launch(const void* x, const float* dt, const float* A, const void* B,
-           const void* C, const float* s0, void* y, float* s_final, int batch,
-           int L, int H, int G, cudaStream_t stream) {
-  auto kernel = ssd_fwd_kernel<T, P, N>;
-  const size_t smem = Smem<P, N>::kBytes;
+// =========================================================================
+// bf16: a cluster of CTAs per (b, h), tensor-core MMAs, cp.async loads
+// =========================================================================
+
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMaxCluster = 8;            // portable cluster size: chunks in a round
+constexpr int kXS = kP + 8;               // bf16 row strides, +16 bytes so
+constexpr int kBS = kN + 8;               //   ldmatrix rows hit distinct banks
+constexpr int kSS = kP + 8;               // fp32 / bf16 state rows
+constexpr int kPairs = kN * kP / 2;       // element pairs of the state
+
+// Shared memory of a CTA (bytes; every array 16-byte aligned): one chunk.
+struct Smem16 {
+  static constexpr int kX = 0;                                   // x    [Q][kXS]  bf16
+  static constexpr int kB = kX + kQ * kXS * 2;                   // B    [Q][kBS]  bf16
+  static constexpr int kC = kB + kQ * kBS * 2;                   // C    [Q][kBS]  bf16
+  static constexpr int kDS = kC + kQ * kBS * 2;                  // dS_k [N][kSS]  fp32
+  static constexpr int kSB = kDS + kN * kSS * 4;                 // bf16(S_{k-1}) [N][kSS]
+  static constexpr int kCarry = kSB + kN * kSS * 2;              // S between rounds, fp32
+  static constexpr int kDt = kCarry + kPairs / kMaxCluster * 8;  // dt   [Q] fp32
+  static constexpr int kAc = kDt + kQ * 4;                       // ac   [Q] fp32
+  static constexpr int kCoef = kAc + kQ * 4;                     // exp(ac_last - ac) dt [Q]
+  static constexpr int kScan = kCoef + kQ * 4;                   // warp scans [Q]
+  static constexpr int kDecay = kScan + kQ * 4;                  // exp(ac_last), 16 bytes
+  static constexpr int kBytes = kDecay + 16;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, zero-filled when `valid` is false (the source
+// must still be a mapped address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+}
+
+// D[16x8] += A[16x16] B[16x8], bf16 operands, fp32 accumulation.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
+}
+
+struct Bf16Args {
+  const __nv_bfloat16* x;
+  const float* dt;
+  const float* A;
+  const __nv_bfloat16* B;
+  const __nv_bfloat16* C;
+  const float* s0;
+  __nv_bfloat16* y;
+  float* s_final;
+  int L, H, G, K, intra_bf16;
+};
+
+// Issue the copies of chunk k (all threads), in two commit groups: x, B and
+// dt, which the chunk's state term needs first, then C, which only its
+// output needs, so that C's copies fly while the state term is computed.
+// Past the last chunk the groups are empty.
+__device__ __forceinline__ void load_chunk(const Bf16Args& a, char* smem, int k,
+                                           int b, int h, int g) {
+  const int tid = threadIdx.x;
+  const bool any = k < a.K;
+  const int t0 = k * kQ;
+  const size_t x_row = (size_t)a.H * kP, bc_row = (size_t)a.G * kN;
+  const __nv_bfloat16* xb = a.x + (size_t)b * a.L * x_row + (size_t)h * kP;
+  const __nv_bfloat16* Bb = a.B + (size_t)b * a.L * bc_row + (size_t)g * kN;
+  const __nv_bfloat16* Cb = a.C + (size_t)b * a.L * bc_row + (size_t)g * kN;
+  __nv_bfloat16* sx = reinterpret_cast<__nv_bfloat16*>(smem + Smem16::kX);
+  __nv_bfloat16* sB = reinterpret_cast<__nv_bfloat16*>(smem + Smem16::kB);
+  __nv_bfloat16* sC = reinterpret_cast<__nv_bfloat16*>(smem + Smem16::kC);
+  float* sdt = reinterpret_cast<float*>(smem + Smem16::kDt);
+  if (any) {
+    // x: kQ rows of kP / 8 16-byte pieces; B: kQ rows of kN / 8
+    for (int i = tid; i < kQ * (kP / 8); i += kThreads) {
+      const int q = i / (kP / 8), c = i % (kP / 8), t = t0 + q;
+      const bool in = t < a.L;
+      cp_async16(sx + q * kXS + c * 8, xb + (size_t)(in ? t : 0) * x_row + c * 8, in);
+    }
+    for (int i = tid; i < kQ * (kN / 8); i += kThreads) {
+      const int q = i / (kN / 8), c = i % (kN / 8), t = t0 + q;
+      const bool in = t < a.L;
+      cp_async16(sB + q * kBS + c * 8, Bb + (size_t)(in ? t : 0) * bc_row + c * 8, in);
+    }
+    if (tid < kQ) {
+      const int t = t0 + tid;
+      const bool in = t < a.L;
+      cp_async4(sdt + tid, a.dt + ((size_t)b * a.L + (in ? t : 0)) * a.H + h, in);
+    }
+  }
+  cp_async_commit();
+  if (any) {
+    for (int i = tid; i < kQ * (kN / 8); i += kThreads) {
+      const int q = i / (kN / 8), c = i % (kN / 8), t = t0 + q;
+      const bool in = t < a.L;
+      cp_async16(sC + q * kBS + c * 8, Cb + (size_t)(in ? t : 0) * bc_row + c * 8, in);
+    }
+  }
+  cp_async_commit();
+}
+
+// Grid (cluster size, H, batch), one cluster per (b, h); CTA `rank` owns
+// chunk rank of every round of cluster-size chunks.
+__global__ void __launch_bounds__(kThreads, 2)
+ssd_fwd_bf16_kernel(const Bf16Args a) {
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) char smem[];
+  const __nv_bfloat16* sx = reinterpret_cast<const __nv_bfloat16*>(smem + Smem16::kX);
+  const __nv_bfloat16* sB = reinterpret_cast<const __nv_bfloat16*>(smem + Smem16::kB);
+  const __nv_bfloat16* sC = reinterpret_cast<const __nv_bfloat16*>(smem + Smem16::kC);
+  const __nv_bfloat16* sSB = reinterpret_cast<const __nv_bfloat16*>(smem + Smem16::kSB);
+  float* sdS = reinterpret_cast<float*>(smem + Smem16::kDS);
+  float2* scarry = reinterpret_cast<float2*>(smem + Smem16::kCarry);
+  const float* sdt = reinterpret_cast<const float*>(smem + Smem16::kDt);
+  float* sac = reinterpret_cast<float*>(smem + Smem16::kAc);
+  float* scoef = reinterpret_cast<float*>(smem + Smem16::kCoef);
+  float* sscan = reinterpret_cast<float*>(smem + Smem16::kScan);
+  float* sdecay = reinterpret_cast<float*>(smem + Smem16::kDecay);
+
+  const int cs = (int)gridDim.x;                  // the cluster spans x: CTAs of (b, h)
+  const int rank = (int)cluster.block_rank();
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int g = h / (a.H / a.G);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gq = lane / 4, tq = lane % 4;         // mma fragment row / column pair
+  const int mi = lane / 8, ri = lane % 8;         // ldmatrix: matrix and row of the lane
+  const float a_h = a.A[h];
+  const int rounds = (a.K + cs - 1) / cs;
+  const size_t state_off = ((size_t)b * a.H + h) * kN * kP;
+  const size_t x_row = (size_t)a.H * kP;
+  __nv_bfloat16* yb = a.y + (size_t)b * a.L * x_row + (size_t)h * kP;
+
+  PHASE_STAMP(0, 0);
+  load_chunk(a, smem, rank, b, h, g);
+
+  for (int r = 0; r < rounds; ++r) {
+    const int k_first = r * cs;
+    const int nk = min(a.K - k_first, cs);       // chunks of this round
+    const int k = k_first + rank;                 // this CTA's chunk
+    const bool mine = k < a.K;                    // uniform over the CTA
+
+    // ---- A: the chunk's cumsum and dS_k = (B coef)^T x ---------------------
+    cp_async_wait<1>();                           // x, B, dt (C may still fly)
+    __syncthreads();
+    PHASE_STAMP(1, r);
+    if (mine) {
+      if (tid < kQ) sscan[tid] = warp_inclusive_scan(sdt[tid] * a_h);
+      __syncthreads();
+      if (tid < kQ) sac[tid] = tid < 32 ? sscan[tid] : sscan[tid] + sscan[31];
+      __syncthreads();
+      if (tid < kQ) scoef[tid] = expf(sac[kQ - 1] - sac[tid]) * sdt[tid];
+      if (tid == 0) sdecay[0] = expf(sac[kQ - 1]);
+      __syncthreads();
+
+      // warp w: rows n in [16w, 16w + 16) of dS, all kP columns
+      float acc[kP / 8][4];
+#pragma unroll
+      for (int i = 0; i < kP / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+      const int n0 = 16 * warp;
+#pragma unroll
+      for (int s0 = 0; s0 < kQ; s0 += 16) {
+        // A = (B coef)^T [n][s] from B stored [s][n]: ldmatrix.trans, then
+        // each element times its coef and rounded to bf16
+        uint32_t af[4];
+        ldmatrix_x4_trans(af, sB + (s0 + ri + 8 * (mi / 2)) * kBS + n0 + 8 * (mi % 2));
+        const float c0 = scoef[s0 + 2 * tq], c1 = scoef[s0 + 2 * tq + 1];
+        const float c8 = scoef[s0 + 2 * tq + 8], c9 = scoef[s0 + 2 * tq + 9];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 v = unpack_bf16(af[e]);
+          af[e] = e < 2 ? pack_bf16(v.x * c0, v.y * c1) : pack_bf16(v.x * c8, v.y * c9);
+        }
+#pragma unroll
+        for (int p0 = 0; p0 < kP; p0 += 16) {
+          // B = x [s][p]: ldmatrix.trans, two 8-column tiles
+          uint32_t bf[4];
+          ldmatrix_x4_trans(bf, sx + (s0 + ri + 8 * (mi % 2)) * kXS + p0 + 8 * (mi / 2));
+          mma_bf16(acc[p0 / 8], af, bf[0], bf[1]);
+          mma_bf16(acc[p0 / 8 + 1], af, bf[2], bf[3]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kP / 8; ++i) {
+        const int p = 8 * i + 2 * tq;
+        *reinterpret_cast<float2*>(sdS + (n0 + gq) * kSS + p) = make_float2(acc[i][0], acc[i][1]);
+        *reinterpret_cast<float2*>(sdS + (n0 + gq + 8) * kSS + p) = make_float2(acc[i][2], acc[i][3]);
+      }
+    }
+    PHASE_STAMP(2, r);
+    cluster.sync();                 // every dS_k of the round is visible
+    PHASE_STAMP(3, r);
+
+    // ---- B: the chain over the round's chunks, in order of k -------------
+    // Pair i of the state's element pairs is (n, p) = (i / (kP/2), 2 (i % (kP/2))),
+    // taken by CTA i / kThreads % cs. The round's dS_k and decays are all
+    // loaded before the chain starts: they do not depend on it, so the
+    // remote loads overlap instead of each waiting behind the previous
+    // chunk's store. Several rounds only happen with a full cluster, where a
+    // thread holds at most kPairs / (kMaxCluster kThreads) pairs; their state
+    // waits for the next round in this CTA's shared memory.
+    {
+      float decay[kMaxCluster];
+#pragma unroll
+      for (int kk = 0; kk < kMaxCluster; ++kk)
+        if (kk < nk)
+          decay[kk] = *reinterpret_cast<const float*>(
+              cluster.map_shared_rank(smem, kk) + Smem16::kDecay);
+      int it = 0;
+      for (int i = rank * kThreads + tid; i < kPairs; i += cs * kThreads, ++it) {
+        const int n = i / (kP / 2), p = 2 * (i % (kP / 2));
+        const int off = n * kSS + p;
+        float2 dS[kMaxCluster];
+#pragma unroll
+        for (int kk = 0; kk < kMaxCluster; ++kk)
+          if (kk < nk)
+            dS[kk] = *reinterpret_cast<const float2*>(
+                cluster.map_shared_rank(smem, kk) + Smem16::kDS + 4 * off);
+        const size_t st = state_off + (size_t)n * kP + p;
+        float2 S = make_float2(0.f, 0.f);
+        if (r > 0) S = scarry[it * kThreads + tid];
+        else if (a.s0 != nullptr) S = *reinterpret_cast<const float2*>(a.s0 + st);
+#pragma unroll
+        for (int kk = 0; kk < kMaxCluster; ++kk) {
+          if (kk < nk) {
+            *reinterpret_cast<uint32_t*>(cluster.map_shared_rank(smem, kk) + Smem16::kSB +
+                                         2 * off) = pack_bf16(S.x, S.y);
+            S.x = __fadd_rn(__fmul_rn(decay[kk], S.x), dS[kk].x);
+            S.y = __fadd_rn(__fmul_rn(decay[kk], S.y), dS[kk].y);
+          }
+        }
+        if (r + 1 < rounds) scarry[it * kThreads + tid] = S;
+        else if (a.s_final != nullptr) *reinterpret_cast<float2*>(a.s_final + st) = S;
+      }
+    }
+    PHASE_STAMP(4, r);
+    cluster.sync();                 // every bf16(S_{k-1}) is in its owner
+    PHASE_STAMP(5, r);
+
+    // ---- C: y = W x + exp(ac_q) C S_{k-1} for this CTA's chunk -------------
+    // warp w: rows q in [16 rb, 16 rb + 16), columns p in [32 ph, 32 ph + 32)
+    cp_async_wait<0>();                           // C
+    __syncthreads();
+    if (mine) {
+      const int rb = warp % 4, ph = warp / 4;
+      const int q0 = 16 * rb, pc = 32 * ph;
+      const int crow = (q0 + ri + 8 * (mi % 2)) * kBS + 8 * (mi / 2);   // C as A operand
+
+      // scores C B^T for the s-tiles up to the diagonal
+      float sc[kQ / 8][4];
+#pragma unroll
+      for (int i = 0; i < kQ / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[i][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kN / 16; ++kk) {
+        uint32_t cf[4];
+        ldmatrix_x4(cf, sC + crow + 16 * kk);
+#pragma unroll
+        for (int st = 0; st < kQ / 16; ++st) {
+          if (st > rb) continue;
+          uint32_t bf[4];
+          ldmatrix_x4(bf, sB + (16 * st + ri + 8 * (mi / 2)) * kBS + 16 * kk + 8 * (mi % 2));
+          mma_bf16(sc[2 * st], cf, bf[0], bf[1]);
+          mma_bf16(sc[2 * st + 1], cf, bf[2], bf[3]);
+        }
+      }
+
+      // W in registers, rounded to bf16 as ssd_chunked rounds it; the
+      // accumulator layout of C B^T is the A-operand layout of W x
+      const int qa = q0 + gq, qb = qa + 8;
+      const float ac_a = sac[qa], ac_b = sac[qb];
+      uint32_t wf[kQ / 16][4];
+#pragma unroll
+      for (int st = 0; st < kQ / 16; ++st) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int tile = 2 * st + half;
+          float w[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int q = e < 2 ? qa : qb;
+            const int s = 8 * tile + 2 * tq + (e & 1);
+            w[e] = 0.f;
+            if (st <= rb && s <= q) {       // only s <= q reaches the exp
+              const float decay = expf((e < 2 ? ac_a : ac_b) - sac[s]);
+              w[e] = a.intra_bf16
+                  ? round_bf16(round_bf16(sc[tile][e]) * round_bf16(decay)) *
+                        round_bf16(sdt[s])
+                  : sc[tile][e] * decay * sdt[s];
+            }
+          }
+          wf[st][2 * half] = pack_bf16(w[0], w[1]);
+          wf[st][2 * half + 1] = pack_bf16(w[2], w[3]);
+        }
+      }
+
+      // W x and C S_{k-1} over this warp's 32 columns
+      float yi[4][4], yc[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) yi[i][e] = yc[i][e] = 0.f;
+#pragma unroll
+      for (int st = 0; st < kQ / 16; ++st) {
+        if (st > rb) continue;
+#pragma unroll
+        for (int pt = 0; pt < 2; ++pt) {
+          uint32_t bf[4];
+          ldmatrix_x4_trans(bf, sx + (16 * st + ri + 8 * (mi % 2)) * kXS + pc + 16 * pt + 8 * (mi / 2));
+          mma_bf16(yi[2 * pt], wf[st], bf[0], bf[1]);
+          mma_bf16(yi[2 * pt + 1], wf[st], bf[2], bf[3]);
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < kN / 16; ++kk) {
+        uint32_t cf[4];
+        ldmatrix_x4(cf, sC + crow + 16 * kk);
+#pragma unroll
+        for (int pt = 0; pt < 2; ++pt) {
+          uint32_t bf[4];
+          ldmatrix_x4_trans(bf, sSB + (16 * kk + ri + 8 * (mi % 2)) * kSS + pc + 16 * pt + 8 * (mi / 2));
+          mma_bf16(yc[2 * pt], cf, bf[0], bf[1]);
+          mma_bf16(yc[2 * pt + 1], cf, bf[2], bf[3]);
+        }
+      }
+
+      const float ea = expf(ac_a), eb = expf(ac_b);
+      const int ta = k * kQ + qa, tb = ta + 8;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int p = pc + 8 * i + 2 * tq;
+        if (ta < a.L)
+          *reinterpret_cast<uint32_t*>(yb + (size_t)ta * x_row + p) =
+              pack_bf16(yi[i][0] + yc[i][0] * ea, yi[i][1] + yc[i][1] * ea);
+        if (tb < a.L)
+          *reinterpret_cast<uint32_t*>(yb + (size_t)tb * x_row + p) =
+              pack_bf16(yi[i][2] + yc[i][2] * eb, yi[i][3] + yc[i][3] * eb);
+      }
+    }
+    __syncthreads();                // the chunk's buffers are free
+    PHASE_STAMP(6, r);
+    if (r + 1 < rounds) load_chunk(a, smem, k + cs, b, h, g);
+  }
+  // No CTA touches another's shared memory after the second cluster barrier
+  // of the last round, so the CTAs may exit independently.
+}
+
+int launch_fp32(const void* x, const float* dt, const float* A, const void* B,
+                const void* C, const float* s0, void* y, float* s_final, int batch,
+                int L, int H, int G, int intra_bf16, cudaStream_t stream) {
+  auto kernel = ssd_fwd_fp32_kernel<kP, kN>;
+  const size_t smem = Smem32<kP, kN>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3(H, batch), kThreads, smem, stream>>>(
-      static_cast<const T*>(x), dt, A, static_cast<const T*>(B),
-      static_cast<const T*>(C), s0, static_cast<T*>(y), s_final, L, H, G);
+  kernel<<<dim3(H, batch), kThreads32, smem, stream>>>(
+      static_cast<const float*>(x), dt, A, static_cast<const float*>(B),
+      static_cast<const float*>(C), s0, static_cast<float*>(y), s_final, L, H, G,
+      intra_bf16);
   return (int)cudaGetLastError();
 }
 
-// The one (headdim P, d_state N) the library is built for: Mamba-2's
-// defaults, which every config in the repository uses.
-constexpr int kP = 64;
-constexpr int kN = 128;
+// CTAs per cluster: one per chunk, up to the portable cluster size; a
+// longer L takes several rounds of that many chunks.
+int cluster_size(int L) {
+  const int K = (L + kQ - 1) / kQ;
+  return K < kMaxCluster ? K : kMaxCluster;
+}
+
+int launch_bf16(const void* x, const float* dt, const float* A, const void* B,
+                const void* C, const float* s0, void* y, float* s_final, int batch,
+                int L, int H, int G, int intra_bf16, cudaStream_t stream) {
+  const int K = (L + kQ - 1) / kQ;
+  const int cs = cluster_size(L);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  // per device: the shared-memory attribute set, and the clusters that fit
+  static bool ready[64] = {};
+  static int max_clusters[64][kMaxCluster + 1] = {};
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!ready[dev]) {
+    err = cudaFuncSetAttribute(ssd_fwd_bf16_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, Smem16::kBytes);
+    if (err != cudaSuccess) return (int)err;
+    ready[dev] = true;
+  }
+  Bf16Args args{static_cast<const __nv_bfloat16*>(x), dt, A,
+                static_cast<const __nv_bfloat16*>(B), static_cast<const __nv_bfloat16*>(C),
+                s0, static_cast<__nv_bfloat16*>(y), s_final, L, H, G, K, intra_bf16};
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cs, H, batch);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = Smem16::kBytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (max_clusters[dev][cs] == 0) {
+    // every CTA of a cluster must be resident at once
+    err = cudaOccupancyMaxActiveClusters(&max_clusters[dev][cs], ssd_fwd_bf16_kernel, &cfg);
+    if (err != cudaSuccess) return (int)err;
+    if (max_clusters[dev][cs] == 0) return (int)cudaErrorInvalidConfiguration;
+  }
+  err = cudaLaunchKernelEx(&cfg, ssd_fwd_bf16_kernel, args);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -292,23 +780,35 @@ extern "C" {
 // launching so that it can refuse other shapes by name.
 int hnet_ssd_fwd_supported(int P, int N) { return P == kP && N == kN; }
 
+// CTAs per (b, h) of a bf16 call at this L (the fp32 kernel takes one).
+int hnet_ssd_fwd_bf16_cluster_size(int L) { return cluster_size(L); }
+
 // dtype: 0 = float32, 1 = bfloat16 (x, B, C and y). s0 and s_final may be
-// null. Returns a cudaError_t code, 0 on success; launches asynchronously
-// on `stream`.
+// null.
+// intra_bf16: 1 forms the intra-chunk weights in bf16. Returns a cudaError_t
+// code, 0 on success; launches asynchronously on `stream`.
 int hnet_ssd_fwd(int dtype, const void* x, const float* dt, const float* A,
                  const void* B, const void* C, const float* s0, void* y,
                  float* s_final, int batch, int L, int H, int G, int P, int N,
-                 void* stream) {
+                 int intra_bf16, void* stream) {
   if (batch <= 0 || L <= 0 || H <= 0 || G <= 0 || H % G != 0 ||
       !hnet_ssd_fwd_supported(P, N))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float, kP, kN>(x, dt, A, B, C, s0, y, s_final, batch, L, H, G, s);
+    return launch_fp32(x, dt, A, B, C, s0, y, s_final, batch, L, H, G, intra_bf16, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16, kP, kN>(x, dt, A, B, C, s0, y, s_final, batch, L, H, G, s);
+    return launch_bf16(x, dt, A, B, C, s0, y, s_final, batch, L, H, G, intra_bf16, s);
   return (int)cudaErrorInvalidValue;
 }
+
+#ifdef SSD_PHASE_CLOCKS
+// Copy the stamps of the first n CTAs (grid order) to host [n][8].
+int hnet_ssd_fwd_phase_times(unsigned long long* host, int n) {
+  if (n > kPhaseCtas) n = kPhaseCtas;
+  return (int)cudaMemcpyFromSymbol(host, g_phase_ns, (size_t)n * 8 * sizeof(unsigned long long));
+}
+#endif
 
 const char* hnet_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

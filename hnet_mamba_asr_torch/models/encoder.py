@@ -81,8 +81,8 @@ class DCASREncoder(nn.Module):
                  n_enc: int = 4, n_main: int = 12, n_dec: int = 4,
                  arch_type: str = "A", N: float = 1, bidirectional: bool = True,
                  chunker: str = "dynamic", d_state: int = 128, headdim: int = 64,
-                 chunk_size: int = 256, ssd_out_compute_dtype: bool = False,
-                 dtype: torch.dtype = torch.float32,
+                 chunk_size: int = 256, ssd_intra_dtype: str | None = None,
+                 ssd_out_compute_dtype: bool = False, dtype: torch.dtype = torch.float32,
                  generator: torch.Generator | None = None):
         super().__init__()
         if arch_type not in ("A", "B"):
@@ -96,7 +96,7 @@ class DCASREncoder(nn.Module):
         self.d_outer = d_outer
         self.dtype = dtype
         stack_kw = dict(bidirectional=bidirectional, d_state=d_state, headdim=headdim,
-                        chunk_size=chunk_size,
+                        chunk_size=chunk_size, ssd_intra_dtype=ssd_intra_dtype,
                         ssd_out_compute_dtype=ssd_out_compute_dtype,
                         dtype=dtype, generator=generator)
         self.subsample = ConvSubsampling4(n_mels, d_outer, dtype, generator)

@@ -76,14 +76,16 @@ def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype, *,
 class Mamba2(nn.Module):
     """One Mamba-2 mixing layer: [B, L, d_model] -> [B, L, d_model].
 
-    ``ssd_out_compute_dtype`` is accepted for config compatibility and
-    ignored: in the JAX layer it compiles to the same program.
+    ``ssd_intra_dtype`` ('bf16' or None) goes to the scan as its
+    ``intra_dtype``, as in the JAX layer. ``ssd_out_compute_dtype`` is
+    accepted for config compatibility and ignored: in the JAX layer it
+    compiles to the same program.
     """
 
     def __init__(self, d_model: int, d_state: int = 128, d_conv: int = 4,
                  expand: int = 2, headdim: int = 64, ngroups: int = 1,
-                 chunk_size: int = 256, ssd_out_compute_dtype: bool = False,
-                 dtype: torch.dtype = torch.float32,
+                 chunk_size: int = 256, ssd_intra_dtype: str | None = None,
+                 ssd_out_compute_dtype: bool = False, dtype: torch.dtype = torch.float32,
                  a_init_range: tuple[float, float] = (1.0, 16.0),
                  dt_min: float = 0.001, dt_max: float = 0.1,
                  dt_init_floor: float = 1e-4,
@@ -96,6 +98,7 @@ class Mamba2(nn.Module):
         self.d_inner, self.headdim, self.d_state = d_inner, headdim, d_state
         self.n_heads = d_inner // headdim
         self.ngroups, self.d_conv, self.chunk_size = ngroups, d_conv, chunk_size
+        self.ssd_intra_dtype = ssd_intra_dtype
         self.dtype = dtype
         d_bc = ngroups * d_state
         conv_dim = d_inner + 2 * d_bc
@@ -139,7 +142,8 @@ class Mamba2(nn.Module):
 
         dt = F.softplus(dt_raw.float() + self.dt_bias)               # [B,L,H] fp32
         A = -torch.exp(self.a_log)                                   # [H], < 0
-        y = ssd(x, dt, A, B_mat, C_mat, chunk_size=self.chunk_size)  # [B,L,H,P]
+        y = ssd(x, dt, A, B_mat, C_mat, chunk_size=self.chunk_size,
+                intra_dtype=self.ssd_intra_dtype)                    # [B,L,H,P]
         y = y + self.d_skip[None, None, :, None].to(y.dtype) * x
         y = y.reshape(Bsz, L, self.d_inner)
 

@@ -41,12 +41,13 @@ class MambaBlock(nn.Module):
 
     def __init__(self, d_model: int, bidirectional: bool = True, d_state: int = 128,
                  d_conv: int = 4, expand: int = 2, headdim: int = 64,
-                 chunk_size: int = 256, ssd_out_compute_dtype: bool = False,
+                 chunk_size: int = 256, ssd_intra_dtype: str | None = None,
+                 ssd_out_compute_dtype: bool = False,
                  dtype: torch.dtype = torch.float32,
                  generator: torch.Generator | None = None):
         super().__init__()
         kw = dict(d_model=d_model, d_state=d_state, d_conv=d_conv, expand=expand,
-                  headdim=headdim, chunk_size=chunk_size,
+                  headdim=headdim, chunk_size=chunk_size, ssd_intra_dtype=ssd_intra_dtype,
                   ssd_out_compute_dtype=ssd_out_compute_dtype, dtype=dtype,
                   generator=generator)
         self.dtype = dtype

@@ -19,6 +19,14 @@ Recurrence (per batch b, head h; state S in R^{N x P}):
 
 Shapes: x [B,L,H,P], dt [B,L,H], A [H], B/C [B,L,G,N] with G groups shared by
 H//G heads each. y comes back in x's dtype; state and accumulation are fp32.
+
+Rounding (``ssd_chunked``, as the JAX ``ssd_chunked`` rounds): the operands
+of the three products with x and S, namely the intra-chunk weights W, the
+decay-weighted B and the state before each chunk, are rounded to x's dtype;
+every product accumulates in fp32. ``intra_dtype='bf16'`` also rounds the
+scores C.B, the decays and dt to bf16 and forms W in bf16; with fp32 x the
+last product of W (by dt) stays fp32, which is what XLA computes for the JAX
+source, whose bf16 -> fp32 cast right after it folds that rounding away.
 """
 from __future__ import annotations
 
@@ -34,6 +42,21 @@ def _expand_groups(mat: torch.Tensor, n_heads: int) -> torch.Tensor:
     if n_heads % G:
         raise ValueError(f"n_heads={n_heads} not divisible by groups={G}")
     return mat.repeat_interleave(n_heads // G, dim=2)
+
+
+def normalize_intra_dtype(intra_dtype: str | None) -> str | None:
+    """'bf16'/'bfloat16' -> 'bf16'; None/'fp32'/'float32' -> None; else raise."""
+    if intra_dtype in (None, "", "fp32", "float32"):
+        return None
+    if intra_dtype in ("bf16", "bfloat16"):
+        return "bf16"
+    raise ValueError(f"ssd intra_dtype must be None/'fp32' or 'bf16', "
+                     f"got {intra_dtype!r}")
+
+
+def _rounded(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """fp32 ``t`` rounded to ``dtype`` and held in fp32 again."""
+    return t if dtype == torch.float32 else t.to(dtype).float()
 
 
 def ssd_reference(x, dt, A, B, C, initial_state=None, return_final=False):
@@ -57,14 +80,17 @@ def ssd_reference(x, dt, A, B, C, initial_state=None, return_final=False):
 
 
 def ssd_chunked(x, dt, A, B, C, chunk_size: int = 256, initial_state=None,
-                return_final: bool = False):
-    """Chunked SSD: the same outputs as ``ssd_reference`` (fp32-accumulated).
+                return_final: bool = False, intra_dtype: str | None = None):
+    """Chunked SSD: the same outputs as ``ssd_reference`` (fp32-accumulated),
+    up to the roundings of x's dtype and ``intra_dtype`` (module docstring).
 
     L is padded up to a multiple of ``chunk_size`` internally (dt = 0 padding
     is an exact no-op for the recurrence: decay 1 and no state update).
     ``initial_state`` / ``return_final`` carry the [B, H, N, P] state across
     calls.
     """
+    intra_dtype = normalize_intra_dtype(intra_dtype)
+    low = x.dtype                                                   # MMA operand type
     Bsz, L, H, P = x.shape
     Q = int(chunk_size)
     pad = (-L) % Q
@@ -94,12 +120,18 @@ def ssd_chunked(x, dt, A, B, C, chunk_size: int = 256, initial_state=None,
     causal = torch.ones(Q, Q, dtype=torch.bool, device=x.device).tril()
     decay = torch.exp(seg.masked_fill(~causal, float("-inf")))
     scores = torch.einsum("bkhqn,bkhsn->bkhqs", Cc, Bc)            # C_q . B_s
-    weights = scores * decay * dtc[..., None, :]
+    if intra_dtype == "bf16":
+        bf = torch.bfloat16
+        weights = _rounded(_rounded(scores, bf) * _rounded(decay, bf), bf)
+        weights = weights * _rounded(dtc, bf)[..., None, :]
+    else:
+        weights = scores * decay * dtc[..., None, :]
+    weights = _rounded(weights, low)
     y_intra = torch.einsum("bkhqs,bkhsp->bkhqp", weights, xc)
 
     # chunk boundary states: S_k = sum_s exp(ac[last] - ac[s]) dt_s B_s x_s^T
     decay_to_end = torch.exp(ac[..., -1:] - ac)                     # [B,K,H,Q]
-    wB = Bc * (decay_to_end * dtc)[..., None]
+    wB = _rounded(Bc * (decay_to_end * dtc)[..., None], low)
     states = torch.einsum("bkhqn,bkhqp->bkhnp", wB, xc)
 
     # inter-chunk recurrence over the K chunk states
@@ -113,7 +145,7 @@ def ssd_chunked(x, dt, A, B, C, chunk_size: int = 256, initial_state=None,
     S_before = torch.stack(before, dim=1)                           # [B,K,H,N,P]
 
     # inter-chunk contribution: y_inter[q] = exp(ac[q]) * C_q @ S_before
-    y_inter = torch.einsum("bkhqn,bkhnp->bkhqp", Cc, S_before)
+    y_inter = torch.einsum("bkhqn,bkhnp->bkhqp", Cc, _rounded(S_before, low))
     y_inter = y_inter * torch.exp(ac)[..., None]
 
     y = (y_intra + y_inter).permute(0, 1, 3, 2, 4).reshape(Bsz, Lp, H, P)
@@ -121,8 +153,8 @@ def ssd_chunked(x, dt, A, B, C, chunk_size: int = 256, initial_state=None,
     return (y, S) if return_final else y
 
 
-def ssd(x, dt, A, B, C, chunk_size: int = 256):
+def ssd(x, dt, A, B, C, chunk_size: int = 256, intra_dtype: str | None = None):
     """The scan a model calls: the hand-written kernel on CUDA tensors; its
     wrapper runs ``ssd_chunked`` for tensors that lie on the CPU."""
     from hnet_mamba_asr_torch.ops.ssd_cuda import ssd_cuda
-    return ssd_cuda(x, dt, A, B, C, chunk_size=chunk_size)
+    return ssd_cuda(x, dt, A, B, C, chunk_size=chunk_size, intra_dtype=intra_dtype)

@@ -24,7 +24,7 @@ from pathlib import Path
 
 import torch
 
-from hnet_mamba_asr_torch.ops.ssd import ssd_chunked
+from hnet_mamba_asr_torch.ops.ssd import normalize_intra_dtype, ssd_chunked
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 SOURCE = PACKAGE_DIR / "csrc" / "ssd_fwd.cu"
@@ -48,25 +48,28 @@ def _nvcc() -> str:
     return found
 
 
-def build() -> dict:
+def build(defines: tuple[str, ...] = ()) -> dict:
     """Compile (once per process and source hash) and load the kernel library.
 
     Returns ``{"lib", "path", "seconds", "log", "cached"}``: ``seconds`` is
     this call's build time (0 when the library was already on disk) and
     ``log`` the compiler's report (registers, shared memory, spills).
+    ``defines`` (e.g. ``("SSD_PHASE_CLOCKS",)``) build an instrumented
+    library; the first call in a process decides which one it uses.
     """
     with _lock:
         if "lib" in _loaded:
             return _loaded
         src = SOURCE.read_bytes()
-        tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
+        tag = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
         path = BUILD_DIR / f"libssd_fwd_{tag}.so"
         t0 = time.perf_counter()
         log, cached = "", path.exists()
         if not cached:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+            proc = subprocess.run([_nvcc(), *flags, "-o", str(tmp), str(SOURCE)],
                                   capture_output=True, text=True)
             log = proc.stdout + proc.stderr
             if proc.returncode != 0:
@@ -75,10 +78,12 @@ def build() -> dict:
         lib = ctypes.CDLL(str(path))
         ptr = ctypes.c_void_p
         lib.hnet_ssd_fwd.argtypes = [ctypes.c_int, ptr, ptr, ptr, ptr, ptr, ptr,
-                                     ptr, ptr] + [ctypes.c_int] * 6 + [ptr]
+                                     ptr, ptr] + [ctypes.c_int] * 7 + [ptr]
         lib.hnet_ssd_fwd.restype = ctypes.c_int
         lib.hnet_ssd_fwd_supported.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.hnet_ssd_fwd_supported.restype = ctypes.c_int
+        lib.hnet_ssd_fwd_bf16_cluster_size.argtypes = [ctypes.c_int]
+        lib.hnet_ssd_fwd_bf16_cluster_size.restype = ctypes.c_int
         lib.hnet_cuda_error_string.argtypes = [ctypes.c_int]
         lib.hnet_cuda_error_string.restype = ctypes.c_char_p
         _loaded.update(lib=lib, path=str(path), log=log, cached=cached,
@@ -103,7 +108,8 @@ def _check(x, dt, A, B, C, initial_state) -> None:
             or tuple(B.shape) != (Bsz, L, G, N) or tuple(C.shape) != tuple(B.shape)):
         raise ValueError(f"shape mismatch: x {tuple(x.shape)}, dt {tuple(dt.shape)}, "
                          f"A {tuple(A.shape)}, B {tuple(B.shape)}, C {tuple(C.shape)}")
-    if L < 1 or Bsz < 1 or Bsz > 65535 or H % G:
+    # the bf16 grid is (cluster, H, batch): its y and z sides take 65535
+    if L < 1 or not 1 <= Bsz <= 65535 or not 1 <= H <= 65535 or H % G:
         raise ValueError(f"unsupported sizes batch={Bsz} L={L} H={H} G={G}")
     tensors = [x, dt, A, B, C]
     if initial_state is not None:
@@ -120,17 +126,20 @@ def _check(x, dt, A, B, C, initial_state) -> None:
 
 
 def ssd_cuda(x, dt, A, B, C, chunk_size: int = 256, initial_state=None,
-             return_final: bool = False):
+             return_final: bool = False, intra_dtype: str | None = None):
     """SSD forward with ``ssd_chunked``'s contract: y [B,L,H,P] in x.dtype,
     or ``(y, S_final [B,H,N,P] fp32)`` with ``return_final``.
 
     On CPU tensors it runs ``ssd_chunked``. On CUDA tensors it launches the
-    kernel, which picks its own chunk length (the result does not depend on
-    it, so ``chunk_size`` is not used there).
+    kernel, which computes ``ssd_chunked`` at its own chunk length, 64
+    (in fp32 the result does not depend on it, so ``chunk_size`` is not used
+    there; in bf16 the roundings of W and the state fall at chunk bounds).
     """
+    intra_bf16 = int(normalize_intra_dtype(intra_dtype) == "bf16")
     if x.device.type == "cpu":
         return ssd_chunked(x, dt, A, B, C, chunk_size=chunk_size,
-                           initial_state=initial_state, return_final=return_final)
+                           initial_state=initial_state, return_final=return_final,
+                           intra_dtype=intra_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"ssd kernel runs on CUDA tensors, got {x.device}")
     _check(x, dt, A, B, C, initial_state)
@@ -148,7 +157,8 @@ def ssd_cuda(x, dt, A, B, C, chunk_size: int = 256, initial_state=None,
             B.data_ptr(), C.data_ptr(),
             None if initial_state is None else initial_state.data_ptr(),
             y.data_ptr(), None if s_final is None else s_final.data_ptr(),
-            Bsz, L, H, G, P, N, torch.cuda.current_stream(x.device).cuda_stream)
+            Bsz, L, H, G, P, N, intra_bf16,
+            torch.cuda.current_stream(x.device).cuda_stream)
     if code != 0:
         raise RuntimeError(f"ssd kernel launch failed: cudaError {code} "
                            f"({lib.hnet_cuda_error_string(code).decode()})")

@@ -46,9 +46,10 @@ class ServingModel:
     ``params``: a JAX param tree, the path of a JAX ``params.npz``, or None
     for weights drawn from ``seed`` (then ``vocab_size`` is required).
     ``tokenizer``: an optional table as in a JAX manifest, for text output.
+    ``device``: the card by default; pass "cpu" for the plain path.
     """
 
-    def __init__(self, config: dict, params=None, device="cpu", *,
+    def __init__(self, config: dict, params=None, device="cuda", *,
                  vocab_size: int | None = None,
                  cmvn: GlobalCMVN | str | Path | None = None,
                  tokenizer: dict | None = None, seed: int = 0,

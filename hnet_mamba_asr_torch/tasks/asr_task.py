@@ -8,8 +8,9 @@ the AED and RNN-T heads of a hybrid config are not built, and the serving
 runtime refuses requests for their outputs. Training (SpecAugment, losses)
 is not ported yet.
 
-``encoder_conf.ssd_intra_dtype`` is a storage option of the JAX training
-scan; the serving scan here ignores it, as the JAX Pallas kernel does.
+``encoder_conf.ssd_intra_dtype`` reaches the SSD scan as its
+``intra_dtype``, as in the JAX model (whose serving forward runs the XLA
+``ssd_chunked``): 'bf16' forms the intra-chunk weights in bf16.
 """
 from __future__ import annotations
 
@@ -43,6 +44,7 @@ def build_encoder(config, dtype=torch.float32, generator=None) -> DCASREncoder:
         chunker=str(h.get("chunker", "dynamic")),
         d_state=int(ec.get("d_state", 128)), headdim=int(ec.get("headdim", 64)),
         chunk_size=int(ec.get("ssd_chunk_size", 256)),
+        ssd_intra_dtype=ec.get("ssd_intra_dtype"),
         ssd_out_compute_dtype=bool(ec.get("ssd_out_compute_dtype", False)),
         dtype=dtype, generator=generator)
 

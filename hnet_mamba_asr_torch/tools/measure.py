@@ -1,0 +1,271 @@
+#!/usr/bin/env python3
+"""Measurements of the port on one CUDA card, for PERF.md.
+
+    python3 hnet_mamba_asr_torch/tools/measure.py ssd   [--repo DIR]
+    python3 hnet_mamba_asr_torch/tools/measure.py serve [--repo DIR] [--profile]
+    python3 hnet_mamba_asr_torch/tools/measure.py phases
+
+Run as a file, from the root of a checkout. ``--repo`` names the checkout
+whose ``hnet_mamba_asr_torch`` (and ``chip_smoke.py``) is measured, this one
+by default, so that two versions are timed by the same code: unpack the
+other into a directory that ``.gitignore`` lists and run both in one chip
+call, in turns (old, new, new, old).
+
+- ``ssd``: the SSD kernel (``ssd_cuda``) at the serving shapes, B 1 and 8,
+  L 248 / 873 / 1000, H 12 / 16, P 64, N 128, G 1, bf16 (with
+  ``intra_dtype`` bf16 where the version takes it) and fp32. CUDA events
+  over 20 back-to-back calls after 3 warm-ups on one input (L2 warm), and
+  the kernel's own device time from a ``torch.profiler`` trace of 20 calls,
+  and the host time a call takes to enqueue. One JSON line per shape with
+  the three times and the bound of ``ssd_cost``.
+- ``serve``: whole-model serve calls of the gate config (bf16, seeded
+  weights), host clock around a synced call, 10 calls after 3 warm-ups, at
+  8 x 10 s, 1 x 35 s, 8 x 35 s and 1 x 3 s. With ``--profile``, a
+  ``torch.profiler`` window of 3 calls at 8 x 10 s: device time by kernel
+  and the device's idle share.
+- ``phases``: where a bf16 kernel call spends its time, from a build with
+  ``-DSSD_PHASE_CLOCKS`` whose CTAs stamp the global timer at the bounds of
+  their first round (loads, state term, cluster barrier, chain, barrier,
+  output). Mean phase lengths over the CTAs, at B 8 L 248 / 873 H 16 and
+  B 1 L 873 H 12.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+# NVIDIA H100 SXM data sheet, dense, at the 700 W limit
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}    # fp32: SIMT, no tensor cores
+CHUNK = 64                                             # the kernel's chunk length
+
+
+def ssd_cost(Bsz: int, L: int, H: int, G: int, P: int, N: int, dtype: str) -> dict:
+    """Least time of one SSD forward on the H100: each input read once and y
+    written once, against the FLOPs of the chunked form at the kernel's chunk
+    length (the four products over the chunks this L needs)."""
+    es = 2 if dtype == "bfloat16" else 4
+    nbytes = (2 * Bsz * L * H * P * es          # x in, y out
+              + 2 * Bsz * L * G * N * es        # B, C
+              + Bsz * L * H * 4 + H * 4)        # dt, A
+    K = -(-L // CHUNK)
+    flops = Bsz * H * K * 2 * CHUNK * (CHUNK * N + CHUNK * P + 2 * N * P)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return {"bytes": nbytes, "flops": flops, "bytes_us": t_bytes * 1e6,
+            "ops_us": t_ops * 1e6, "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def cuda_ms(fn, n: int = 20, flush: torch.Tensor | None = None) -> float:
+    """Mean ms of ``fn`` on the device: CUDA events around n launches after
+    3 warm-ups; with ``flush``, each launch timed alone after rewriting that
+    buffer (L2 cold)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    if flush is None:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / n
+    pairs = []
+    for i in range(n):
+        flush.fill_(float(i))
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in pairs) / n
+
+
+def device_us(event) -> float:
+    """Self device time of a profiler ``key_averages`` row, in us."""
+    t = getattr(event, "self_device_time_total", None)
+    return getattr(event, "self_cuda_time_total", 0.0) if t is None else t
+
+
+def kernel_ms(fn, match: str, n: int = 20, tries: int = 3) -> float | None:
+    """Mean device time in ms of one launch of the kernel whose name contains
+    ``match`` (one per call of ``fn``), from a ``torch.profiler`` trace of
+    n calls after 3 warm-ups: the kernel's own time, without the host's
+    launch gaps that ``cuda_ms`` includes. A trace now and then comes back
+    with fewer or no device events, so the mean is over the launches the
+    trace holds; after ``tries`` traces without any the answer is None."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        rows = [ev for ev in prof.key_averages() if match in ev.key and device_us(ev) > 0]
+        launches = sum(ev.count for ev in rows)
+        if launches:
+            return sum(device_us(ev) for ev in rows) / launches / 1e3
+    return None
+
+
+def host_us(fn, n: int = 50) -> float:
+    """Mean host time in us of one call of ``fn``: what the caller's thread
+    spends to enqueue it (the device is not waited for)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return t
+
+
+def ssd_inputs(Bsz, L, H, dtype, seed=0, P=64, N=128):
+    gen = torch.Generator().manual_seed(seed)
+    return (torch.randn(Bsz, L, H, P, generator=gen).to("cuda", dtype),
+            (torch.rand(Bsz, L, H, generator=gen) * 0.2 + 0.001).cuda(),
+            (-(torch.rand(H, generator=gen) * 15 + 1)).cuda(),
+            torch.randn(Bsz, L, 1, N, generator=gen).to("cuda", dtype),
+            torch.randn(Bsz, L, 1, N, generator=gen).to("cuda", dtype))
+
+
+def measure_ssd(tag: str) -> None:
+    import inspect
+
+    from hnet_mamba_asr_torch.ops import ssd_cuda as mod
+    mod.build()
+    takes_intra = "intra_dtype" in inspect.signature(mod.ssd_cuda).parameters
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).removeprefix("torch.")
+        kw = {"intra_dtype": "bf16"} if takes_intra and dtype == torch.bfloat16 else {}
+        for Bsz in (8, 1):
+            for L in (248, 873, 1000):
+                for H in (12, 16):
+                    args = ssd_inputs(Bsz, L, H, dtype)
+                    call_ms = cuda_ms(lambda: mod.ssd_cuda(*args, **kw))
+                    ms = kernel_ms(lambda: mod.ssd_cuda(*args, **kw), "ssd_fwd")
+                    host = host_us(lambda: mod.ssd_cuda(*args, **kw))
+                    cost = ssd_cost(Bsz, L, H, 1, 64, 128, name)
+                    print(json.dumps({"version": tag, "dtype": name, "intra": kw.get("intra_dtype"),
+                                      "B": Bsz, "L": L, "H": H, "ms": ms, "call_ms": call_ms,
+                                      "host_us": host,
+                                      "bound_ms": cost["bound_ms"], "bound_by": cost["bound_by"],
+                                      "share": cost["bound_ms"] / ms if ms else None}),
+                          flush=True)
+
+
+PHASES = ("loads of x, B, dt", "cumsum + state term", "cluster barrier 1", "chain",
+          "cluster barrier 2", "output (C wait, W, products, store)")
+
+
+def measure_phases(tag: str) -> None:
+    from hnet_mamba_asr_torch.ops import ssd_cuda as mod
+    lib = mod.build(("SSD_PHASE_CLOCKS",))["lib"]
+    lib.hnet_ssd_fwd_phase_times.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.hnet_ssd_fwd_phase_times.restype = ctypes.c_int
+    for Bsz, L, H in ((8, 248, 16), (8, 873, 16), (1, 873, 12)):
+        args = ssd_inputs(Bsz, L, H, torch.bfloat16)
+        for _ in range(4):
+            mod.ssd_cuda(*args, intra_dtype="bf16")
+        torch.cuda.synchronize()
+        n = lib.hnet_ssd_fwd_bf16_cluster_size(L) * H * Bsz
+        stamps = np.zeros((n, 8), np.uint64)
+        if lib.hnet_ssd_fwd_phase_times(stamps.ctypes.data, n) != 0:
+            raise RuntimeError("could not read the phase stamps")
+        t = stamps[:, :7].astype(np.float64) / 1e3                 # us
+        d = np.diff(t, axis=1)
+        print(json.dumps({"version": tag, "B": Bsz, "L": L, "H": H, "ctas": n,
+                          "span_us": float(t[:, 6].max() - t[:, 0].min()),
+                          "cta_round0_us": float((t[:, 6] - t[:, 0]).mean()),
+                          "phases_us": {k: float(d[:, i].mean()) for i, k in enumerate(PHASES)}}),
+              flush=True)
+
+
+def measure_serve(tag: str, profile: bool) -> None:
+    import chip_smoke as smoke
+    from hnet_mamba_asr_torch.serving.runtime import ServingModel
+    cmvn = smoke.make_cmvn("cuda")
+    model = ServingModel(smoke.GATE_CONFIG, None, "cuda", vocab_size=smoke.VOCAB,
+                         cmvn=cmvn, seed=smoke.SEED, max_batch=8, max_samples=40 * smoke.SR)
+    rng = np.random.default_rng(7)
+
+    def batch(n, seconds):
+        w = np.stack([smoke.synth_audio(rng, seconds) for _ in range(n)])
+        return w, [w.shape[1]] * n
+
+    cases = {"8x10s": batch(8, 10.0), "1x35s": batch(1, 35.0),
+             "8x35s": batch(8, 35.0), "1x3s": batch(1, 3.0)}
+    for label, (w, lens) in cases.items():
+        for _ in range(3):
+            model(w, lens)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            model(w, lens)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        print(json.dumps({"version": tag, "serve": label, "ms_mean": float(np.mean(times)),
+                          "ms_min": float(np.min(times)), "ms_max": float(np.max(times))}),
+              flush=True)
+    if not profile:
+        return
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    w, lens = cases["8x10s"]
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            model(w, lens)
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+    rows = [(device_us(ev), ev.key, ev.count) for ev in prof.key_averages()
+            if device_us(ev) > 0]
+    busy = sum(r[0] for r in rows)
+    rows.sort(reverse=True)
+    print(json.dumps({"version": tag, "profile": "3 calls of 8x10s", "window_ms": window_us / 1e3,
+                      "device_ms": busy / 1e3, "idle_share": 1 - busy / window_us,
+                      "top": [{"name": k[:90], "ms": d / 1e3, "share": d / busy, "count": c}
+                              for d, k, c in rows[:12]]}), flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("what", choices=("ssd", "serve", "phases"))
+    ap.add_argument("--repo", default=str(Path(__file__).resolve().parents[2]))
+    ap.add_argument("--tag", default=None, help="label of the version in the output")
+    ap.add_argument("--profile", action="store_true")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("measure: no CUDA device", file=sys.stderr)
+        return 2
+    repo = Path(args.repo).resolve()
+    sys.path.insert(0, str(repo))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(json.dumps({"card": smi, "repo": str(repo), "torch": torch.__version__}), flush=True)
+    tag = args.tag or repo.name
+    if args.what == "ssd":
+        measure_ssd(tag)
+    elif args.what == "phases":
+        measure_phases(tag)
+    else:
+        measure_serve(tag, args.profile)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

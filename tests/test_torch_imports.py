@@ -12,6 +12,7 @@ import json, sys
 import numpy as np, torch
 torch.set_num_threads(1)
 import chip_smoke
+import hnet_mamba_asr_torch.tools.measure
 from hnet_mamba_asr_torch.serving.runtime import ServingModel
 from hnet_mamba_asr_torch.serving.server import MicroBatcher
 cfg = {"encoder_conf": {"arch_type": "A", "d_outer": 32, "d_main": 48, "n_enc": 1,

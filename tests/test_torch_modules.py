@@ -63,6 +63,25 @@ def test_mamba2(rng):
     np.testing.assert_allclose(got, want, **MODULE_TOL)
 
 
+def test_mamba2_bf16_intra(rng):
+    """ssd_intra_dtype='bf16' reaches the scan in both packages (fp32 layer,
+    H 2); the intra-chunk weights then carry bf16 roundings, at the SSD
+    tolerance of tests/test_torch_ssd.py scaled to the layer's output."""
+    jm = jmamba2.Mamba2(d_model=16, d_state=8, headdim=16, chunk_size=16,
+                        ssd_intra_dtype="bf16")
+    u = rng.normal(size=(2, 37, 16)).astype(np.float32)
+    tree = module_tree(jm, jnp.asarray(u))
+    want = np.asarray(jax.jit(jm.apply)({"params": tree}, jnp.asarray(u)))
+    tm = _load(Mamba2(16, d_state=8, headdim=16, chunk_size=16, ssd_intra_dtype="bf16"),
+               tree)
+    with torch.no_grad():
+        got = tm(torch.from_numpy(u)).numpy()
+    np.testing.assert_allclose(got, want, **MODULE_TOL)
+    fp32 = _load(Mamba2(16, d_state=8, headdim=16, chunk_size=16), tree)
+    with torch.no_grad():
+        assert not np.allclose(fp32(torch.from_numpy(u)).numpy(), want, **MODULE_TOL)
+
+
 def test_reverse_sequences(rng):
     x = rng.normal(size=(3, 9, 4)).astype(np.float32)
     lens = np.array([9, 5, 0], np.int32)

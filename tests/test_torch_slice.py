@@ -129,6 +129,23 @@ def test_serving_limits_and_modes():
             build_model(cfg, NARROW_VOCAB)
 
 
+def test_serving_model_runs_on_the_card_by_default():
+    import inspect
+    assert inspect.signature(ServingModel).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            ServingModel(NARROW_CONFIG, None, vocab_size=NARROW_VOCAB)
+
+
+def test_config_intra_dtype_reaches_the_scan():
+    model = build_model(chip_smoke.GATE_CONFIG, chip_smoke.VOCAB)
+    layers = [m for m in model.modules() if hasattr(m, "ssd_intra_dtype")]
+    assert len(layers) == 40
+    assert {m.ssd_intra_dtype for m in layers} == {"bf16"}
+    assert {m.ssd_intra_dtype for m in build_model(NARROW_CONFIG, NARROW_VOCAB).modules()
+            if hasattr(m, "ssd_intra_dtype")} == {None}
+
+
 def test_micro_batcher_batched_equals_solo():
     sm = ServingModel(NARROW_CONFIG, None, "cpu", vocab_size=NARROW_VOCAB, seed=3)
     rng = np.random.default_rng(5)

@@ -1,7 +1,8 @@
 """The port's SSD (hnet_mamba_asr_torch/ops/ssd.py and the CPU side of the
 kernel wrapper) against the JAX package's ssd_reference, ssd_chunked and the
 Pallas kernel in interpret mode, at the repo's SSD tolerance of 2e-4
-(tests/test_ssd_pallas.py)."""
+(tests/test_ssd_pallas.py); and, in bf16 and with intra_dtype, against the
+roundings of the JAX ssd_chunked."""
 import numpy as np
 import pytest
 import torch
@@ -11,6 +12,7 @@ import torch_parity  # noqa: F401  (threads, TF32)
 
 from hnet_mamba_asr_torch.ops.ssd import ssd, ssd_chunked, ssd_reference
 from hnet_mamba_asr_torch.ops.ssd_cuda import ssd_cuda
+from hnet_mamba_asr_torch.tools.measure import ssd_cost
 from hnet_mamba_asr_tpu.ops import ssd as jssd
 from hnet_mamba_asr_tpu.ops.ssd_pallas import ssd_pallas
 
@@ -91,6 +93,99 @@ def test_initial_state_and_final_state(rng):
         np.testing.assert_allclose(s.numpy(), np.asarray(s_j), **TOL)
 
 
+# bf16 inputs: the port rounds W, the decay-weighted B and the state before
+# each chunk to bf16 where JAX's ssd_chunked does, so y is bitwise JAX's on
+# all but the rare element where a score or decay sits on a bf16 rounding
+# boundary and the two libraries' last-ulp exp or summation order tip it
+# (<= 1 % of y, each within one bf16 ulp of max|y|); the fp32 state differs
+# in summation order only. A plain version that keeps those operands in fp32
+# is equal on 47-62 % of y in these cases and fails the state bound.
+BF16_Y_EQUAL_SHARE = 0.98
+BF16_Y_ULP = 2.0 ** -8
+STATE_RTOL = 1e-5
+# fp32 inputs with intra_dtype='bf16': W from bf16 scores, decays and dt;
+# the rest in fp32 (a plain version without intra_dtype: 9e-4 to 2.4e-3)
+INTRA_FP32_RTOL = 1e-5
+
+
+def _jax_by_head(args, s0, intra_dtype, dtype):
+    """JAX ssd_chunked one head at a time. XLA on the CPU keeps the bf16
+    rounding of W that the JAX source asks for at H = 1; at H > 1 its
+    allow-excess-precision rewrite fuses that rounding away (the W fed to the
+    product stays fp32), which no bf16 tensor-core product can do."""
+    x, dt, A, Bm, Cm = args
+    H, G = x.shape[2], Bm.shape[2]
+    ys, ss = [], []
+    for h in range(H):
+        g = h // (H // G)
+        y, s = jssd.ssd_chunked(
+            jnp.asarray(x[:, :, h:h + 1]).astype(dtype), jnp.asarray(dt[:, :, h:h + 1]),
+            jnp.asarray(A[h:h + 1]), jnp.asarray(Bm[:, :, g:g + 1]).astype(dtype),
+            jnp.asarray(Cm[:, :, g:g + 1]).astype(dtype), chunk_size=16,
+            initial_state=jnp.asarray(s0[:, h:h + 1]), return_final=True,
+            intra_dtype=intra_dtype)
+        ys.append(np.asarray(y.astype(jnp.float32)))
+        ss.append(np.asarray(s))
+    return np.concatenate(ys, 2), np.concatenate(ss, 1)
+
+
+def _port(args, s0, intra_dtype, dtype):
+    x, dt, A, Bm, Cm = _torch(args)
+    y, s = ssd_chunked(x.to(dtype), dt, A, Bm.to(dtype), Cm.to(dtype), chunk_size=16,
+                       initial_state=torch.from_numpy(s0), return_final=True,
+                       intra_dtype=intra_dtype)
+    assert y.dtype == dtype
+    return y.float().numpy(), s.numpy()
+
+
+@pytest.mark.parametrize("groups", [1, 2])
+@pytest.mark.parametrize("intra_dtype", [None, "bf16"])
+def test_bf16_rounds_as_jax(rng, intra_dtype, groups):
+    args = _inputs(rng, L=45, H=2 * groups, G=groups)
+    s0 = rng.normal(size=(2, 2 * groups, 16, 8)).astype(np.float32)
+    y_j, s_j = _jax_by_head(args, s0, intra_dtype, jnp.bfloat16)
+    y, s = _port(args, s0, intra_dtype, torch.bfloat16)
+    scale = np.abs(y_j).max()
+    assert (y == y_j).mean() >= BF16_Y_EQUAL_SHARE, (y == y_j).mean()
+    assert np.abs(y - y_j).max() <= BF16_Y_ULP * scale
+    np.testing.assert_allclose(s, s_j, rtol=0, atol=STATE_RTOL * np.abs(s_j).max())
+
+
+@pytest.mark.parametrize("groups", [1, 2])
+def test_fp32_with_bf16_intra_matches_jax(rng, groups):
+    args = _inputs(rng, L=45, H=2 * groups, G=groups)
+    s0 = rng.normal(size=(2, 2 * groups, 16, 8)).astype(np.float32)
+    y_j, s_j = _jax_by_head(args, s0, "bf16", jnp.float32)
+    y, s = _port(args, s0, "bf16", torch.float32)
+    np.testing.assert_allclose(y, y_j, rtol=0, atol=INTRA_FP32_RTOL * np.abs(y_j).max())
+    np.testing.assert_allclose(s, s_j, rtol=0, atol=STATE_RTOL * np.abs(s_j).max())
+
+
+def test_intra_dtype_names(rng):
+    t = _torch(_inputs(rng, L=20))
+    want = ssd_chunked(*t, chunk_size=8, intra_dtype="bf16")
+    assert torch.equal(ssd_chunked(*t, chunk_size=8, intra_dtype="bfloat16"), want)
+    assert torch.equal(ssd_chunked(*t, chunk_size=8, intra_dtype="fp32"),
+                       ssd_chunked(*t, chunk_size=8))
+    with pytest.raises(ValueError, match="intra_dtype"):
+        ssd_chunked(*t, chunk_size=8, intra_dtype="fp16")
+
+
+@pytest.mark.parametrize("L, H, mbytes, gflop, bound_us", [
+    (248, 12, 7.21, 1.41, 2.15), (248, 16, 9.27, 1.88, 2.77),
+    (873, 12, 25.4, 4.93, 7.57), (873, 16, 32.6, 6.58, 9.74)])
+def test_kernel_bound_at_the_serving_shapes(L, H, mbytes, gflop, bound_us):
+    """The least time chip_smoke.py and tools/measure.py hold the bf16
+    kernel to, at B 8, P 64, N 128: bytes of x, B, C, dt and y over the
+    H100's 3.35 TB/s against the chunked form's FLOPs at 989 TFLOP/s."""
+    cost = ssd_cost(8, L, H, 1, 64, 128, "bfloat16")
+    assert cost["bytes"] / 1e6 == pytest.approx(mbytes, abs=0.06)
+    assert cost["flops"] / 1e9 == pytest.approx(gflop, abs=0.006)
+    assert cost["bound_ms"] * 1e3 == pytest.approx(bound_us, abs=0.006)
+    assert cost["bound_by"] == "bytes"
+    assert ssd_cost(8, L, H, 1, 64, 128, "float32")["bound_by"] == "operations"
+
+
 def test_wrapper_on_cpu_runs_the_plain_version(rng):
     t = _torch(_inputs(rng))
     s0 = torch.from_numpy(rng.normal(size=(2, 3, 16, 8)).astype(np.float32))
@@ -98,6 +193,8 @@ def test_wrapper_on_cpu_runs_the_plain_version(rng):
     y, s = ssd_cuda(*t, chunk_size=16, initial_state=s0, return_final=True)
     y_p, s_p = ssd_chunked(*t, chunk_size=16, initial_state=s0, return_final=True)
     assert torch.equal(y, y_p) and torch.equal(s, s_p)
+    assert torch.equal(ssd_cuda(*t, chunk_size=16, intra_dtype="bf16"),
+                       ssd_chunked(*t, chunk_size=16, intra_dtype="bf16"))
     assert ssd_cuda.launches == before          # the count is of kernel launches
 
 
