@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port on one NVIDIA GPU: serve Type A Small (N=1).
+"""Smoke run of the PyTorch port on one NVIDIA GPU: serve and train Type A
+Small (N=1).
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
@@ -7,17 +8,38 @@ Drives the port (``hnet_mamba_asr_torch``) through the entry points a user
 calls, at the full width of ``configs/typeA_small_N1.yaml`` with seeded
 random weights, and fails (non-zero exit) when any phase fails:
 
-1. build   -- compile the hand-written SSD kernel from ``csrc/``;
-2. kernel  -- the kernel against its plain PyTorch version (``ssd_chunked``
-              at the kernel's chunk length and intra_dtype) at the serving
-              shapes (B 8 and 1, L 248 / 873 / 1000, H 12 / 16), bf16 with
-              intra_dtype bf16 and fp32, with both times, the bound and
-              the share of it; one time with a cold L2;
-3. model   -- the whole model on the card (kernel path) against the same
-              weights and batch on the CPU (plain path), fp32, TF32 off;
-4. serve   -- 9 requests through the micro-batching server, one over HTTP,
-              in the config's bf16; solo == batched; the kernel's launch
-              count is 40 per model call.
+1. build    -- compile the hand-written SSD kernels (forward and backward)
+               from ``csrc/``, one nvcc per source, started together;
+2. kernel   -- the forward kernel against its plain PyTorch version
+               (``ssd_chunked`` at the kernel's chunk length and
+               intra_dtype) at the serving shapes (B 8 and 1, L 248 / 873 /
+               1000, H 12 / 16) and the training ones (B 32, L 249), bf16
+               with intra_dtype bf16 and fp32, with both times, the bound and
+               the share of it; one time with a cold L2;
+   backward -- the backward kernel's gradients of x, dt, A, B, C against
+               autograd of ``ssd_chunked`` at the training shapes (B 32,
+               L 249, H 12 / 16), at L 873 (two cluster rounds of the
+               forward) and at B 1, fp32 and bf16, intra_dtype off and bf16;
+3. model    -- the whole model on the card (kernel path) against the same
+               weights and batch on the CPU (plain path), fp32, TF32 off;
+4. serve    -- 9 requests through the micro-batching server, one over HTTP,
+               in the config's bf16; solo == batched; the kernel's launch
+               count is 40 per model call;
+5. train    -- the gate config (hybrid 0.3 CTC + 0.7 AED, bf16, SpecAugment,
+               AED dropout, remat none, accum_grad 2) through ``Trainer``,
+               3 updates of 2 micro-batches of 32 x 10 s: finite losses and
+               gradient norms, step time, mel-frames/s, peak memory, 40 + 40
+               SSD kernel launches per micro-step; then one micro-step per
+               remat policy: full and dots give none's loss and gradient
+               norm with 80 forward launches;
+6. descent  -- 5 updates on one fixed batch of 8 x 10 s at a constant lr of
+               1e-3: the loss falls;
+7. grads    -- one fp32 micro-step at full width and depth 1 + 2 + 1 on the
+               card and on the CPU: every parameter's gradient agrees
+               (1e-3 of its max; the first conv's 1e-2);
+8. bench    -- ``bench.py``'s gate-cell step (CTC only, clip 5 + AdamW
+               1e-3): mel-frames/s at 32 x 10 s with remat none and at
+               64 x 10 s with remat full.
 
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
@@ -27,8 +49,10 @@ from __future__ import annotations
 
 import copy
 import json
+import math
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -37,30 +61,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
-REPO = Path(__file__).resolve().parent
+# the gate config and its test data; outside a checkout this import fails
+from hnet_mamba_asr_torch.tools.gate import (
+    GATE_CONFIG, GATE_TRAIN, SEED, SR, TRAIN_FRAMES, TRAIN_ROWS, VOCAB, gate_trainer,
+    make_cmvn, synth_audio, train_batches)
 
-# configs/typeA_small_N1.yaml, the parts the serving model reads (the card's
-# machine has no PyYAML; tests/test_torch_slice.py holds this equal to the
-# YAML). The CMVN file it names is not in the repository: the smoke computes
-# its own statistics from seeded audio.
-GATE_CONFIG = {
-    "frontend_conf": {"sample_rate": 16000, "n_mels": 80, "win_length": 400,
-                      "hop_length": 160, "cmvn": "features/cmvn_train960.npz"},
-    "encoder": "dcasr",
-    "encoder_conf": {"arch_type": "A", "d_outer": 384, "d_main": 512, "n_enc": 4,
-                     "n_main": 12, "n_dec": 4, "bidirectional": True, "d_state": 128,
-                     "headdim": 64, "ssd_chunk_size": 256, "ssd_intra_dtype": "bf16",
-                     "remat_policy": "none",
-                     "hnet": {"compression_N": 1, "chunker": "dynamic",
-                              "ema_smoothing": True}},
-    "head": "ctc",
-    "model_conf": {"ctc_weight": 0.3, "aed_weight": 0.7, "lsm_weight": 0.1,
-                   "hnet_ratio_beta": 0.03},
-    "train": {"precision": "bf16"},
-}
-VOCAB = 500                     # bpe_500: 501 CTC classes
-SEED = 1                        # experiment.seed
-SR = 16000
 SSD_CALLS_PER_FORWARD = 40      # 20 bidirectional blocks x (fwd + bwd)
 # kernel vs plain (ssd_chunked at the kernel's chunk length, same inputs and
 # intra_dtype), as max|y_kernel - y_plain| / max|y_plain| and mean|d| /
@@ -77,21 +82,40 @@ STATE_BOUND = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
 # whole model, fp32 on both paths with TF32 off: log-mel by cuFFT vs the CPU
 # FFT, GEMMs and the SSD in other summation orders, through 20 blocks
 LOGPROB_BOUND = 5e-3
+# SSD backward: the kernel's gradients against autograd of ssd_chunked at
+# the kernel's chunk, per tensor, as max|d| / max|g_plain| and mean|d| /
+# mean|g_plain|. fp32: summation order only. bf16 inputs or intra_dtype bf16:
+# autograd of the plain version rounds each gradient where the forward casts
+# (W, the weighted B, S before the chunk, the intra scores, decays and dt) and
+# the kernel keeps them in fp32. Readings at BWD_SHAPES (four runs, H100,
+# equal in each: the inputs are seeded and neither side uses atomics): dx,
+# ddt, dB, dC <= 6.2e-3 of the max and 3.1e-3 of the mean. dA is H numbers,
+# each a sum of B x L terms of both signs, so it keeps more of each term's
+# rounding: <= 1.55e-2 (bf16, intra bf16, H 12) and 7.1e-3 of the mean; in
+# fp32 <= 1.9e-5.
+GRAD_BOUND = {"float32": 1e-4, "bfloat16": 2e-2}
+GRAD_MEAN_BOUND = {"float32": 1e-5, "bfloat16": 1e-2}
+DA_BOUND = {"float32": 1e-3, "bfloat16": 4e-2}
+GRAD_NAMES = ("x", "dt", "A", "B", "C")
+TRAIN_SHAPES = ((32, 249, 16), (32, 249, 12))       # B, L, H of the training step
+BWD_SHAPES = TRAIN_SHAPES + ((8, 873, 16), (1, 249, 16))
+FWD_SHAPES = tuple((Bsz, L, H) for Bsz in (8, 1) for L in (248, 873, 1000)
+                   for H in (12, 16)) + TRAIN_SHAPES
+# one micro-step on the card against the CPU, fp32, TF32 off, per parameter:
+# max|d| to 1e-3 of the leaf's max and mean|d| to 1e-3 of its mean|g|.
+# cuFFT, cuDNN, cuBLAS, the SSD kernels and CTC's atomics sum in other orders
+# than the CPU: 273 of the 275 leaves parted by <= 1.05e-4 of their max (four
+# runs, H100). The first conv's weight and bias gradients are sums over ~4e4
+# positions with heavy cancellation and parted by 3.55e-3 and 2.26e-3 of
+# their max (the same four runs); they have a bound of their own.
+PARAM_GRAD_BOUND = 1e-3
+PARAM_GRAD_MEAN_BOUND = 1e-3
+CONV1_GRAD_BOUND = 1e-2
+CONV1_LEAVES = ("encoder.subsample.conv1.weight", "encoder.subsample.conv1.bias")
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def synth_audio(rng, seconds: float):
-    """Seeded speech-like test signal: a few gliding harmonics under noise."""
-    n = int(seconds * SR)
-    t = np.arange(n) / SR
-    f0 = rng.uniform(90, 250) * (1 + 0.2 * np.sin(2 * np.pi * rng.uniform(0.2, 2) * t))
-    phase = 2 * np.pi * np.cumsum(f0) / SR
-    sig = sum(np.sin(k * phase) / k for k in range(1, 6))
-    env = 0.5 + 0.5 * np.sin(2 * np.pi * rng.uniform(1, 4) * t) ** 2
-    return (0.05 * sig * env + 0.01 * rng.normal(size=n)).astype(np.float32)
 
 
 def phase_build():
@@ -100,9 +124,10 @@ def phase_build():
     info = ssd_cuda.build()
     seconds = time.perf_counter() - t0
     for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
+        if line.endswith(".cu:") or "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
-    log(f"phase 1 build: ok, ssd_fwd.cu built in {seconds:.2f} s -> {info['path']}")
+    log(f"phase 1 build: ok, ssd_fwd.cu and ssd_bwd.cu built in {seconds:.2f} s -> "
+        f"{info['path']}, {info['bwd_path']}")
     return seconds
 
 
@@ -114,44 +139,42 @@ def phase_kernel():
     rows = []
     for dtype, intra in ((torch.bfloat16, "bf16"), (torch.float32, None)):
         name = str(dtype).removeprefix("torch.")
-        for Bsz in (8, 1):
-            for L in (248, 873, 1000):
-                for H in (12, 16):
-                    x, dt, A, B, C = ssd_inputs(Bsz, L, H, dtype, seed=SEED)
-                    y = ssd_cuda(x, dt, A, B, C, intra_dtype=intra)
-                    ref = ssd_chunked(x, dt, A, B, C, chunk_size=KERNEL_CHUNK,
-                                      intra_dtype=intra)
-                    torch.cuda.synchronize()
-                    if not torch.isfinite(y).all():
-                        raise AssertionError(f"ssd kernel output not finite "
-                                             f"({name}, B {Bsz}, L {L}, H {H})")
-                    d = (y.float() - ref.float()).abs()
-                    abs_err = d.max().item()
-                    rel = abs_err / ref.float().abs().max().item()
-                    mean = d.mean().item() / ref.float().abs().mean().item()
-                    call_ms = cuda_ms(lambda: ssd_cuda(x, dt, A, B, C, intra_dtype=intra))
-                    # the kernel's device time; the events' time if the
-                    # profiler's traces came back empty
-                    ms = kernel_ms(lambda: ssd_cuda(x, dt, A, B, C, intra_dtype=intra),
-                                   "ssd_fwd") or call_ms
-                    plain_ms = cuda_ms(lambda: ssd_chunked(
-                        x, dt, A, B, C, chunk_size=KERNEL_CHUNK, intra_dtype=intra))
-                    cost = ssd_cost(Bsz, L, H, 1, 64, 128, name)
-                    blocks = Bsz * H * (lib.hnet_ssd_fwd_bf16_cluster_size(L)
-                                        if dtype == torch.bfloat16 else 1)
-                    log(f"  ssd {name} intra {intra} B{Bsz} L{L} H{H} P64 N128 G1: "
-                        f"max|d|/max|y| {rel:.3e} (bound {SSD_BOUND[name]:g}) mean|d|/mean|y| "
-                        f"{mean:.3e} (bound {SSD_MEAN_BOUND[name]:g}) max|d| {abs_err:.3e}; "
-                        f"kernel {ms:.4f} ms (call {call_ms:.4f} ms) plain {plain_ms:.4f} ms; bound "
-                        f"{cost['bound_ms'] * 1e3:.2f} us ({cost['bound_by']}: bytes "
-                        f"{cost['bytes_us']:.2f} us, ops {cost['ops_us']:.2f} us), share "
-                        f"{cost['bound_ms'] / ms:.2%}; {blocks} blocks")
-                    if not (rel <= SSD_BOUND[name] and mean <= SSD_MEAN_BOUND[name]):
-                        raise AssertionError(f"ssd kernel disagrees with ssd_chunked: "
-                                             f"{rel:.3e}, mean {mean:.3e} ({name}, B {Bsz}, "
-                                             f"L {L}, H {H})")
-                    rows.append(dict(dtype=name, B=Bsz, H=H, L=L, rel=rel, abs_err=abs_err,
-                                     ms=ms, call_ms=call_ms, plain_ms=plain_ms, **cost))
+        for Bsz, L, H in FWD_SHAPES:
+            x, dt, A, B, C = ssd_inputs(Bsz, L, H, dtype, seed=SEED)
+            y = ssd_cuda(x, dt, A, B, C, intra_dtype=intra)
+            ref = ssd_chunked(x, dt, A, B, C, chunk_size=KERNEL_CHUNK,
+                              intra_dtype=intra)
+            torch.cuda.synchronize()
+            if not torch.isfinite(y).all():
+                raise AssertionError(f"ssd kernel output not finite "
+                                     f"({name}, B {Bsz}, L {L}, H {H})")
+            d = (y.float() - ref.float()).abs()
+            abs_err = d.max().item()
+            rel = abs_err / ref.float().abs().max().item()
+            mean = d.mean().item() / ref.float().abs().mean().item()
+            call_ms = cuda_ms(lambda: ssd_cuda(x, dt, A, B, C, intra_dtype=intra))
+            # the kernel's device time; the events' time if the
+            # profiler's traces came back empty
+            ms = kernel_ms(lambda: ssd_cuda(x, dt, A, B, C, intra_dtype=intra),
+                           "ssd_fwd") or call_ms
+            plain_ms = cuda_ms(lambda: ssd_chunked(
+                x, dt, A, B, C, chunk_size=KERNEL_CHUNK, intra_dtype=intra))
+            cost = ssd_cost(Bsz, L, H, 1, 64, 128, name)
+            blocks = Bsz * H * (lib.hnet_ssd_fwd_bf16_cluster_size(L)
+                                if dtype == torch.bfloat16 else 1)
+            log(f"  ssd {name} intra {intra} B{Bsz} L{L} H{H} P64 N128 G1: "
+                f"max|d|/max|y| {rel:.3e} (bound {SSD_BOUND[name]:g}) mean|d|/mean|y| "
+                f"{mean:.3e} (bound {SSD_MEAN_BOUND[name]:g}) max|d| {abs_err:.3e}; "
+                f"kernel {ms:.4f} ms (call {call_ms:.4f} ms) plain {plain_ms:.4f} ms; bound "
+                f"{cost['bound_ms'] * 1e3:.2f} us ({cost['bound_by']}: bytes "
+                f"{cost['bytes_us']:.2f} us, ops {cost['ops_us']:.2f} us), share "
+                f"{cost['bound_ms'] / ms:.2%}; {blocks} blocks")
+            if not (rel <= SSD_BOUND[name] and mean <= SSD_MEAN_BOUND[name]):
+                raise AssertionError(f"ssd kernel disagrees with ssd_chunked: "
+                                     f"{rel:.3e}, mean {mean:.3e} ({name}, B {Bsz}, "
+                                     f"L {L}, H {H})")
+            rows.append(dict(dtype=name, B=Bsz, H=H, L=L, rel=rel, abs_err=abs_err,
+                             ms=ms, call_ms=call_ms, plain_ms=plain_ms, **cost))
     # the serving case once more with a cold L2: a 64 MB write between launches
     x, dt, A, B, C = ssd_inputs(8, 873, 16, torch.bfloat16, seed=SEED)
     flush = torch.empty(16 * 2 ** 20, dtype=torch.float32, device="cuda")
@@ -180,14 +203,71 @@ def phase_kernel():
     return rows
 
 
-def make_cmvn(torch_device: str):
-    """CMVN statistics from seeded audio (the config's file is not shipped)."""
-    from hnet_mamba_asr_torch.data.features import GlobalCMVN
-    from hnet_mamba_asr_torch.ops.melspec import log_mel_spectrogram
-    wave = synth_audio(np.random.default_rng(SEED + 100), 20.0)
-    feats, _ = log_mel_spectrogram(torch.from_numpy(wave).to(torch_device))
-    f = feats[0].double().cpu().numpy()
-    return GlobalCMVN(f.mean(0), np.sqrt(np.maximum(f.var(0), 1e-8)))
+def phase_backward():
+    """The backward kernel's gradients against autograd of ssd_chunked on the
+    same inputs and dy, through ssd_cuda (SSDScan), and the kernel's time
+    alone (the forward's chunk states kept once) against the plain
+    backward's (autograd of ssd_chunked over a kept graph)."""
+    from hnet_mamba_asr_torch.ops import ssd_cuda as mod
+    from hnet_mamba_asr_torch.ops.ssd import ssd_chunked
+    from hnet_mamba_asr_torch.tools.measure import cuda_ms, kernel_ms, ssd_bwd_cost, ssd_inputs
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).removeprefix("torch.")
+        for intra in ("bf16", None):
+            kind = "bfloat16" if dtype == torch.bfloat16 or intra else "float32"
+            for Bsz, L, H in BWD_SHAPES:
+                args = ssd_inputs(Bsz, L, H, dtype, seed=SEED + 5)
+                gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+                dy = torch.randn(args[0].shape, generator=gen, device="cuda").to(dtype)
+                leaves = [t.clone().requires_grad_() for t in args]
+                before = mod.ssd_cuda.bwd_launches
+                got = torch.autograd.grad(mod.ssd_cuda(*leaves, intra_dtype=intra), leaves, dy)
+                torch.cuda.synchronize()
+                if mod.ssd_cuda.bwd_launches != before + 1:
+                    raise AssertionError("the gradient through ssd_cuda did not launch the "
+                                         "backward kernel once")
+                plain = [t.clone().requires_grad_() for t in args]
+                y_plain = ssd_chunked(*plain, chunk_size=KERNEL_CHUNK, intra_dtype=intra)
+                want = torch.autograd.grad(y_plain, plain, dy, retain_graph=True)
+                errs, abs_err = [], 0.0
+                for gname, a, b, t in zip(GRAD_NAMES, got, want, args):
+                    if a.dtype != t.dtype or a.shape != t.shape or not torch.isfinite(a).all():
+                        raise AssertionError(f"d{gname}: {a.dtype} {tuple(a.shape)} or not "
+                                             f"finite ({name}, intra {intra}, B {Bsz}, L {L}, "
+                                             f"H {H})")
+                    d = (a.float() - b.float()).abs()
+                    rel = (d.max() / b.float().abs().max()).item()
+                    mean = (d.mean() / b.float().abs().mean()).item()
+                    bound, mean_bound = ((DA_BOUND[kind],) * 2 if gname == "A" else
+                                         (GRAD_BOUND[kind], GRAD_MEAN_BOUND[kind]))
+                    errs.append(f"d{gname} {rel:.2e}/{mean:.2e}")
+                    abs_err = max(abs_err, d.max().item())
+                    if not (rel <= bound and mean <= mean_bound):
+                        raise AssertionError(
+                            f"ssd backward kernel disagrees with autograd of ssd_chunked: "
+                            f"d{gname} {rel:.3e} (bound {bound:g}), mean {mean:.3e} (bound "
+                            f"{mean_bound:g}) ({name}, intra {intra}, B {Bsz}, L {L}, H {H})")
+                bf = intra == "bf16"
+                _, _, states = mod._forward(*args, None, False, bf, keep_states=True)
+                run = lambda: mod._backward(*args, states, dy, None, bf, False)
+                call_ms = cuda_ms(run)
+                ms = kernel_ms(run, "ssd_bwd") or call_ms
+                plain_ms = cuda_ms(lambda: torch.autograd.grad(y_plain, plain, dy,
+                                                               retain_graph=True))
+                cost = ssd_bwd_cost(Bsz, L, H, 1, 64, 128, name)
+                log(f"  ssd_bwd {name} intra {intra} B{Bsz} L{L} H{H}: max|d|/max|g| / "
+                    f"mean|d|/mean|g| {', '.join(errs)} (bounds {GRAD_BOUND[kind]:g} / "
+                    f"{GRAD_MEAN_BOUND[kind]:g}, dA {DA_BOUND[kind]:g}); kernel {ms:.4f} ms "
+                    f"(call {call_ms:.4f} ms) plain backward {plain_ms:.4f} ms; bound "
+                    f"{cost['bound_ms'] * 1e3:.2f} us ({cost['bound_by']}: bytes "
+                    f"{cost['bytes_us']:.2f} us, ops {cost['ops_us']:.2f} us), share "
+                    f"{cost['bound_ms'] / ms:.2%}; {Bsz * H} blocks")
+                rows.append(dict(dtype=name, intra=intra, B=Bsz, H=H, L=L, abs_err=abs_err,
+                                 ms=ms, call_ms=call_ms, plain_ms=plain_ms, **cost))
+                del got, want, y_plain, states
+    log("phase 2 backward: ok")
+    return rows
 
 
 def phase_model(cmvn):
@@ -317,14 +397,196 @@ def phase_serve(cmvn):
     return launches
 
 
+def phase_train(cmvn, tmp: Path) -> dict:
+    """The gate config through Trainer: 3 updates of accum_grad 2 x (32 x
+    10 s), hybrid, bf16, SpecAugment, AED dropout, remat none; then one
+    micro-step with each remat policy."""
+    from hnet_mamba_asr_torch.ops.ssd_cuda import ssd_cuda
+    accum = GATE_TRAIN["accum_grad"]
+    batches = train_batches(np.random.default_rng(SEED + 10), 3 * accum, TRAIN_ROWS)
+    trainer = gate_trainer(GATE_CONFIG, batches, GATE_TRAIN, cmvn, tmp / "train", max_steps=3)
+    torch.cuda.reset_peak_memory_stats()
+    ssd_cuda.launches = ssd_cuda.bwd_launches = 0
+    trainer.train()
+    torch.cuda.synchronize()
+    fwd, bwd = ssd_cuda.launches, ssd_cuda.bwd_launches
+    peak = torch.cuda.max_memory_allocated()
+    micro = accum * len(trainer.history)
+    for r in trainer.history:
+        log(f"  step {r['step']}: loss {r['loss/total']:.4f} (ctc {r['loss/ctc']:.4f}, aed "
+            f"{r['loss/aed']:.4f}) grad norm {r['grad_norm']:.6g} lr {r['lr']:.3e} kept "
+            f"{r['kept_fraction']:.3f} infeasible {r['ctc_infeasible']:.0f}; {r['ms']:.1f} ms "
+            f"(CUDA events), {r['frames']} mel frames")
+        if not (math.isfinite(r["loss/total"]) and math.isfinite(r["grad_norm"])):
+            raise AssertionError(f"step {r['step']}: loss or gradient not finite: {r}")
+    if len(trainer.history) != 3 or micro != len(batches):
+        raise AssertionError(f"{len(trainer.history)} updates of {micro} micro-steps, want 3 "
+                             f"of {len(batches)}")
+    timed = trainer.history[1:]                      # after one warm-up step
+    step_ms = float(np.mean([r["ms"] for r in timed]))
+    fps = float(np.mean([r["frames"] for r in timed])) / step_ms * 1e3
+    log(f"  train: {step_ms:.1f} ms per update of {accum} x ({TRAIN_ROWS} x 10 s) after one "
+        f"warm-up update, {fps:.0f} mel-frames/s; max_memory_allocated {peak / 1e9:.2f} GB; "
+        f"ssd launches per micro-step: forward {fwd / micro:g}, backward {bwd / micro:g}")
+    if fwd != SSD_CALLS_PER_FORWARD * micro or bwd != SSD_CALLS_PER_FORWARD * micro:
+        raise AssertionError(f"ssd launches {fwd} forward, {bwd} backward over {micro} "
+                             f"micro-steps; want {SSD_CALLS_PER_FORWARD} each per micro-step")
+    batch = trainer._to_device(batches[0])
+    del trainer
+    remat_micro_steps(cmvn, batch)
+    torch.cuda.empty_cache()
+    log("phase 5 train: ok")
+    return {"ssd_fwd": fwd, "ssd_bwd": bwd, "step_ms": step_ms, "fps": fps, "peak": peak}
+
+
+# a remat policy only moves where the forward is computed: the same kernels
+# on the same inputs give the same loss; the gradients' global norm parts
+# only by CTC's atomics (CUDA's CTC backward), whose order flips bf16
+# roundings downstream
+REMAT_LOSS_BOUND = 1e-6
+REMAT_NORM_BOUND = 1e-3
+
+
+def remat_micro_steps(cmvn, batch) -> None:
+    """One micro-step of the gate config (train mode, step 0) on ``batch``
+    per remat policy, each from the seeded weights: ``full`` and ``dots``
+    give remat ``none``'s loss and gradient norm, and run each block's two
+    scans again in its backward (80 forward and 40 backward launches)."""
+    from hnet_mamba_asr_torch.ops.ssd_cuda import ssd_cuda
+    from hnet_mamba_asr_torch.tasks.asr_task import build_model
+    out = {}
+    for policy in ("none", "full", "dots"):
+        cfg = copy.deepcopy(GATE_CONFIG)
+        cfg["encoder_conf"]["remat_policy"] = policy
+        model = build_model(cfg, VOCAB, cmvn=cmvn, seed=SEED).train()
+        torch.cuda.synchronize()
+        ssd_cuda.launches = ssd_cuda.bwd_launches = 0
+        loss, _ = model.loss_fn(batch, 0, True)
+        loss.backward()
+        torch.cuda.synchronize()
+        launches = (ssd_cuda.launches, ssd_cuda.bwd_launches)
+        norm = torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(p.grad.float()) for p in model.parameters()])).item()
+        out[policy] = {"loss": loss.item(), "grad_norm": norm, "launches": launches}
+        del model, loss
+        ref = out["none"]
+        d_loss = abs(out[policy]["loss"] - ref["loss"]) / abs(ref["loss"])
+        d_norm = abs(norm - ref["grad_norm"]) / ref["grad_norm"]
+        log(f"  remat {policy}, one micro-step: loss {out[policy]['loss']:.6f} grad norm "
+            f"{norm:.6g} (vs none: {d_loss:.2e} / {d_norm:.2e}, bounds {REMAT_LOSS_BOUND:g} / "
+            f"{REMAT_NORM_BOUND:g}); ssd launches forward {launches[0]}, backward "
+            f"{launches[1]}")
+        want = (SSD_CALLS_PER_FORWARD * (1 if policy == "none" else 2), SSD_CALLS_PER_FORWARD)
+        if launches != want:
+            raise AssertionError(f"remat {policy}: ssd launches {launches}, want {want}")
+        if not (math.isfinite(norm) and d_loss <= REMAT_LOSS_BOUND
+                and d_norm <= REMAT_NORM_BOUND):
+            raise AssertionError(f"remat {policy} changes the micro-step: {out[policy]} vs "
+                                 f"none {ref}")
+
+
+# bench.py's optimizer (optax.adamw(1e-3) after clip_by_global_norm(5.0)),
+# constant lr; weight decay 1e-4 (optax's default) on >= 2-D leaves
+BENCH_TRAIN = {"optim": "adamw", "optim_conf": {"lr": 1e-3, "weight_decay": 1e-4},
+               "scheduler": None, "grad_clip": 5.0, "accum_grad": 1, "max_epoch": 1}
+
+
+def phase_descent(cmvn, tmp: Path) -> None:
+    """5 updates on one fixed batch of 8 x 10 s: the loss falls (the
+    config's warmuplr starts at ~3e-8 and could not show it)."""
+    batch = train_batches(np.random.default_rng(SEED + 11), 1, 8)[0]
+    trainer = gate_trainer(GATE_CONFIG, [batch] * 5, BENCH_TRAIN, cmvn, tmp / "descent",
+                           max_steps=5)
+    trainer.train()
+    losses = [r["loss/total"] for r in trainer.history]
+    log(f"  fixed batch of 8 x 10 s, lr 1e-3 constant: losses "
+        f"{', '.join(f'{v:.4f}' for v in losses)}")
+    if len(losses) != 5 or not all(math.isfinite(v) for v in losses) \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall over 5 steps: {losses}")
+    del trainer
+    torch.cuda.empty_cache()
+    log("phase 6 descent: ok")
+
+
+def phase_grads(cmvn) -> float:
+    """One fp32 micro-step (hybrid loss, eval mode) at full width and depth
+    1 + 2 + 1, intra_dtype off, on the card (kernels) and on the CPU (plain
+    path): every parameter's gradient agrees."""
+    from hnet_mamba_asr_torch.tasks.asr_task import build_model
+    from hnet_mamba_asr_torch.training.trainer import DEVICE_KEYS
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = copy.deepcopy(GATE_CONFIG)
+    cfg["encoder_conf"].update(n_enc=1, n_main=2, n_dec=1, ssd_intra_dtype=None)
+    cfg["train"]["precision"] = "fp32"
+    batch = train_batches(np.random.default_rng(SEED + 12), 1, 2)[0]
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = build_model(cfg, VOCAB, cmvn=cmvn, seed=SEED, device=device).train()
+        b = dict(batch, **{k: torch.as_tensor(batch[k]).to(device) for k in DEVICE_KEYS})
+        loss, _ = model.loss_fn(b, 0, False)
+        loss.backward()
+        out[device] = (loss.item(), {n: p.grad.detach().cpu()
+                                     for n, p in model.named_parameters()})
+        del model, loss
+    (loss_k, gk), (loss_p, gp) = out["cuda"], out["cpu"]
+    rows = []
+    for name, g in gp.items():
+        if not torch.isfinite(gk[name]).all():
+            raise AssertionError(f"{name}: card gradient not finite")
+        d = (gk[name] - g).abs()
+        bound = CONV1_GRAD_BOUND if name in CONV1_LEAVES else PARAM_GRAD_BOUND
+        rows.append(((d.max() / g.abs().max().clamp(min=1e-30)).item(),
+                     (d.mean() / g.abs().mean().clamp(min=1e-30)).item(), name, bound))
+    rows.sort(reverse=True)
+    worst_mean = max(r[1] for r in rows)
+    log(f"  fp32 depth 1+2+1, 2 x 10 s, hybrid: loss card {loss_k:.6f} cpu {loss_p:.6f}; "
+        f"{len(gp)} parameter gradients, max|d|/max|g| worst "
+        + ", ".join(f"{r[0]:.2e} ({r[2]}, bound {r[3]:g})" for r in rows[:4])
+        + f"; mean|d|/mean|g| worst {worst_mean:.2e} (bound {PARAM_GRAD_MEAN_BOUND:g})")
+    over = [r for r in rows if not r[0] <= r[3]]
+    if over or not (worst_mean <= PARAM_GRAD_MEAN_BOUND
+                    and abs(loss_k - loss_p) <= 1e-4 * abs(loss_p)):
+        raise AssertionError(f"card and CPU gradients disagree: {over or rows[:3]}")
+    torch.cuda.empty_cache()
+    log("phase 7 grads: ok")
+
+
+def phase_bench(tmp: Path) -> dict:
+    """bench.py's gate-cell step: CTC only, no SpecAugment, clip 5 + AdamW
+    1e-3, 32 x 10 s with remat none (intra bf16) and 64 x 10 s with remat
+    full; mel-frames/s over 3 updates after 2 warm-ups (CUDA events)."""
+    out = {}
+    for rows, policy, intra in ((32, "none", "bf16"), (64, "full", None)):
+        cfg = copy.deepcopy(GATE_CONFIG)
+        cfg.pop("specaug_conf")
+        cfg["model_conf"] = {"ctc_weight": 1.0, "aed_weight": 0.0}
+        cfg["encoder_conf"].update(remat_policy=policy, ssd_intra_dtype=intra)
+        batch = train_batches(np.random.default_rng(SEED + 13), 1, rows)[0]
+        torch.cuda.reset_peak_memory_stats()
+        trainer = gate_trainer(cfg, [batch] * 5, BENCH_TRAIN, None, tmp / f"bench{rows}",
+                               max_steps=5)
+        trainer.train()
+        ms = float(np.mean([r["ms"] for r in trainer.history[2:]]))
+        fps = rows * TRAIN_FRAMES / ms * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        log(f"  bench step {rows} x 10 s ({rows * TRAIN_FRAMES} frames), remat {policy}, intra "
+            f"{intra}: {ms:.1f} ms, {fps:.0f} mel-frames/s, max_memory_allocated "
+            f"{peak / 1e9:.2f} GB; losses {[round(r['loss/total'], 4) for r in trainer.history]}")
+        if not all(math.isfinite(r["loss/total"]) for r in trainer.history):
+            raise AssertionError("bench step: loss not finite")
+        out[policy] = {"rows": rows, "ms": ms, "fps": fps}
+        del trainer
+        torch.cuda.empty_cache()
+    log("phase 8 bench: ok")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    if not (REPO / "hnet_mamba_asr_torch" / "csrc" / "ssd_fwd.cu").exists():
-        print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(REPO))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
@@ -332,22 +594,37 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
         f"device {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     phase_build()
-    rows = phase_kernel()
+    fwd_rows = phase_kernel()
+    bwd_rows = phase_backward()
     cmvn = make_cmvn("cuda")
     phase_model(cmvn)
-    launches = phase_serve(cmvn)
-    main = next(r for r in rows if (r["dtype"], r["B"], r["L"], r["H"])
-                == ("bfloat16", 8, 248, 16))
-    log("kernel summary: ssd_fwd at bf16 (intra bf16) B8 L248 H16 P64 N128 "
-        "(a 10 s request, main stack); no single PyTorch call computes the scan")
-    log(json.dumps({"kernels": [{
-        "name": "ssd_fwd", "route": "cuda",
-        "source": "hnet_mamba_asr_torch/csrc/ssd_fwd.cu",
-        "replaces": "hnet_mamba_asr_tpu/ops/ssd_pallas.py:33",
-        "launches": launches, "max_abs_err": main["abs_err"],
-        "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-        "bound_by": main["bound_by"], "library_ms": None,
-        "roofline_share": main["bound_ms"] / main["ms"]}]}))
+    serve_launches = phase_serve(cmvn)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        train = phase_train(cmvn, Path(tmp))
+        phase_descent(cmvn, Path(tmp))
+        phase_grads(cmvn)
+        bench = phase_bench(Path(tmp))
+    log(f"training summary: gate config {train['step_ms']:.1f} ms per update, "
+        f"{train['fps']:.0f} mel-frames/s, peak {train['peak'] / 1e9:.2f} GB; bench.py step "
+        f"{bench['none']['fps']:.0f} (32 x 10 s, remat none) and {bench['full']['fps']:.0f} "
+        f"(64 x 10 s, remat full) mel-frames/s")
+    main_shape = ("bfloat16", TRAIN_ROWS, 249, 16)
+    fwd = next(r for r in fwd_rows if (r["dtype"], r["B"], r["L"], r["H"]) == main_shape)
+    bwd = next(r for r in bwd_rows if (r["dtype"], r["B"], r["L"], r["H"]) == main_shape
+               and r["intra"] == "bf16")
+    log(f"kernel summary: both at bf16 (intra bf16) B{TRAIN_ROWS} L249 H16 P64 N128 (a "
+        f"micro-batch of 32 x 10 s, main stack); launches from the training run "
+        f"(6 micro-steps); ssd_fwd launched {serve_launches} times in the serve run; no "
+        f"single PyTorch call computes the scan or its gradient")
+    log(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": f"hnet_mamba_asr_torch/csrc/{name}.cu",
+         "replaces": replaces, "launches": train[name], "max_abs_err": r["abs_err"],
+         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+         "bound_by": r["bound_by"], "library_ms": None,
+         "roofline_share": r["bound_ms"] / r["ms"]}
+        for name, replaces, r in (
+            ("ssd_fwd", "hnet_mamba_asr_tpu/ops/ssd_pallas.py:33", fwd),
+            ("ssd_bwd", "hnet_mamba_asr_tpu/ops/ssd.py:148", bwd))]}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

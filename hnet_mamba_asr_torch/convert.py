@@ -1,19 +1,25 @@
-"""Carry JAX weights into the port: flax param tree -> ``state_dict``.
+"""Carry weights between the JAX package and the port, both ways.
 
-Reads the nested-dict param tree that the JAX package's ``init_params`` or a
-checkpoint gives (numpy leaves), or the path-keyed ``params.npz`` that
-``scripts/export_serving.py`` writes (keys like
-``['encoder']['dec']['block_0']['bwd']['a_log']``). The layouts change so:
+``jax_to_state_dict`` reads the nested-dict param tree that the JAX
+package's ``init_params`` or a checkpoint gives (numpy leaves), or the
+path-keyed ``params.npz`` that ``scripts/export_serving.py`` writes (keys
+like ``['encoder']['dec']['block_0']['bwd']['a_log']``).
+``state_dict_to_jax_tree`` gives the flax tree back, as numpy arrays, so
+that a checkpoint the port writes loads in the JAX package. The layouts
+change so:
 
-- Dense ``kernel`` [in, out] -> ``weight`` [out, in];
-- Conv ``kernel`` HWIO -> ``weight`` OIHW;
-- LayerNorm ``scale`` -> ``weight``;
-- Mamba2 ``conv_w`` [d_conv, C] -> the depthwise layout [C, 1, d_conv];
-- ``block_<i>`` -> ``blocks.<i>``; every other name is kept.
+- Dense ``kernel`` [in, out] <-> ``weight`` [out, in];
+- Conv ``kernel`` HWIO <-> ``weight`` OIHW;
+- LayerNorm ``scale`` <-> ``weight``;
+- Embed ``embedding`` [V, d] <-> ``weight`` [V, d];
+- Mamba2 ``conv_w`` [d_conv, C] <-> the depthwise layout [C, 1, d_conv];
+- ``block_<i>`` <-> ``blocks.<i>`` and ``layer_<i>`` <-> ``layers.<i>``;
+  every other name is kept.
 
-The ``aed`` and ``rnnt`` subtrees are skipped (their heads are not ported),
-and a log line says so. int8-quantized artifacts raise, and so does any key
-that the model does not have or that it has and the tree lacks.
+The ``rnnt`` subtree is skipped (its head is not ported), and so is the
+``aed`` subtree when the model has no AED head; a log line says so. int8-
+quantized artifacts raise, and so does any key that the model does not have
+or that it has and the tree lacks.
 """
 from __future__ import annotations
 
@@ -26,10 +32,10 @@ import torch
 
 logger = logging.getLogger(__name__)
 
-SKIPPED_HEADS = ("aed", "rnnt")
+HEADS = ("ctc", "aed", "rnnt")            # top-level subtrees a model may lack
 QUANT_KEYS = ("~q8", "~scale")           # serving/quant.py's int8 leaf subtree
 _KEY_RE = re.compile(r"\['([^']*)'\]|\[(\d+)\]")
-_BLOCK_RE = re.compile(r"^block_(\d+)$")
+_LIST_RE = re.compile(r"^(block|layer)_(\d+)$")
 
 
 def params_to_tree(flat: dict):
@@ -67,7 +73,7 @@ def load_params_npz(path: str | Path) -> dict:
 
 def _convert_leaf(path: list[str], a: np.ndarray) -> tuple[str, np.ndarray]:
     *mods, leaf = path
-    mods = [f"blocks.{m.group(1)}" if (m := _BLOCK_RE.match(p)) else p for p in mods]
+    mods = [f"{m.group(1)}s.{m.group(2)}" if (m := _LIST_RE.match(p)) else p for p in mods]
     if leaf == "kernel":
         if a.ndim == 2:
             a = a.T                                   # [in, out] -> [out, in]
@@ -76,18 +82,55 @@ def _convert_leaf(path: list[str], a: np.ndarray) -> tuple[str, np.ndarray]:
         else:
             raise ValueError(f"unexpected {a.ndim}-D kernel at {'/'.join(path)}")
         leaf = "weight"
-    elif leaf == "scale":
+    elif leaf in ("scale", "embedding"):
         leaf = "weight"
     elif leaf == "conv_w":
         a = a.T[:, None, :]                           # [d_conv, C] -> [C, 1, d_conv]
     return ".".join(mods + [leaf]), a
 
 
-def jax_to_state_dict(tree: dict) -> dict[str, torch.Tensor]:
-    """JAX param tree -> the port's state_dict keys and layouts (fp32)."""
-    skipped = [k for k in SKIPPED_HEADS if k in tree]
+def _jax_leaf(key: str, a: np.ndarray) -> tuple[list[str], np.ndarray]:
+    """The inverse of ``_convert_leaf``: a state_dict key -> JAX path, leaf."""
+    *mods, leaf = key.split(".")
+    path: list[str] = []
+    for m in mods:
+        if m.isdigit() and path and path[-1] in ("blocks", "layers"):
+            path[-1] = f"{path[-1][:-1]}_{m}"
+        else:
+            path.append(m)
+    if leaf == "weight":
+        if a.ndim == 4:
+            a, leaf = a.transpose(2, 3, 1, 0), "kernel"   # OIHW -> HWIO
+        elif a.ndim == 2:
+            a, leaf = (a, "embedding") if path[-1] == "embed" else (a.T, "kernel")
+        elif a.ndim == 1:
+            leaf = "scale"
+        else:
+            raise ValueError(f"unexpected {a.ndim}-D weight at {key}")
+    elif leaf == "conv_w":
+        a = a[:, 0, :].T                              # [C, 1, d_conv] -> [d_conv, C]
+    return path + [leaf], a
+
+
+def state_dict_to_jax_tree(state_dict: dict) -> dict:
+    """The port's state_dict -> the flax param tree, leaf for leaf, as fp32
+    numpy arrays (the layout the JAX package's checkpoints hold)."""
+    tree: dict = {}
+    for key, value in state_dict.items():
+        path, a = _jax_leaf(key, value.detach().float().cpu().numpy())
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = np.ascontiguousarray(a)
+    return tree
+
+
+def jax_to_state_dict(tree: dict, skip: tuple[str, ...] = ("rnnt",)) -> dict[str, torch.Tensor]:
+    """JAX param tree -> the port's state_dict keys and layouts (fp32),
+    without the top-level subtrees named in ``skip``."""
+    skipped = [k for k in skip if k in tree]
     if skipped:
-        logger.info("convert: skipping the %s subtrees (heads not ported)", skipped)
+        logger.info("convert: skipping the %s subtrees (heads not in the model)", skipped)
     out: dict[str, torch.Tensor] = {}
 
     def walk(node, path):
@@ -102,7 +145,7 @@ def jax_to_state_dict(tree: dict) -> dict[str, torch.Tensor]:
         out[key] = torch.from_numpy(np.array(a, order="C"))    # owned copy
 
     for k, v in tree.items():
-        if k not in SKIPPED_HEADS:
+        if k not in skip:
             walk(v, [str(k)])
     return out
 
@@ -112,7 +155,8 @@ def load_jax_params(model: torch.nn.Module, params) -> torch.nn.Module:
     Every key must match both ways, with the same shape."""
     if isinstance(params, (str, Path)):
         params = load_params_npz(params)
-    sd = jax_to_state_dict(params)
+    sd = jax_to_state_dict(params, skip=tuple(h for h in HEADS
+                                              if getattr(model, h, None) is None))
     want = model.state_dict()
     missing = sorted(set(want) - set(sd))
     unknown = sorted(set(sd) - set(want))

@@ -144,7 +144,7 @@ ssd_fwd_fp32_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                     const float* __restrict__ A, const float* __restrict__ Bm,
                     const float* __restrict__ Cm, const float* __restrict__ s0,
                     float* __restrict__ y, float* __restrict__ s_final,
-                    int L, int H, int G, int intra_bf16) {
+                    float* __restrict__ s_chunks, int L, int H, int G, int intra_bf16) {
   static_assert(P % kTile == 0 && N % kTile == 0, "P and N must be multiples of 16");
   constexpr int kPT = P / kTile;
   constexpr int kNT = N / kTile;
@@ -195,6 +195,11 @@ ssd_fwd_fp32_kernel(const float* __restrict__ x, const float* __restrict__ dt,
       const bool in = t < L;
       sB[q * kBS + n] = in ? Bb[(size_t)t * bc_row + n] : 0.f;
       sC[q * kBS + n] = in ? Cb[(size_t)t * bc_row + n] : 0.f;
+    }
+    // The state before this chunk, for the backward kernel.
+    if (s_chunks != nullptr) {
+      float* out = s_chunks + (state_off * ((L + kQ - 1) / kQ) + (size_t)(t0 / kQ) * N * P);
+      for (int i = tid; i < N * P; i += kThreads32) out[i] = sS[i];
     }
     // 2. Within-chunk inclusive cumsum of a = dt * A.
     if (tid < kQ) {
@@ -409,6 +414,7 @@ struct Bf16Args {
   const float* s0;
   __nv_bfloat16* y;
   float* s_final;
+  float* s_chunks;          // [B, H, K, N, P] state before each chunk, or null
   int L, H, G, K, intra_bf16;
 };
 
@@ -585,6 +591,9 @@ ssd_fwd_bf16_kernel(const Bf16Args a) {
           if (kk < nk) {
             *reinterpret_cast<uint32_t*>(cluster.map_shared_rank(smem, kk) + Smem16::kSB +
                                          2 * off) = pack_bf16(S.x, S.y);
+            if (a.s_chunks != nullptr)
+              *reinterpret_cast<float2*>(a.s_chunks + state_off * a.K +
+                                         (size_t)(k_first + kk) * kN * kP + n * kP + p) = S;
             S.x = __fadd_rn(__fmul_rn(decay[kk], S.x), dS[kk].x);
             S.y = __fadd_rn(__fmul_rn(decay[kk], S.y), dS[kk].y);
           }
@@ -707,8 +716,8 @@ ssd_fwd_bf16_kernel(const Bf16Args a) {
 }
 
 int launch_fp32(const void* x, const float* dt, const float* A, const void* B,
-                const void* C, const float* s0, void* y, float* s_final, int batch,
-                int L, int H, int G, int intra_bf16, cudaStream_t stream) {
+                const void* C, const float* s0, void* y, float* s_final, float* s_chunks,
+                int batch, int L, int H, int G, int intra_bf16, cudaStream_t stream) {
   auto kernel = ssd_fwd_fp32_kernel<kP, kN>;
   const size_t smem = Smem32<kP, kN>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
@@ -716,7 +725,7 @@ int launch_fp32(const void* x, const float* dt, const float* A, const void* B,
   if (err != cudaSuccess) return (int)err;
   kernel<<<dim3(H, batch), kThreads32, smem, stream>>>(
       static_cast<const float*>(x), dt, A, static_cast<const float*>(B),
-      static_cast<const float*>(C), s0, static_cast<float*>(y), s_final, L, H, G,
+      static_cast<const float*>(C), s0, static_cast<float*>(y), s_final, s_chunks, L, H, G,
       intra_bf16);
   return (int)cudaGetLastError();
 }
@@ -729,8 +738,8 @@ int cluster_size(int L) {
 }
 
 int launch_bf16(const void* x, const float* dt, const float* A, const void* B,
-                const void* C, const float* s0, void* y, float* s_final, int batch,
-                int L, int H, int G, int intra_bf16, cudaStream_t stream) {
+                const void* C, const float* s0, void* y, float* s_final, float* s_chunks,
+                int batch, int L, int H, int G, int intra_bf16, cudaStream_t stream) {
   const int K = (L + kQ - 1) / kQ;
   const int cs = cluster_size(L);
   int dev = 0;
@@ -748,7 +757,7 @@ int launch_bf16(const void* x, const float* dt, const float* A, const void* B,
   }
   Bf16Args args{static_cast<const __nv_bfloat16*>(x), dt, A,
                 static_cast<const __nv_bfloat16*>(B), static_cast<const __nv_bfloat16*>(C),
-                s0, static_cast<__nv_bfloat16*>(y), s_final, L, H, G, K, intra_bf16};
+                s0, static_cast<__nv_bfloat16*>(y), s_final, s_chunks, L, H, G, K, intra_bf16};
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cs, H, batch);
   cfg.blockDim = dim3(kThreads, 1, 1);
@@ -783,22 +792,23 @@ int hnet_ssd_fwd_supported(int P, int N) { return P == kP && N == kN; }
 // CTAs per (b, h) of a bf16 call at this L (the fp32 kernel takes one).
 int hnet_ssd_fwd_bf16_cluster_size(int L) { return cluster_size(L); }
 
-// dtype: 0 = float32, 1 = bfloat16 (x, B, C and y). s0 and s_final may be
-// null.
+// dtype: 0 = float32, 1 = bfloat16 (x, B, C and y). s0, s_final and
+// s_chunks may be null; s_chunks [B, H, K = ceil(L / 64), N, P] receives the
+// fp32 state before each chunk, which the backward kernel (ssd_bwd.cu) reads.
 // intra_bf16: 1 forms the intra-chunk weights in bf16. Returns a cudaError_t
 // code, 0 on success; launches asynchronously on `stream`.
 int hnet_ssd_fwd(int dtype, const void* x, const float* dt, const float* A,
                  const void* B, const void* C, const float* s0, void* y,
-                 float* s_final, int batch, int L, int H, int G, int P, int N,
-                 int intra_bf16, void* stream) {
+                 float* s_final, float* s_chunks, int batch, int L, int H, int G, int P,
+                 int N, int intra_bf16, void* stream) {
   if (batch <= 0 || L <= 0 || H <= 0 || G <= 0 || H % G != 0 ||
       !hnet_ssd_fwd_supported(P, N))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_fp32(x, dt, A, B, C, s0, y, s_final, batch, L, H, G, intra_bf16, s);
+    return launch_fp32(x, dt, A, B, C, s0, y, s_final, s_chunks, batch, L, H, G, intra_bf16, s);
   if (dtype == 1)
-    return launch_bf16(x, dt, A, B, C, s0, y, s_final, batch, L, H, G, intra_bf16, s);
+    return launch_bf16(x, dt, A, B, C, s0, y, s_final, s_chunks, batch, L, H, G, intra_bf16, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -44,14 +44,24 @@ def lengths_to_mask(lengths: torch.Tensor, T: int) -> torch.Tensor:
 def _new_conv(c_in: int, c_out: int, generator) -> nn.Conv2d:
     conv = nn.Conv2d(c_in, c_out, kernel_size=3, stride=2)
     lecun_normal_(conv.weight, 9 * c_in, generator)
-    nn.init.zeros_(conv.bias)
     return conv
 
 
 class ConvSubsampling4(nn.Module):
     """x4 time downsample: two Conv(k=3, s=2, VALID) + ReLU, flatten F x C ->
     Linear. The flatten runs over [B, T, F, C], the JAX layout, so JAX
-    weights load unscrambled."""
+    weights load unscrambled.
+
+    Weights are drawn as flax draws them (lecun-normal), but the three
+    biases as torch draws them, U(+-1/sqrt(fan_in)), as in the reference
+    repo, not flax's zeros. With zero biases a frame that SpecAugment's time
+    masks zero out leaves the subsampling as an all-zero vector and stays
+    one through every block (LayerNorm, the Mamba mixer and the gated
+    RMSNorm all map 0 to 0), while each block's backward scales its
+    gradient by the norms' 1/sqrt(eps): ~1e5 per block, inf through the
+    gate config's 20 blocks, so its first update is NaN (the JAX package's
+    init does this). Non-zero biases give such a frame a non-constant
+    vector from the start."""
 
     def __init__(self, n_mels: int, d_model: int, dtype: torch.dtype = torch.float32,
                  generator: torch.Generator | None = None):
@@ -61,6 +71,10 @@ class ConvSubsampling4(nn.Module):
         self.conv2 = _new_conv(d_model, d_model, generator)
         f_out = ((n_mels - 1) // 2 - 1) // 2
         self.proj = new_linear(f_out * d_model, d_model, True, generator)
+        with torch.no_grad():
+            for layer in (self.conv1, self.conv2, self.proj):
+                bound = layer.weight[0].numel() ** -0.5
+                layer.bias.uniform_(-bound, bound, generator=generator)
 
     def forward(self, feats: torch.Tensor, lengths: torch.Tensor):
         cd = self.dtype
@@ -82,7 +96,8 @@ class DCASREncoder(nn.Module):
                  arch_type: str = "A", N: float = 1, bidirectional: bool = True,
                  chunker: str = "dynamic", d_state: int = 128, headdim: int = 64,
                  chunk_size: int = 256, ssd_intra_dtype: str | None = None,
-                 ssd_out_compute_dtype: bool = False, dtype: torch.dtype = torch.float32,
+                 ssd_out_compute_dtype: bool = False, remat_policy: str = "none",
+                 dtype: torch.dtype = torch.float32,
                  generator: torch.Generator | None = None):
         super().__init__()
         if arch_type not in ("A", "B"):
@@ -98,7 +113,7 @@ class DCASREncoder(nn.Module):
         stack_kw = dict(bidirectional=bidirectional, d_state=d_state, headdim=headdim,
                         chunk_size=chunk_size, ssd_intra_dtype=ssd_intra_dtype,
                         ssd_out_compute_dtype=ssd_out_compute_dtype,
-                        dtype=dtype, generator=generator)
+                        remat_policy=remat_policy, dtype=dtype, generator=generator)
         self.subsample = ConvSubsampling4(n_mels, d_outer, dtype, generator)
         self.enc = MambaStack(n_enc, d_outer, **stack_kw)
         self.proj_in = new_linear(d_outer, d_main, True, generator)

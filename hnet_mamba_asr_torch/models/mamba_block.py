@@ -6,8 +6,17 @@ where ``reverse`` flips only the valid span of each sequence (padding stays
 in place), so the causal scan never sees padding on valid outputs. A stack
 is N blocks and a final LayerNorm. LayerNorms use flax's eps of 1e-6 and
 fp32 statistics.
+
+``remat_policy`` (``encoder_conf.remat_policy``, as in the JAX stack) sets
+what a block keeps for its backward while training: ``none`` keeps
+everything; ``full`` recomputes the block (``torch.utils.checkpoint``), so
+its two SSD forward kernels run twice per step; ``dots`` keeps only the
+matrix products' outputs (``aten.mm`` / ``aten.addmm``, JAX's
+``dots_saveable``) through selective checkpointing.
 """
 from __future__ import annotations
+
+from functools import partial
 
 import torch
 import torch.nn as nn
@@ -64,20 +73,49 @@ class MambaBlock(nn.Module):
         return x + y
 
 
+REMAT_POLICIES = ("none", "full", "dots")
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``dots``: keep the matmul outputs."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 class MambaStack(nn.Module):
-    """n_layers MambaBlocks and a final LayerNorm; shape-preserving. Serving
-    needs no recomputation, so there is no remat here."""
+    """n_layers MambaBlocks and a final LayerNorm; shape-preserving. The
+    remat policy acts only where autograd records a graph (training)."""
 
     def __init__(self, n_layers: int, d_model: int, dtype: torch.dtype = torch.float32,
-                 generator: torch.Generator | None = None, **block_kw):
+                 generator: torch.Generator | None = None, remat_policy: str = "none",
+                 **block_kw):
         super().__init__()
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"unknown remat_policy {remat_policy!r}; "
+                             f"choices: {', '.join(REMAT_POLICIES)}")
         self.dtype = dtype
+        self.remat_policy = remat_policy
         self.blocks = nn.ModuleList(
             MambaBlock(d_model, dtype=dtype, generator=generator, **block_kw)
             for _ in range(n_layers))
         self.norm = nn.LayerNorm(d_model, eps=LN_EPS)
 
+    def _block_call(self, block, x, lengths):
+        if self.remat_policy == "none" or not torch.is_grad_enabled():
+            return block(x, lengths)
+        from torch.utils import checkpoint
+        if self.remat_policy == "full":
+            return checkpoint.checkpoint(block, x, lengths, use_reentrant=False)
+        if not hasattr(checkpoint, "create_selective_checkpoint_contexts"):
+            raise NotImplementedError("remat_policy 'dots' needs torch's selective "
+                                      "checkpointing (torch >= 2.4)")
+        return checkpoint.checkpoint(
+            block, x, lengths, use_reentrant=False,
+            context_fn=partial(checkpoint.create_selective_checkpoint_contexts, _dots_policy))
+
     def forward(self, x: torch.Tensor, lengths: torch.Tensor | None = None) -> torch.Tensor:
         for block in self.blocks:
-            x = block(x, lengths)
+            x = self._block_call(block, x, lengths)
         return layer_norm(x, self.norm, self.dtype)

@@ -1,15 +1,21 @@
-"""The Hopper SSD scan kernel (``csrc/ssd_fwd.cu``): build, bind, launch.
+"""The Hopper SSD scan kernels (``csrc/ssd_fwd.cu``, ``csrc/ssd_bwd.cu``):
+build, bind, launch, differentiate.
 
-Counterpart of the Pallas kernel ``hnet_mamba_asr_tpu/ops/ssd_pallas.py``.
-The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface and loaded with ``ctypes``. The build happens at the
-first launch, from the package's own source, into ``_build/`` beside this
-package; the library's name carries a hash of the source and the flags, so
-an edited source is rebuilt and never mixed with an old library.
+Counterpart of the Pallas kernel ``hnet_mamba_asr_tpu/ops/ssd_pallas.py``
+(forward) and of the JAX package's autodiff of ``ops/ssd.py::ssd_chunked``
+(backward). Each source is compiled with ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface and loaded with ``ctypes``; the two
+compile in parallel at the first launch, from the package's own sources,
+into ``_build/`` beside this package. A library's name carries a hash of its
+source and the flags, so an edited source is rebuilt and never mixed with an
+old library.
 
 ``ssd_cuda`` is the wrapper a model calls. A tensor on the CPU goes to the
-plain version, ``ops/ssd.py::ssd_chunked``; a CUDA tensor launches the kernel
-or raises. ``ssd_cuda.launches`` counts the kernel launches.
+plain version, ``ops/ssd.py::ssd_chunked``, which autograd differentiates; a
+CUDA tensor launches the forward kernel or raises, and when grad mode is on
+and an input requires grad the call goes through ``SSDScan``, whose backward
+is the backward kernel. ``ssd_cuda.launches`` and ``ssd_cuda.bwd_launches``
+count the kernels' launches.
 """
 from __future__ import annotations
 
@@ -27,7 +33,9 @@ import torch
 from hnet_mamba_asr_torch.ops.ssd import normalize_intra_dtype, ssd_chunked
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
-SOURCE = PACKAGE_DIR / "csrc" / "ssd_fwd.cu"
+SOURCES = {"fwd": PACKAGE_DIR / "csrc" / "ssd_fwd.cu",
+           "bwd": PACKAGE_DIR / "csrc" / "ssd_bwd.cu"}
+CHUNK = 64                      # the kernels' chunk length
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -43,51 +51,63 @@ def _nvcc() -> str:
         return str(Path(CUDA_HOME) / "bin" / "nvcc")
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found: the SSD kernel is built from "
-                           f"{SOURCE} at first use and needs the CUDA toolkit")
+        raise RuntimeError("nvcc not found: the SSD kernels are built from "
+                           f"{PACKAGE_DIR / 'csrc'} at first use and need the CUDA toolkit")
     return found
 
 
 def build(defines: tuple[str, ...] = ()) -> dict:
-    """Compile (once per process and source hash) and load the kernel library.
+    """Compile (once per process and source hash) and load the two kernel
+    libraries, one ``nvcc`` per source, started together.
 
-    Returns ``{"lib", "path", "seconds", "log", "cached"}``: ``seconds`` is
-    this call's build time (0 when the library was already on disk) and
-    ``log`` the compiler's report (registers, shared memory, spills).
-    ``defines`` (e.g. ``("SSD_PHASE_CLOCKS",)``) build an instrumented
-    library; the first call in a process decides which one it uses.
+    Returns ``{"lib", "bwd", "path", "bwd_path", "seconds", "log",
+    "cached"}``: ``lib`` is the forward library and ``bwd`` the backward's;
+    ``seconds`` is this call's build time (0 when both libraries were
+    already on disk) and ``log`` the compiler's report (registers, shared
+    memory, spills). ``defines`` (e.g. ``("SSD_PHASE_CLOCKS",)``) build an
+    instrumented forward; the first call in a process decides which one it
+    uses.
     """
     with _lock:
         if "lib" in _loaded:
             return _loaded
-        src = SOURCE.read_bytes()
-        flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
-        tag = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
-        path = BUILD_DIR / f"libssd_fwd_{tag}.so"
         t0 = time.perf_counter()
-        log, cached = "", path.exists()
-        if not cached:
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run([_nvcc(), *flags, "-o", str(tmp), str(SOURCE)],
-                                  capture_output=True, text=True)
-            log = proc.stdout + proc.stderr
+        paths, jobs = {}, {}
+        for name, source in SOURCES.items():
+            flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines if name == "fwd"))
+            tag = hashlib.sha256(source.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+            paths[name] = BUILD_DIR / f"libssd_{name}_{tag}.so"
+            if not paths[name].exists():
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                tmp = paths[name].with_suffix(f".{os.getpid()}.tmp")
+                jobs[name] = (tmp, subprocess.Popen(
+                    [_nvcc(), *flags, "-o", str(tmp), str(source)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs = []
+        for name, (tmp, proc) in jobs.items():
+            out, _ = proc.communicate()
+            logs.append(f"{SOURCES[name].name}:\n{out}")
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-            os.replace(tmp, path)
-        lib = ctypes.CDLL(str(path))
-        ptr = ctypes.c_void_p
-        lib.hnet_ssd_fwd.argtypes = [ctypes.c_int, ptr, ptr, ptr, ptr, ptr, ptr,
-                                     ptr, ptr] + [ctypes.c_int] * 7 + [ptr]
-        lib.hnet_ssd_fwd.restype = ctypes.c_int
-        lib.hnet_ssd_fwd_supported.argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.hnet_ssd_fwd_supported.restype = ctypes.c_int
-        lib.hnet_ssd_fwd_bf16_cluster_size.argtypes = [ctypes.c_int]
-        lib.hnet_ssd_fwd_bf16_cluster_size.restype = ctypes.c_int
-        lib.hnet_cuda_error_string.argtypes = [ctypes.c_int]
+                raise RuntimeError(f"nvcc failed on {SOURCES[name]} ({proc.returncode}):\n{out}")
+            os.replace(tmp, paths[name])
+        ptr, c_int = ctypes.c_void_p, ctypes.c_int
+        lib = ctypes.CDLL(str(paths["fwd"]))
+        lib.hnet_ssd_fwd.argtypes = [c_int] + [ptr] * 9 + [c_int] * 7 + [ptr]
+        lib.hnet_ssd_fwd.restype = c_int
+        lib.hnet_ssd_fwd_supported.argtypes = [c_int, c_int]
+        lib.hnet_ssd_fwd_supported.restype = c_int
+        lib.hnet_ssd_fwd_bf16_cluster_size.argtypes = [c_int]
+        lib.hnet_ssd_fwd_bf16_cluster_size.restype = c_int
+        lib.hnet_cuda_error_string.argtypes = [c_int]
         lib.hnet_cuda_error_string.restype = ctypes.c_char_p
-        _loaded.update(lib=lib, path=str(path), log=log, cached=cached,
-                       seconds=0.0 if cached else time.perf_counter() - t0)
+        bwd = ctypes.CDLL(str(paths["bwd"]))
+        bwd.hnet_ssd_bwd.argtypes = [c_int] + [ptr] * 14 + [c_int] * 7 + [ptr]
+        bwd.hnet_ssd_bwd.restype = c_int
+        bwd.hnet_ssd_bwd_supported.argtypes = [c_int, c_int]
+        bwd.hnet_ssd_bwd_supported.restype = c_int
+        _loaded.update(lib=lib, bwd=bwd, path=str(paths["fwd"]), bwd_path=str(paths["bwd"]),
+                       log="\n".join(logs), cached=not jobs,
+                       seconds=time.perf_counter() - t0 if jobs else 0.0)
         return _loaded
 
 
@@ -125,23 +145,17 @@ def _check(x, dt, A, B, C, initial_state) -> None:
         raise ValueError("ssd kernel inputs must be contiguous")
 
 
-def ssd_cuda(x, dt, A, B, C, chunk_size: int = 256, initial_state=None,
-             return_final: bool = False, intra_dtype: str | None = None):
-    """SSD forward with ``ssd_chunked``'s contract: y [B,L,H,P] in x.dtype,
-    or ``(y, S_final [B,H,N,P] fp32)`` with ``return_final``.
+def _raise_on(code: int, what: str) -> None:
+    if code != 0:
+        msg = build()["lib"].hnet_cuda_error_string(code).decode()
+        raise RuntimeError(f"ssd {what} kernel launch failed: cudaError {code} ({msg})")
 
-    On CPU tensors it runs ``ssd_chunked``. On CUDA tensors it launches the
-    kernel, which computes ``ssd_chunked`` at its own chunk length, 64
-    (in fp32 the result does not depend on it, so ``chunk_size`` is not used
-    there; in bf16 the roundings of W and the state fall at chunk bounds).
-    """
-    intra_bf16 = int(normalize_intra_dtype(intra_dtype) == "bf16")
-    if x.device.type == "cpu":
-        return ssd_chunked(x, dt, A, B, C, chunk_size=chunk_size,
-                           initial_state=initial_state, return_final=return_final,
-                           intra_dtype=intra_dtype)
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd kernel runs on CUDA tensors, got {x.device}")
+
+def _forward(x, dt, A, B, C, initial_state, return_final: bool, intra_bf16: bool,
+             keep_states: bool):
+    """Launch the forward kernel: ``(y, s_final or None, s_chunks or None)``;
+    ``s_chunks`` [B, H, K, N, P] fp32 is the state before each chunk of 64,
+    which the backward kernel reads."""
     _check(x, dt, A, B, C, initial_state)
     Bsz, L, H, P = x.shape
     G, N = B.shape[2], B.shape[3]
@@ -151,19 +165,112 @@ def ssd_cuda(x, dt, A, B, C, chunk_size: int = 256, initial_state=None,
     y = torch.empty_like(x)
     s_final = (torch.empty(Bsz, H, N, P, dtype=torch.float32, device=x.device)
                if return_final else None)
+    s_chunks = (torch.empty(Bsz, H, -(-L // CHUNK), N, P, dtype=torch.float32,
+                            device=x.device) if keep_states else None)
+    ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(x.device):
         code = lib.hnet_ssd_fwd(
             DTYPE_CODES[x.dtype], x.data_ptr(), dt.data_ptr(), A.data_ptr(),
-            B.data_ptr(), C.data_ptr(),
-            None if initial_state is None else initial_state.data_ptr(),
-            y.data_ptr(), None if s_final is None else s_final.data_ptr(),
-            Bsz, L, H, G, P, N, intra_bf16,
+            B.data_ptr(), C.data_ptr(), ptr(initial_state), y.data_ptr(), ptr(s_final),
+            ptr(s_chunks), Bsz, L, H, G, P, N, int(intra_bf16),
             torch.cuda.current_stream(x.device).cuda_stream)
-    if code != 0:
-        raise RuntimeError(f"ssd kernel launch failed: cudaError {code} "
-                           f"({lib.hnet_cuda_error_string(code).decode()})")
+    _raise_on(code, "forward")
     ssd_cuda.launches += 1
+    return y, s_final, s_chunks
+
+
+def _backward(x, dt, A, B, C, s_chunks, dy, ds_final, intra_bf16: bool,
+              want_ds0: bool = True):
+    """Launch the backward kernel: ``(dx, ddt, dA, dB, dC, d_initial_state
+    or None)``.
+    The per-head dB / dC and the per-(b, h) dA come out of the kernel as fp32
+    partials; their sums over the heads of a group and over the batch are
+    plain reductions here, so the result does not depend on block order."""
+    Bsz, L, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    dy = dy.to(x.dtype).contiguous()
+    if ds_final is not None:
+        ds_final = ds_final.float().contiguous()
+    bwd = build()["bwd"]
+    if not bwd.hnet_ssd_bwd_supported(P, N):
+        raise ValueError(f"ssd backward kernel is not built for P={P}, N={N}")
+    dev, f32 = x.device, torch.float32
+    dx = torch.empty_like(x)
+    ddt = torch.empty(Bsz, L, H, dtype=f32, device=dev)
+    dA_part = torch.empty(Bsz, H, dtype=f32, device=dev)
+    dB_part = torch.empty(Bsz, L, H, N, dtype=f32, device=dev)
+    dC_part = torch.empty(Bsz, L, H, N, dtype=f32, device=dev)
+    ds0 = torch.empty(Bsz, H, N, P, dtype=f32, device=dev) if want_ds0 else None
+    with torch.cuda.device(dev):
+        code = bwd.hnet_ssd_bwd(
+            DTYPE_CODES[x.dtype], x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), dy.data_ptr(), s_chunks.data_ptr(),
+            None if ds_final is None else ds_final.data_ptr(), dx.data_ptr(),
+            ddt.data_ptr(), dA_part.data_ptr(), dB_part.data_ptr(), dC_part.data_ptr(),
+            None if ds0 is None else ds0.data_ptr(), Bsz, L, H, G, P, N, int(intra_bf16),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(code, "backward")
+    ssd_cuda.bwd_launches += 1
+    group = lambda t: t.view(Bsz, L, G, H // G, N).sum(3).to(B.dtype)
+    return dx, ddt, dA_part.sum(0), group(dB_part), group(dC_part), ds0
+
+
+class SSDScan(torch.autograd.Function):
+    """``ssd_chunked`` at chunk 64 as one autograd node on CUDA tensors: the
+    forward kernel (which also writes the state before every chunk) and the
+    backward kernel. Returns y, or ``(y, S_final)`` with ``return_final``;
+    the gradient reaches x, dt, A, B, C and ``initial_state``. CPU tensors
+    never get here: ``ssd_cuda`` sends them to ``ssd_chunked``, which
+    autograd differentiates."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, initial_state=None, intra_dtype=None,
+                return_final=False):
+        if x.device.type != "cuda":
+            raise ValueError(f"SSDScan runs the kernels on CUDA tensors, got {x.device}")
+        intra = normalize_intra_dtype(intra_dtype)
+        ctx.intra, ctx.return_final = intra, return_final
+        y, s_final, s_chunks = _forward(x, dt, A, B, C, initial_state, return_final,
+                                        intra == "bf16", keep_states=True)
+        ctx.save_for_backward(x, dt, A, B, C, s_chunks)
+        return (y, s_final) if return_final else y
+
+    @staticmethod
+    def backward(ctx, dy, ds_final=None):
+        x, dt, A, B, C, s_chunks = ctx.saved_tensors
+        dx, ddt, dA, dB, dC, ds0 = _backward(x, dt, A, B, C, s_chunks, dy,
+                                             ds_final if ctx.return_final else None,
+                                             ctx.intra == "bf16", ctx.needs_input_grad[5])
+        return dx, ddt, dA, dB, dC, ds0, None, None
+
+
+def ssd_cuda(x, dt, A, B, C, chunk_size: int = 256, initial_state=None,
+             return_final: bool = False, intra_dtype: str | None = None):
+    """SSD with ``ssd_chunked``'s contract: y [B,L,H,P] in x.dtype, or
+    ``(y, S_final [B,H,N,P] fp32)`` with ``return_final``.
+
+    On CPU tensors it runs ``ssd_chunked``. On CUDA tensors it launches the
+    forward kernel, which computes ``ssd_chunked`` at its own chunk length,
+    64 (in fp32 the result does not depend on it, so ``chunk_size`` is not
+    used there; in bf16 the roundings of W and the state fall at chunk
+    bounds). With grad mode on and an input that requires grad, the call is
+    an ``SSDScan`` node, whose backward is the backward kernel: the result
+    is never detached from its inputs.
+    """
+    intra = normalize_intra_dtype(intra_dtype)
+    if x.device.type == "cpu":
+        return ssd_chunked(x, dt, A, B, C, chunk_size=chunk_size,
+                           initial_state=initial_state, return_final=return_final,
+                           intra_dtype=intra)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd kernel runs on CUDA tensors, got {x.device}")
+    inputs = (x, dt, A, B, C) + (() if initial_state is None else (initial_state,))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        return SSDScan.apply(x, dt, A, B, C, initial_state, intra, return_final)
+    y, s_final, _ = _forward(x, dt, A, B, C, initial_state, return_final,
+                             intra == "bf16", keep_states=False)
     return (y, s_final) if return_final else y
 
 
 ssd_cuda.launches = 0
+ssd_cuda.bwd_launches = 0

@@ -71,10 +71,13 @@ class ServingModel:
         if isinstance(cmvn, (str, Path)):
             cmvn = GlobalCMVN.load(cmvn)
         self.device = torch.device(device)
-        model = build_model(config, vocab_size, cmvn=cmvn, seed=seed)
+        model = build_model(config, vocab_size, cmvn=cmvn, seed=seed, device=self.device)
+        if model.ctc is None:
+            raise NotImplementedError("serving needs the CTC head (model_conf.ctc_weight "
+                                      "> 0); AED decoding is not ported")
         if params is not None:
             load_jax_params(model, params)
-        self.model = model.to(self.device)
+        self.model = model
         self.vocab_size = int(vocab_size)
         self.blank_id = self.model.ctc.blank_id
         self.emit = emit

@@ -1,32 +1,46 @@
-"""ASR task assembly for serving: config dict -> the wired model.
+"""ASR task assembly: config dict -> the wired, trainable model.
 
-Counterpart of the serving part of ``hnet_mamba_asr_tpu/tasks/asr_task.py``.
-``build_model(config, vocab_size)`` assembles ``DCASRModel`` = log-mel
-frontend + CMVN + encoder + CTC head, in the compute dtype that
-``train.precision`` names (weights stay fp32). Only the CTC head is ported:
-the AED and RNN-T heads of a hybrid config are not built, and the serving
-runtime refuses requests for their outputs. Training (SpecAugment, losses)
-is not ported yet.
+Counterpart of ``hnet_mamba_asr_tpu/tasks/asr_task.py``. ``build_model(config,
+vocab_size)`` assembles ``DCASRModel`` = log-mel frontend + CMVN +
+SpecAugment + encoder + (CTC head iff ctc_weight > 0) + (AED head iff
+aed_weight > 0) + hybrid loss, in the compute dtype that ``train.precision``
+names (weights stay fp32), on the card unless the caller passes
+``device="cpu"``. The RNN-T head is not ported: a config with rnnt_weight > 0
+builds, and its ``loss_fn`` raises.
+
+Model contract of the trainer (``training/trainer.py``), as in the JAX
+package: the batch is a dict {wave, wave_lens, tokens, token_lens, row_mask,
+aug_ref = [seed, epoch], item_index}; ``loss_fn(batch, step, train)``
+returns ``(loss, stats)`` with the JAX stats keys; padded batch rows are
+excluded from every loss and stat by row_mask. Randomness is a function of
+integers: SpecAugment of (seed, epoch, item_index), AED dropout of
+(17, step).
 
 ``encoder_conf.ssd_intra_dtype`` reaches the SSD scan as its
-``intra_dtype``, as in the JAX model (whose serving forward runs the XLA
-``ssd_chunked``): 'bf16' forms the intra-chunk weights in bf16.
+``intra_dtype`` and ``encoder_conf.remat_policy`` the Mamba stacks, as in the
+JAX model.
 """
 from __future__ import annotations
 
 import logging
 
+import numpy as np
 import torch
 import torch.nn as nn
 
 from hnet_mamba_asr_torch.data.features import GlobalCMVN
+from hnet_mamba_asr_torch.models.aed import AEDHead, label_smoothing_loss
 from hnet_mamba_asr_torch.models.ctc_head import CTCHead, greedy_decode as ctc_host_greedy
 from hnet_mamba_asr_torch.models.encoder import DCASREncoder, EncoderOutput
+from hnet_mamba_asr_torch.ops.ctc_loss import ctc_infeasible, ctc_loss
 from hnet_mamba_asr_torch.ops.melspec import log_mel_spectrogram
+from hnet_mamba_asr_torch.ops.specaug import seed_from, spec_augment, specaug_kwargs
+from hnet_mamba_asr_torch.training.loss import HybridLossWeights, combine_losses
 
 logger = logging.getLogger(__name__)
 
 DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32, "fp16": torch.float16}
+DROPOUT_SEED = 17           # AED dropout draws from (17, step), as the JAX loss_fn
 
 
 def build_encoder(config, dtype=torch.float32, generator=None) -> DCASREncoder:
@@ -46,6 +60,7 @@ def build_encoder(config, dtype=torch.float32, generator=None) -> DCASREncoder:
         chunk_size=int(ec.get("ssd_chunk_size", 256)),
         ssd_intra_dtype=ec.get("ssd_intra_dtype"),
         ssd_out_compute_dtype=bool(ec.get("ssd_out_compute_dtype", False)),
+        remat_policy=str(ec.get("remat_policy", "full")),
         dtype=dtype, generator=generator)
 
 
@@ -57,63 +72,138 @@ def build_head(config, vocab_size: int, dtype=torch.float32, generator=None) -> 
                    generator)
 
 
-class DCASRModel(nn.Module):
-    """Frontend + encoder + CTC head (eval-mode serving forward)."""
+def build_aed_head(config, vocab_size: int, dtype=torch.float32, generator=None) -> AEDHead:
+    ac = config.get("aed_conf", {}) or {}
+    mc = config.get("model_conf", {}) or {}
+    return AEDHead(vocab_size=int(vocab_size), d_model=int(config["encoder_conf"]["d_outer"]),
+                   n_layers=int(ac.get("n_layers", 6)), n_heads=int(ac.get("n_heads", 4)),
+                   d_ff=int(ac.get("d_ff", 2048)), dropout=float(ac.get("dropout", 0.1)),
+                   lsm_weight=float(mc.get("lsm_weight", 0.1)),
+                   moe_experts=int((ac.get("moe", {}) or {}).get("n_experts", 0)),
+                   dtype=dtype, generator=generator)
 
-    def __init__(self, encoder: DCASREncoder, ctc_head: CTCHead, *, n_mels: int = 80,
-                 win_length: int = 400, hop_length: int = 160,
-                 sample_rate: int = 16000, cmvn: GlobalCMVN | None = None):
+
+def step_generator(step: int, device) -> torch.Generator:
+    """The dropout generator of a training step, on ``device``."""
+    return torch.Generator(device=device).manual_seed(seed_from(DROPOUT_SEED, step))
+
+
+class DCASRModel(nn.Module):
+    """Frontend + encoder + CTC / AED heads + hybrid loss."""
+
+    def __init__(self, encoder: DCASREncoder, ctc_head: CTCHead | None,
+                 aed_head: AEDHead | None = None, weights: HybridLossWeights | None = None,
+                 *, n_mels: int = 80, win_length: int = 400, hop_length: int = 160,
+                 sample_rate: int = 16000, cmvn: GlobalCMVN | None = None,
+                 specaug_conf: dict | None = None):
         super().__init__()
+        if ctc_head is None and aed_head is None:
+            raise ValueError("DCASRModel needs a CTC or an AED head")
         self.encoder = encoder
         self.ctc = ctc_head
+        self.aed = aed_head
+        self.weights = weights or HybridLossWeights()
         self.n_mels, self.win, self.hop = n_mels, win_length, hop_length
         self.sample_rate = sample_rate
         self.cmvn = cmvn
+        self.specaug = dict(specaug_conf) if specaug_conf else None
 
-    def features(self, batch: dict):
-        """{wave [B, S], wave_lens [B]} -> (log-mel + CMVN feats fp32, lengths)."""
+    @property
+    def device(self) -> torch.device:
+        return next(self.parameters()).device
+
+    def features(self, batch: dict, train: bool = False):
+        """{wave [B, S], wave_lens [B]} -> (log-mel + CMVN feats fp32, lengths);
+        in training, SpecAugment from the batch's aug_ref = [seed, epoch] and
+        item_index."""
         feats, flens = log_mel_spectrogram(
             batch["wave"], batch["wave_lens"], win_length=self.win,
             hop_length=self.hop, n_mels=self.n_mels, sample_rate=self.sample_rate)
         if self.cmvn is not None:
             feats = self.cmvn(feats)
+        if train and self.specaug is not None:
+            seed, epoch = (int(v) for v in np.asarray(_host(batch["aug_ref"])))
+            feats = spec_augment(feats, flens, seed, epoch, _host(batch["item_index"]),
+                                 **self.specaug)
         return feats, flens
 
-    def encode(self, batch: dict) -> EncoderOutput:
-        feats, flens = self.features(batch)
+    def encode(self, batch: dict, train: bool = False) -> EncoderOutput:
+        feats, flens = self.features(batch, train)
         return self.encoder(feats, flens)
+
+    def loss_fn(self, batch: dict, step: int, train: bool):
+        """-> (loss, stats): the weighted hybrid loss, and detached stats with
+        the JAX keys (loss/total, loss/ctc, loss/aed, loss/ratio, loss/rnnt,
+        ctc_infeasible, kept_fraction, batch_weight). CTC rows are divided by
+        their token length (torch's 'mean'), then averaged over the real rows;
+        the AED loss is the token-mean label-smoothed CE over real rows."""
+        if self.weights.rnnt_weight > 0:
+            raise NotImplementedError("the RNN-T head and loss are not ported")
+        row_mask = batch["row_mask"]
+        tokens, token_lens = batch["tokens"], batch["token_lens"]
+        enc = self.encode(batch, train)
+        n_real = row_mask.sum().float().clamp(min=1.0)
+        stats: dict = {}
+        ctc = aed = None
+        if self.ctc is not None:
+            logp = self.ctc.log_probs(enc.features)
+            rows = ctc_loss(logp, enc.lengths, tokens, token_lens, blank_id=self.ctc.blank_id)
+            rows = rows / token_lens.clamp(min=1)
+            ctc = (rows * row_mask).sum() / n_real
+            stats["ctc_infeasible"] = (ctc_infeasible(enc.lengths, tokens, token_lens)
+                                       & row_mask).sum()
+        if self.aed is not None:
+            ys_in, ys_out, out_lens = self.aed.add_sos_eos(tokens, token_lens)
+            gen = step_generator(step, enc.features.device) if train else None
+            logits = self.aed(enc.features, enc.lengths, ys_in, generator=gen)
+            aed = label_smoothing_loss(logits, ys_out, out_lens, self.aed.lsm_weight,
+                                       row_mask=row_mask)
+        out = combine_losses(self.weights, ctc_loss=ctc, aed_loss=aed,
+                             ratio_loss=enc.ratio_loss)
+        stats.update({k: v.detach() for k, v in out.items()})
+        stats["kept_fraction"] = enc.kept_fractions[0].detach()
+        stats["batch_weight"] = row_mask.sum()
+        return out["loss/total"], stats
 
     @torch.inference_mode()
     def greedy_decode(self, batch: dict) -> list[list[int]]:
         """CTC greedy: host-side id lists for every row."""
+        if self.ctc is None:
+            raise NotImplementedError("AED decoding is not ported; greedy_decode needs "
+                                      "the CTC head")
         enc = self.encode(batch)
         ids = self.ctc.frame_argmax(enc.features)
         return ctc_host_greedy(ids.cpu(), enc.lengths.cpu(), self.ctc.blank_id)
 
 
-def build_model(config, vocab_size: int, cmvn: GlobalCMVN | None = None, *,
-                seed: int = 0) -> DCASRModel:
-    """Assemble the serving model on the CPU, in eval mode, with weights
-    drawn from ``seed``.
+def _host(value):
+    """A batch entry the host reads (aug_ref, item_index) as numpy."""
+    return value.cpu().numpy() if torch.is_tensor(value) else np.asarray(value)
 
-    A config whose CTC weight is 0 raises: only the CTC head is ported.
-    """
+
+def build_model(config, vocab_size: int, cmvn: GlobalCMVN | None = None, *,
+                seed: int = 0, device="cuda") -> DCASRModel:
+    """Assemble the model with weights drawn from ``seed``, on ``device`` (the
+    card by default), in eval mode; heads exist iff their weight > 0."""
     mc = config.get("model_conf", {}) or {}
-    if float(mc.get("ctc_weight", 1.0)) <= 0.0:
-        raise NotImplementedError("only the CTC head is ported; model_conf.ctc_weight "
-                                  "must be > 0")
-    skipped = [k for k in ("aed_weight", "rnnt_weight") if float(mc.get(k, 0.0)) > 0]
-    if skipped:
-        logger.info("build_model: not building the heads of %s (not ported)", skipped)
+    weights = HybridLossWeights.from_config(mc)
+    if max(weights.ctc_weight, weights.aed_weight, weights.rnnt_weight) <= 0.0:
+        raise ValueError("model_conf needs ctc_weight, aed_weight or rnnt_weight > 0")
+    if weights.rnnt_weight > 0:
+        logger.info("build_model: not building the RNN-T head (not ported)")
     train = config.get("train")
     dtype = DTYPES[str(train.get("precision", "fp32"))] if isinstance(train, dict) \
         else torch.float32
     fc = config.get("frontend_conf", {}) or {}
+    sc = config.get("specaug_conf")
     gen = torch.Generator().manual_seed(int(seed))
-    model = DCASRModel(build_encoder(config, dtype, gen),
-                       build_head(config, vocab_size, dtype, gen),
+    encoder = build_encoder(config, dtype, gen)
+    ctc = build_head(config, vocab_size, dtype, gen) if weights.ctc_weight > 0 else None
+    aed = build_aed_head(config, vocab_size, dtype, gen) if weights.aed_weight > 0 else None
+    model = DCASRModel(encoder, ctc, aed, weights,
                        n_mels=int(fc.get("n_mels", 80)),
                        win_length=int(fc.get("win_length", 400)),
                        hop_length=int(fc.get("hop_length", 160)),
-                       sample_rate=int(fc.get("sample_rate", 16000)), cmvn=cmvn)
-    return model.eval()
+                       sample_rate=int(fc.get("sample_rate", 16000)), cmvn=cmvn,
+                       specaug_conf=specaug_kwargs(sc) if sc else None)
+    return model.to(torch.device(device)).eval()

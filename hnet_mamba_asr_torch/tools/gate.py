@@ -1,0 +1,95 @@
+"""The gate config (``configs/typeA_small_N1.yaml``, Type A Small N=1) as
+the port's checks and measurements run it: the config's keys as a dict
+(the card's machine has no PyYAML; ``tests/test_torch_slice.py`` holds the
+dict equal to the YAML), seeded test audio, CMVN statistics, training
+batches and a ``Trainer`` on the card. ``chip_smoke.py`` and
+``tools/measure.py`` both build from here.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+# the parts of configs/typeA_small_N1.yaml the model reads. The CMVN file it
+# names is not in the repository: make_cmvn computes statistics from seeded
+# audio.
+GATE_CONFIG = {
+    "frontend_conf": {"sample_rate": 16000, "n_mels": 80, "win_length": 400,
+                      "hop_length": 160, "cmvn": "features/cmvn_train960.npz"},
+    "specaug_conf": {"freq_mask_width_range": [0, 27], "num_freq_mask": 2,
+                     "time_mask_width_ratio_range": [0.0, 0.05], "num_time_mask": 10},
+    "encoder": "dcasr",
+    "encoder_conf": {"arch_type": "A", "d_outer": 384, "d_main": 512, "n_enc": 4,
+                     "n_main": 12, "n_dec": 4, "bidirectional": True, "d_state": 128,
+                     "headdim": 64, "ssd_chunk_size": 256, "ssd_intra_dtype": "bf16",
+                     "remat_policy": "none",
+                     "hnet": {"compression_N": 1, "chunker": "dynamic",
+                              "ema_smoothing": True}},
+    "head": "ctc",
+    "aed_conf": {"n_layers": 6, "n_heads": 4, "d_ff": 2048, "dropout": 0.1,
+                 "max_decode_len": 512},
+    "model_conf": {"ctc_weight": 0.3, "aed_weight": 0.7, "lsm_weight": 0.1,
+                   "hnet_ratio_beta": 0.03},
+    "train": {"precision": "bf16"},
+}
+# the trainer's keys of the same file (optim, scheduler, train, eval)
+GATE_TRAIN = {"optim": "adamw",
+              "optim_conf": {"lr": 6.0e-4, "weight_decay": 1.0e-2, "betas": [0.9, 0.999]},
+              "scheduler": "warmuplr", "scheduler_conf": {"warmup_steps": 20000},
+              "max_epoch": 120, "grad_clip": 1.0, "grad_clip_type": 2.0,
+              "log_interval": 50, "accum_grad": 2, "valid_interval_epoch": 5}
+BATCH_BINS = 32000              # batch_bins: frames per micro-batch (max B x T)
+VOCAB = 500                     # bpe_500: 501 CTC classes
+SEED = 1                        # experiment.seed
+SR = 16000
+# training: utterances of 1000 mel frames (10.015 s), 32 per micro-batch
+# (the config's batch_bins); L 249 after the 4x subsampling
+TRAIN_FRAMES = 1000
+TRAIN_ROWS = BATCH_BINS // TRAIN_FRAMES
+TRAIN_SAMPLES = (TRAIN_FRAMES - 1) * 160 + 400
+
+
+def synth_audio(rng, seconds: float, samples: int | None = None):
+    """Seeded speech-like test signal: a few gliding harmonics under noise."""
+    n = int(seconds * SR) if samples is None else samples
+    t = np.arange(n) / SR
+    f0 = rng.uniform(90, 250) * (1 + 0.2 * np.sin(2 * np.pi * rng.uniform(0.2, 2) * t))
+    phase = 2 * np.pi * np.cumsum(f0) / SR
+    sig = sum(np.sin(k * phase) / k for k in range(1, 6))
+    env = 0.5 + 0.5 * np.sin(2 * np.pi * rng.uniform(1, 4) * t) ** 2
+    return (0.05 * sig * env + 0.01 * rng.normal(size=n)).astype(np.float32)
+
+
+def make_cmvn(torch_device: str):
+    """CMVN statistics from seeded audio (the config's file is not shipped)."""
+    from hnet_mamba_asr_torch.data.features import GlobalCMVN
+    from hnet_mamba_asr_torch.ops.melspec import log_mel_spectrogram
+    wave = synth_audio(np.random.default_rng(SEED + 100), 20.0)
+    feats, _ = log_mel_spectrogram(torch.from_numpy(wave).to(torch_device))
+    f = feats[0].double().cpu().numpy()
+    return GlobalCMVN(f.mean(0), np.sqrt(np.maximum(f.var(0), 1e-8)))
+
+
+def train_batches(rng, n_batches: int, rows: int) -> list[dict]:
+    """Host batches as the gate config's loader makes them (PCM16 wire, row
+    masks, aug_ref, item indices): ``rows`` utterances of TRAIN_FRAMES mel
+    frames each, with 20-39 random BPE ids."""
+    from hnet_mamba_asr_torch.data.dataset import collate_batch
+    out = []
+    for k in range(n_batches):
+        items = [{"wave": synth_audio(rng, 0.0, TRAIN_SAMPLES), "n_samples": TRAIN_SAMPLES,
+                  "tokens": rng.integers(4, VOCAB, size=int(rng.integers(20, 40))).astype(
+                      np.int32), "id": f"utt{k * rows + i}", "index": k * rows + i}
+                 for i in range(rows)]
+        out.append(collate_batch(items, pad_id=3, seed=SEED, epoch=0, snap_lengths=False,
+                                 wire_dtype="int16"))
+    return out
+
+
+def gate_trainer(config, loader, train_cfg, cmvn, ckpt_dir, **overrides):
+    """A Trainer on the card over ``loader`` for a model of ``config``
+    with weights from SEED."""
+    from hnet_mamba_asr_torch.tasks.asr_task import build_model
+    from hnet_mamba_asr_torch.training.trainer import Trainer
+    model = build_model(config, VOCAB, cmvn=cmvn, seed=SEED)
+    return Trainer(model, loader, dict(train_cfg, **overrides), ckpt_dir=ckpt_dir, seed=SEED)

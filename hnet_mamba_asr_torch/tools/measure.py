@@ -4,9 +4,10 @@
     python3 hnet_mamba_asr_torch/tools/measure.py ssd   [--repo DIR]
     python3 hnet_mamba_asr_torch/tools/measure.py serve [--repo DIR] [--profile]
     python3 hnet_mamba_asr_torch/tools/measure.py phases
+    python3 hnet_mamba_asr_torch/tools/measure.py train
 
 Run as a file, from the root of a checkout. ``--repo`` names the checkout
-whose ``hnet_mamba_asr_torch`` (and ``chip_smoke.py``) is measured, this one
+whose ``hnet_mamba_asr_torch`` is measured, this one
 by default, so that two versions are timed by the same code: unpack the
 other into a directory that ``.gitignore`` lists and run both in one chip
 call, in turns (old, new, new, old).
@@ -28,6 +29,9 @@ call, in turns (old, new, new, old).
   their first round (loads, state term, cluster barrier, chain, barrier,
   output). Mean phase lengths over the CTAs, at B 8 L 248 / 873 H 16 and
   B 1 L 873 H 12.
+- ``train``: one update of the gate config's training step (``measure_train``):
+  forward / backward / optimizer device time by CUDA events, then a
+  profiled update's device time by kernel and idle share.
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ import ctypes
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -51,13 +56,39 @@ CHUNK = 64                                             # the kernel's chunk leng
 def ssd_cost(Bsz: int, L: int, H: int, G: int, P: int, N: int, dtype: str) -> dict:
     """Least time of one SSD forward on the H100: each input read once and y
     written once, against the FLOPs of the chunked form at the kernel's chunk
-    length (the four products over the chunks this L needs)."""
+    length over the chunks this L needs: C.B^T once per group (the heads of
+    a group share it), and per head W.x, the state update B'^T.x and C.S."""
     es = 2 if dtype == "bfloat16" else 4
     nbytes = (2 * Bsz * L * H * P * es          # x in, y out
               + 2 * Bsz * L * G * N * es        # B, C
               + Bsz * L * H * 4 + H * 4)        # dt, A
     K = -(-L // CHUNK)
-    flops = Bsz * H * K * 2 * CHUNK * (CHUNK * N + CHUNK * P + 2 * N * P)
+    flops = Bsz * K * 2 * (G * CHUNK * CHUNK * N
+                           + H * (CHUNK * CHUNK * P + 2 * CHUNK * N * P))
+    return _bound(nbytes, flops, dtype)
+
+
+def ssd_bwd_cost(Bsz: int, L: int, H: int, G: int, P: int, N: int, dtype: str) -> dict:
+    """Least time of one SSD backward (the VJP of ``ssd_chunked`` given dy)
+    on the H100: x, dy, B, C, dt and A read once and dx, dB, dC, ddt and dA
+    written once (the chunk states the kernel reads are the design's, not
+    the function's), against the FLOPs of the chunked backward over the
+    chunks this L needs. Once per group: C.B^T, and dCB^T.C and dCB.B for
+    the intra-chunk dB and dC, where dCB is the sum over the group's heads
+    of each head's masked, decayed dy.x^T (elementwise, not a product). Per
+    head: dy.x^T, W^T.dy, and B.D, x.D^T, dy.S^T and C^T.dy against the
+    state's gradient D and the state S."""
+    es = 2 if dtype == "bfloat16" else 4
+    nbytes = (3 * Bsz * L * H * P * es          # x, dy in; dx out
+              + 4 * Bsz * L * G * N * es        # B, C in; dB, dC out
+              + 2 * Bsz * L * H * 4 + 2 * H * 4)  # dt in, ddt out; A in, dA out
+    K = -(-L // CHUNK)
+    flops = Bsz * K * 2 * (3 * G * CHUNK * CHUNK * N
+                           + H * (2 * CHUNK * CHUNK * P + 4 * CHUNK * N * P))
+    return _bound(nbytes, flops, dtype)
+
+
+def _bound(nbytes: int, flops: int, dtype: str) -> dict:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
     return {"bytes": nbytes, "flops": flops, "bytes_us": t_bytes * 1e6,
             "ops_us": t_ops * 1e6, "bound_ms": max(t_bytes, t_ops) * 1e3,
@@ -95,6 +126,17 @@ def device_us(event) -> float:
     """Self device time of a profiler ``key_averages`` row, in us."""
     t = getattr(event, "self_device_time_total", None)
     return getattr(event, "self_cuda_time_total", 0.0) if t is None else t
+
+
+def device_rows(prof) -> list[tuple[float, str, int]]:
+    """(self device us, name, count) of the profiler rows that ran on the
+    device (kernels, copies, sets), largest first. An operator's row
+    repeats the device time of the kernels it launched, so summing every
+    row with device time counts that time twice."""
+    from torch.autograd import DeviceType
+    rows = [(device_us(ev), ev.key, ev.count) for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA and device_us(ev) > 0]
+    return sorted(rows, reverse=True)
 
 
 def kernel_ms(fn, match: str, n: int = 20, tries: int = 3) -> float | None:
@@ -196,15 +238,15 @@ def measure_phases(tag: str) -> None:
 
 
 def measure_serve(tag: str, profile: bool) -> None:
-    import chip_smoke as smoke
     from hnet_mamba_asr_torch.serving.runtime import ServingModel
-    cmvn = smoke.make_cmvn("cuda")
-    model = ServingModel(smoke.GATE_CONFIG, None, "cuda", vocab_size=smoke.VOCAB,
-                         cmvn=cmvn, seed=smoke.SEED, max_batch=8, max_samples=40 * smoke.SR)
+    from hnet_mamba_asr_torch.tools import gate
+    cmvn = gate.make_cmvn("cuda")
+    model = ServingModel(gate.GATE_CONFIG, None, "cuda", vocab_size=gate.VOCAB,
+                         cmvn=cmvn, seed=gate.SEED, max_batch=8, max_samples=40 * gate.SR)
     rng = np.random.default_rng(7)
 
     def batch(n, seconds):
-        w = np.stack([smoke.synth_audio(rng, seconds) for _ in range(n)])
+        w = np.stack([gate.synth_audio(rng, seconds) for _ in range(n)])
         return w, [w.shape[1]] * n
 
     cases = {"8x10s": batch(8, 10.0), "1x35s": batch(1, 35.0),
@@ -232,19 +274,82 @@ def measure_serve(tag: str, profile: bool) -> None:
             model(w, lens)
         torch.cuda.synchronize()
         window_us = (time.perf_counter() - t0) * 1e6
-    rows = [(device_us(ev), ev.key, ev.count) for ev in prof.key_averages()
-            if device_us(ev) > 0]
+    rows = device_rows(prof)
     busy = sum(r[0] for r in rows)
-    rows.sort(reverse=True)
     print(json.dumps({"version": tag, "profile": "3 calls of 8x10s", "window_ms": window_us / 1e3,
                       "device_ms": busy / 1e3, "idle_share": 1 - busy / window_us,
                       "top": [{"name": k[:90], "ms": d / 1e3, "share": d / busy, "count": c}
                               for d, k, c in rows[:12]]}), flush=True)
 
 
+def measure_train(tag: str) -> None:
+    """One update of the gate config's training step as chip_smoke.py's
+    phase 5 runs it (hybrid, bf16, SpecAugment, 2 micro-batches of 32 x 10 s), after
+    2 updates of warm-up: CUDA events split each micro-step into forward
+    (loss_fn) and backward and the update into clip + AdamW; then a
+    ``torch.profiler`` window over one more update gives the device time by
+    kernel and the device's idle share."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from hnet_mamba_asr_torch.ops.ssd_cuda import ssd_cuda
+    from hnet_mamba_asr_torch.tools import gate
+    cmvn = gate.make_cmvn("cuda")
+    batches = gate.train_batches(np.random.default_rng(7), 2, 32)
+    with tempfile.TemporaryDirectory(prefix="measure_train_") as tmp:
+        trainer = gate.gate_trainer(gate.GATE_CONFIG, batches * 2, gate.GATE_TRAIN, cmvn,
+                                     tmp, max_steps=2)
+        trainer.train()
+    trainer.model.train()
+    dev = [trainer._to_device(b) for b in batches]
+
+    def update(split=None):
+        for b in dev:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            loss, _ = trainer.model.loss_fn(b, trainer.global_step, True)
+            ev[1].record()
+            (loss / trainer.accum_grad).backward()
+            ev[2].record()
+            if split is not None:
+                split.append(ev)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        trainer._apply_step()
+        ev[1].record()
+        torch.cuda.synchronize()
+        if split is not None:
+            split.append(ev)
+
+    split: list = []
+    ssd_cuda.launches = ssd_cuda.bwd_launches = 0
+    update(split)
+    fwd = sum(e[0].elapsed_time(e[1]) for e in split[:-1])
+    bwd = sum(e[1].elapsed_time(e[2]) for e in split[:-1])
+    opt = split[-1][0].elapsed_time(split[-1][1])
+    total = split[0][0].elapsed_time(split[-1][1])
+    print(json.dumps({"version": tag, "train_update": "2 x (32 x 10 s), hybrid, bf16",
+                      "ms": total, "forward_ms": fwd, "backward_ms": bwd, "optimizer_ms": opt,
+                      "mel_frames_per_s": 2 * 32 * gate.TRAIN_FRAMES / (total / 1e3),
+                      "ssd_fwd_launches": ssd_cuda.launches,
+                      "ssd_bwd_launches": ssd_cuda.bwd_launches,
+                      "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}),
+          flush=True)
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        update()
+        window_us = (time.perf_counter() - t0) * 1e6
+    rows = device_rows(prof)
+    busy = sum(r[0] for r in rows)
+    print(json.dumps({"version": tag, "profile": "1 update, 2 x (32 x 10 s)",
+                      "window_ms": window_us / 1e3, "device_ms": busy / 1e3,
+                      "idle_share": 1 - busy / window_us,
+                      "top": [{"name": k[:90], "ms": d / 1e3, "share": d / busy, "count": c}
+                              for d, k, c in rows[:15]]}), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("what", choices=("ssd", "serve", "phases"))
+    ap.add_argument("what", choices=("ssd", "serve", "phases", "train"))
     ap.add_argument("--repo", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--tag", default=None, help="label of the version in the output")
     ap.add_argument("--profile", action="store_true")
@@ -262,6 +367,8 @@ def main() -> int:
         measure_ssd(tag)
     elif args.what == "phases":
         measure_phases(tag)
+    elif args.what == "train":
+        measure_train(tag)
     else:
         measure_serve(tag, args.profile)
     return 0

@@ -1,6 +1,7 @@
-"""The hand-written Hopper SSD kernel against its plain PyTorch version, on
-the card. Marked ``gpu``: skipped where no CUDA device is present. Run on the
-card with ``python -m pytest --noconftest tests/test_torch_cuda.py``."""
+"""The hand-written Hopper SSD kernels (forward and backward) against their
+plain PyTorch version, on the card. Marked ``gpu``: skipped where no CUDA
+device is present. Run on the card with
+``python -m pytest --noconftest tests/test_torch_cuda.py``."""
 import pytest
 import torch
 
@@ -105,3 +106,80 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         ssd_cuda(x.transpose(1, 2).contiguous().transpose(1, 2), dt, A, B, C)
     with pytest.raises(ValueError, match="intra_dtype"):
         ssd_cuda(x, dt, A, B, C, intra_dtype="fp16")
+
+
+# Gradients through ssd_cuda (the backward kernel) against autograd of
+# ssd_chunked at chunk 64, as max|d| / max|g_plain| per tensor, and
+# mean|d| / mean|g_plain|. fp32: summation order only (dA sums B x L terms of
+# both signs, so its bound is looser). bf16 inputs or intra_dtype bf16:
+# autograd of the plain version rounds every gradient where the forward
+# casts (W, B * coef, S_{k-1}, the intra scores, decays and dt) and the
+# kernel keeps them in fp32; on the CPU that difference alone reaches
+# 6.5e-3 of the max and 7.4e-3 of the mean (dA), so the bound is 2e-2.
+GRAD_BOUND = {"float32": 1e-4, "bfloat16": 2e-2}
+GRAD_MEAN_BOUND = {"float32": 1e-5, "bfloat16": 1e-2}
+DA_BOUND = {"float32": 1e-3, "bfloat16": 2e-2}
+GRAD_NAMES = ("x", "dt", "A", "B", "C", "initial_state")
+
+GRAD_SHAPES = [(2, 37, 4, 64, 128, 2), (3, 130, 12, 64, 128, 1),
+               (2, 8 * Q + 1, 4, 64, 128, 1), (2, 249, 16, 64, 128, 1)]
+
+
+def _grads(fn, args, w, w_final):
+    leaves = [t.detach().clone().requires_grad_() for t in args]
+    y, s = fn(*leaves)
+    loss = (y.float() * w).sum() + (s * w_final).sum()
+    return torch.autograd.grad(loss, leaves)
+
+
+@pytest.mark.parametrize("intra_dtype", [None, "bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", GRAD_SHAPES)
+def test_kernel_gradients_match_plain(cuda, dtype, shape, intra_dtype):
+    """The backward kernel through ssd_cuda, with the state in and out:
+    every input's gradient, not a detached result (before the backward
+    kernel, y on the card had no autograd node and the scan's gradient was
+    dropped)."""
+    Bsz, L, H, P, N, G = shape
+    x, dt, A, B, C = _inputs(cuda, *shape, dtype, seed=2)
+    g = torch.Generator().manual_seed(3)
+    s0 = torch.randn(Bsz, H, N, P, generator=g).to(cuda)
+    w = torch.randn(Bsz, L, H, P, generator=g).to(cuda)
+    w_final = torch.randn(Bsz, H, N, P, generator=g).to(cuda)
+    args = (x, dt, A, B, C, s0)
+    before = ssd_cuda.bwd_launches
+    got = _grads(lambda *a: ssd_cuda(*a[:5], initial_state=a[5], return_final=True,
+                                     intra_dtype=intra_dtype), args, w, w_final)
+    torch.cuda.synchronize()
+    assert ssd_cuda.bwd_launches == before + 1
+    want = _grads(lambda *a: ssd_chunked(*a[:5], chunk_size=Q, initial_state=a[5],
+                                         return_final=True, intra_dtype=intra_dtype),
+                  args, w, w_final)
+    kind = "bfloat16" if dtype == torch.bfloat16 or intra_dtype == "bf16" else "float32"
+    for name, a, b, t in zip(GRAD_NAMES, got, want, args):
+        assert a.dtype == t.dtype and a.shape == t.shape and torch.isfinite(a).all(), name
+        d = (a.float() - b.float()).abs()
+        rel = (d.max() / b.float().abs().max()).item()
+        mean = (d.mean() / b.float().abs().mean()).item()
+        bound, mean_bound = ((DA_BOUND[kind],) * 2 if name == "A"
+                             else (GRAD_BOUND[kind], GRAD_MEAN_BOUND[kind]))
+        assert rel <= bound and mean <= mean_bound, (name, rel, mean)
+
+
+def test_training_call_is_differentiable(cuda):
+    """A call without the state, as the model makes it: the gradient of
+    every input equals the plain one, and a call with no input requiring
+    grad (serving) keeps no state for a backward."""
+    x, dt, A, B, C = _inputs(cuda, 2, 249, 12, 64, 128, 1, torch.float32, seed=4)
+    w = torch.randn(x.shape, generator=torch.Generator().manual_seed(5)).to(cuda)
+    leaves = [t.clone().requires_grad_() for t in (x, dt, A, B, C)]
+    y = ssd_cuda(*leaves)
+    assert y.grad_fn is not None
+    got = torch.autograd.grad((y * w).sum(), leaves)
+    plain = [t.clone().requires_grad_() for t in (x, dt, A, B, C)]
+    want = torch.autograd.grad((ssd_chunked(*plain, chunk_size=Q) * w).sum(), plain)
+    for name, a, b in zip(GRAD_NAMES, got, want):
+        bound = DA_BOUND["float32"] if name == "A" else GRAD_BOUND["float32"]
+        assert ((a - b).abs().max() / b.abs().max()).item() <= bound, name
+    with torch.no_grad():
+        assert ssd_cuda(*leaves).grad_fn is None

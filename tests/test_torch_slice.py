@@ -2,7 +2,7 @@
 N=1 config: raw waveform -> log-mel -> CMVN -> encoder -> CTC, on a ragged
 2-row batch, with weights carried over by hnet_mamba_asr_torch/convert.py.
 Also the params.npz route, the micro-batching server, the converter's
-refusals, and chip_smoke.py's copy of the gate config."""
+refusals, and the copy of the gate config that chip_smoke.py runs."""
 import copy
 import json
 import threading
@@ -24,6 +24,7 @@ from hnet_mamba_asr_torch.data.features import GlobalCMVN
 from hnet_mamba_asr_torch.serving.runtime import ServingModel, collapse_ctc
 from hnet_mamba_asr_torch.serving.server import MicroBatcher, make_server
 from hnet_mamba_asr_torch.tasks.asr_task import build_model
+from hnet_mamba_asr_torch.tools import gate
 from hnet_mamba_asr_tpu.data import features as jfeatures
 from hnet_mamba_asr_tpu.models import ctc_head as jctc
 from hnet_mamba_asr_tpu.tasks import asr_task as jtask
@@ -93,7 +94,7 @@ def test_params_npz_round_trip(jax_slice, tmp_path):
 
 def test_converter_refuses_mismatches(jax_slice):
     j = jax_slice
-    model = build_model(NARROW_CONFIG, NARROW_VOCAB)
+    model = build_model(NARROW_CONFIG, NARROW_VOCAB, device="cpu")
     extra = copy.deepcopy(j["params"])
     extra["aed"] = {"decoder": {"kernel": np.zeros((2, 2), np.float32)}}   # skipped
     load_jax_params(model, extra)
@@ -126,7 +127,7 @@ def test_serving_limits_and_modes():
         cfg = copy.deepcopy(NARROW_CONFIG)
         cfg["encoder_conf"].update(cfg_change)
         with pytest.raises(NotImplementedError):
-            build_model(cfg, NARROW_VOCAB)
+            build_model(cfg, NARROW_VOCAB, device="cpu")
 
 
 def test_serving_model_runs_on_the_card_by_default():
@@ -138,11 +139,12 @@ def test_serving_model_runs_on_the_card_by_default():
 
 
 def test_config_intra_dtype_reaches_the_scan():
-    model = build_model(chip_smoke.GATE_CONFIG, chip_smoke.VOCAB)
+    model = build_model(gate.GATE_CONFIG, gate.VOCAB, device="cpu")
     layers = [m for m in model.modules() if hasattr(m, "ssd_intra_dtype")]
     assert len(layers) == 40
     assert {m.ssd_intra_dtype for m in layers} == {"bf16"}
-    assert {m.ssd_intra_dtype for m in build_model(NARROW_CONFIG, NARROW_VOCAB).modules()
+    narrow = build_model(NARROW_CONFIG, NARROW_VOCAB, device="cpu")
+    assert {m.ssd_intra_dtype for m in narrow.modules()
             if hasattr(m, "ssd_intra_dtype")} == {None}
 
 
@@ -195,15 +197,28 @@ def test_http_round_trip():
 
 
 def test_chip_smoke_config_is_the_gate_yaml():
+    """tools/gate.py's copy of the YAML, which chip_smoke.py and
+    tools/measure.py run: the model's keys and the trainer's."""
     with open(REPO / "configs" / "typeA_small_N1.yaml") as f:
         cfg = yaml.safe_load(f)
-    lit = chip_smoke.GATE_CONFIG
-    for key in ("frontend_conf", "encoder", "encoder_conf", "head", "model_conf"):
+    lit = gate.GATE_CONFIG
+    assert chip_smoke.GATE_CONFIG is lit and chip_smoke.GATE_TRAIN is gate.GATE_TRAIN
+    for key in ("frontend_conf", "specaug_conf", "encoder", "encoder_conf", "head",
+                "aed_conf", "model_conf"):
         assert lit[key] == cfg[key], key
     assert lit["train"]["precision"] == cfg["train"]["precision"]
+    want = {k: cfg[k] for k in ("optim", "optim_conf", "scheduler", "scheduler_conf",
+                                "accum_grad")}
+    want.update({k: cfg["train"][k] for k in ("max_epoch", "grad_clip", "grad_clip_type",
+                                              "log_interval")})
+    want["valid_interval_epoch"] = cfg["eval"]["valid_interval_epoch"]
+    assert gate.GATE_TRAIN == want
+    assert gate.BATCH_BINS == cfg["batch_bins"] and gate.SEED == cfg["experiment"]["seed"]
 
 
 def test_gate_config_parameter_count():
-    """Type A Small N=1 without the AED head: the JAX count, 61,908,917."""
-    model = build_model(chip_smoke.GATE_CONFIG, chip_smoke.VOCAB)
-    assert sum(p.numel() for p in model.parameters()) == 61_908_917
+    """Type A Small N=1, hybrid: the JAX count, 78,858,409 (encoder and CTC
+    head 61,908,917, AED head 16,949,492)."""
+    model = build_model(gate.GATE_CONFIG, gate.VOCAB, device="cpu")
+    assert sum(p.numel() for p in model.parameters()) == 78_858_409
+    assert sum(p.numel() for p in model.aed.parameters()) == 16_949_492

@@ -20,6 +20,14 @@ NARROW_CONFIG = {
     "train": {"precision": "fp32"},
 }
 NARROW_VOCAB = 30
+# the same encoder with the hybrid heads of the gate config (0.3 CTC + 0.7
+# AED) and a one-layer AED decoder
+HYBRID_CONFIG = {
+    "encoder_conf": NARROW_CONFIG["encoder_conf"],
+    "aed_conf": {"n_layers": 1, "n_heads": 2, "d_ff": 64, "dropout": 0.1},
+    "model_conf": {"ctc_weight": 0.3, "aed_weight": 0.7, "lsm_weight": 0.1},
+    "train": {"precision": "fp32"},
+}
 
 
 def seeded_tree(shapes, seed: int = 0):
@@ -38,7 +46,7 @@ def seeded_tree(shapes, seed: int = 0):
             a = dt + np.log(-np.expm1(-dt))
         elif name in ("kernel", "conv_w"):
             a = rng.normal(size=s.shape) / np.sqrt(np.prod(s.shape[:-1]))
-        elif name in ("scale", "norm_scale", "d_skip"):
+        elif name in ("scale", "norm_scale", "d_skip", "q_g", "k_g"):
             a = 1.0 + 0.1 * rng.normal(size=s.shape)
         else:
             a = 0.1 * rng.normal(size=s.shape)
