@@ -18,8 +18,12 @@ random weights, and fails (non-zero exit) when any phase fails:
                the share of it; one time with a cold L2;
    backward -- the backward kernel's gradients of x, dt, A, B, C against
                autograd of ``ssd_chunked`` at the training shapes (B 32,
-               L 249, H 12 / 16), at L 873 (two cluster rounds of the
-               forward) and at B 1, fp32 and bf16, intra_dtype off and bf16;
+               L 249, H 12 / 16), at L 873 (two cluster rounds) and at B 1,
+               fp32 and bf16, intra_dtype off and bf16, with both times, the
+               bound and the share of it; two calls on the same inputs are
+               bitwise equal; then bf16 with the state in and out at L 1100
+               (three rounds of the reverse chain): every input's gradient
+               and d(initial_state);
 3. model    -- the whole model on the card (kernel path) against the same
                weights and batch on the CPU (plain path), fp32, TF32 off;
 4. serve    -- 9 requests through the micro-batching server, one over HTTP,
@@ -65,6 +69,7 @@ import torch
 from hnet_mamba_asr_torch.tools.gate import (
     GATE_CONFIG, GATE_TRAIN, SEED, SR, TRAIN_FRAMES, TRAIN_ROWS, VOCAB, gate_trainer,
     make_cmvn, synth_audio, train_batches)
+from hnet_mamba_asr_torch.tools.measure import BWD_SHAPES
 
 SSD_CALLS_PER_FORWARD = 40      # 20 bidirectional blocks x (fwd + bwd)
 # kernel vs plain (ssd_chunked at the kernel's chunk length, same inputs and
@@ -96,9 +101,9 @@ LOGPROB_BOUND = 5e-3
 GRAD_BOUND = {"float32": 1e-4, "bfloat16": 2e-2}
 GRAD_MEAN_BOUND = {"float32": 1e-5, "bfloat16": 1e-2}
 DA_BOUND = {"float32": 1e-3, "bfloat16": 4e-2}
-GRAD_NAMES = ("x", "dt", "A", "B", "C")
-TRAIN_SHAPES = ((32, 249, 16), (32, 249, 12))       # B, L, H of the training step
-BWD_SHAPES = TRAIN_SHAPES + ((8, 873, 16), (1, 249, 16))
+GRAD_NAMES = ("x", "dt", "A", "B", "C", "initial_state")
+# B, L, H of the training step; the backward's shapes add L 873 and B 1
+TRAIN_SHAPES = BWD_SHAPES[:2]
 FWD_SHAPES = tuple((Bsz, L, H) for Bsz in (8, 1) for L in (248, 873, 1000)
                    for H in (12, 16)) + TRAIN_SHAPES
 # one micro-step on the card against the CPU, fp32, TF32 off, per parameter:
@@ -230,27 +235,16 @@ def phase_backward():
                 plain = [t.clone().requires_grad_() for t in args]
                 y_plain = ssd_chunked(*plain, chunk_size=KERNEL_CHUNK, intra_dtype=intra)
                 want = torch.autograd.grad(y_plain, plain, dy, retain_graph=True)
-                errs, abs_err = [], 0.0
-                for gname, a, b, t in zip(GRAD_NAMES, got, want, args):
-                    if a.dtype != t.dtype or a.shape != t.shape or not torch.isfinite(a).all():
-                        raise AssertionError(f"d{gname}: {a.dtype} {tuple(a.shape)} or not "
-                                             f"finite ({name}, intra {intra}, B {Bsz}, L {L}, "
-                                             f"H {H})")
-                    d = (a.float() - b.float()).abs()
-                    rel = (d.max() / b.float().abs().max()).item()
-                    mean = (d.mean() / b.float().abs().mean()).item()
-                    bound, mean_bound = ((DA_BOUND[kind],) * 2 if gname == "A" else
-                                         (GRAD_BOUND[kind], GRAD_MEAN_BOUND[kind]))
-                    errs.append(f"d{gname} {rel:.2e}/{mean:.2e}")
-                    abs_err = max(abs_err, d.max().item())
-                    if not (rel <= bound and mean <= mean_bound):
-                        raise AssertionError(
-                            f"ssd backward kernel disagrees with autograd of ssd_chunked: "
-                            f"d{gname} {rel:.3e} (bound {bound:g}), mean {mean:.3e} (bound "
-                            f"{mean_bound:g}) ({name}, intra {intra}, B {Bsz}, L {L}, H {H})")
+                errs, abs_err = check_grads(got, want, args, kind,
+                                            f"{name}, intra {intra}, B {Bsz}, L {L}, H {H}")
                 bf = intra == "bf16"
                 _, _, states = mod._forward(*args, None, False, bf, keep_states=True)
                 run = lambda: mod._backward(*args, states, dy, None, bf, False)
+                one, two = run(), run()
+                if not all(torch.equal(a, b) for a, b in zip(one, two) if a is not None):
+                    raise AssertionError(f"two backward calls on the same inputs differ "
+                                         f"({name}, intra {intra}, B {Bsz}, L {L}, H {H})")
+                del one, two
                 call_ms = cuda_ms(run)
                 ms = kernel_ms(run, "ssd_bwd") or call_ms
                 plain_ms = cuda_ms(lambda: torch.autograd.grad(y_plain, plain, dy,
@@ -262,12 +256,67 @@ def phase_backward():
                     f"(call {call_ms:.4f} ms) plain backward {plain_ms:.4f} ms; bound "
                     f"{cost['bound_ms'] * 1e3:.2f} us ({cost['bound_by']}: bytes "
                     f"{cost['bytes_us']:.2f} us, ops {cost['ops_us']:.2f} us), share "
-                    f"{cost['bound_ms'] / ms:.2%}; {Bsz * H} blocks")
+                    f"{cost['bound_ms'] / ms:.2%}; {bwd_grid(mod, dtype, Bsz, L, H)}")
                 rows.append(dict(dtype=name, intra=intra, B=Bsz, H=H, L=L, abs_err=abs_err,
                                  ms=ms, call_ms=call_ms, plain_ms=plain_ms, **cost))
                 del got, want, y_plain, states
+    log("  ssd_bwd: two calls on the same inputs gave bitwise-equal gradients at every shape")
+    # the state in and out: L 1100 is K 18 chunks, three rounds of the
+    # reverse chain's cluster, D carried between them
+    Bsz, L, H = 2, 1100, 16
+    args = ssd_inputs(Bsz, L, H, torch.bfloat16, seed=SEED + 7)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    s0 = torch.randn(Bsz, H, 128, 64, generator=gen, device="cuda")
+    w = torch.randn(args[0].shape, generator=gen, device="cuda")
+    w_final = torch.randn(s0.shape, generator=gen, device="cuda")
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_() for t in (*args, s0)]
+        y, s = fn(*leaves)
+        return torch.autograd.grad((y.float() * w).sum() + (s * w_final).sum(), leaves)
+
+    got = grads(lambda *a: mod.ssd_cuda(*a[:5], initial_state=a[5], return_final=True,
+                                        intra_dtype="bf16"))
+    want = grads(lambda *a: ssd_chunked(*a[:5], chunk_size=KERNEL_CHUNK, initial_state=a[5],
+                                        return_final=True, intra_dtype="bf16"))
+    errs, _ = check_grads(got, want, (*args, s0), "bfloat16",
+                          f"bfloat16, intra bf16, B {Bsz}, L {L}, H {H}, state in and out")
+    log(f"  ssd_bwd bfloat16 intra bf16 B{Bsz} L{L} H{H} initial_state/return_final: "
+        f"max|d|/max|g| / mean|d|/mean|g| {', '.join(errs)}")
     log("phase 2 backward: ok")
     return rows
+
+
+def bwd_grid(mod, dtype, Bsz: int, L: int, H: int) -> str:
+    """The backward's launches at this shape (G 1)."""
+    if dtype == torch.float32:
+        return f"{Bsz * H} blocks"
+    K = -(-L // KERNEL_CHUNK)
+    splits = mod.build()["bwd"].hnet_ssd_bwd_bf16_splits(Bsz, L, H, 1)
+    return (f"chain {Bsz * H * min(K, 8)} CTAs in clusters of {min(K, 8)}, chunk terms "
+            f"{Bsz * K * splits} CTAs ({splits} per group)")
+
+
+def check_grads(got, want, args, kind: str, what: str):
+    """Each gradient against autograd's, in its input's dtype and shape,
+    finite, within GRAD_BOUND / GRAD_MEAN_BOUND (dA: DA_BOUND); returns the
+    readings and the largest absolute difference."""
+    errs, abs_err = [], 0.0
+    for gname, a, b, t in zip(GRAD_NAMES, got, want, args):
+        if a.dtype != t.dtype or a.shape != t.shape or not torch.isfinite(a).all():
+            raise AssertionError(f"d{gname}: {a.dtype} {tuple(a.shape)} or not finite ({what})")
+        d = (a.float() - b.float()).abs()
+        rel = (d.max() / b.float().abs().max()).item()
+        mean = (d.mean() / b.float().abs().mean()).item()
+        bound, mean_bound = ((DA_BOUND[kind],) * 2 if gname == "A" else
+                             (GRAD_BOUND[kind], GRAD_MEAN_BOUND[kind]))
+        errs.append(f"d{gname} {rel:.2e}/{mean:.2e}")
+        abs_err = max(abs_err, d.max().item())
+        if not (rel <= bound and mean <= mean_bound):
+            raise AssertionError(
+                f"ssd backward kernel disagrees with autograd of ssd_chunked: d{gname} "
+                f"{rel:.3e} (bound {bound:g}), mean {mean:.3e} (bound {mean_bound:g}) ({what})")
+    return errs, abs_err
 
 
 def phase_model(cmvn):

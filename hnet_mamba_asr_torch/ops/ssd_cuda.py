@@ -7,15 +7,16 @@ Counterpart of the Pallas kernel ``hnet_mamba_asr_tpu/ops/ssd_pallas.py``
 shared library with a plain C interface and loaded with ``ctypes``; the two
 compile in parallel at the first launch, from the package's own sources,
 into ``_build/`` beside this package. A library's name carries a hash of its
-source and the flags, so an edited source is rebuilt and never mixed with an
-old library.
+source, the header they share (``csrc/ssd_common.cuh``) and the flags, so an
+edited source or header is rebuilt and never mixed with an old library.
 
 ``ssd_cuda`` is the wrapper a model calls. A tensor on the CPU goes to the
 plain version, ``ops/ssd.py::ssd_chunked``, which autograd differentiates; a
 CUDA tensor launches the forward kernel or raises, and when grad mode is on
 and an input requires grad the call goes through ``SSDScan``, whose backward
 is the backward kernel. ``ssd_cuda.launches`` and ``ssd_cuda.bwd_launches``
-count the kernels' launches.
+count the kernels' launches: one per call (a bf16 backward call launches
+two kernels, the reverse chain and the chunk terms, and counts once).
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ from hnet_mamba_asr_torch.ops.ssd import normalize_intra_dtype, ssd_chunked
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 SOURCES = {"fwd": PACKAGE_DIR / "csrc" / "ssd_fwd.cu",
            "bwd": PACKAGE_DIR / "csrc" / "ssd_bwd.cu"}
+HEADER = PACKAGE_DIR / "csrc" / "ssd_common.cuh"        # included by both sources
 CHUNK = 64                      # the kernels' chunk length
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -75,7 +77,8 @@ def build(defines: tuple[str, ...] = ()) -> dict:
         paths, jobs = {}, {}
         for name, source in SOURCES.items():
             flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines if name == "fwd"))
-            tag = hashlib.sha256(source.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+            tag = hashlib.sha256(source.read_bytes() + HEADER.read_bytes()
+                                 + " ".join(flags).encode()).hexdigest()[:16]
             paths[name] = BUILD_DIR / f"libssd_{name}_{tag}.so"
             if not paths[name].exists():
                 BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -101,8 +104,12 @@ def build(defines: tuple[str, ...] = ()) -> dict:
         lib.hnet_cuda_error_string.argtypes = [c_int]
         lib.hnet_cuda_error_string.restype = ctypes.c_char_p
         bwd = ctypes.CDLL(str(paths["bwd"]))
-        bwd.hnet_ssd_bwd.argtypes = [c_int] + [ptr] * 14 + [c_int] * 7 + [ptr]
-        bwd.hnet_ssd_bwd.restype = c_int
+        bwd.hnet_ssd_bwd_bf16.argtypes = [ptr] * 17 + [c_int] * 7 + [ptr]
+        bwd.hnet_ssd_bwd_bf16.restype = c_int
+        bwd.hnet_ssd_bwd_bf16_splits.argtypes = [c_int] * 4
+        bwd.hnet_ssd_bwd_bf16_splits.restype = c_int
+        bwd.hnet_ssd_bwd_fp32.argtypes = [ptr] * 14 + [c_int] * 7 + [ptr]
+        bwd.hnet_ssd_bwd_fp32.restype = c_int
         bwd.hnet_ssd_bwd_supported.argtypes = [c_int, c_int]
         bwd.hnet_ssd_bwd_supported.restype = c_int
         _loaded.update(lib=lib, bwd=bwd, path=str(paths["fwd"]), bwd_path=str(paths["bwd"]),
@@ -183,9 +190,14 @@ def _backward(x, dt, A, B, C, s_chunks, dy, ds_final, intra_bf16: bool,
               want_ds0: bool = True):
     """Launch the backward kernel: ``(dx, ddt, dA, dB, dC, d_initial_state
     or None)``.
-    The per-head dB / dC and the per-(b, h) dA come out of the kernel as fp32
-    partials; their sums over the heads of a group and over the batch are
-    plain reductions here, so the result does not depend on block order."""
+
+    bf16 inputs take the two launches of the Hopper design (the reverse
+    state chain, then the chunk terms with the sums over a group's heads in
+    the kernel); fp32 inputs take the SIMT kernel, whose per-head dB / dC
+    come out as fp32 partials. The sums left here (dA over batch and chunks;
+    fp32 dB / dC over the heads of a group, or over the head splits of a
+    bf16 call at a small batch) are plain reductions in a fixed order, so
+    the result does not depend on block order."""
     Bsz, L, H, P = x.shape
     G, N = B.shape[2], B.shape[3]
     dy = dy.to(x.dtype).contiguous()
@@ -197,22 +209,44 @@ def _backward(x, dt, A, B, C, s_chunks, dy, ds_final, intra_bf16: bool,
     dev, f32 = x.device, torch.float32
     dx = torch.empty_like(x)
     ddt = torch.empty(Bsz, L, H, dtype=f32, device=dev)
-    dA_part = torch.empty(Bsz, H, dtype=f32, device=dev)
-    dB_part = torch.empty(Bsz, L, H, N, dtype=f32, device=dev)
-    dC_part = torch.empty(Bsz, L, H, N, dtype=f32, device=dev)
     ds0 = torch.empty(Bsz, H, N, P, dtype=f32, device=dev) if want_ds0 else None
+    ptr = lambda t: None if t is None else t.data_ptr()
+    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        code = bwd.hnet_ssd_bwd(
-            DTYPE_CODES[x.dtype], x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-            C.data_ptr(), dy.data_ptr(), s_chunks.data_ptr(),
-            None if ds_final is None else ds_final.data_ptr(), dx.data_ptr(),
-            ddt.data_ptr(), dA_part.data_ptr(), dB_part.data_ptr(), dC_part.data_ptr(),
-            None if ds0 is None else ds0.data_ptr(), Bsz, L, H, G, P, N, int(intra_bf16),
-            torch.cuda.current_stream(dev).cuda_stream)
+        if x.dtype == torch.bfloat16:
+            K = -(-L // CHUNK)
+            splits = bwd.hnet_ssd_bwd_bf16_splits(Bsz, L, H, G)
+            if splits < 1:
+                _raise_on(-splits, "backward")
+            dA_part = torch.empty(Bsz, H, K, dtype=f32, device=dev)
+            d_after = torch.empty(Bsz, H, K, N, P, dtype=x.dtype, device=dev)   # D_k
+            dB, dC = torch.empty_like(B), torch.empty_like(C)
+            parts = (torch.empty(2, splits, Bsz, L, G, N, dtype=f32, device=dev)
+                     if splits > 1 else None)
+            code = bwd.hnet_ssd_bwd_bf16(
+                x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
+                dy.data_ptr(), s_chunks.data_ptr(), ptr(ds_final), d_after.data_ptr(),
+                dx.data_ptr(), ddt.data_ptr(),
+                dA_part.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+                None if parts is None else parts[0].data_ptr(),
+                None if parts is None else parts[1].data_ptr(), ptr(ds0),
+                Bsz, L, H, G, P, N, int(intra_bf16), stream)
+        else:
+            dA_part = torch.empty(Bsz, H, dtype=f32, device=dev)
+            parts = torch.empty(2, Bsz, L, H, N, dtype=f32, device=dev)
+            code = bwd.hnet_ssd_bwd_fp32(
+                x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
+                dy.data_ptr(), s_chunks.data_ptr(), ptr(ds_final), dx.data_ptr(),
+                ddt.data_ptr(), dA_part.data_ptr(), parts[0].data_ptr(), parts[1].data_ptr(),
+                ptr(ds0), Bsz, L, H, G, P, N, int(intra_bf16), stream)
     _raise_on(code, "backward")
     ssd_cuda.bwd_launches += 1
-    group = lambda t: t.view(Bsz, L, G, H // G, N).sum(3).to(B.dtype)
-    return dx, ddt, dA_part.sum(0), group(dB_part), group(dC_part), ds0
+    dA = dA_part.sum(0) if dA_part.dim() == 2 else dA_part.sum((0, 2))
+    if x.dtype == torch.float32:
+        dB, dC = parts.view(2, Bsz, L, G, H // G, N).sum(4)
+    elif parts is not None:
+        dB, dC = parts.sum(1).to(B.dtype)
+    return dx, ddt, dA, dB, dC, ds0
 
 
 class SSDScan(torch.autograd.Function):

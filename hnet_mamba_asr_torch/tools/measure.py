@@ -2,6 +2,8 @@
 """Measurements of the port on one CUDA card, for PERF.md.
 
     python3 hnet_mamba_asr_torch/tools/measure.py ssd   [--repo DIR]
+    python3 hnet_mamba_asr_torch/tools/measure.py ssd_bwd [--repo DIR]
+    python3 hnet_mamba_asr_torch/tools/measure.py bwd_phases
     python3 hnet_mamba_asr_torch/tools/measure.py serve [--repo DIR] [--profile]
     python3 hnet_mamba_asr_torch/tools/measure.py phases
     python3 hnet_mamba_asr_torch/tools/measure.py train
@@ -19,6 +21,21 @@ call, in turns (old, new, new, old).
   the kernel's own device time from a ``torch.profiler`` trace of 20 calls,
   and the host time a call takes to enqueue. One JSON line per shape with
   the three times and the bound of ``ssd_cost``.
+- ``ssd_bwd``: the SSD backward kernel alone (``ssd_cuda._backward``, from
+  the chunk states of one forward launch, kept) at ``chip_smoke.py``'s
+  ``BWD_SHAPES`` (B 32 L 249 H 16 / 12, B 8 L 873 H 16, B 1 L 249 H 16),
+  bf16 and fp32, ``intra_dtype`` bf16 and off: the kernels' device time
+  per call (every kernel whose name holds ``ssd_bwd``), CUDA events around
+  the call, and the bound of ``ssd_bwd_cost``; one JSON line per shape,
+  with each kernel's own time. Run the two versions in turns in one call
+  (old, new, new, old).
+- ``bwd_phases``: where the bf16 backward's chunk-terms launch spends its
+  time, at B 32 L 249 H 16: ``csrc/ssd_bwd.cu`` built again in a temporary
+  directory as variants, one with the per-head copies cut (compute only),
+  one with the compute cut (copies only), and with the copies cut, one per
+  phase cut (the side warps' scalars, the Q x Q phase, the [Q][N]
+  products, B D, the barrier before dx, dx); each variant's kernel time.
+  The variants compute wrong gradients: only their times are read.
 - ``serve``: whole-model serve calls of the gate config (bf16, seeded
   weights), host clock around a synced call, 10 calls after 3 warm-ups, at
   8 x 10 s, 1 x 35 s, 8 x 35 s and 1 x 3 s. With ``--profile``, a
@@ -38,6 +55,8 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -140,12 +159,19 @@ def device_rows(prof) -> list[tuple[float, str, int]]:
 
 
 def kernel_ms(fn, match: str, n: int = 20, tries: int = 3) -> float | None:
-    """Mean device time in ms of one launch of the kernel whose name contains
-    ``match`` (one per call of ``fn``), from a ``torch.profiler`` trace of
-    n calls after 3 warm-ups: the kernel's own time, without the host's
-    launch gaps that ``cuda_ms`` includes. A trace now and then comes back
-    with fewer or no device events, so the mean is over the launches the
-    trace holds; after ``tries`` traces without any the answer is None."""
+    times = kernel_times(fn, match, n, tries)
+    return sum(times.values()) if times else None
+
+
+def kernel_times(fn, match: str, n: int = 20, tries: int = 3) -> dict:
+    """Mean device time in ms that one call of ``fn`` spends in each kernel
+    whose name contains ``match`` (each launched once per call; a call may
+    launch several), from a ``torch.profiler`` trace of n calls after 3
+    warm-ups: the kernels' own time, without the host's launch gaps that
+    ``cuda_ms`` includes. Each kernel's time is its mean over the launches
+    the trace holds (a trace now and then comes back with fewer or no device
+    events); ``kernel_ms`` is a call's time, the sum of those means, or None
+    after ``tries`` traces without any."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
@@ -156,10 +182,9 @@ def kernel_ms(fn, match: str, n: int = 20, tries: int = 3) -> float | None:
                 fn()
             torch.cuda.synchronize()
         rows = [ev for ev in prof.key_averages() if match in ev.key and device_us(ev) > 0]
-        launches = sum(ev.count for ev in rows)
-        if launches:
-            return sum(device_us(ev) for ev in rows) / launches / 1e3
-    return None
+        if rows:
+            return {ev.key: device_us(ev) / ev.count / 1e3 for ev in rows}
+    return {}
 
 
 def host_us(fn, n: int = 50) -> float:
@@ -208,6 +233,105 @@ def measure_ssd(tag: str) -> None:
                                       "bound_ms": cost["bound_ms"], "bound_by": cost["bound_by"],
                                       "share": cost["bound_ms"] / ms if ms else None}),
                           flush=True)
+
+
+BWD_SHAPES = ((32, 249, 16), (32, 249, 12), (8, 873, 16), (1, 249, 16))   # chip_smoke.py's
+
+
+def measure_ssd_bwd(tag: str) -> None:
+    """The backward kernel alone, through the version's own ``_forward`` /
+    ``_backward`` (whose arguments are the same in every version)."""
+    from hnet_mamba_asr_torch.ops import ssd_cuda as mod
+    mod.build()
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).removeprefix("torch.")
+        for intra in (True, False):
+            for Bsz, L, H in BWD_SHAPES:
+                args = ssd_inputs(Bsz, L, H, dtype, seed=5)
+                dy = torch.randn(args[0].shape, generator=torch.Generator().manual_seed(6)
+                                 ).to("cuda", dtype)
+                _, _, states = mod._forward(*args, None, False, intra, keep_states=True)
+                run = lambda: mod._backward(*args, states, dy, None, intra, False)
+                call_ms = cuda_ms(run)
+                times = kernel_times(run, "ssd_bwd")
+                ms = sum(times.values()) if times else None
+                cost = ssd_bwd_cost(Bsz, L, H, 1, 64, 128, name)
+                print(json.dumps({"version": tag, "kernel": "ssd_bwd", "dtype": name,
+                                  "intra": "bf16" if intra else None, "B": Bsz, "L": L, "H": H,
+                                  "ms": ms, "call_ms": call_ms, "bound_ms": cost["bound_ms"],
+                                  "bound_by": cost["bound_by"],
+                                  "share": cost["bound_ms"] / ms if ms else None,
+                                  "kernels_ms": {re.search(r"ssd_bwd\w*", k).group(0): v
+                                                 for k, v in times.items()}}),
+                      flush=True)
+                del states
+
+
+# launch 2's phases, cut from a copy of its source by these markers
+BWD_CUTS = {
+    "side warps": ("    // two warps without a Q x Q tile", "    // ---- Q x Q: dW = dy x^T"),
+    "Q x Q": ("    // ---- Q x Q: dW = dy x^T", "    // ---- [Q][N], columns"),
+    "[Q][N] products": ("    // ---- [Q][N], columns", "    // ---- u = B D for dx's rows"),
+    "B D": ("    // ---- u = B D for dx's rows", "    __syncthreads();                // W is in"),
+    "barrier before dx": ("    __syncthreads();                // W is in",
+                          "    // ---- dx = W^T dy + coef * u"),
+    "dx": ("    // ---- dx = W^T dy + coef * u", "  __syncthreads();                  // the last"),
+}
+NEXT_HEAD_COPIES = "    if (i + 1 < nh)                 // the next head's copies fly while"
+
+
+def measure_bwd_phases(tag: str) -> None:
+    from hnet_mamba_asr_torch.ops import ssd_cuda as mod
+    bwd = mod.build()["bwd"]
+    src = mod.SOURCES["bwd"].read_text()
+
+    def cut(text: str, start: str, end: str, keep_tail: str = "") -> str:
+        a, b = text.index(start), text.index(end)
+        return text[:a] + "#if 0\n" + text[a:b] + "#endif\n" + keep_tail + text[b:]
+
+    no_copies = src.replace(NEXT_HEAD_COPIES, "    if (false)  //")
+    # the dx cut ends at the head loop's closing brace, which stays
+    dx_a, dx_b = BWD_CUTS["dx"]
+    loop_end = src.rindex("  }\n", 0, src.index(dx_b))
+    variants = {"whole": src, "copies cut (compute only)": no_copies,
+                "compute cut (copies only)": src[:src.index(BWD_CUTS["Q x Q"][0])] + "#if 0\n"
+                + src[src.index(BWD_CUTS["Q x Q"][0]):loop_end] + "#endif\n" + src[loop_end:]}
+    for phase, (a, b) in BWD_CUTS.items():
+        if phase == "dx":
+            end = no_copies.rindex("  }\n", 0, no_copies.index(dx_b))
+            i = no_copies.index(dx_a)
+            variants[f"copies and {phase} cut"] = (no_copies[:i] + "#if 0\n" + no_copies[i:end]
+                                                   + "#endif\n" + no_copies[end:])
+        else:                       # dx still reads u when B D is cut
+            variants[f"copies and {phase} cut"] = cut(
+                no_copies, a, b, "    float u[2][4] = {};\n" if phase == "B D" else "")
+    args = ssd_inputs(32, 249, 16, torch.bfloat16, seed=5)
+    dy = torch.randn(args[0].shape, generator=torch.Generator().manual_seed(6)).to("cuda", args[0].dtype)
+    _, _, states = mod._forward(*args, None, False, True, keep_states=True)
+    with tempfile.TemporaryDirectory(prefix="bwd_phases_") as tmp:
+        shutil.copy(mod.HEADER, tmp)
+        jobs = {}
+        for i, (name, text) in enumerate(variants.items()):
+            path = Path(tmp) / f"v{i}.cu"
+            path.write_text(text)
+            jobs[name] = (path.with_suffix(".so"), subprocess.Popen(
+                [mod._nvcc(), *mod.NVCC_FLAGS, "-o", str(path.with_suffix(".so")), str(path)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for name, (lib_path, proc) in jobs.items():
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on the variant {name!r}:\n{out}")
+            lib = ctypes.CDLL(str(lib_path))
+            for fn in ("hnet_ssd_bwd_bf16", "hnet_ssd_bwd_bf16_splits", "hnet_ssd_bwd_supported"):
+                getattr(lib, fn).argtypes = getattr(bwd, fn).argtypes
+                getattr(lib, fn).restype = getattr(bwd, fn).restype
+            mod._loaded["bwd"] = lib
+            times = kernel_times(lambda: mod._backward(*args, states, dy, None, True, False),
+                                 "ssd_bwd_chunk")
+            print(json.dumps({"version": tag, "bwd_phases": name, "B": 32, "L": 249, "H": 16,
+                              "chunk_kernel_ms": sum(times.values()) if times else None}),
+                  flush=True)
+    mod._loaded["bwd"] = bwd
 
 
 PHASES = ("loads of x, B, dt", "cumsum + state term", "cluster barrier 1", "chain",
@@ -349,7 +473,8 @@ def measure_train(tag: str) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("what", choices=("ssd", "serve", "phases", "train"))
+    ap.add_argument("what", choices=("ssd", "ssd_bwd", "bwd_phases", "serve", "phases",
+                                     "train"))
     ap.add_argument("--repo", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--tag", default=None, help="label of the version in the output")
     ap.add_argument("--profile", action="store_true")
@@ -365,6 +490,10 @@ def main() -> int:
     tag = args.tag or repo.name
     if args.what == "ssd":
         measure_ssd(tag)
+    elif args.what == "ssd_bwd":
+        measure_ssd_bwd(tag)
+    elif args.what == "bwd_phases":
+        measure_bwd_phases(tag)
     elif args.what == "phases":
         measure_phases(tag)
     elif args.what == "train":

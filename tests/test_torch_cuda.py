@@ -121,8 +121,12 @@ GRAD_MEAN_BOUND = {"float32": 1e-5, "bfloat16": 1e-2}
 DA_BOUND = {"float32": 1e-3, "bfloat16": 2e-2}
 GRAD_NAMES = ("x", "dt", "A", "B", "C", "initial_state")
 
+# K 1 with groups; K 3; K 9 (two rounds of the chains); the training shape
+# at B 2 (the bf16 backward splits each group's heads over CTAs); K 18 at
+# the main path's 16 heads (three rounds of the reverse chain)
 GRAD_SHAPES = [(2, 37, 4, 64, 128, 2), (3, 130, 12, 64, 128, 1),
-               (2, 8 * Q + 1, 4, 64, 128, 1), (2, 249, 16, 64, 128, 1)]
+               (2, 8 * Q + 1, 4, 64, 128, 1), (2, 249, 16, 64, 128, 1),
+               (1, 1100, 16, 64, 128, 1)]
 
 
 def _grads(fn, args, w, w_final):
@@ -164,6 +168,24 @@ def test_kernel_gradients_match_plain(cuda, dtype, shape, intra_dtype):
         bound, mean_bound = ((DA_BOUND[kind],) * 2 if name == "A"
                              else (GRAD_BOUND[kind], GRAD_MEAN_BOUND[kind]))
         assert rel <= bound and mean <= mean_bound, (name, rel, mean)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_is_deterministic(cuda, dtype):
+    """Two backward calls on the same inputs give bitwise-equal gradients:
+    the sums over heads, splits, batch and chunks run in a fixed order, with
+    no float atomics."""
+    from hnet_mamba_asr_torch.ops.ssd_cuda import _backward, _forward
+    for shape in ((4, 249, 16, 64, 128, 1), (1, 249, 16, 64, 128, 2)):
+        x, dt, A, B, C = _inputs(cuda, *shape, dtype, seed=6)
+        dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(7)).to(cuda, dtype)
+        ds = torch.randn(shape[0], shape[2], 128, 64, generator=torch.Generator().manual_seed(8)
+                         ).to(cuda)
+        _, _, states = _forward(x, dt, A, B, C, None, False, True, keep_states=True)
+        one = _backward(x, dt, A, B, C, states, dy, ds, True)
+        two = _backward(x, dt, A, B, C, states, dy, ds, True)
+        for a, b in zip(one, two):
+            assert torch.equal(a, b)
 
 
 def test_training_call_is_differentiable(cuda):
