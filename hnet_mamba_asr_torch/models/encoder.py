@@ -1,13 +1,20 @@
-"""The Mamba-H-Net encoder, Type A at N = 1, counterpart of
-``hnet_mamba_asr_tpu/models/encoder.py``.
+"""The Mamba-H-Net encoder sandwich (Type A one-stage, Type B two-stage),
+counterpart of ``hnet_mamba_asr_tpu/models/encoder.py``.
 
 conv subsample x4 (100 -> 25 Hz) -> enc Mamba stack (d_outer) -> [chunk ->
-proj_in -> main Mamba stack (d_main) -> proj_out -> dechunk] -> residual
-``x_enc + x_dech`` (the fine-detail bypass) -> dec Mamba stack. At N = 1 the
-chunker is the identity. Type B and N > 1 raise ``NotImplementedError``.
+proj_in -> main Mamba stack (d_main, compressed rate) -> proj_out ->
+dechunk] -> residual ``x_enc + x_dech`` (the fine-detail bypass) -> dec
+Mamba stack. Type B nests two sqrt(N) chunk levels with mid stacks at
+d_main. At N = 1 every chunker is the identity and the encoder is pure
+bidirectional Mamba (the no-chunk control).
+
+Returns per-stage boundaries, chunk embeddings (on the trimmed buffer of
+``models/hnet_chunk.py``: compare valid slots only) and kept fractions, and
+the summed ratio loss.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -15,11 +22,20 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from hnet_mamba_asr_torch.models.hnet_chunk import identity_chunk
+from hnet_mamba_asr_torch.models.fixed_pool import FixedPoolChunker
+from hnet_mamba_asr_torch.models.hnet_chunk import DynamicChunker
 from hnet_mamba_asr_torch.models.mamba2 import dense, lecun_normal_, new_linear
 from hnet_mamba_asr_torch.models.mamba_block import MambaStack
 
-CHUNKERS = ("dynamic", "fixed")
+CHUNKERS = {"dynamic": DynamicChunker, "fixed": FixedPoolChunker}
+
+
+def build_chunker(kind: str, d_model: int, N, ema_smoothing: bool = True,
+                  dtype: torch.dtype = torch.float32):
+    kind = str(kind).lower()
+    if kind not in CHUNKERS:
+        raise ValueError(f"unknown chunker {kind!r}; choices: {sorted(CHUNKERS)}")
+    return CHUNKERS[kind](d_model=d_model, N=N, ema_smoothing=ema_smoothing, dtype=dtype)
 
 
 class EncoderOutput(NamedTuple):
@@ -89,25 +105,20 @@ class ConvSubsampling4(nn.Module):
 
 
 class DCASREncoder(nn.Module):
-    """Type A encoder at N = 1 (one identity chunk level)."""
+    """Type A (one chunk level at factor N) or Type B (two sqrt(N) levels)."""
 
     def __init__(self, n_mels: int = 80, d_outer: int = 384, d_main: int = 512,
-                 n_enc: int = 4, n_main: int = 12, n_dec: int = 4,
+                 n_enc: int = 4, n_main: int = 12, n_dec: int = 4, n_mid: int = 4,
                  arch_type: str = "A", N: float = 1, bidirectional: bool = True,
-                 chunker: str = "dynamic", d_state: int = 128, headdim: int = 64,
-                 chunk_size: int = 256, ssd_intra_dtype: str | None = None,
-                 ssd_out_compute_dtype: bool = False, remat_policy: str = "none",
-                 dtype: torch.dtype = torch.float32,
+                 hnet_ema: bool = True, chunker: str = "dynamic", d_state: int = 128,
+                 headdim: int = 64, chunk_size: int = 256,
+                 ssd_intra_dtype: str | None = None, ssd_out_compute_dtype: bool = False,
+                 remat_policy: str = "none", dtype: torch.dtype = torch.float32,
                  generator: torch.Generator | None = None):
         super().__init__()
         if arch_type not in ("A", "B"):
             raise ValueError(f"arch_type must be 'A' or 'B', got {arch_type!r}")
-        if str(chunker).lower() not in CHUNKERS:
-            raise ValueError(f"unknown chunker {chunker!r}; choices: {sorted(CHUNKERS)}")
-        if arch_type != "A" or N != 1:
-            raise NotImplementedError(
-                f"the PyTorch port serves Type A at N=1 only (got Type {arch_type}, "
-                f"N={N}); H-Net chunking and Type B come in a later slice")
+        self.arch_type = arch_type
         self.d_outer = d_outer
         self.dtype = dtype
         stack_kw = dict(bidirectional=bidirectional, d_state=d_state, headdim=headdim,
@@ -116,19 +127,48 @@ class DCASREncoder(nn.Module):
                         remat_policy=remat_policy, dtype=dtype, generator=generator)
         self.subsample = ConvSubsampling4(n_mels, d_outer, dtype, generator)
         self.enc = MambaStack(n_enc, d_outer, **stack_kw)
-        self.proj_in = new_linear(d_outer, d_main, True, generator)
-        self.main = MambaStack(n_main, d_main, **stack_kw)
-        self.proj_out = new_linear(d_main, d_outer, True, generator)
+        if arch_type == "A":
+            self.chunk = build_chunker(chunker, d_outer, N, hnet_ema, dtype)
+            self.proj_in = new_linear(d_outer, d_main, True, generator)
+            self.main = MambaStack(n_main, d_main, **stack_kw)
+            self.proj_out = new_linear(d_main, d_outer, True, generator)
+        else:                                          # Type B: two sqrt(N) stages
+            nb = math.sqrt(N)
+            self.chunk1 = build_chunker(chunker, d_outer, nb, hnet_ema, dtype)
+            self.proj1_in = new_linear(d_outer, d_main, True, generator)
+            self.mid = MambaStack(n_mid, d_main, **stack_kw)
+            self.chunk2 = build_chunker(chunker, d_main, nb, hnet_ema, dtype)
+            self.main = MambaStack(n_main, d_main, **stack_kw)
+            self.mid_dec = MambaStack(n_mid, d_main, **stack_kw)
+            self.proj1_out = new_linear(d_main, d_outer, True, generator)
         self.dec = MambaStack(n_dec, d_outer, **stack_kw)
 
     def forward(self, feats: torch.Tensor, feat_lengths: torch.Tensor) -> EncoderOutput:
         x, lengths = self.subsample(feats, feat_lengths)
         mask = lengths_to_mask(lengths, x.shape[1])
         x_enc = self.enc(x, lengths)
-        co = identity_chunk(x_enc, mask)
+        if self.arch_type == "A":
+            return self._forward_a(x_enc, mask, lengths)
+        return self._forward_b(x_enc, mask, lengths)
+
+    def _forward_a(self, x_enc, mask, lengths) -> EncoderOutput:
+        co = self.chunk.chunk(x_enc, mask)
         z = dense(co.z, self.proj_in, self.dtype)
         z = self.main(z, co.z_mask.sum(dim=1))
-        x_dech = dense(z, self.proj_out, self.dtype)            # identity dechunk
+        x_dech = self.chunk.dechunk(dense(z, self.proj_out, self.dtype), co)
         x_out = self.dec(x_enc + x_dech, lengths)               # fine-detail bypass
         return EncoderOutput(x_out, lengths, co.ratio_loss, ((co.p, co.b),),
                              (co.z,), (co.kept_fraction,))
+
+    def _forward_b(self, x_enc, mask, lengths) -> EncoderOutput:
+        co1 = self.chunk1.chunk(x_enc, mask)                    # frames -> units
+        units = co1.z_mask.sum(dim=1)
+        z1 = self.mid(dense(co1.z, self.proj1_in, self.dtype), units)
+        co2 = self.chunk2.chunk(z1, co1.z_mask)                 # units -> words
+        z2 = self.main(co2.z, co2.z_mask.sum(dim=1))
+        z1_dec = self.mid_dec(z1 + self.chunk2.dechunk(z2, co2), units)
+        x_dech = self.chunk1.dechunk(dense(z1_dec, self.proj1_out, self.dtype), co1)
+        x_out = self.dec(x_enc + x_dech, lengths)
+        return EncoderOutput(x_out, lengths, co1.ratio_loss + co2.ratio_loss,
+                             ((co1.p, co1.b), (co2.p, co2.b)), (co1.z, co2.z),
+                             (co1.kept_fraction, co2.kept_fraction))

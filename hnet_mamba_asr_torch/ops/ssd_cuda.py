@@ -4,11 +4,9 @@ build, bind, launch, differentiate.
 Counterpart of the Pallas kernel ``hnet_mamba_asr_tpu/ops/ssd_pallas.py``
 (forward) and of the JAX package's autodiff of ``ops/ssd.py::ssd_chunked``
 (backward). Each source is compiled with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface and loaded with ``ctypes``; the two
-compile in parallel at the first launch, from the package's own sources,
-into ``_build/`` beside this package. A library's name carries a hash of its
-source, the header they share (``csrc/ssd_common.cuh``) and the flags, so an
-edited source or header is rebuilt and never mixed with an old library.
+shared library with a plain C interface (``ops/cuda_build.py``: every kernel
+of the port at the first launch, in parallel, from the package's own
+sources) and loaded with ``ctypes``.
 
 ``ssd_cuda`` is the wrapper a model calls. A tensor on the CPU goes to the
 plain version, ``ops/ssd.py::ssd_chunked``, which autograd differentiates; a
@@ -21,80 +19,40 @@ two kernels, the reverse chain and the chunk terms, and counts once).
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
-import time
-from pathlib import Path
 
 import torch
 
+from hnet_mamba_asr_torch.ops import cuda_build
 from hnet_mamba_asr_torch.ops.ssd import normalize_intra_dtype, ssd_chunked
 
-PACKAGE_DIR = Path(__file__).resolve().parents[1]
-SOURCES = {"fwd": PACKAGE_DIR / "csrc" / "ssd_fwd.cu",
-           "bwd": PACKAGE_DIR / "csrc" / "ssd_bwd.cu"}
-HEADER = PACKAGE_DIR / "csrc" / "ssd_common.cuh"        # included by both sources
 CHUNK = 64                      # the kernels' chunk length
-BUILD_DIR = PACKAGE_DIR / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _lock = threading.Lock()
 _loaded: dict = {}
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
-        return str(Path(CUDA_HOME) / "bin" / "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the SSD kernels are built from "
-                           f"{PACKAGE_DIR / 'csrc'} at first use and need the CUDA toolkit")
-    return found
-
-
 def build(defines: tuple[str, ...] = ()) -> dict:
-    """Compile (once per process and source hash) and load the two kernel
-    libraries, one ``nvcc`` per source, started together.
+    """Compile (once per process and source hash; ``cuda_build.build_all``
+    builds every kernel of the port, one ``nvcc`` per source, started
+    together) and load the two SSD libraries.
 
     Returns ``{"lib", "bwd", "path", "bwd_path", "seconds", "log",
     "cached"}``: ``lib`` is the forward library and ``bwd`` the backward's;
-    ``seconds`` is this call's build time (0 when both libraries were
-    already on disk) and ``log`` the compiler's report (registers, shared
-    memory, spills). ``defines`` (e.g. ``("SSD_PHASE_CLOCKS",)``) build an
+    ``seconds`` is the build's time (0 when every library was already on
+    disk) and ``log`` the compiler's report (registers, shared memory,
+    spills). ``defines`` (e.g. ``("SSD_PHASE_CLOCKS",)``) build an
     instrumented forward; the first call in a process decides which one it
     uses.
     """
+    info = cuda_build.build_all({"ssd_fwd": tuple(defines)})
     with _lock:
         if "lib" in _loaded:
             return _loaded
-        t0 = time.perf_counter()
-        paths, jobs = {}, {}
-        for name, source in SOURCES.items():
-            flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines if name == "fwd"))
-            tag = hashlib.sha256(source.read_bytes() + HEADER.read_bytes()
-                                 + " ".join(flags).encode()).hexdigest()[:16]
-            paths[name] = BUILD_DIR / f"libssd_{name}_{tag}.so"
-            if not paths[name].exists():
-                BUILD_DIR.mkdir(parents=True, exist_ok=True)
-                tmp = paths[name].with_suffix(f".{os.getpid()}.tmp")
-                jobs[name] = (tmp, subprocess.Popen(
-                    [_nvcc(), *flags, "-o", str(tmp), str(source)],
-                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        logs = []
-        for name, (tmp, proc) in jobs.items():
-            out, _ = proc.communicate()
-            logs.append(f"{SOURCES[name].name}:\n{out}")
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {SOURCES[name]} ({proc.returncode}):\n{out}")
-            os.replace(tmp, paths[name])
+        paths = info["paths"]
         ptr, c_int = ctypes.c_void_p, ctypes.c_int
-        lib = ctypes.CDLL(str(paths["fwd"]))
+        lib = ctypes.CDLL(str(paths["ssd_fwd"]))
         lib.hnet_ssd_fwd.argtypes = [c_int] + [ptr] * 9 + [c_int] * 7 + [ptr]
         lib.hnet_ssd_fwd.restype = c_int
         lib.hnet_ssd_fwd_supported.argtypes = [c_int, c_int]
@@ -103,7 +61,7 @@ def build(defines: tuple[str, ...] = ()) -> dict:
         lib.hnet_ssd_fwd_bf16_cluster_size.restype = c_int
         lib.hnet_cuda_error_string.argtypes = [c_int]
         lib.hnet_cuda_error_string.restype = ctypes.c_char_p
-        bwd = ctypes.CDLL(str(paths["bwd"]))
+        bwd = ctypes.CDLL(str(paths["ssd_bwd"]))
         bwd.hnet_ssd_bwd_bf16.argtypes = [ptr] * 17 + [c_int] * 7 + [ptr]
         bwd.hnet_ssd_bwd_bf16.restype = c_int
         bwd.hnet_ssd_bwd_bf16_splits.argtypes = [c_int] * 4
@@ -112,9 +70,9 @@ def build(defines: tuple[str, ...] = ()) -> dict:
         bwd.hnet_ssd_bwd_fp32.restype = c_int
         bwd.hnet_ssd_bwd_supported.argtypes = [c_int, c_int]
         bwd.hnet_ssd_bwd_supported.restype = c_int
-        _loaded.update(lib=lib, bwd=bwd, path=str(paths["fwd"]), bwd_path=str(paths["bwd"]),
-                       log="\n".join(logs), cached=not jobs,
-                       seconds=time.perf_counter() - t0 if jobs else 0.0)
+        _loaded.update(lib=lib, bwd=bwd, path=str(paths["ssd_fwd"]),
+                       bwd_path=str(paths["ssd_bwd"]), log=info["log"],
+                       cached=info["cached"], seconds=info["seconds"])
         return _loaded
 
 

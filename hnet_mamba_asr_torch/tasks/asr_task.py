@@ -53,8 +53,10 @@ def build_encoder(config, dtype=torch.float32, generator=None) -> DCASREncoder:
         n_mels=int(config.get("frontend_conf", {}).get("n_mels", 80)),
         d_outer=int(ec["d_outer"]), d_main=int(ec["d_main"]),
         n_enc=int(ec["n_enc"]), n_main=int(ec["n_main"]), n_dec=int(ec["n_dec"]),
-        arch_type=str(ec["arch_type"]), N=h.get("compression_N", 1),
+        n_mid=int(ec.get("n_mid", 4)), arch_type=str(ec["arch_type"]),
+        N=h.get("compression_N", 1),
         bidirectional=bool(ec.get("bidirectional", True)),
+        hnet_ema=bool(h.get("ema_smoothing", True)),
         chunker=str(h.get("chunker", "dynamic")),
         d_state=int(ec.get("d_state", 128)), headdim=int(ec.get("headdim", 64)),
         chunk_size=int(ec.get("ssd_chunk_size", 256)),
@@ -134,7 +136,8 @@ class DCASRModel(nn.Module):
     def loss_fn(self, batch: dict, step: int, train: bool):
         """-> (loss, stats): the weighted hybrid loss, and detached stats with
         the JAX keys (loss/total, loss/ctc, loss/aed, loss/ratio, loss/rnnt,
-        ctc_infeasible, kept_fraction, batch_weight). CTC rows are divided by
+        ctc_infeasible, kept_fraction and, for Type B, kept_fraction_1,
+        batch_weight). CTC rows are divided by
         their token length (torch's 'mean'), then averaged over the real rows;
         the AED loss is the token-mean label-smoothed CE over real rows."""
         if self.weights.rnnt_weight > 0:
@@ -161,7 +164,8 @@ class DCASRModel(nn.Module):
         out = combine_losses(self.weights, ctc_loss=ctc, aed_loss=aed,
                              ratio_loss=enc.ratio_loss)
         stats.update({k: v.detach() for k, v in out.items()})
-        stats["kept_fraction"] = enc.kept_fractions[0].detach()
+        for i, kf in enumerate(enc.kept_fractions):
+            stats["kept_fraction" if i == 0 else f"kept_fraction_{i}"] = kf.detach()
         stats["batch_weight"] = row_mask.sum()
         return out["loss/total"], stats
 

@@ -1,9 +1,10 @@
-"""The gate config (``configs/typeA_small_N1.yaml``, Type A Small N=1) as
-the port's checks and measurements run it: the config's keys as a dict
-(the card's machine has no PyYAML; ``tests/test_torch_slice.py`` holds the
-dict equal to the YAML), seeded test audio, CMVN statistics, training
-batches and a ``Trainer`` on the card. ``chip_smoke.py`` and
-``tools/measure.py`` both build from here.
+"""The gate config (``configs/typeA_small_N1.yaml``, Type A Small N=1) and
+its dynamic-chunking sibling (``configs/typeA_small_N2.yaml``) as the port's
+checks and measurements run them: the configs' keys as dicts (the card's
+machine has no PyYAML; ``tests/test_torch_slice.py`` and
+``tests/test_torch_hnet_train.py`` hold the dicts equal to the YAML), seeded
+test audio, CMVN statistics, training batches and a ``Trainer`` on the card.
+``chip_smoke.py`` and ``tools/measure.py`` both build from here.
 """
 from __future__ import annotations
 
@@ -39,13 +40,38 @@ GATE_TRAIN = {"optim": "adamw",
               "max_epoch": 120, "grad_clip": 1.0, "grad_clip_type": 2.0,
               "log_interval": 50, "accum_grad": 2, "valid_interval_epoch": 5}
 BATCH_BINS = 32000              # batch_bins: frames per micro-batch (max B x T)
+# the parts of configs/typeA_small_N2.yaml the model reads: Type A Small with
+# dynamic chunking at N = 2 (router, ratio loss, EMA dechunk); the SSD's
+# intra-chunk weights stay fp32 and remat is JAX's default, full
+N2_CONFIG = {
+    "frontend_conf": GATE_CONFIG["frontend_conf"],
+    "specaug_conf": GATE_CONFIG["specaug_conf"],
+    "encoder": "dcasr",
+    "encoder_conf": {"arch_type": "A", "d_outer": 384, "d_main": 512, "n_enc": 4,
+                     "n_main": 12, "n_dec": 4, "bidirectional": True, "d_state": 128,
+                     "headdim": 64, "ssd_chunk_size": 256,
+                     "hnet": {"compression_N": 2, "chunker": "dynamic",
+                              "ema_smoothing": True}},
+    "head": "ctc",
+    "aed_conf": GATE_CONFIG["aed_conf"],
+    "model_conf": GATE_CONFIG["model_conf"],
+    "train": {"precision": "bf16"},
+}
+N2_TRAIN = {"optim": "adamw",
+            "optim_conf": {"lr": 6.0e-4, "weight_decay": 1.0e-2, "betas": [0.9, 0.999],
+                           "router_lr_mult": 0.5, "router_eps": 1.0e-5},
+            "scheduler": "warmuplr", "scheduler_conf": {"warmup_steps": 20000},
+            "max_epoch": 120, "grad_clip": 1.0, "grad_clip_type": 2.0,
+            "log_interval": 50, "accum_grad": 1, "valid_interval_epoch": 5}
+N2_BATCH_BINS = 64000
 VOCAB = 500                     # bpe_500: 501 CTC classes
 SEED = 1                        # experiment.seed
 SR = 16000
 # training: utterances of 1000 mel frames (10.015 s), 32 per micro-batch
-# (the config's batch_bins); L 249 after the 4x subsampling
+# (the config's batch_bins; 64 at N = 2); L 249 after the 4x subsampling
 TRAIN_FRAMES = 1000
 TRAIN_ROWS = BATCH_BINS // TRAIN_FRAMES
+N2_TRAIN_ROWS = N2_BATCH_BINS // TRAIN_FRAMES
 TRAIN_SAMPLES = (TRAIN_FRAMES - 1) * 160 + 400
 
 
@@ -84,6 +110,22 @@ def train_batches(rng, n_batches: int, rows: int) -> list[dict]:
         out.append(collate_batch(items, pad_id=3, seed=SEED, epoch=0, snap_lengths=False,
                                  wire_dtype="int16"))
     return out
+
+
+def draw_routers(model, seed: int) -> None:
+    """Redraw every router's W_q and W_k as N(0, 1/d) from ``seed`` (on the
+    CPU, then copied to the model's device, so that two models built from
+    one seed stay equal). At their identity init on seeded audio the routers
+    keep one frame per row (adjacent encoder frames are nearly parallel, so
+    p ~ 0), and the main stack would see rows of length 1, whose gradients
+    of A are identically zero; random projections give p ~ 0.5 +- 0.03, a
+    kept fraction of about 1/2, which the ratio loss drives a trained N = 2
+    router toward."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, param in model.named_parameters():
+            if ".router." in f".{name}":
+                param.copy_(torch.randn(param.shape, generator=gen) / param.shape[1] ** 0.5)
 
 
 def gate_trainer(config, loader, train_cfg, cmvn, ckpt_dir, **overrides):

@@ -4,9 +4,10 @@
     python3 hnet_mamba_asr_torch/tools/measure.py ssd   [--repo DIR]
     python3 hnet_mamba_asr_torch/tools/measure.py ssd_bwd [--repo DIR]
     python3 hnet_mamba_asr_torch/tools/measure.py bwd_phases
-    python3 hnet_mamba_asr_torch/tools/measure.py serve [--repo DIR] [--profile]
+    python3 hnet_mamba_asr_torch/tools/measure.py ema
+    python3 hnet_mamba_asr_torch/tools/measure.py serve [--repo DIR] [--profile] [--config n2]
     python3 hnet_mamba_asr_torch/tools/measure.py phases
-    python3 hnet_mamba_asr_torch/tools/measure.py train
+    python3 hnet_mamba_asr_torch/tools/measure.py train [--config n2]
 
 Run as a file, from the root of a checkout. ``--repo`` names the checkout
 whose ``hnet_mamba_asr_torch`` is measured, this one
@@ -36,19 +37,28 @@ call, in turns (old, new, new, old).
   phase cut (the side warps' scalars, the Q x Q phase, the [Q][N]
   products, B D, the barrier before dx, dx); each variant's kernel time.
   The variants compute wrong gradients: only their times are read.
-- ``serve``: whole-model serve calls of the gate config (bf16, seeded
-  weights), host clock around a synced call, 10 calls after 3 warm-ups, at
-  8 x 10 s, 1 x 35 s, 8 x 35 s and 1 x 3 s. With ``--profile``, a
-  ``torch.profiler`` window of 3 calls at 8 x 10 s: device time by kernel
-  and the device's idle share.
+- ``ema``: the H-Net EMA kernels (``ops/ema_cuda.py``) at ``EMA_SHAPES``
+  (``chip_smoke.py``'s), bf16 and fp32: the forward's and the backward's
+  device time per call, the plain version's (``ema_smooth`` and autograd
+  of it, CUDA events) and the bounds of ``ema_cost`` / ``ema_bwd_cost``;
+  one JSON line per shape.
+- ``serve``: whole-model serve calls of the gate config (``--config n2``:
+  configs/typeA_small_N2.yaml, its routers drawn at random so that they
+  keep about half the frames) in bf16 with seeded weights, host clock
+  around a synced call, 10 calls after 3 warm-ups, at 8 x 10 s, 1 x 35 s,
+  8 x 35 s and 1 x 3 s. With ``--profile``, a ``torch.profiler`` window of
+  3 calls at 8 x 10 s: device time by kernel and the device's idle share.
 - ``phases``: where a bf16 kernel call spends its time, from a build with
   ``-DSSD_PHASE_CLOCKS`` whose CTAs stamp the global timer at the bounds of
   their first round (loads, state term, cluster barrier, chain, barrier,
   output). Mean phase lengths over the CTAs, at B 8 L 248 / 873 H 16 and
   B 1 L 873 H 12.
-- ``train``: one update of the gate config's training step (``measure_train``):
-  forward / backward / optimizer device time by CUDA events, then a
-  profiled update's device time by kernel and idle share.
+- ``train``: one update of the gate config's training step (``measure_train``;
+  ``--config n2``: the N = 2 config's, one micro-batch of 64 x 10 s, remat
+  full, with the routers at their init and drawn at random): forward /
+  backward / optimizer device time by CUDA events, the kept fraction and
+  the buffer's slots, then a profiled update's device time by kernel and
+  idle share.
 """
 from __future__ import annotations
 
@@ -105,6 +115,22 @@ def ssd_bwd_cost(Bsz: int, L: int, H: int, G: int, P: int, N: int, dtype: str) -
     flops = Bsz * K * 2 * (3 * G * CHUNK * CHUNK * N
                            + H * (2 * CHUNK * CHUNK * P + 4 * CHUNK * N * P))
     return _bound(nbytes, flops, dtype)
+
+
+def ema_cost(Bsz: int, M: int, D: int, dtype: str) -> dict:
+    """Least time of one EMA forward on the H100: z read once, zbar written
+    once, P read once; 3 FLOPs per element (the recurrence's two products
+    and a sum) at the fp32 SIMT rate."""
+    es = 2 if dtype == "bfloat16" else 4
+    return _bound(2 * Bsz * M * D * es + Bsz * M * 4, 3 * Bsz * M * D, "float32")
+
+
+def ema_bwd_cost(Bsz: int, M: int, D: int, dtype: str) -> dict:
+    """Least time of one EMA backward given dL/dzbar: z, zbar, g and P read
+    once, dz and dP written once (zbar is what the function needs of the
+    forward); ~6 FLOPs per element (h, dz, the dP term and its sum)."""
+    es = 2 if dtype == "bfloat16" else 4
+    return _bound(4 * Bsz * M * D * es + 2 * Bsz * M * 4, 6 * Bsz * M * D, "float32")
 
 
 def _bound(nbytes: int, flops: int, dtype: str) -> dict:
@@ -236,6 +262,52 @@ def measure_ssd(tag: str) -> None:
 
 
 BWD_SHAPES = ((32, 249, 16), (32, 249, 12), (8, 873, 16), (1, 249, 16))   # chip_smoke.py's
+# the EMA's [B, M, D]: training micro-batches of 64 x 10 s (M <= 128 or 256
+# slots of the compressed buffer), a 35 s utterance's 880 slots at N = 1 of
+# stage 1, Type B's stage 2 (D 512), one short request
+EMA_SHAPES = ((64, 128, 384), (64, 256, 384), (8, 880, 384), (32, 128, 512), (1, 64, 384))
+
+
+def ema_inputs(Bsz, M, D, dtype, seed=0, saturate=False):
+    """z [B, M, D] and P [B, M] on the card: P in (0.1, 0.9), or with
+    saturate every 10th slot at 1 (a hard boundary) and the next 5th at 0
+    (a pad slot)."""
+    gen = torch.Generator().manual_seed(seed)
+    z = torch.randn(Bsz, M, D, generator=gen).to("cuda", dtype)
+    p = torch.rand(Bsz, M, generator=gen) * 0.8 + 0.1
+    if saturate:
+        p[:, ::10] = 1.0
+        p[:, 5::10] = 0.0
+    return z, p.cuda()
+
+
+def measure_ema(tag: str) -> None:
+    from hnet_mamba_asr_torch.ops import ema_cuda as mod
+    from hnet_mamba_asr_torch.ops.ema import ema_smooth
+    mod.build()
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).removeprefix("torch.")
+        for Bsz, M, D in EMA_SHAPES:
+            z, p = ema_inputs(Bsz, M, D, dtype)
+            g = torch.randn(z.shape, generator=torch.Generator().manual_seed(1)).to("cuda", dtype)
+            zbar = mod._forward(z, p, 1e-4)
+            fwd = lambda: mod._forward(z, p, 1e-4)
+            bwd = lambda: mod._backward(z, p, zbar, g, 1e-4)
+            zl, pl = z.clone().requires_grad_(), p.clone().requires_grad_()
+            y_plain = ema_smooth(zl, pl)
+            row = {"version": tag, "dtype": name, "B": Bsz, "M": M, "D": D,
+                   "fwd_ms": kernel_ms(fwd, "ema_fwd"), "fwd_call_ms": cuda_ms(fwd),
+                   "bwd_ms": kernel_ms(bwd, "ema_bwd"), "bwd_call_ms": cuda_ms(bwd),
+                   "plain_fwd_ms": cuda_ms(lambda: ema_smooth(z, p)),
+                   "plain_bwd_ms": cuda_ms(lambda: torch.autograd.grad(
+                       y_plain, (zl, pl), g, retain_graph=True, allow_unused=True))}
+            for key, cost in (("fwd", ema_cost(Bsz, M, D, name)),
+                              ("bwd", ema_bwd_cost(Bsz, M, D, name))):
+                ms = row[f"{key}_ms"]
+                row.update({f"{key}_bound_ms": cost["bound_ms"],
+                            f"{key}_bound_by": cost["bound_by"],
+                            f"{key}_share": cost["bound_ms"] / ms if ms else None})
+            print(json.dumps(row), flush=True)
 
 
 def measure_ssd_bwd(tag: str) -> None:
@@ -281,9 +353,11 @@ NEXT_HEAD_COPIES = "    if (i + 1 < nh)                 // the next head's copie
 
 
 def measure_bwd_phases(tag: str) -> None:
+    from hnet_mamba_asr_torch.ops import cuda_build
     from hnet_mamba_asr_torch.ops import ssd_cuda as mod
     bwd = mod.build()["bwd"]
-    src = mod.SOURCES["bwd"].read_text()
+    source, (header,) = cuda_build.SOURCES["ssd_bwd"]
+    src = source.read_text()
 
     def cut(text: str, start: str, end: str, keep_tail: str = "") -> str:
         a, b = text.index(start), text.index(end)
@@ -309,13 +383,13 @@ def measure_bwd_phases(tag: str) -> None:
     dy = torch.randn(args[0].shape, generator=torch.Generator().manual_seed(6)).to("cuda", args[0].dtype)
     _, _, states = mod._forward(*args, None, False, True, keep_states=True)
     with tempfile.TemporaryDirectory(prefix="bwd_phases_") as tmp:
-        shutil.copy(mod.HEADER, tmp)
+        shutil.copy(header, tmp)
         jobs = {}
         for i, (name, text) in enumerate(variants.items()):
             path = Path(tmp) / f"v{i}.cu"
             path.write_text(text)
             jobs[name] = (path.with_suffix(".so"), subprocess.Popen(
-                [mod._nvcc(), *mod.NVCC_FLAGS, "-o", str(path.with_suffix(".so")), str(path)],
+                [cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(path.with_suffix(".so")), str(path)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
         for name, (lib_path, proc) in jobs.items():
             out, _ = proc.communicate()
@@ -361,12 +435,21 @@ def measure_phases(tag: str) -> None:
               flush=True)
 
 
-def measure_serve(tag: str, profile: bool) -> None:
+def _configs() -> dict:
+    """name -> (model config, trainer config, rows per micro-batch)."""
+    from hnet_mamba_asr_torch.tools import gate
+    return {"gate": (gate.GATE_CONFIG, gate.GATE_TRAIN, gate.TRAIN_ROWS),
+            "n2": (gate.N2_CONFIG, gate.N2_TRAIN, gate.N2_TRAIN_ROWS)}
+
+
+def measure_serve(tag: str, profile: bool, config: str) -> None:
     from hnet_mamba_asr_torch.serving.runtime import ServingModel
     from hnet_mamba_asr_torch.tools import gate
     cmvn = gate.make_cmvn("cuda")
-    model = ServingModel(gate.GATE_CONFIG, None, "cuda", vocab_size=gate.VOCAB,
+    model = ServingModel(_configs()[config][0], None, "cuda", vocab_size=gate.VOCAB,
                          cmvn=cmvn, seed=gate.SEED, max_batch=8, max_samples=40 * gate.SR)
+    if config == "n2":                 # a router that keeps ~1/2, as a trained one
+        gate.draw_routers(model.model, gate.SEED + 22)
     rng = np.random.default_rng(7)
 
     def batch(n, seconds):
@@ -385,7 +468,8 @@ def measure_serve(tag: str, profile: bool) -> None:
             model(w, lens)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
-        print(json.dumps({"version": tag, "serve": label, "ms_mean": float(np.mean(times)),
+        print(json.dumps({"version": tag, "config": config, "serve": label,
+                          "ms_mean": float(np.mean(times)),
                           "ms_min": float(np.min(times)), "ms_max": float(np.max(times))}),
               flush=True)
     if not profile:
@@ -400,28 +484,38 @@ def measure_serve(tag: str, profile: bool) -> None:
         window_us = (time.perf_counter() - t0) * 1e6
     rows = device_rows(prof)
     busy = sum(r[0] for r in rows)
-    print(json.dumps({"version": tag, "profile": "3 calls of 8x10s", "window_ms": window_us / 1e3,
+    print(json.dumps({"version": tag, "config": config, "profile": "3 calls of 8x10s",
+                      "window_ms": window_us / 1e3,
                       "device_ms": busy / 1e3, "idle_share": 1 - busy / window_us,
                       "top": [{"name": k[:90], "ms": d / 1e3, "share": d / busy, "count": c}
                               for d, k, c in rows[:12]]}), flush=True)
 
 
-def measure_train(tag: str) -> None:
-    """One update of the gate config's training step as chip_smoke.py's
-    phase 5 runs it (hybrid, bf16, SpecAugment, 2 micro-batches of 32 x 10 s), after
-    2 updates of warm-up: CUDA events split each micro-step into forward
-    (loss_fn) and backward and the update into clip + AdamW; then a
-    ``torch.profiler`` window over one more update gives the device time by
-    kernel and the device's idle share."""
+def measure_train(tag: str, config: str, routers: str = "init") -> None:
+    """One update of a config's training step as chip_smoke.py runs it
+    (hybrid, bf16, SpecAugment; the gate config: 2 micro-batches of 32 x
+    10 s, remat none; n2: 1 of 64 x 10 s, remat full), after 2 updates of
+    warm-up: CUDA events split each micro-step into forward (loss_fn) and
+    backward and the update into clip + AdamW; then a ``torch.profiler``
+    window over one more update gives the device time by kernel and the
+    device's idle share. ``routers``: "init" keeps the routers' identity
+    init (which keeps one frame per row of seeded audio), "random" draws
+    them at random (``gate.draw_routers``: about half the frames kept, where
+    the ratio loss drives a trained N = 2 router)."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
+    from hnet_mamba_asr_torch.ops.ema_cuda import ema_cuda
     from hnet_mamba_asr_torch.ops.ssd_cuda import ssd_cuda
     from hnet_mamba_asr_torch.tools import gate
+    model_cfg, train_cfg, rows = _configs()[config]
     cmvn = gate.make_cmvn("cuda")
-    batches = gate.train_batches(np.random.default_rng(7), 2, 32)
+    accum = train_cfg["accum_grad"]
+    batches = gate.train_batches(np.random.default_rng(7), accum, rows)
     with tempfile.TemporaryDirectory(prefix="measure_train_") as tmp:
-        trainer = gate.gate_trainer(gate.GATE_CONFIG, batches * 2, gate.GATE_TRAIN, cmvn,
+        trainer = gate.gate_trainer(model_cfg, batches * 2, train_cfg, cmvn,
                                      tmp, max_steps=2)
+        if routers == "random":
+            gate.draw_routers(trainer.model, gate.SEED + 24)
         trainer.train()
     trainer.model.train()
     dev = [trainer._to_device(b) for b in batches]
@@ -445,36 +539,46 @@ def measure_train(tag: str) -> None:
             split.append(ev)
 
     split: list = []
-    ssd_cuda.launches = ssd_cuda.bwd_launches = 0
+    ssd_cuda.launches = ssd_cuda.bwd_launches = ema_cuda.launches = ema_cuda.bwd_launches = 0
+    torch.cuda.reset_peak_memory_stats()
     update(split)
     fwd = sum(e[0].elapsed_time(e[1]) for e in split[:-1])
     bwd = sum(e[1].elapsed_time(e[2]) for e in split[:-1])
     opt = split[-1][0].elapsed_time(split[-1][1])
     total = split[0][0].elapsed_time(split[-1][1])
-    print(json.dumps({"version": tag, "train_update": "2 x (32 x 10 s), hybrid, bf16",
+    launches = {"ssd_fwd_launches": ssd_cuda.launches, "ssd_bwd_launches": ssd_cuda.bwd_launches,
+                "ema_fwd_launches": ema_cuda.launches, "ema_bwd_launches": ema_cuda.bwd_launches}
+    with torch.no_grad():
+        enc = trainer.model.encode(dev[0])
+    print(json.dumps({"version": tag, "config": config, "routers": routers,
+                      "train_update": f"{accum} x ({rows} x 10 s), hybrid, bf16",
                       "ms": total, "forward_ms": fwd, "backward_ms": bwd, "optimizer_ms": opt,
-                      "mel_frames_per_s": 2 * 32 * gate.TRAIN_FRAMES / (total / 1e3),
-                      "ssd_fwd_launches": ssd_cuda.launches,
-                      "ssd_bwd_launches": ssd_cuda.bwd_launches,
+                      "mel_frames_per_s": accum * rows * gate.TRAIN_FRAMES / (total / 1e3),
+                      **launches,
+                      "kept_fraction": [k.item() for k in enc.kept_fractions],
+                      "slots": [z.shape[1] for z in enc.chunk_embeddings],
                       "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}),
           flush=True)
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         update()
         window_us = (time.perf_counter() - t0) * 1e6
-    rows = device_rows(prof)
-    busy = sum(r[0] for r in rows)
-    print(json.dumps({"version": tag, "profile": "1 update, 2 x (32 x 10 s)",
+    top = device_rows(prof)
+    busy = sum(r[0] for r in top)
+    print(json.dumps({"version": tag, "config": config, "routers": routers,
+                      "profile": f"1 update, {accum} x ({rows} x 10 s)",
                       "window_ms": window_us / 1e3, "device_ms": busy / 1e3,
                       "idle_share": 1 - busy / window_us,
                       "top": [{"name": k[:90], "ms": d / 1e3, "share": d / busy, "count": c}
-                              for d, k, c in rows[:15]]}), flush=True)
+                              for d, k, c in top[:15]]}), flush=True)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("what", choices=("ssd", "ssd_bwd", "bwd_phases", "serve", "phases",
+    ap.add_argument("what", choices=("ssd", "ssd_bwd", "bwd_phases", "ema", "serve", "phases",
                                      "train"))
+    ap.add_argument("--config", choices=("gate", "n2"), default="gate",
+                    help="serve / train: the gate config (N = 1) or configs/typeA_small_N2")
     ap.add_argument("--repo", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--tag", default=None, help="label of the version in the output")
     ap.add_argument("--profile", action="store_true")
@@ -496,10 +600,13 @@ def main() -> int:
         measure_bwd_phases(tag)
     elif args.what == "phases":
         measure_phases(tag)
+    elif args.what == "ema":
+        measure_ema(tag)
     elif args.what == "train":
-        measure_train(tag)
+        for routers in ("init", "random") if args.config == "n2" else ("init",):
+            measure_train(tag, args.config, routers)
     else:
-        measure_serve(tag, args.profile)
+        measure_serve(tag, args.profile, args.config)
     return 0
 
 

@@ -6,15 +6,15 @@
   rate of every group before each update from the number of updates done,
   so there is no scheduler object to step (``LambdaLR``'s first factor is
   taken at construction, one step apart from a step-after-update loop);
-- AdamW (``torch.optim.AdamW``; fused on the card) in two groups, weight
-  decay on >= 2-D parameters only (``param_labels``); its decoupled decay
-  p (1 - lr wd) - lr m^/(sqrt(v^) + eps) is optax.adamw's update;
+- AdamW (``torch.optim.AdamW``; fused on the card) in the JAX groups
+  (``param_labels``): ``default`` (>= 2-D, with weight decay), ``no_decay``
+  (< 2-D) and, at N > 1, ``router`` (the routers' W_q / W_k: the default
+  weight decay, the rate times ``router_lr_mult`` and eps ``router_eps``
+  where given, the damped group that keeps the N = 2 router from
+  diverging); its decoupled decay p (1 - lr wd) - lr m^/(sqrt(v^) + eps)
+  is optax.adamw's update;
 - the global-norm clip of ``optax.clip_by_global_norm`` before the update:
   g * max_norm / ||g|| where ||g|| >= max_norm.
-
-The damped router group exists only at N > 1 (router W_q / W_k); its keys
-(``router_lr_mult``, ``router_eps``) are accepted, and a model with router
-parameters raises until the router is ported.
 """
 from __future__ import annotations
 
@@ -43,50 +43,54 @@ def build_schedule(name: str | None, base_lr: float,
     raise NotImplementedError(f"scheduler {name!r} is not ported; choices: warmuplr, none")
 
 
-def param_labels(named_params) -> dict[str, str]:
-    """name -> 'no_decay' (fewer than 2 dimensions: biases, norm gains, the
-    SSM a_log / d_skip / dt_bias) or 'default'."""
-    return {n: "no_decay" if p.ndim < 2 else "default" for n, p in named_params}
-
-
 def _is_router(name: str) -> bool:
     parts = name.split(".")
     return "router" in parts and any(p in ("W_q", "W_k") for p in parts)
+
+
+def param_labels(named_params) -> dict[str, str]:
+    """name -> 'router' (a router's W_q / W_k), 'no_decay' (fewer than 2
+    dimensions: biases, norm gains, the SSM a_log / d_skip / dt_bias) or
+    'default'."""
+    return {n: "router" if _is_router(n) else "no_decay" if p.ndim < 2 else "default"
+            for n, p in named_params}
 
 
 def build_optimizer(name: str, conf: Mapping | None, schedule_name: str | None,
                     schedule_conf: Mapping | None,
                     model: torch.nn.Module) -> tuple[torch.optim.Optimizer, Callable]:
     """(optimizer, schedule). The optimizer's groups are [default,
-    no_decay], each with the weight decay of its label; their ``lr`` is set
-    by the caller from ``schedule`` before each update."""
+    no_decay] and, when the model has router parameters, router; each
+    carries its label's weight decay, eps and ``lr_mult``. Their ``lr`` is
+    set by the caller (``set_lr``) from ``schedule`` before each update."""
     conf = dict(conf or {})
     if str(name).lower() != "adamw":
         raise NotImplementedError(f"optimizer {name!r} is not ported; choices: adamw")
-    conf.pop("router_lr_mult", None)
-    conf.pop("router_eps", None)
+    router_mult = float(conf.pop("router_lr_mult", 1.0))
+    router_eps = conf.pop("router_eps", None)
     named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
-    routers = [n for n, _ in named if _is_router(n)]
-    if routers:
-        raise NotImplementedError(f"the damped router group is not ported (router "
-                                  f"parameters {routers[:2]}...; N > 1)")
     base_lr = float(conf.get("lr", 1e-3))
     b1, b2 = conf.get("betas", (0.9, 0.999))
+    eps, wd = float(conf.get("eps", 1e-8)), float(conf.get("weight_decay", 0.0))
     labels = param_labels(named)
-    groups = [{"params": [p for n, p in named if labels[n] == label],
-               "weight_decay": wd}
-              for label, wd in (("default", float(conf.get("weight_decay", 0.0))),
-                                ("no_decay", 0.0))]
+    groups = [{"label": "default", "weight_decay": wd, "eps": eps, "lr_mult": 1.0},
+              {"label": "no_decay", "weight_decay": 0.0, "eps": eps, "lr_mult": 1.0},
+              {"label": "router", "weight_decay": wd,
+               "eps": eps if router_eps is None else float(router_eps),
+               "lr_mult": router_mult}]
+    for g in groups:
+        g["params"] = [p for n, p in named if labels[n] == g["label"]]
+    groups = [g for g in groups if g["params"] or g["label"] != "router"]
     on_card = all(p.is_cuda for _, p in named)
     opt = torch.optim.AdamW(groups, lr=base_lr, betas=(float(b1), float(b2)),
-                            eps=float(conf.get("eps", 1e-8)),
                             fused=on_card or None)
     return opt, build_schedule(schedule_name, base_lr, schedule_conf)
 
 
 def set_lr(opt: torch.optim.Optimizer, lr: float) -> None:
+    """Each group's rate: ``lr`` times the group's ``lr_mult``."""
     for group in opt.param_groups:
-        group["lr"] = lr
+        group["lr"] = lr * group.get("lr_mult", 1.0)
 
 
 def clip_by_global_norm(params, max_norm: float) -> torch.Tensor:

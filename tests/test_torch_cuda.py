@@ -1,10 +1,12 @@
-"""The hand-written Hopper SSD kernels (forward and backward) against their
-plain PyTorch version, on the card. Marked ``gpu``: skipped where no CUDA
+"""The hand-written Hopper kernels (the SSD scan and the H-Net EMA, forward
+and backward) against their plain PyTorch versions, on the card. Marked ``gpu``: skipped where no CUDA
 device is present. Run on the card with
 ``python -m pytest --noconftest tests/test_torch_cuda.py``."""
 import pytest
 import torch
 
+from hnet_mamba_asr_torch.ops.ema import ema_smooth, ema_smooth_sequential
+from hnet_mamba_asr_torch.ops.ema_cuda import ema_cuda
 from hnet_mamba_asr_torch.ops.ssd import ssd_chunked
 from hnet_mamba_asr_torch.ops.ssd_cuda import ssd_cuda
 
@@ -205,3 +207,87 @@ def test_training_call_is_differentiable(cuda):
         assert ((a - b).abs().max() / b.abs().max()).item() <= bound, name
     with torch.no_grad():
         assert ssd_cuda(*leaves).grad_fn is None
+
+
+# ---- the EMA kernel (csrc/ema.cu) ----------------------------------------------------
+# As max|d| / max|ref| against fp32 references on the same values.
+# - The plain recurrence (ema_smooth_sequential, and autograd of it): fp32
+#   in the kernel's order of operations, 1e-5. In bf16 the kernel rounds
+#   zbar and dz once at the store and reads zbar_{t-1} for dP from its bf16
+#   output: 2^-8 of the max per rounding, 1e-2 with room.
+# - The plain matmul form (ema_smooth, and autograd of it): its weights
+#   exp(S_t - S_j) difference two cumsums of M logs, |S| up to ~6e2 at
+#   M 880, in fp32; it parted from the kernel by 1.5e-4 there (H100), so
+#   1e-3. In bf16 it also rounds its weights to bf16: 1e-2.
+SEQ_BOUND = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+EMA_BOUND = {torch.float32: 1e-3, torch.bfloat16: 1e-2}
+# (B, M, D): M = 1; a partial tile and a D that is no multiple of 32; two
+# tiles at Type B's stage-2 width; a 35 s utterance's slots at N = 1
+EMA_SHAPES = [(3, 1, 384), (2, 70, 100), (4, 256, 512), (1, 880, 384)]
+
+
+def _ema_inputs(cuda, Bsz, M, D, dtype, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    z = torch.randn(Bsz, M, D, generator=g).to(cuda, dtype)
+    p = torch.rand(Bsz, M, generator=g) * 0.8 + 0.1
+    p[:, ::10] = 1.0                                     # saturated boundaries
+    p[:, 5::10] = 0.0                                    # pad slots
+    return z, p.to(cuda)
+
+
+def _ema_reference(fn, z, p, g):
+    """fn's output and its gradients of z and p, in fp32 on z's values."""
+    zf, pf = z.float().requires_grad_(), p.clone().requires_grad_()
+    out = fn(zf, pf)
+    dz, dp = torch.autograd.grad(out, (zf, pf), g.float(), allow_unused=True)
+    return out.detach(), dz, torch.zeros_like(p) if dp is None else dp
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", EMA_SHAPES)
+def test_ema_kernel_matches_plain(cuda, dtype, shape):
+    """Forward, dz and dP against the plain recurrence and against the plain
+    matmul form (fp32, the same values); zero dP at saturated slots and at
+    slot 0."""
+    z, p = _ema_inputs(cuda, *shape, dtype)
+    zl, pl = z.clone().requires_grad_(), p.clone().requires_grad_()
+    before = (ema_cuda.launches, ema_cuda.bwd_launches)
+    out = ema_cuda(zl, pl)
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(1)).to(cuda, dtype)
+    dz, dp = torch.autograd.grad(out, (zl, pl), g)
+    torch.cuda.synchronize()
+    assert (ema_cuda.launches, ema_cuda.bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert out.dtype == dtype and dz.dtype == dtype and dp.dtype == torch.float32
+    rel = lambda a, b: ((a.float() - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+    for fn, bound in ((ema_smooth_sequential, SEQ_BOUND[dtype]), (ema_smooth, EMA_BOUND[dtype])):
+        for a, b in zip((out, dz, dp), _ema_reference(fn, z, p, g)):
+            assert torch.isfinite(a).all() and rel(a, b) <= bound, (fn.__name__, rel(a, b))
+    assert not dp[:, 0].any() and not dp[:, ::10].any() and not dp[:, 5::10].any()
+    if shape[1] == 1:
+        assert torch.equal(out, z)
+
+
+def test_ema_backward_is_deterministic(cuda):
+    """The sum over d runs by shuffles and a fixed-order sum of the warps'
+    partials, with no atomics: two calls give bitwise-equal gradients."""
+    from hnet_mamba_asr_torch.ops.ema_cuda import _backward, _forward
+    for dtype in (torch.float32, torch.bfloat16):
+        z, p = _ema_inputs(cuda, 8, 300, 384, dtype, seed=2)
+        g = torch.randn(z.shape, generator=torch.Generator().manual_seed(3)).to(cuda, dtype)
+        zbar = _forward(z, p, 1e-4)
+        one, two = _backward(z, p, zbar, g, 1e-4), _backward(z, p, zbar, g, 1e-4)
+        assert all(torch.equal(a, b) for a, b in zip(one, two))
+
+
+def test_ema_kernel_refuses_what_it_does_not_take(cuda):
+    z, p = _ema_inputs(cuda, 1, 8, 16, torch.float32)
+    with pytest.raises(TypeError):
+        ema_cuda(z.half(), p)
+    with pytest.raises(TypeError):
+        ema_cuda(z, p.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="D <= 1024"):
+        ema_cuda(torch.zeros(1, 8, 1025, device=cuda), p)
+    with pytest.raises(ValueError):
+        ema_cuda(z, p[:, :4].contiguous())
+    with torch.no_grad():
+        assert ema_cuda(z.requires_grad_(), p).grad_fn is None

@@ -1,5 +1,7 @@
-"""The PyTorch port never imports JAX: its serving and training slices and
-chip_smoke.py run in a fresh interpreter with jax and flax absent from
+"""The PyTorch port never imports JAX or the JAX package: its serving and
+training slices (N = 1 and the H-Net models: Type A N = 2 with the EMA
+dechunk, Type B, the fixed-pool chunker) and chip_smoke.py run in a fresh
+interpreter with jax, flax and hnet_mamba_asr_tpu absent from
 sys.modules."""
 import json
 import subprocess
@@ -14,6 +16,9 @@ import numpy as np, torch
 torch.set_num_threads(1)
 import chip_smoke
 import hnet_mamba_asr_torch.tools.measure
+import hnet_mamba_asr_torch.ops.cuda_build, hnet_mamba_asr_torch.ops.ema_cuda
+from hnet_mamba_asr_torch.models.fixed_pool import FixedPoolChunker
+from hnet_mamba_asr_torch.models.hnet_chunk import DynamicChunker
 from hnet_mamba_asr_torch.serving.runtime import ServingModel
 from hnet_mamba_asr_torch.serving.server import MicroBatcher
 cfg = {"encoder_conf": {"arch_type": "A", "d_outer": 32, "d_main": 48, "n_enc": 1,
@@ -39,9 +44,21 @@ with tempfile.TemporaryDirectory() as tmp:
     trainer = Trainer(build_model(cfg, 30, device="cpu"), ItemLoader(items, 100),
                       {"max_epoch": 1, "max_steps": 1}, ckpt_dir=tmp, device="cpu")
     trainer.train()
+    kept = []
+    for change in ({"hnet": {"compression_N": 2}},
+                   {"arch_type": "B", "n_mid": 1, "hnet": {"compression_N": 4}},
+                   {"hnet": {"compression_N": 2, "chunker": "fixed"}}):
+        hcfg = dict(cfg, encoder_conf=dict(cfg["encoder_conf"], **change))
+        htrainer = Trainer(build_model(hcfg, 30, device="cpu"), ItemLoader(items, 100),
+                           {"max_epoch": 1, "max_steps": 1,
+                            "optim_conf": {"router_lr_mult": 0.5, "router_eps": 1e-5}},
+                           ckpt_dir=tmp + "/h", device="cpu")
+        htrainer.train()
+        kept.append(htrainer.history[-1]["kept_fraction"])
 print(json.dumps({"enc_frames": res["enc_frames"], "steps": trainer.global_step,
-                  "jax_modules": sorted(m for m in sys.modules
-                                        if m.split(".")[0] in ("jax", "jaxlib", "flax"))}))
+                  "kept": kept,
+                  "jax_modules": sorted(m for m in sys.modules if m.split(".")[0] in
+                                        ("jax", "jaxlib", "flax", "hnet_mamba_asr_tpu"))}))
 """
 
 
@@ -53,3 +70,4 @@ def test_port_runs_without_jax():
     assert out["jax_modules"] == []
     assert out["enc_frames"] == 8            # 6000 samples: 36 mel frames
     assert out["steps"] == 1
+    assert len(out["kept"]) == 3 and all(0 < k <= 1 for k in out["kept"])

@@ -123,11 +123,16 @@ def test_serving_limits_and_modes():
     for mode in ("aed_ids", "rnnt_ids", "beam_ids"):
         with pytest.raises(NotImplementedError):
             ServingModel(NARROW_CONFIG, None, "cpu", vocab_size=NARROW_VOCAB, emit=(mode,))
+    # Type B and N > 1 build (tests/test_torch_hnet_train.py holds them to
+    # JAX); a fixed-pool chunker needs an integer stride
     for cfg_change in ({"arch_type": "B"}, {"hnet": {"compression_N": 2}}):
         cfg = copy.deepcopy(NARROW_CONFIG)
         cfg["encoder_conf"].update(cfg_change)
-        with pytest.raises(NotImplementedError):
-            build_model(cfg, NARROW_VOCAB, device="cpu")
+        build_model(cfg, NARROW_VOCAB, device="cpu")
+    cfg = copy.deepcopy(NARROW_CONFIG)
+    cfg["encoder_conf"].update(arch_type="B", hnet={"compression_N": 2, "chunker": "fixed"})
+    with pytest.raises(ValueError, match="integer stride"):
+        build_model(cfg, NARROW_VOCAB, device="cpu")
 
 
 def test_serving_model_runs_on_the_card_by_default():

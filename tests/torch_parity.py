@@ -68,3 +68,14 @@ def ragged_waves(rng, lengths, total=None):
     for i, n in enumerate(lengths):
         wave[i, :n] = 0.1 * rng.normal(size=n)
     return wave, np.asarray(lengths, np.int32)
+
+
+def assert_boundaries_equal(got_b, want_b, p, what: str = "") -> None:
+    """Hard boundaries are a cliff: one frame whose p rounds to the other
+    side of 0.5 moves every later frame's slot. Compare them first, exactly;
+    on a mismatch name how many frames sit within 1e-4 of 0.5."""
+    got_b, want_b, p = (np.asarray(a, np.float32) for a in (got_b, want_b, p))
+    if not np.array_equal(got_b, want_b):
+        near = int((np.abs(p - 0.5) < 1e-4).sum())
+        raise AssertionError(f"boundaries differ on {int((got_b != want_b).sum())} frames "
+                             f"{what}; {near} frames have |p - 0.5| < 1e-4")
