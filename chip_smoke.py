@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port on one NVIDIA GPU: serve and train Type A
-Small at N=1 and with H-Net dynamic chunking at N=2.
+"""Smoke run of the PyTorch port on one NVIDIA GPU: serve, train and decode
+Type A Small at N=1 and with H-Net dynamic chunking at N=2.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
@@ -9,20 +9,24 @@ calls, at the full width of ``configs/typeA_small_N1.yaml`` and
 ``configs/typeA_small_N2.yaml`` with seeded random weights, and fails
 (non-zero exit) when any phase fails:
 
-1. build    -- compile the hand-written kernels (SSD forward and backward,
-               the H-Net EMA) from ``csrc/``, one nvcc per source, started
-               together;
+1. build    -- compile the hand-written kernels (SSD forward and backward
+               at (P, N) = (64, 128) and, fp32 only, (16, 16); the H-Net
+               EMA) from ``csrc/``, one nvcc per library, started together;
 2. kernel   -- the forward kernel against its plain PyTorch version
                (``ssd_chunked`` at the kernel's chunk length and
                intra_dtype) at the serving shapes (B 8 and 1, L 248 / 873 /
-               1000, H 12 / 16) and the training ones (B 32, L 249), bf16
-               with intra_dtype bf16 and fp32, with both times, the bound and
-               the share of it; one time with a cold L2;
+               1000, H 12 / 16), the full-width decode batch's (B 8, L 380)
+               and the training ones (B 32, L 249), bf16 with intra_dtype
+               bf16 and fp32, and the (16, 16) fp32 build at the tone
+               runs' shapes (B 24 / 13 / 3, L 63, H 4) with intra_dtype off
+               and bf16, with both times, the bound and the share of it;
+               one time with a cold L2;
    backward -- the backward kernel's gradients of x, dt, A, B, C against
                autograd of ``ssd_chunked`` at the training shapes (B 32,
                L 249, H 12 / 16), at L 873 (two cluster rounds) and at B 1,
-               fp32 and bf16, intra_dtype off and bf16, with both times, the
-               bound and the share of it; two calls on the same inputs are
+               fp32 and bf16, intra_dtype off and bf16, and the (16, 16) fp32
+               build at the tone shapes, with both times, the bound and the
+               share of it; two calls on the same inputs are
                bitwise equal; then bf16 with the state in and out at L 1100
                (three rounds of the reverse chain): every input's gradient
                and d(initial_state);
@@ -61,10 +65,38 @@ calls, at the full width of ``configs/typeA_small_N1.yaml`` and
                the boundaries equal first, the router's leaves included;
 8. bench    -- ``bench.py``'s gate-cell step (CTC only, clip 5 + AdamW
                1e-3): mel-frames/s at 32 x 10 s with remat none and at
-               64 x 10 s with remat full.
+               64 x 10 s with remat full;
+9. intra    -- one block per position (first enc, a main, the last dec) of
+               the gate config at its own numerics (bf16, intra bf16): the
+               card's mixer (kernel chunk 64; the block less its residual)
+               against the CPU's (ssd_chunked at 256) within 26 x 2^-8 of
+               its output; the whole model's log-prob gap recorded;
+10. gate    -- the N=1 gate proof on the synthetic tone corpus: tokenizer,
+               CMVN, ``overfit_config`` through Trainer (120 epochs), then
+               ``decode_task`` ctc_greedy and the ``eval/score.py`` gate:
+               dev WER < 5.0 and falling, test-clean WER < 12.0;
+11. matrix  -- the hybrid tone model (0.3 CTC + 0.7 AED) and a narrow LM
+               trained on the training text; all 7 cells, each cell's WER
+               and seconds per utterance, the AED and joint cells below
+               their WER at the initial weights;
+12. n2      -- ``overfit_config(compression_n=2)`` for 120 epochs: finite,
+               the ratio loss not rising, the kept fraction near 1/2, its
+               trajectory;
+13. decode  -- the full-width gate config (seeded) and the full-width
+               ``lm_transformer_500`` LM (seeded): 8 utterances of 2-16 s
+               through the 7 cells of the config's decode block, shared
+               encoder, AED cap 64 (seeded weights never emit eos): RTF,
+               encoder and search seconds per cell, the SSD launches, the
+               device's idle share per cell; each utterance alone ==
+               inside the batch in every beam cell, in bf16;
+14. parity  -- depth 1 + 2 + 1, a 2-layer AED and a 2-layer LM, fp32, TF32
+               off: decode_step log-probs card vs CPU to 1e-5, the 7 cells'
+               transcripts card == CPU, a request alone == inside a batch
+               for ctc_beam_lm and joint_beam.
 
 The line before the last is a JSON summary of the kernels, with the
-launches of the N = 2 training run; the last line is
+launches of the full-width decode run (ssd_fwd) and of the N = 2 training
+run (the others), and every path's counts; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
@@ -87,7 +119,8 @@ import torch
 # the gate config and its test data; outside a checkout this import fails
 from hnet_mamba_asr_torch.tools.gate import (
     GATE_CONFIG, GATE_TRAIN, N2_CONFIG, N2_TRAIN, N2_TRAIN_ROWS, SEED, SR, TRAIN_FRAMES,
-    TRAIN_ROWS, VOCAB, draw_routers, gate_trainer, make_cmvn, synth_audio, train_batches)
+    TRAIN_ROWS, VOCAB, decode_batch_items, draw_routers, gate_trainer, make_cmvn, synth_audio,
+    train_batches)
 from hnet_mamba_asr_torch.tools.measure import BWD_SHAPES, EMA_SHAPES
 
 SSD_CALLS_PER_FORWARD = 40      # 20 bidirectional blocks x (fwd + bwd)
@@ -123,8 +156,14 @@ DA_BOUND = {"float32": 1e-3, "bfloat16": 4e-2}
 GRAD_NAMES = ("x", "dt", "A", "B", "C", "initial_state")
 # B, L, H of the training step; the backward's shapes add L 873 and B 1
 TRAIN_SHAPES = BWD_SHAPES[:2]
-FWD_SHAPES = tuple((Bsz, L, H) for Bsz in (8, 1) for L in (248, 873, 1000)
-                   for H in (12, 16)) + TRAIN_SHAPES
+# serving (B 8 and 1 at 10 s, 35 s, 40 s), the full-width decode batch (8
+# utterances of up to 15.2 s: L 380, six chunks) and the training step
+FWD_SHAPES = (tuple((Bsz, L, H) for Bsz in (8, 1) for L in (248, 873, 1000)
+                    for H in (12, 16)) + ((8, 380, 12), (8, 380, 16)) + TRAIN_SHAPES)
+# the tone models' (P, N) = (16, 16) build, fp32 only: the tone gate's
+# training and decode batch (24 utterances of up to 63 frames, 4 heads) and
+# the N=2 tone run's batches of batch_bins 1500 (3, 8 and 13 utterances)
+TONE_SHAPES = ((24, 63, 4), (13, 63, 4), (3, 63, 4))
 # one micro-step on the card against the CPU, fp32, TF32 off, per parameter:
 # max|d| to 1e-3 of the leaf's max and mean|d| to 1e-3 of its mean|g|.
 # cuFFT, cuDNN, cuBLAS, the SSD kernels and CTC's atomics sum in other orders
@@ -186,44 +225,50 @@ def phase_kernel():
     from hnet_mamba_asr_torch.tools.measure import cuda_ms, kernel_ms, ssd_cost, ssd_inputs
     lib = build()["lib"]
     rows = []
-    for dtype, intra in ((torch.bfloat16, "bf16"), (torch.float32, None)):
+    cases = ([(torch.bfloat16, "bf16", 64, 128, s) for s in FWD_SHAPES]
+             + [(torch.float32, None, 64, 128, s) for s in FWD_SHAPES]
+             + [(torch.float32, intra, 16, 16, s) for intra in (None, "bf16")
+                for s in TONE_SHAPES])
+    for dtype, intra, P, N, (Bsz, L, H) in cases:
         name = str(dtype).removeprefix("torch.")
-        for Bsz, L, H in FWD_SHAPES:
-            x, dt, A, B, C = ssd_inputs(Bsz, L, H, dtype, seed=SEED)
-            y = ssd_cuda(x, dt, A, B, C, intra_dtype=intra)
-            ref = ssd_chunked(x, dt, A, B, C, chunk_size=KERNEL_CHUNK,
-                              intra_dtype=intra)
-            torch.cuda.synchronize()
-            if not torch.isfinite(y).all():
-                raise AssertionError(f"ssd kernel output not finite "
-                                     f"({name}, B {Bsz}, L {L}, H {H})")
-            d = (y.float() - ref.float()).abs()
-            abs_err = d.max().item()
-            rel = abs_err / ref.float().abs().max().item()
-            mean = d.mean().item() / ref.float().abs().mean().item()
-            call_ms = cuda_ms(lambda: ssd_cuda(x, dt, A, B, C, intra_dtype=intra))
-            # the kernel's device time; the events' time if the
-            # profiler's traces came back empty
-            ms = kernel_ms(lambda: ssd_cuda(x, dt, A, B, C, intra_dtype=intra),
-                           "ssd_fwd") or call_ms
-            plain_ms = cuda_ms(lambda: ssd_chunked(
-                x, dt, A, B, C, chunk_size=KERNEL_CHUNK, intra_dtype=intra))
-            cost = ssd_cost(Bsz, L, H, 1, 64, 128, name)
-            blocks = Bsz * H * (lib.hnet_ssd_fwd_bf16_cluster_size(L)
-                                if dtype == torch.bfloat16 else 1)
-            log(f"  ssd {name} intra {intra} B{Bsz} L{L} H{H} P64 N128 G1: "
-                f"max|d|/max|y| {rel:.3e} (bound {SSD_BOUND[name]:g}) mean|d|/mean|y| "
-                f"{mean:.3e} (bound {SSD_MEAN_BOUND[name]:g}) max|d| {abs_err:.3e}; "
-                f"kernel {ms:.4f} ms (call {call_ms:.4f} ms) plain {plain_ms:.4f} ms; bound "
-                f"{cost['bound_ms'] * 1e3:.2f} us ({cost['bound_by']}: bytes "
-                f"{cost['bytes_us']:.2f} us, ops {cost['ops_us']:.2f} us), share "
-                f"{cost['bound_ms'] / ms:.2%}; {blocks} blocks")
-            if not (rel <= SSD_BOUND[name] and mean <= SSD_MEAN_BOUND[name]):
-                raise AssertionError(f"ssd kernel disagrees with ssd_chunked: "
-                                     f"{rel:.3e}, mean {mean:.3e} ({name}, B {Bsz}, "
-                                     f"L {L}, H {H})")
-            rows.append(dict(dtype=name, B=Bsz, H=H, L=L, rel=rel, abs_err=abs_err,
-                             ms=ms, call_ms=call_ms, plain_ms=plain_ms, **cost))
+        # fp32 with intra bf16 rounds the intra-chunk weights as bf16 does
+        kind = "bfloat16" if intra else name
+        x, dt, A, B, C = ssd_inputs(Bsz, L, H, dtype, seed=SEED, P=P, N=N)
+        y = ssd_cuda(x, dt, A, B, C, intra_dtype=intra)
+        ref = ssd_chunked(x, dt, A, B, C, chunk_size=KERNEL_CHUNK,
+                          intra_dtype=intra)
+        torch.cuda.synchronize()
+        if not torch.isfinite(y).all():
+            raise AssertionError(f"ssd kernel output not finite "
+                                 f"({name}, B {Bsz}, L {L}, H {H})")
+        d = (y.float() - ref.float()).abs()
+        abs_err = d.max().item()
+        rel = abs_err / ref.float().abs().max().item()
+        mean = d.mean().item() / ref.float().abs().mean().item()
+        call_ms = cuda_ms(lambda: ssd_cuda(x, dt, A, B, C, intra_dtype=intra))
+        # the kernel's device time; the events' time if the
+        # profiler's traces came back empty
+        ms = kernel_ms(lambda: ssd_cuda(x, dt, A, B, C, intra_dtype=intra),
+                       "ssd_fwd") or call_ms
+        plain_ms = cuda_ms(lambda: ssd_chunked(
+            x, dt, A, B, C, chunk_size=KERNEL_CHUNK, intra_dtype=intra))
+        cost = ssd_cost(Bsz, L, H, 1, P, N, name)
+        blocks = Bsz * H * (lib.hnet_ssd_fwd_bf16_cluster_size(L)
+                            if dtype == torch.bfloat16 else 1)
+        log(f"  ssd {name} intra {intra} B{Bsz} L{L} H{H} P{P} N{N} G1: "
+            f"max|d|/max|y| {rel:.3e} (bound {SSD_BOUND[kind]:g}) mean|d|/mean|y| "
+            f"{mean:.3e} (bound {SSD_MEAN_BOUND[kind]:g}) max|d| {abs_err:.3e}; "
+            f"kernel {ms:.4f} ms (call {call_ms:.4f} ms) plain {plain_ms:.4f} ms; bound "
+            f"{cost['bound_ms'] * 1e3:.2f} us ({cost['bound_by']}: bytes "
+            f"{cost['bytes_us']:.2f} us, ops {cost['ops_us']:.2f} us), share "
+            f"{cost['bound_ms'] / ms:.2%}; {blocks} blocks")
+        if not (rel <= SSD_BOUND[kind] and mean <= SSD_MEAN_BOUND[kind]):
+            raise AssertionError(f"ssd kernel disagrees with ssd_chunked: "
+                                 f"{rel:.3e}, mean {mean:.3e} ({name}, intra {intra}, "
+                                 f"B {Bsz}, L {L}, H {H}, P {P}, N {N})")
+        rows.append(dict(dtype=name, intra=intra, P=P, B=Bsz, H=H, L=L, rel=rel,
+                         abs_err=abs_err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                         **cost))
     # the serving case once more with a cold L2: a 64 MB write between launches
     x, dt, A, B, C = ssd_inputs(8, 873, 16, torch.bfloat16, seed=SEED)
     flush = torch.empty(16 * 2 ** 20, dtype=torch.float32, device="cuda")
@@ -261,49 +306,51 @@ def phase_backward():
     from hnet_mamba_asr_torch.ops.ssd import ssd_chunked
     from hnet_mamba_asr_torch.tools.measure import cuda_ms, kernel_ms, ssd_bwd_cost, ssd_inputs
     rows = []
-    for dtype in (torch.bfloat16, torch.float32):
+    cases = [(dtype, intra, 64, 128, s) for dtype in (torch.bfloat16, torch.float32)
+             for intra in ("bf16", None) for s in BWD_SHAPES]
+    cases += [(torch.float32, intra, 16, 16, s) for intra in ("bf16", None)
+              for s in TONE_SHAPES]
+    for dtype, intra, P, N, (Bsz, L, H) in cases:
         name = str(dtype).removeprefix("torch.")
-        for intra in ("bf16", None):
-            kind = "bfloat16" if dtype == torch.bfloat16 or intra else "float32"
-            for Bsz, L, H in BWD_SHAPES:
-                args = ssd_inputs(Bsz, L, H, dtype, seed=SEED + 5)
-                gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
-                dy = torch.randn(args[0].shape, generator=gen, device="cuda").to(dtype)
-                leaves = [t.clone().requires_grad_() for t in args]
-                before = mod.ssd_cuda.bwd_launches
-                got = torch.autograd.grad(mod.ssd_cuda(*leaves, intra_dtype=intra), leaves, dy)
-                torch.cuda.synchronize()
-                if mod.ssd_cuda.bwd_launches != before + 1:
-                    raise AssertionError("the gradient through ssd_cuda did not launch the "
-                                         "backward kernel once")
-                plain = [t.clone().requires_grad_() for t in args]
-                y_plain = ssd_chunked(*plain, chunk_size=KERNEL_CHUNK, intra_dtype=intra)
-                want = torch.autograd.grad(y_plain, plain, dy, retain_graph=True)
-                errs, abs_err = check_grads(got, want, args, kind,
-                                            f"{name}, intra {intra}, B {Bsz}, L {L}, H {H}")
-                bf = intra == "bf16"
-                _, _, states = mod._forward(*args, None, False, bf, keep_states=True)
-                run = lambda: mod._backward(*args, states, dy, None, bf, False)
-                one, two = run(), run()
-                if not all(torch.equal(a, b) for a, b in zip(one, two) if a is not None):
-                    raise AssertionError(f"two backward calls on the same inputs differ "
-                                         f"({name}, intra {intra}, B {Bsz}, L {L}, H {H})")
-                del one, two
-                call_ms = cuda_ms(run)
-                ms = kernel_ms(run, "ssd_bwd") or call_ms
-                plain_ms = cuda_ms(lambda: torch.autograd.grad(y_plain, plain, dy,
-                                                               retain_graph=True))
-                cost = ssd_bwd_cost(Bsz, L, H, 1, 64, 128, name)
-                log(f"  ssd_bwd {name} intra {intra} B{Bsz} L{L} H{H}: max|d|/max|g| / "
-                    f"mean|d|/mean|g| {', '.join(errs)} (bounds {GRAD_BOUND[kind]:g} / "
-                    f"{GRAD_MEAN_BOUND[kind]:g}, dA {DA_BOUND[kind]:g}); kernel {ms:.4f} ms "
-                    f"(call {call_ms:.4f} ms) plain backward {plain_ms:.4f} ms; bound "
-                    f"{cost['bound_ms'] * 1e3:.2f} us ({cost['bound_by']}: bytes "
-                    f"{cost['bytes_us']:.2f} us, ops {cost['ops_us']:.2f} us), share "
-                    f"{cost['bound_ms'] / ms:.2%}; {bwd_grid(mod, dtype, Bsz, L, H)}")
-                rows.append(dict(dtype=name, intra=intra, B=Bsz, H=H, L=L, abs_err=abs_err,
-                                 ms=ms, call_ms=call_ms, plain_ms=plain_ms, **cost))
-                del got, want, y_plain, states
+        kind = "bfloat16" if dtype == torch.bfloat16 or intra else "float32"
+        what = f"{name}, intra {intra}, B {Bsz}, L {L}, H {H}, P {P}, N {N}"
+        args = ssd_inputs(Bsz, L, H, dtype, seed=SEED + 5, P=P, N=N)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+        dy = torch.randn(args[0].shape, generator=gen, device="cuda").to(dtype)
+        leaves = [t.clone().requires_grad_() for t in args]
+        before = mod.ssd_cuda.bwd_launches
+        got = torch.autograd.grad(mod.ssd_cuda(*leaves, intra_dtype=intra), leaves, dy)
+        torch.cuda.synchronize()
+        if mod.ssd_cuda.bwd_launches != before + 1:
+            raise AssertionError("the gradient through ssd_cuda did not launch the "
+                                 "backward kernel once")
+        plain = [t.clone().requires_grad_() for t in args]
+        y_plain = ssd_chunked(*plain, chunk_size=KERNEL_CHUNK, intra_dtype=intra)
+        want = torch.autograd.grad(y_plain, plain, dy, retain_graph=True)
+        errs, abs_err = check_grads(got, want, args, kind, what)
+        bf = intra == "bf16"
+        _, _, states = mod._forward(*args, None, False, bf, keep_states=True)
+        run = lambda: mod._backward(*args, states, dy, None, bf, False)
+        one, two = run(), run()
+        if not all(torch.equal(a, b) for a, b in zip(one, two) if a is not None):
+            raise AssertionError(f"two backward calls on the same inputs differ "
+                                 f"({what})")
+        del one, two
+        call_ms = cuda_ms(run)
+        ms = kernel_ms(run, "ssd_bwd") or call_ms
+        plain_ms = cuda_ms(lambda: torch.autograd.grad(y_plain, plain, dy,
+                                                       retain_graph=True))
+        cost = ssd_bwd_cost(Bsz, L, H, 1, P, N, name)
+        log(f"  ssd_bwd {name} intra {intra} B{Bsz} L{L} H{H} P{P} N{N}: max|d|/max|g| "
+            f"/ mean|d|/mean|g| {', '.join(errs)} (bounds {GRAD_BOUND[kind]:g} / "
+            f"{GRAD_MEAN_BOUND[kind]:g}, dA {DA_BOUND[kind]:g}); kernel {ms:.4f} ms "
+            f"(call {call_ms:.4f} ms) plain backward {plain_ms:.4f} ms; bound "
+            f"{cost['bound_ms'] * 1e3:.2f} us ({cost['bound_by']}: bytes "
+            f"{cost['bytes_us']:.2f} us, ops {cost['ops_us']:.2f} us), share "
+            f"{cost['bound_ms'] / ms:.2%}; {bwd_grid(mod, dtype, Bsz, L, H)}")
+        rows.append(dict(dtype=name, intra=intra, P=P, B=Bsz, H=H, L=L, abs_err=abs_err,
+                         ms=ms, call_ms=call_ms, plain_ms=plain_ms, **cost))
+        del got, want, y_plain, states
     log("  ssd_bwd: two calls on the same inputs gave bitwise-equal gradients at every shape")
     # the state in and out: L 1100 is K 18 chunks, three rounds of the
     # reverse chain's cluster, D carried between them
@@ -905,6 +952,507 @@ def phase_bench(tmp: Path) -> dict:
     return out
 
 
+# ---- the decode slice ---------------------------------------------------------
+# intra-bf16 blocks (repair 0.1): a block of the gate config at its own
+# numerics (bf16, ssd_intra_dtype bf16) on the card (kernel, chunk 64) against
+# the CPU (plain ssd_chunked at the config's chunk, 256), same weights and
+# input. Both paths round every operand below to bf16, at different places
+# (the chunk bounds of the intra weights) or in different summation orders
+# (cuBLAS, cuDNN, the kernel against the CPU), so each may part by one
+# rounding, at most 2^-8 of that operand's magnitude. The operands on a
+# block's path: LN(x); per direction in_proj, conv, SiLU, the SSD's W, its
+# weighted B, its state S and y, y + D x, SiLU(z), the gated product, the
+# RMSNorm and out_proj (12); the directions' sum: 1 + 2 x 12 + 1 = 26. The
+# check reads the mixer's output (the block's output less its residual x,
+# MambaBlock.mixer): the residual is the same on both sides, and its own
+# rounding (one bf16 ulp of max|x|, ~8) would hide the mixer's gap. The bound
+# counts each rounding at the scale of the mixer's output, whose norms
+# (LayerNorm in, gated RMSNorm before out_proj) keep every operand's rounding
+# relative: max|d| <= 26 x 2^-8 x max|mixer|. The block's whole output is
+# printed beside it (the residual's ulp, recorded).
+BLOCK_ROUNDINGS = 26
+BLOCK_POSITIONS = (("enc block 0", "enc", 0), ("main block 0", "main", 0),
+                   ("dec block 3 (last)", "dec", -1))
+
+
+def phase_intra_blocks(cmvn) -> dict:
+    """One block per position type of the gate config at full width, bf16
+    with intra bf16: the card's kernel path against the CPU's plain path,
+    within the derived bound; then the whole 20-block model's log-probs at
+    the same setting, card against CPU, recorded and not gated."""
+    from hnet_mamba_asr_torch.ops.ssd_cuda import ssd_cuda
+    from hnet_mamba_asr_torch.serving.runtime import ServingModel
+    from hnet_mamba_asr_torch.tasks.asr_task import build_model
+    cfg = copy.deepcopy(GATE_CONFIG)
+    models = {dev: build_model(cfg, VOCAB, cmvn=cmvn, seed=SEED, device=dev)
+              for dev in ("cuda", "cpu")}
+    gen = torch.Generator().manual_seed(SEED + 40)
+    lengths = torch.tensor([249, 173])
+    out = {"blocks": {}, "model": {}}
+    for label, stack, idx in BLOCK_POSITIONS:
+        d = getattr(models["cpu"].encoder, stack).blocks[idx].norm.normalized_shape[0]
+        x = torch.randn(2, 249, d, generator=gen).to(torch.bfloat16)
+        mixes, ys = {}, {}
+        for dev, model in models.items():
+            block = getattr(model.encoder, stack).blocks[idx]
+            before = ssd_cuda.launches
+            with torch.no_grad():
+                mixes[dev] = block.mixer(x.to(dev), lengths.to(dev)).float().cpu()
+                ys[dev] = block(x.to(dev), lengths.to(dev)).float().cpu()
+            if dev == "cuda" and ssd_cuda.launches != before + 4:
+                raise AssertionError(f"{label}: the card's block did not launch the kernel "
+                                     f"twice per call")
+        valid = (torch.arange(249)[None, :] < lengths[:, None])[..., None]
+        gap = lambda got: (((got["cuda"] - got["cpu"]).abs() * valid).max().item(),
+                           (got["cpu"].abs() * valid).max().item())
+        diff, scale = gap(mixes)
+        y_diff, y_scale = gap(ys)
+        bound = BLOCK_ROUNDINGS * 2.0 ** -8 * scale
+        log(f"  {label} (d {d}), bf16 intra bf16, 2 rows of {lengths.tolist()} frames: card "
+            f"(kernel, chunk 64) vs CPU (ssd_chunked, chunk 256): mixer max|d| {diff:.4e}, "
+            f"max|mixer| {scale:.4e}, max|d|/max|mixer| {diff / scale:.4e} (bound "
+            f"{BLOCK_ROUNDINGS} x 2^-8 = {BLOCK_ROUNDINGS * 2.0 ** -8:.4e}); block output "
+            f"with the residual max|d| {y_diff:.4e}, max|y| {y_scale:.4e} (recorded)")
+        if not (math.isfinite(diff) and diff <= bound):
+            raise AssertionError(f"{label}: the card's mixer parts from the CPU's by "
+                                 f"{diff:.4e}, beyond the derived bound {bound:.4e}")
+        out["blocks"][label] = diff / scale
+    del models
+    rng = np.random.default_rng(SEED + 41)
+    waves = [synth_audio(rng, 6.0), synth_audio(rng, 3.5)]
+    lens = np.array([len(w) for w in waves])
+    batch = np.zeros((2, lens.max()), np.float32)
+    for i, w in enumerate(waves):
+        batch[i, :len(w)] = w
+    kw = dict(vocab_size=VOCAB, cmvn=cmvn, seed=SEED, emit=("frame_ids", "log_probs"))
+    # the card; the CPU at the config's chunk (256) and at the kernel's (64):
+    # CPU against CPU shows how far the chunk length alone moves the model
+    cfg64 = copy.deepcopy(cfg)
+    cfg64["encoder_conf"]["ssd_chunk_size"] = 64
+    res = {"card": ServingModel(cfg, None, "cuda", **kw)(batch, lens),
+           "cpu": ServingModel(cfg, None, "cpu", **kw)(batch, lens),
+           "cpu64": ServingModel(cfg64, None, "cpu", **kw)(batch, lens)}
+
+    def gap(a, b):
+        worst, agree, total = 0.0, 0, 0
+        for i, n in enumerate(res[b]["enc_lengths"]):
+            la, lb = res[a]["log_probs"][i, :n], res[b]["log_probs"][i, :n]
+            worst = max(worst, float(np.abs(la - lb).max()))
+            agree += int((res[a]["frame_ids"][i, :n] == res[b]["frame_ids"][i, :n]).sum())
+            total += int(n)
+        return worst, agree, total
+
+    for a, b, what in (("card", "cpu", "card (chunk 64) vs CPU (chunk 256)"),
+                       ("card", "cpu64", "card vs CPU, both at chunk 64"),
+                       ("cpu64", "cpu", "CPU at chunk 64 vs CPU at chunk 256")):
+        w, agr, tot = gap(a, b)
+        log(f"  whole model (20 blocks), bf16 intra bf16, {what}: max|d log_prob| {w:.4e}, "
+            f"frame ids equal on {agr}/{tot} (recorded, not gated)")
+        out["model"][what] = w
+    torch.cuda.empty_cache()
+    log("phase 9 intra blocks: ok")
+    return out
+
+
+def tone_setup(root: Path, device: str = "cuda"):
+    """The tone corpus under ``root``, its 12-piece tokenizer (trained on the
+    train manifest's text, as scripts/build_tokenizer.py does) and the CMVN
+    of the train manifest at 20 mels."""
+    from hnet_mamba_asr_torch.data.audio import load_manifest
+    from hnet_mamba_asr_torch.data.features import compute_cmvn
+    from hnet_mamba_asr_torch.data.synthetic import build_tone_corpus
+    from hnet_mamba_asr_torch.data.tokenizer import Tokenizer
+    build_tone_corpus(root)
+    train = root / "manifests" / "train-960.jsonl"
+    texts = [e["text"] for e in load_manifest(train)]
+    tok = Tokenizer.train(texts, root / "tok" / "bpe", vocab_size=12, hard_vocab_limit=False)
+    if any(tok.decode(tok.encode(t)) != t for t in texts):
+        raise AssertionError("the tone tokenizer does not round-trip")
+    cmvn = compute_cmvn(train, n_mels=20, device=device, out=root / "cmvn.npz")
+    return tok, cmvn
+
+
+def tone_load(root: Path):
+    """The tokenizer and CMVN that ``tone_setup`` wrote under ``root``."""
+    from hnet_mamba_asr_torch.data.features import GlobalCMVN
+    from hnet_mamba_asr_torch.data.tokenizer import Tokenizer
+    return Tokenizer(root / "tok" / "bpe.model"), GlobalCMVN.load(root / "cmvn.npz")
+
+
+def tone_train(cfg, tok, cmvn, root: Path, name: str, seed: int = 0, device: str = "cuda"):
+    """Train a model of ``cfg`` (an ``overfit_config`` dict) through Trainer
+    on the tone corpus, with the dev split validated every
+    valid_interval_epoch epochs; returns the trainer."""
+    from hnet_mamba_asr_torch.data.dataset import ItemLoader, manifest_items
+    from hnet_mamba_asr_torch.tasks.asr_task import build_model
+    from hnet_mamba_asr_torch.training.trainer import Trainer, flatten_config
+    mdir = root / "manifests"
+    bins = int(cfg["batch_bins"])
+    train = ItemLoader(manifest_items(mdir / "train-960.jsonl", tok), bins, seed=seed)
+    dev = ItemLoader(manifest_items(mdir / "dev-clean.jsonl", tok), bins, shuffle=False)
+    model = build_model(cfg, tok.vocab_size, cmvn=cmvn, seed=seed, device=device)
+    trainer = Trainer(model, train, flatten_config(cfg), dev_loaders={"dev-clean": dev},
+                      tokenizer=tok, ckpt_dir=root / name, seed=seed, device=device)
+    trainer.train()
+    return trainer
+
+
+def tone_decode(model, tok, root: Path, decode_cfg, out_dir: Path, lm=None) -> dict:
+    """Decode test-clean through every cell of ``decode_cfg`` with the shared
+    encoder and score it with the port's gate (ctc_greedy, WER < 12.0)."""
+    from hnet_mamba_asr_torch.data.dataset import ItemLoader, manifest_items
+    from hnet_mamba_asr_torch.eval.score import format_report, score_decode_dir
+    from hnet_mamba_asr_torch.tasks import decode_task
+    manifest = root / "manifests" / "test-clean.jsonl"
+    cells = decode_task.expand_cells(decode_cfg)
+    decode_task.check_heads(model, cells)
+    loader = ItemLoader(manifest_items(manifest, tok), int(decode_cfg.get("batch_bins", 8000)),
+                        shuffle=False)
+    summaries = decode_task.decode_split_shared(
+        model, tok, loader, cells, decode_cfg, out_dir=out_dir, split="test-clean", lm=lm,
+        audio_seconds=decode_task.audio_seconds_from_manifest(manifest))
+    scores = score_decode_dir(out_dir, n_bootstrap=50,
+                              goal_cfg={"sane_test_clean_wer_below": 12.0},
+                              gate_cell="ctc_greedy")
+    for line in format_report(scores["splits"], scores["gate"]).splitlines():
+        log(f"    {line}")
+    return {"summaries": {s["cell"]: s for s in summaries}, "scores": scores}
+
+
+# the tone gate's training length. tests/test_overfit_gate.py trains 40
+# epochs (one update each) from JAX's draw at PRNGKey(0) and passes. On the
+# CPU (tests/torch_gate_trajectory.py) the port trained from that same draw,
+# carried by convert.py, gives JAX's dev WER at every validation (74.1, 51.9,
+# 25.9, 0.0), but JAX's own draws at PRNGKey(1..3) end epoch 40 at 18.5,
+# 33.3 and 59.3, and the port's seeds 0..3 at 22.2, 18.5, 63.0 and 22.2:
+# 40 updates suffice for one JAX draw in four and for none of the port's
+# four, and the two packages train alike from the same draw. So the
+# proof trains 120 epochs (scripts/analysis/overfit_gate.py's length for the
+# held-out gate; the warmuplr schedule does not depend on it) and prints the
+# dev WER at epoch 40 beside the final one.
+GATE_EPOCHS = 120
+
+
+def phase_gate_proof(tmp: Path) -> dict:
+    """The N=1 gate proof: overfit_config (d 32, CTC only, lr 3e-3;
+    GATE_EPOCHS epochs) through Trainer on the tone corpus, then test-clean
+    through decode_task's ctc_greedy and the port's score gate: the final
+    dev WER < 5.0 and below the first, the gate passes with a test-clean WER
+    < 12.0 on 24 utterances (tests/test_overfit_gate.py's bounds)."""
+    from hnet_mamba_asr_torch.data.synthetic import overfit_config
+    from hnet_mamba_asr_torch.ops.ssd_cuda import ssd_cuda
+    root = tmp / "gate"
+    tok, cmvn = tone_setup(root)
+    cfg = overfit_config(root, max_epoch=GATE_EPOCHS)
+    ssd_cuda.launches = ssd_cuda.bwd_launches = 0
+    t0 = time.perf_counter()
+    trainer = tone_train(cfg, tok, cmvn, root, "ckpt")
+    train_s = time.perf_counter() - t0
+    launches = {"ssd_fwd": ssd_cuda.launches, "ssd_bwd": ssd_cuda.bwd_launches}
+    wers = list(trainer.metric_history[("valid", "wer")].values())
+    losses = [r["loss/total"] for r in trainer.history]
+    log(f"  gate proof N=1: {len(trainer.history)} updates in {train_s:.1f} s, loss "
+        f"{losses[0]:.4f} -> {losses[39]:.4f} (epoch 40) -> {losses[-1]:.4f}, dev WER every 10 "
+        f"epochs {[round(w, 2) for w in wers]} (epoch 40: {wers[3]:.2f}); ssd launches "
+        f"forward {launches['ssd_fwd']}, backward {launches['ssd_bwd']} (P 16 N 16, fp32)")
+    if not (len(wers) >= 3 and wers[-1] < 5.0 and wers[-1] < wers[0]
+            and all(math.isfinite(v) for v in losses)):
+        raise AssertionError(f"the gate model did not learn: dev WER {wers}")
+    if not (launches["ssd_fwd"] and launches["ssd_bwd"]):
+        raise AssertionError(f"the tone training did not run the SSD kernels: {launches}")
+    res = tone_decode(trainer.model, tok, root, cfg["decode"], root / "decode")
+    gate = res["scores"]["gate"]
+    n = res["scores"]["splits"]["test-clean"]["cells"]["ctc_greedy"]["n_utts"]
+    if not (gate.get("passed") and gate["wer"] < 12.0 and n == 24):
+        raise AssertionError(f"the gate failed: {gate}, {n} utterances")
+    log("phase 10 gate proof: ok")
+    return {"dev_wer": wers, "gate": gate, "updates": len(trainer.history), "train_s": train_s,
+            "launches": launches, "ms_per_update": 1e3 * train_s / len(trainer.history)}
+
+
+# the decode block of the hybrid tone matrix: the gate config's search
+# settings over the tone model (the LM is the narrow one trained here)
+TONE_DECODE = {"read_outs": ["ctc", "aed", "joint"], "search": ["greedy", "beam"],
+               "beam_size": 10, "pre_beam": 30, "ctc_weight": 0.3, "length_bonus": 0.0,
+               "lm": "enabled", "lm_weight": 0.3, "rescore_weight": 0.6,
+               "rescore_length_bonus": 2.0, "device_beam": False, "batch_bins": 8000}
+TONE_LM = {"lm_conf": {"d_model": 64, "n_layers": 2, "n_heads": 4, "d_ff": 256,
+                       "dropout": 0.1, "lsm_weight": 0.0}}
+TONE_LM_TRAIN = {"optim": "adamw", "optim_conf": {"lr": 3e-3, "weight_decay": 0.0},
+                 "scheduler": "warmuplr", "scheduler_conf": {"warmup_steps": 30},
+                 "max_epoch": 100, "grad_clip": 5.0, "log_interval": 100,
+                 "valid_interval_epoch": 1000}
+
+
+def phase_tone_matrix(tmp: Path) -> dict:
+    """The hybrid tone model (ctc 0.3, aed 0.7, GATE_EPOCHS epochs) and a
+    narrow LM trained on the training text (~300 updates), then all 7 cells
+    on test-clean: each cell's WER and seconds per utterance, a hypothesis
+    for every utterance, ctc_greedy through the gate, and every AED and
+    joint cell below its WER at the model's initial weights."""
+    from hnet_mamba_asr_torch.data.audio import load_manifest
+    from hnet_mamba_asr_torch.data.synthetic import overfit_config
+    from hnet_mamba_asr_torch.decoders.lm_scorer import CausalLMScorer
+    from hnet_mamba_asr_torch.tasks.asr_task import build_model
+    from hnet_mamba_asr_torch.tasks.lm_task import TokenLineLoader, build_lm
+    from hnet_mamba_asr_torch.training.trainer import Trainer
+    root = tmp / "gate"
+    tok, cmvn = tone_load(root)
+    cfg = overfit_config(root, ctc_weight=0.3, aed_weight=0.7, max_epoch=GATE_EPOCHS)
+    trainer = tone_train(cfg, tok, cmvn, root, "hybrid")
+    wers = list(trainer.metric_history[("valid", "wer")].values())
+    lines = [tok.encode(e["text"]) for e in load_manifest(root / "manifests" / "train-960.jsonl")]
+    lm = build_lm(TONE_LM, tok.vocab_size, seed=0)
+    lm_trainer = Trainer(lm, TokenLineLoader(lines, 64, seed=0), TONE_LM_TRAIN,
+                         ckpt_dir=root / "lm", seed=0)
+    lm_trainer.train()
+    lm_losses = [r["loss/total"] for r in lm_trainer.history]
+    log(f"  hybrid tone model: {len(trainer.history)} updates, dev WER (CTC greedy) {wers}; "
+        f"LM {len(lm_losses)} updates, loss {lm_losses[0]:.4f} -> {lm_losses[-1]:.4f}")
+    scorer = CausalLMScorer(lm.lm, bos_id=tok.bos_id, eos_id=tok.eos_id, pad_id=tok.pad_id)
+    trained = tone_decode(trainer.model, tok, root, TONE_DECODE, root / "matrix", lm=scorer)
+    init_model = build_model(cfg, tok.vocab_size, cmvn=cmvn, seed=0)
+    init = tone_decode(init_model, tok, root, TONE_DECODE, root / "matrix_init", lm=scorer)
+    cells = trained["scores"]["splits"]["test-clean"]["cells"]
+    cells0 = init["scores"]["splits"]["test-clean"]["cells"]
+    rows = {}
+    for name, s in cells.items():
+        per_utt = trained["summaries"][name]["decode_s"] / s["n_utts"]
+        rows[name] = {"wer": s["wer_exact"], "wer_init": cells0[name]["wer_exact"],
+                      "s_per_utt": per_utt, "n_utts": s["n_utts"]}
+        log(f"  {name:<14} WER {s['wer_exact']:7.3f} (initial weights "
+            f"{cells0[name]['wer_exact']:7.3f}), {per_utt * 1e3:.2f} ms per utterance, "
+            f"{s['n_utts']} utterances, engine {trained['summaries'][name]['engine']}")
+    if len(cells) != 7 or any(r["n_utts"] != 24 for r in rows.values()):
+        raise AssertionError(f"a cell lacks hypotheses: {rows}")
+    if not trained["scores"]["gate"].get("passed"):
+        raise AssertionError(f"ctc_greedy failed the gate: {trained['scores']['gate']}")
+    worse = [n for n, r in rows.items() if n.startswith(("aed", "joint"))
+             and not r["wer"] < r["wer_init"]]
+    if worse:
+        raise AssertionError(f"trained cells not below their initial WER: {worse}: {rows}")
+    del trainer, lm_trainer, init_model
+    torch.cuda.empty_cache()
+    log("phase 11 tone matrix: ok")
+    return rows
+
+
+def phase_n2_stability(tmp: Path) -> dict:
+    """overfit_config(compression_n=2) for 120 epochs of batch_bins 1500
+    (scripts/analysis/overfit_gate.py's N=2 batch): every loss and gradient
+    norm finite, ratio_last <= ratio_first + 0.05, |kept_last - 0.5| < 0.25;
+    the kept-fraction trajectory."""
+    from hnet_mamba_asr_torch.data.synthetic import overfit_config
+    from hnet_mamba_asr_torch.ops.ema_cuda import ema_cuda
+    root = tmp / "gate"
+    tok, cmvn = tone_load(root)
+    cfg = overfit_config(root, compression_n=2, max_epoch=120, batch_bins=1500,
+                         valid_interval=20)
+    ema_cuda.launches = ema_cuda.bwd_launches = 0
+    t0 = time.perf_counter()
+    trainer = tone_train(cfg, tok, cmvn, root, "n2")
+    train_s = time.perf_counter() - t0
+    h = trainer.history
+    finite = all(math.isfinite(r["loss/total"]) and math.isfinite(r["grad_norm"]) for r in h)
+    kept = [r["kept_fraction"] for r in h]
+    ratio_first, ratio_last = h[0]["loss/ratio"], h[-1]["loss/ratio"]
+    wers = list(trainer.metric_history[("valid", "wer")].values())
+    stride = max(1, len(h) // 12)
+    log(f"  n2 stability: {len(h)} updates in {train_s:.1f} s; ratio loss {ratio_first:.4f} -> "
+        f"{ratio_last:.4f}; kept fraction {kept[0]:.4f} -> {kept[-1]:.4f} (target 0.5); "
+        f"dev WER {wers}; ema launches forward {ema_cuda.launches}, backward "
+        f"{ema_cuda.bwd_launches}")
+    log("  kept-fraction trajectory (step: kept): " + ", ".join(
+        f"{h[i]['step']}: {kept[i]:.4f}" for i in range(0, len(h), stride)))
+    stable = (finite and ratio_last <= ratio_first + 0.05 and abs(kept[-1] - 0.5) < 0.25)
+    if not stable:
+        raise AssertionError(f"N=2 not stable: finite {finite}, ratio {ratio_first} -> "
+                             f"{ratio_last}, kept {kept[-1]}")
+    del trainer
+    torch.cuda.empty_cache()
+    log("phase 12 n2 stability: ok")
+    return {"kept": kept, "ratio": (ratio_first, ratio_last), "updates": len(h),
+            "train_s": train_s, "dev_wer": wers}
+
+
+# the full-width decode run: the gate config's decode block with both cuts
+# that seeded weights force (they never emit eos, so every AED and joint beam
+# runs to its cap): the AED cap at 64 tokens (512 in the config)
+DECODE_CAP = 64
+DECODE_UTTS = 8
+
+
+def phase_decode_full(cmvn, tmp: Path) -> dict:
+    """typeA_small_N1 at full width (78,858,409 parameters, seeded, bf16 intra
+    bf16) and lm_transformer_500 at full width (seeded, fp32): 8 synthetic
+    utterances of 2-16 s in one batch through all 7 cells of the config's
+    decode block with the shared encoder; per cell the real-time factor,
+    encoder and search seconds; the SSD launches of the run; then each cell
+    once more under torch.profiler on the two shortest utterances for the
+    device's idle share; then every utterance alone against its transcript
+    in the batch, in each beam cell."""
+    from torch.profiler import ProfilerActivity, profile
+    from hnet_mamba_asr_torch.data.dataset import ItemLoader, collate_batch
+    from hnet_mamba_asr_torch.decoders.lm_scorer import CausalLMScorer
+    from hnet_mamba_asr_torch.ops.ssd_cuda import ssd_cuda
+    from hnet_mamba_asr_torch.tasks import decode_task
+    from hnet_mamba_asr_torch.tasks.asr_task import build_model
+    from hnet_mamba_asr_torch.tasks.lm_task import build_lm
+    from hnet_mamba_asr_torch.tools.gate import GATE_DECODE, LM_CONFIG, seeded_tokenizer
+    from hnet_mamba_asr_torch.tools.measure import device_rows
+    cfg = copy.deepcopy(GATE_CONFIG)
+    cfg["aed_conf"]["max_decode_len"] = DECODE_CAP
+    model = build_model(cfg, VOCAB, cmvn=cmvn, seed=SEED)
+    n_params = sum(p.numel() for p in model.parameters())
+    lm = build_lm(LM_CONFIG, VOCAB, seed=SEED)
+    tok = seeded_tokenizer(tmp / "tok500.model")
+    scorer = CausalLMScorer(lm.lm, bos_id=tok.bos_id, eos_id=tok.eos_id, pad_id=tok.pad_id)
+    dc = dict(GATE_DECODE, device_beam=False)
+    cells = decode_task.expand_cells(dc)
+    items = decode_batch_items(np.random.default_rng(SEED + 50), DECODE_UTTS)
+    audio_s = {it["id"]: it["n_samples"] / SR for it in items}
+    loader = ItemLoader(items, 10 ** 7, shuffle=False)
+    torch.cuda.synchronize()
+    ssd_cuda.launches = 0
+    t0 = time.perf_counter()
+    summaries = decode_task.decode_split_shared(model, tok, loader, cells, dc,
+                                                audio_seconds=audio_s, out_dir=tmp / "full",
+                                                split="synthetic", lm=scorer)
+    wall = time.perf_counter() - t0
+    launches = ssd_cuda.launches
+    # the idle share: each cell alone under the profiler, on the two shortest
+    short = sorted(items, key=lambda it: it["n_samples"])[:2]
+    batch = next(iter(ItemLoader(short, 10 ** 7, shuffle=False)))
+    enc, _ = decode_task.encode_batch(model, batch)
+    idle = {}
+    for cell in cells:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            decode_task.decode_batch(model, tok, batch, cell, dc, lm=scorer, enc=enc, enc_s=0.0)
+            torch.cuda.synchronize()
+            window_us = (time.perf_counter() - t1) * 1e6
+        busy = sum(r[0] for r in device_rows(prof))
+        idle[cell["name"]] = 1.0 - busy / window_us
+    # bf16: every utterance alone against its record in the batch of 8
+    records = {c["name"]: {r["id"]: r["hyp"] for r in map(json.loads, (
+        tmp / "full" / c["name"] / "synthetic.jsonl").read_text().splitlines())}
+        for c in cells}
+    t1 = time.perf_counter()
+    alone = [(c["name"], it["id"], decode_task.decode_batch(
+        model, tok, collate_batch([it], pad_id=3, seed=0, epoch=0), c, dc, lm=scorer)[0]["hyp"])
+        for it in items for c in cells if c["search"] == "beam"]
+    differ = sorted({(name, uid) for name, uid, hyp in alone if hyp != records[name][uid]})
+    log(f"  bf16, each of the {DECODE_UTTS} utterances alone vs inside the batch, 6 beam "
+        f"cells: {len(alone) - len(differ)}/{len(alone)} transcripts equal "
+        f"({time.perf_counter() - t1:.1f} s)")
+    if differ:
+        raise AssertionError(f"alone and batched transcripts differ: {differ}")
+    total_audio = sum(audio_s.values())
+    rows = {}
+    for s in summaries:
+        rows[s["cell"]] = dict(rtf=s["rtf"], encoder_s=s["encoder_s"], search_s=s["search_s"],
+                               idle_share=idle[s["cell"]], engine=s["engine"])
+        log(f"  {s['cell']:<14} RTF {s['rtf']:.5f}: encoder {s['encoder_s']:.4f} s, search "
+            f"{s['search_s']:.4f} s over {s['n_utts']} utterances ({total_audio:.2f} s of "
+            f"audio); device idle {idle[s['cell']]:.2%} (profiled on the 2 shortest); engine "
+            f"{s['engine']}")
+    log(f"  full width: {n_params:,} ASR parameters, LM "
+        f"{sum(p.numel() for p in lm.parameters()):,}; {DECODE_UTTS} utterances of "
+        f"{sorted(round(a, 2) for a in audio_s.values())} s in one batch, shared encoder: "
+        f"ssd_fwd launches {launches} (the untimed warm-up pass and the one timed pass, "
+        f"{SSD_CALLS_PER_FORWARD} each); {wall:.1f} s in all; cuts: AED cap {DECODE_CAP} "
+        f"tokens (seeded weights never emit eos)")
+    if n_params != 78_858_409 or launches != 2 * SSD_CALLS_PER_FORWARD:
+        raise AssertionError(f"full-width decode: {n_params} parameters, {launches} launches")
+    bad = [s["cell"] for s in summaries if s["n_utts"] != DECODE_UTTS]
+    if bad:
+        raise AssertionError(f"cells without a record for every utterance: {bad}")
+    del model, lm, scorer, enc
+    torch.cuda.empty_cache()
+    log("phase 13 decode full width: ok")
+    return {"cells": rows, "launches": launches, "n_params": n_params}
+
+
+# card against CPU: decode_step log-probs to 1e-5 of their max, fp32, TF32 off
+STEP_BOUND = 1e-5
+SMALL_CAP = 12
+
+
+def phase_decode_parity(cmvn, tmp: Path) -> dict:
+    """Depth 1 + 2 + 1, a 2-layer AED and a 2-layer LM, full width, fp32
+    (intra off), TF32 off, seeded: decode_step log-probs card vs CPU; all 7
+    cells' transcripts card vs CPU on 4 utterances of 1.5-3 s; a request alone
+    and inside the batch for ctc_beam_lm and joint_beam on the card."""
+    from hnet_mamba_asr_torch.data.dataset import collate_batch
+    from hnet_mamba_asr_torch.decoders.lm_scorer import CausalLMScorer
+    from hnet_mamba_asr_torch.tasks import decode_task
+    from hnet_mamba_asr_torch.tasks.asr_task import build_model
+    from hnet_mamba_asr_torch.tasks.lm_task import build_lm
+    from hnet_mamba_asr_torch.tools.gate import GATE_DECODE, LM_CONFIG, seeded_tokenizer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = copy.deepcopy(GATE_CONFIG)
+    cfg["train"]["precision"] = "fp32"
+    cfg["encoder_conf"].update(n_enc=1, n_main=2, n_dec=1, ssd_intra_dtype=None)
+    cfg["aed_conf"].update(n_layers=2, max_decode_len=SMALL_CAP)
+    lm_cfg = {"lm_conf": dict(LM_CONFIG["lm_conf"], n_layers=2)}
+    tok = seeded_tokenizer(tmp / "tok500_parity.model")
+    dc = dict(GATE_DECODE, device_beam=False)
+    cells = decode_task.expand_cells(dc)
+    items = decode_batch_items(np.random.default_rng(SEED + 60), 4, seconds=(1.5, 3.0))
+    batch = collate_batch(items, pad_id=3, seed=0, epoch=0)
+    hyps, steps = {}, {}
+    for dev in ("cuda", "cpu"):
+        model = build_model(cfg, VOCAB, cmvn=cmvn, seed=SEED, device=dev)
+        lm = build_lm(lm_cfg, VOCAB, seed=SEED, device=dev)
+        scorer = CausalLMScorer(lm.lm, bos_id=tok.bos_id, eos_id=tok.eos_id, pad_id=tok.pad_id)
+        enc, _ = decode_task.encode_batch(model, batch)
+        with torch.no_grad():
+            caches, kpm = model.aed.decode_start(enc.features, enc.lengths, SMALL_CAP + 1)
+            rows = enc.features.shape[0]
+            par = torch.arange(rows, device=dev)
+            lp0, caches = model.aed.decode_step(caches, kpm, par, torch.full(
+                (rows,), tok.bos_id, device=dev), 0)
+            lp1, _ = model.aed.decode_step(caches, kpm, par.flip(0), torch.arange(
+                5, 5 + rows, device=dev), 1)
+        steps[dev] = (lp0.cpu(), lp1.cpu())
+        hyps[dev] = {c["name"]: [r["hyp"] for r in decode_task.decode_batch(
+            model, tok, batch, c, dc, lm=scorer, enc=enc, enc_s=0.0)] for c in cells}
+        if dev == "cuda":
+            alone = {}
+            for name in ("ctc_beam_lm", "joint_beam"):
+                cell = next(c for c in cells if c["name"] == name)
+                alone[name] = [decode_task.decode_batch(
+                    model, tok, collate_batch([it], pad_id=3, seed=0, epoch=0), cell, dc,
+                    lm=scorer)[0]["hyp"] for it in items]
+        del model, lm, scorer, enc
+    # bos and pad sit at -1e9 on both sides; the bound reads the other classes
+    keep = torch.ones(VOCAB, dtype=torch.bool)
+    keep[[tok.bos_id, tok.pad_id]] = False
+    step_err = max(((a - b)[:, keep].abs().max() / b[:, keep].abs().max()).item()
+                   for a, b in zip(steps["cuda"], steps["cpu"]))
+    log(f"  decode_step fp32 (TF32 off), 2 steps x {len(items)} rows: max|d|/max|log_prob| "
+        f"{step_err:.3e} over the classes other than bos and pad (bound {STEP_BOUND:g})")
+    if not step_err <= STEP_BOUND:
+        raise AssertionError(f"decode_step log-probs part card vs CPU: {step_err:.3e}")
+    differ = [n for n in hyps["cpu"] if hyps["cuda"][n] != hyps["cpu"][n]]
+    for n in hyps["cpu"]:
+        log(f"  {n:<14} card == CPU: {n not in differ}; "
+            f"{sum(len(h.split()) for h in hyps['cuda'][n])} words over {len(items)} utterances")
+    if differ:
+        for n in differ:
+            log(f"    {n}: card {hyps['cuda'][n]} | CPU {hyps['cpu'][n]}")
+        raise AssertionError(f"card and CPU transcripts differ in {differ}")
+    for name, got in alone.items():
+        ok = got == hyps["cuda"][name]
+        log(f"  {name}: each of {len(items)} requests alone == inside the batch: {ok}")
+        if not ok:
+            raise AssertionError(f"{name}: alone {got} vs batched {hyps['cuda'][name]}")
+    torch.cuda.empty_cache()
+    log("phase 14 decode parity: ok")
+    return {"step_err": step_err}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -932,13 +1480,30 @@ def main() -> int:
         phase_grads(cmvn)
         phase_grads(cmvn, N2_CONFIG, "n2")
         bench = phase_bench(Path(tmp))
+        intra = phase_intra_blocks(cmvn)
+        gate = phase_gate_proof(Path(tmp))
+        matrix = phase_tone_matrix(Path(tmp))
+        n2 = phase_n2_stability(Path(tmp))
+        full = phase_decode_full(cmvn, Path(tmp))
+        phase_decode_parity(cmvn, Path(tmp))
     log(f"training summary: gate config {train['step_ms']:.1f} ms per update of 2 x 32 x 10 s, "
         f"{train['fps']:.0f} mel-frames/s, peak {train['peak'] / 1e9:.2f} GB; N=2 config "
         f"{train_n2['step_ms']:.1f} ms per update of 64 x 10 s, {train_n2['fps']:.0f} "
         f"mel-frames/s, peak {train_n2['peak'] / 1e9:.2f} GB, kept fraction "
         f"{train_n2['kept']:.4f}, {train_n2['slots']} slots; bench.py step "
         f"{bench['none']['fps']:.0f} (32 x 10 s, remat none) and {bench['full']['fps']:.0f} "
-        f"(64 x 10 s, remat full) mel-frames/s; {time.perf_counter() - t_start:.1f} s in all")
+        f"(64 x 10 s, remat full) mel-frames/s")
+    log(f"decode summary: intra-bf16 mixers max|d|/max|mixer| "
+        + ", ".join(f"{k} {v:.3e}" for k, v in intra["blocks"].items())
+        + f" (bound {BLOCK_ROUNDINGS * 2.0 ** -8:.4f}), whole model log-prob "
+        + ", ".join(f"{k} {v:.3e}" for k, v in intra["model"].items())
+        + f"; gate proof dev WER {gate['dev_wer']}, test-clean {gate['gate']['wer']:.3f}; "
+        f"tone matrix WER "
+        + ", ".join(f"{k} {v['wer']:.2f}" for k, v in matrix.items())
+        + f"; N=2 kept {n2['kept'][0]:.4f} -> {n2['kept'][-1]:.4f} over {n2['updates']} "
+        f"updates; full-width RTF "
+        + ", ".join(f"{k} {v['rtf']:.4f}" for k, v in full["cells"].items())
+        + f"; {time.perf_counter() - t_start:.1f} s in all")
     main_shape = ("bfloat16", TRAIN_ROWS, 249, 16)
     fwd = next(r for r in fwd_rows if (r["dtype"], r["B"], r["L"], r["H"]) == main_shape)
     bwd = next(r for r in bwd_rows if (r["dtype"], r["B"], r["L"], r["H"]) == main_shape
@@ -947,9 +1512,16 @@ def main() -> int:
                == ("bfloat16", 64, 256, 384, False))
     log(f"kernel summary: ssd_fwd / ssd_bwd at bf16 (intra bf16) B{TRAIN_ROWS} L249 H16 P64 "
         f"N128 (a micro-batch of 32 x 10 s, main stack); ema_fwd / ema_bwd at bf16 B64 M256 "
-        f"D384 (the dechunk of 64 x 10 s); launches from the N=2 training run (3 "
-        f"micro-steps of 64 x 10 s, remat full); no single PyTorch call computes the scan, "
-        f"the EMA or their gradients")
+        f"D384 (the dechunk of 64 x 10 s); launches: ssd_fwd from the full-width decode run "
+        f"(this slice's main path: one warm-up and one shared encoder pass), the others from "
+        f"the N=2 training run (3 micro-steps of 64 x 10 s, remat full), every path's in "
+        f"launches_by_path; no single PyTorch call computes the scan, the EMA or their "
+        f"gradients")
+    by_path = {"decode_full_width": {"ssd_fwd": full["launches"]},
+               "train_n2": train_n2["launches"],
+               "gate_proof_tone_n1": gate["launches"],
+               "train_gate": {"ssd_fwd": train["ssd_fwd"], "ssd_bwd": train["ssd_bwd"]}}
+    launches = dict(train_n2["launches"], ssd_fwd=full["launches"])
     ssd = lambda r: dict(max_abs_err=r["abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                          bound_ms=r["bound_ms"], bound_by=r["bound_by"])
     ema_row = lambda k: dict(max_abs_err=ema["abs_err"][k], ms=ema["ms"][k],
@@ -957,7 +1529,8 @@ def main() -> int:
                              bound_by=ema["cost"][k]["bound_by"])
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"hnet_mamba_asr_torch/csrc/{source}",
-         "replaces": replaces, "launches": train_n2["launches"][name], **row,
+         "replaces": replaces, "launches": launches[name],
+         "launches_by_path": {k: v[name] for k, v in by_path.items() if name in v}, **row,
          "library_ms": None, "roofline_share": row["bound_ms"] / row["ms"]}
         for name, source, replaces, row in (
             ("ssd_fwd", "ssd_fwd.cu", "hnet_mamba_asr_tpu/ops/ssd_pallas.py:33", ssd(fwd)),

@@ -9,6 +9,9 @@ that a checkpoint the port writes loads in the JAX package. The layouts
 change so:
 
 - Dense ``kernel`` [in, out] <-> ``weight`` [out, in];
+- the head-axis kernels of flax's attention (the LM's ``query`` / ``key`` /
+  ``value`` [d, H, dh] <-> [H, dh, d], ``out`` [H, dh, d] <-> [d, H, dh]),
+  their output axes first, as a Dense weight's;
 - Conv ``kernel`` HWIO <-> ``weight`` OIHW;
 - LayerNorm ``scale`` <-> ``weight``;
 - Embed ``embedding`` [V, d] <-> ``weight`` [V, d];
@@ -79,6 +82,8 @@ def _convert_leaf(path: list[str], a: np.ndarray) -> tuple[str, np.ndarray]:
             a = a.T                                   # [in, out] -> [out, in]
         elif a.ndim == 4:
             a = a.transpose(3, 2, 0, 1)               # HWIO -> OIHW
+        elif a.ndim == 3:                             # attention's head axes
+            a = a.transpose(2, 0, 1) if mods[-1] == "out" else a.transpose(1, 2, 0)
         else:
             raise ValueError(f"unexpected {a.ndim}-D kernel at {'/'.join(path)}")
         leaf = "weight"
@@ -101,6 +106,9 @@ def _jax_leaf(key: str, a: np.ndarray) -> tuple[list[str], np.ndarray]:
     if leaf == "weight":
         if a.ndim == 4:
             a, leaf = a.transpose(2, 3, 1, 0), "kernel"   # OIHW -> HWIO
+        elif a.ndim == 3:
+            a, leaf = (a.transpose(1, 2, 0) if path[-1] == "out"
+                       else a.transpose(2, 0, 1)), "kernel"
         elif a.ndim == 2:
             a, leaf = (a, "embedding") if path[-1] == "embed" else (a.T, "kernel")
         elif a.ndim == 1:

@@ -561,6 +561,7 @@ int launch(const Args& args, int batch, cudaStream_t stream) {
 
 }  // namespace simt
 
+#if SSD_BF16
 // =========================================================================
 // bf16: launch 1, the reverse state chain, one cluster of CTAs per (b, h)
 // =========================================================================
@@ -1386,6 +1387,8 @@ int launch_bf16(Bf16Args args, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+#endif  // SSD_BF16
+
 }  // namespace
 
 extern "C" {
@@ -1393,6 +1396,7 @@ extern "C" {
 // Whether the library is built for (P, N).
 int hnet_ssd_bwd_supported(int P, int N) { return P == kP && N == kN; }
 
+#if SSD_BF16
 // For a bf16 call: how many CTAs share the heads of a group (>= 1), or a
 // negative cudaError_t code. With more than one, the caller passes fp32
 // dB_part / dC_part [splits, B, L, G, N] and sums them over the first axis.
@@ -1431,6 +1435,8 @@ int hnet_ssd_bwd_bf16(const void* x, const float* dt, const float* A, const void
                       dC_part, ds0, batch, L, H, G, (L + kQ - 1) / kQ, intra_bf16, splits, per};
   return launch_bf16(args, static_cast<cudaStream_t>(stream));
 }
+
+#endif  // SSD_BF16
 
 // fp32 x, B, C, dy and dx (PR-3 SIMT kernel). dB_part / dC_part are the
 // per-head gradients [B, L, H, N] and dA_part [B, H] the per-(b, h) sums,

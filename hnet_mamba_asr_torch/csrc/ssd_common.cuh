@@ -1,7 +1,12 @@
 // Shared by the Hopper SSD kernels (ssd_fwd.cu, ssd_bwd.cu): the chunk and
 // head sizes the libraries are built for, and the device helpers of the bf16
 // kernels (cp.async copies, ldmatrix, mma.sync bf16 products, bf16 packing,
-// warp scans). ops/ssd_cuda.py::build hashes this header with each source.
+// warp scans). ops/cuda_build.py hashes this header with each source.
+//
+// A library is built for one (headdim P, d_state N): 64 and 128 by default,
+// another pair with -DSSD_HEADDIM=... -DSSD_DSTATE=... (multiples of 16).
+// The bf16 kernels are written for (64, 128) only; a build for another pair
+// holds the fp32 kernels (SSD_BF16 is 0 there).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -10,9 +15,18 @@
 
 namespace {
 
-constexpr int kQ = 64;         // chunk length
-constexpr int kP = 64;         // headdim the libraries are built for
-constexpr int kN = 128;        // d_state the libraries are built for
+#ifndef SSD_HEADDIM
+#define SSD_HEADDIM 64
+#endif
+#ifndef SSD_DSTATE
+#define SSD_DSTATE 128
+#endif
+#define SSD_BF16 (SSD_HEADDIM == 64 && SSD_DSTATE == 128)
+
+constexpr int kQ = 64;                 // chunk length
+constexpr int kP = SSD_HEADDIM;        // headdim the library is built for
+constexpr int kN = SSD_DSTATE;         // d_state the library is built for
+static_assert(kP % 16 == 0 && kN % 16 == 0, "P and N must be multiples of 16");
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));

@@ -308,6 +308,7 @@ ssd_fwd_fp32_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
+#if SSD_BF16
 // =========================================================================
 // bf16: a cluster of CTAs per (b, h), tensor-core MMAs, cp.async loads
 // =========================================================================
@@ -646,6 +647,8 @@ ssd_fwd_bf16_kernel(const Bf16Args a) {
   // of the last round, so the CTAs may exit independently.
 }
 
+#endif  // SSD_BF16
+
 int launch_fp32(const void* x, const float* dt, const float* A, const void* B,
                 const void* C, const float* s0, void* y, float* s_final, float* s_chunks,
                 int batch, int L, int H, int G, int intra_bf16, cudaStream_t stream) {
@@ -661,6 +664,7 @@ int launch_fp32(const void* x, const float* dt, const float* A, const void* B,
   return (int)cudaGetLastError();
 }
 
+#if SSD_BF16
 // CTAs per cluster: one per chunk, up to the portable cluster size; a
 // longer L takes several rounds of that many chunks.
 int cluster_size(int L) {
@@ -712,6 +716,8 @@ int launch_bf16(const void* x, const float* dt, const float* A, const void* B,
   return (int)cudaGetLastError();
 }
 
+#endif  // SSD_BF16
+
 }  // namespace
 
 extern "C" {
@@ -720,8 +726,17 @@ extern "C" {
 // launching so that it can refuse other shapes by name.
 int hnet_ssd_fwd_supported(int P, int N) { return P == kP && N == kN; }
 
+// Whether the library holds the bf16 kernel (built for P 64, N 128 only).
+int hnet_ssd_fwd_has_bf16() { return SSD_BF16; }
+
 // CTAs per (b, h) of a bf16 call at this L (the fp32 kernel takes one).
-int hnet_ssd_fwd_bf16_cluster_size(int L) { return cluster_size(L); }
+int hnet_ssd_fwd_bf16_cluster_size(int L) {
+#if SSD_BF16
+  return cluster_size(L);
+#else
+  return 0;
+#endif
+}
 
 // dtype: 0 = float32, 1 = bfloat16 (x, B, C and y). s0, s_final and
 // s_chunks may be null; s_chunks [B, H, K = ceil(L / 64), N, P] receives the
@@ -738,8 +753,10 @@ int hnet_ssd_fwd(int dtype, const void* x, const float* dt, const float* A,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_fp32(x, dt, A, B, C, s0, y, s_final, s_chunks, batch, L, H, G, intra_bf16, s);
+#if SSD_BF16
   if (dtype == 1)
     return launch_bf16(x, dt, A, B, C, s0, y, s_final, s_chunks, batch, L, H, G, intra_bf16, s);
+#endif
   return (int)cudaErrorInvalidValue;
 }
 

@@ -11,8 +11,9 @@ feature frames, tokens to a multiple of 8, rows to a multiple of
 ``wire_dtype="int16"`` the waves travel as PCM16 and the frontend
 (``ops/melspec.py``) rescales them by 1/32768 on the device.
 ``BucketBatchSampler`` makes length-bucketed batches under a ``max_frames``
-budget, shuffled by (seed + epoch). Reading WAV manifests, the tokenizer
-and speed perturbation are not ported.
+budget, shuffled by (seed + epoch). ``manifest_items`` reads a WAV manifest
+into items (the JAX ``ASRDataset`` without augmentation); speed
+perturbation is not ported.
 """
 from __future__ import annotations
 
@@ -172,3 +173,19 @@ class ItemLoader:
 
     def __len__(self) -> int:
         return len(self.sampler)
+
+
+def manifest_items(manifest, tokenizer, *, sample_rate: int = 16000) -> list[dict]:
+    """A WAV manifest -> items: each entry's audio as float32 and its text
+    encoded by ``tokenizer`` (``data/tokenizer.py``), ids and indices in
+    manifest order."""
+    from hnet_mamba_asr_torch.data.audio import load_manifest, read_wav
+    items = []
+    for i, e in enumerate(load_manifest(manifest)):
+        wave, sr = read_wav(e["audio"])
+        if sr != sample_rate:
+            raise ValueError(f"{e['audio']}: sample rate {sr} != {sample_rate}")
+        items.append({"wave": wave.astype(np.float32), "n_samples": len(wave),
+                      "tokens": np.asarray(tokenizer.encode(e["text"]), dtype=np.int32),
+                      "id": e["id"], "index": i})
+    return items

@@ -113,7 +113,7 @@ class DCASREncoder(nn.Module):
                  hnet_ema: bool = True, chunker: str = "dynamic", d_state: int = 128,
                  headdim: int = 64, chunk_size: int = 256,
                  ssd_intra_dtype: str | None = None, ssd_out_compute_dtype: bool = False,
-                 remat_policy: str = "none", dtype: torch.dtype = torch.float32,
+                 remat_policy: str = "full", dtype: torch.dtype = torch.float32,
                  generator: torch.Generator | None = None):
         super().__init__()
         if arch_type not in ("A", "B"):

@@ -44,7 +44,7 @@ def new_linear(d_in: int, d_out: int, bias: bool, generator) -> nn.Linear:
 
 
 def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype, *,
-          row_multiple: int = 1, col_multiple: int = 1) -> torch.Tensor:
+          row_multiple: int = 1, col_multiple: int = 1, row_block: int = 0) -> torch.Tensor:
     """``layer(x)`` in the compute ``dtype`` from fp32 weights, as a flax
     Dense with ``param_dtype=float32`` computes.
 
@@ -57,7 +57,10 @@ def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype, *,
     transcripts for one request alone and inside a batch. Padding the rows
     to a multiple of ``row_multiple`` (one multiple at least) and N to a
     multiple of ``col_multiple`` keeps one kernel for every batch (measured
-    on an H100).
+    on an H100). ``row_block`` goes further, for row counts that vary over
+    a wide range (the decode path: a beam's rows, a batch's memory): the
+    rows run as GEMMs of exactly ``row_block`` rows each, the last padded,
+    so that every call has one shape whatever the row count.
     """
     w, b = layer.weight.to(dtype), layer.bias
     b = None if b is None else b.to(dtype)
@@ -68,6 +71,10 @@ def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype, *,
         b = None if b is None else F.pad(b, (0, pad))
     rows = x.reshape(-1, x.shape[-1]).to(dtype)
     m = rows.shape[0]
+    if row_block:
+        rows = F.pad(rows, (0, 0, 0, -m % row_block))
+        out = torch.cat([F.linear(part, w, b) for part in rows.split(row_block)])
+        return out[:m, :n_out].reshape(*x.shape[:-1], n_out)
     if row_multiple > 1:
         rows = F.pad(rows, (0, 0, 0, max(row_multiple, -(-m // row_multiple) * row_multiple) - m))
     return F.linear(rows, w, b)[:m, :n_out].reshape(*x.shape[:-1], n_out)

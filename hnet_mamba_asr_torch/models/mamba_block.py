@@ -64,13 +64,17 @@ class MambaBlock(nn.Module):
         self.fwd = Mamba2(**kw)
         self.bwd = Mamba2(**kw) if bidirectional else None
 
-    def forward(self, x: torch.Tensor, lengths: torch.Tensor | None = None) -> torch.Tensor:
+    def mixer(self, x: torch.Tensor, lengths: torch.Tensor | None = None) -> torch.Tensor:
+        """The block's output without its residual: the directions' sum."""
         h = layer_norm(x, self.norm, self.dtype)
         y = self.fwd(h)
         if self.bwd is not None:
             hr = reverse_sequences(h, lengths)
             y = y + reverse_sequences(self.bwd(hr), lengths)
-        return x + y
+        return y
+
+    def forward(self, x: torch.Tensor, lengths: torch.Tensor | None = None) -> torch.Tensor:
+        return x + self.mixer(x, lengths)
 
 
 REMAT_POLICIES = ("none", "full", "dots")
@@ -89,7 +93,7 @@ class MambaStack(nn.Module):
     remat policy acts only where autograd records a graph (training)."""
 
     def __init__(self, n_layers: int, d_model: int, dtype: torch.dtype = torch.float32,
-                 generator: torch.Generator | None = None, remat_policy: str = "none",
+                 generator: torch.Generator | None = None, remat_policy: str = "full",
                  **block_kw):
         super().__init__()
         if remat_policy not in REMAT_POLICIES:

@@ -24,7 +24,13 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 # library name -> (source, headers it includes)
 SOURCES = {"ssd_fwd": (CSRC / "ssd_fwd.cu", (CSRC / "ssd_common.cuh",)),
            "ssd_bwd": (CSRC / "ssd_bwd.cu", (CSRC / "ssd_common.cuh",)),
+           "ssd_fwd_p16n16": (CSRC / "ssd_fwd.cu", (CSRC / "ssd_common.cuh",)),
+           "ssd_bwd_p16n16": (CSRC / "ssd_bwd.cu", (CSRC / "ssd_common.cuh",)),
            "ema": (CSRC / "ema.cu", ())}
+# macros a library is always built with: the SSD kernels for headdim 16 and
+# d_state 16 (the narrow models of the tone-corpus gate; fp32 kernels only)
+FIXED_DEFINES = {"ssd_fwd_p16n16": ("SSD_HEADDIM=16", "SSD_DSTATE=16"),
+                 "ssd_bwd_p16n16": ("SSD_HEADDIM=16", "SSD_DSTATE=16")}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -61,7 +67,8 @@ def build_all(defines: dict[str, tuple[str, ...]] | None = None) -> dict:
         t0 = time.perf_counter()
         paths, jobs = {}, {}
         for name, (source, headers) in SOURCES.items():
-            flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines.get(name, ())))
+            flags = (*NVCC_FLAGS, *(f"-D{d}" for d in
+                                    FIXED_DEFINES.get(name, ()) + tuple(defines.get(name, ()))))
             blob = source.read_bytes() + b"".join(h.read_bytes() for h in headers)
             tag = hashlib.sha256(blob + " ".join(flags).encode()).hexdigest()[:16]
             paths[name] = BUILD_DIR / f"lib{name}_{tag}.so"

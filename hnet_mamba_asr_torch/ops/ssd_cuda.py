@@ -33,18 +33,24 @@ _lock = threading.Lock()
 _loaded: dict = {}
 
 
+# (headdim P, d_state N) -> the names of the forward and backward libraries
+SHAPES = {(64, 128): ("ssd_fwd", "ssd_bwd"), (16, 16): ("ssd_fwd_p16n16", "ssd_bwd_p16n16")}
+
+
 def build(defines: tuple[str, ...] = ()) -> dict:
     """Compile (once per process and source hash; ``cuda_build.build_all``
     builds every kernel of the port, one ``nvcc`` per source, started
-    together) and load the two SSD libraries.
+    together) and load the SSD libraries.
 
-    Returns ``{"lib", "bwd", "path", "bwd_path", "seconds", "log",
-    "cached"}``: ``lib`` is the forward library and ``bwd`` the backward's;
-    ``seconds`` is the build's time (0 when every library was already on
-    disk) and ``log`` the compiler's report (registers, shared memory,
-    spills). ``defines`` (e.g. ``("SSD_PHASE_CLOCKS",)``) build an
-    instrumented forward; the first call in a process decides which one it
-    uses.
+    Returns ``{"lib", "bwd", "libs", "path", "bwd_path", "seconds", "log",
+    "cached"}``: ``lib`` is the forward library and ``bwd`` the backward's
+    for (P, N) = (64, 128), and ``libs`` maps each (P, N) of ``SHAPES`` to
+    its (forward, backward) pair (the (16, 16) pair holds the fp32 kernels
+    only); ``seconds`` is the build's time (0 when every library was
+    already on disk) and ``log`` the compiler's report (registers, shared
+    memory, spills). ``defines`` (e.g. ``("SSD_PHASE_CLOCKS",)``) build an
+    instrumented (64, 128) forward; the first call in a process decides
+    which one it uses.
     """
     info = cuda_build.build_all({"ssd_fwd": tuple(defines)})
     with _lock:
@@ -52,28 +58,46 @@ def build(defines: tuple[str, ...] = ()) -> dict:
             return _loaded
         paths = info["paths"]
         ptr, c_int = ctypes.c_void_p, ctypes.c_int
-        lib = ctypes.CDLL(str(paths["ssd_fwd"]))
-        lib.hnet_ssd_fwd.argtypes = [c_int] + [ptr] * 9 + [c_int] * 7 + [ptr]
-        lib.hnet_ssd_fwd.restype = c_int
-        lib.hnet_ssd_fwd_supported.argtypes = [c_int, c_int]
-        lib.hnet_ssd_fwd_supported.restype = c_int
-        lib.hnet_ssd_fwd_bf16_cluster_size.argtypes = [c_int]
-        lib.hnet_ssd_fwd_bf16_cluster_size.restype = c_int
-        lib.hnet_cuda_error_string.argtypes = [c_int]
-        lib.hnet_cuda_error_string.restype = ctypes.c_char_p
-        bwd = ctypes.CDLL(str(paths["ssd_bwd"]))
-        bwd.hnet_ssd_bwd_bf16.argtypes = [ptr] * 17 + [c_int] * 7 + [ptr]
-        bwd.hnet_ssd_bwd_bf16.restype = c_int
-        bwd.hnet_ssd_bwd_bf16_splits.argtypes = [c_int] * 4
-        bwd.hnet_ssd_bwd_bf16_splits.restype = c_int
-        bwd.hnet_ssd_bwd_fp32.argtypes = [ptr] * 14 + [c_int] * 7 + [ptr]
-        bwd.hnet_ssd_bwd_fp32.restype = c_int
-        bwd.hnet_ssd_bwd_supported.argtypes = [c_int, c_int]
-        bwd.hnet_ssd_bwd_supported.restype = c_int
-        _loaded.update(lib=lib, bwd=bwd, path=str(paths["ssd_fwd"]),
+        libs = {}
+        for shape, (fwd_name, bwd_name) in SHAPES.items():
+            lib = ctypes.CDLL(str(paths[fwd_name]))
+            lib.hnet_ssd_fwd.argtypes = [c_int] + [ptr] * 9 + [c_int] * 7 + [ptr]
+            lib.hnet_ssd_fwd.restype = c_int
+            lib.hnet_ssd_fwd_supported.argtypes = [c_int, c_int]
+            lib.hnet_ssd_fwd_supported.restype = c_int
+            lib.hnet_ssd_fwd_has_bf16.restype = c_int
+            lib.hnet_ssd_fwd_bf16_cluster_size.argtypes = [c_int]
+            lib.hnet_ssd_fwd_bf16_cluster_size.restype = c_int
+            lib.hnet_cuda_error_string.argtypes = [c_int]
+            lib.hnet_cuda_error_string.restype = ctypes.c_char_p
+            bwd = ctypes.CDLL(str(paths[bwd_name]))
+            if lib.hnet_ssd_fwd_has_bf16():
+                bwd.hnet_ssd_bwd_bf16.argtypes = [ptr] * 17 + [c_int] * 7 + [ptr]
+                bwd.hnet_ssd_bwd_bf16.restype = c_int
+                bwd.hnet_ssd_bwd_bf16_splits.argtypes = [c_int] * 4
+                bwd.hnet_ssd_bwd_bf16_splits.restype = c_int
+            bwd.hnet_ssd_bwd_fp32.argtypes = [ptr] * 14 + [c_int] * 7 + [ptr]
+            bwd.hnet_ssd_bwd_fp32.restype = c_int
+            bwd.hnet_ssd_bwd_supported.argtypes = [c_int, c_int]
+            bwd.hnet_ssd_bwd_supported.restype = c_int
+            libs[shape] = (lib, bwd)
+        lib, bwd = libs[(64, 128)]
+        _loaded.update(lib=lib, bwd=bwd, libs=libs, path=str(paths["ssd_fwd"]),
                        bwd_path=str(paths["ssd_bwd"]), log=info["log"],
                        cached=info["cached"], seconds=info["seconds"])
         return _loaded
+
+
+def _libs(x, P: int, N: int):
+    """The (forward, backward) libraries for headdim P and d_state N."""
+    pair = build()["libs"].get((P, N))
+    if pair is None:
+        raise ValueError(f"ssd kernel is not built for headdim P={P}, d_state N={N}; "
+                         f"built: {sorted(SHAPES)}")
+    if x.dtype == torch.bfloat16 and not pair[0].hnet_ssd_fwd_has_bf16():
+        raise ValueError(f"the bf16 ssd kernel is built for (P, N) = (64, 128) only, "
+                         f"got ({P}, {N})")
+    return pair
 
 
 def _check(x, dt, A, B, C, initial_state) -> None:
@@ -124,9 +148,7 @@ def _forward(x, dt, A, B, C, initial_state, return_final: bool, intra_bf16: bool
     _check(x, dt, A, B, C, initial_state)
     Bsz, L, H, P = x.shape
     G, N = B.shape[2], B.shape[3]
-    lib = build()["lib"]
-    if not lib.hnet_ssd_fwd_supported(P, N):
-        raise ValueError(f"ssd kernel is not built for headdim P={P}, d_state N={N}")
+    lib = _libs(x, P, N)[0]
     y = torch.empty_like(x)
     s_final = (torch.empty(Bsz, H, N, P, dtype=torch.float32, device=x.device)
                if return_final else None)
@@ -161,9 +183,7 @@ def _backward(x, dt, A, B, C, s_chunks, dy, ds_final, intra_bf16: bool,
     dy = dy.to(x.dtype).contiguous()
     if ds_final is not None:
         ds_final = ds_final.float().contiguous()
-    bwd = build()["bwd"]
-    if not bwd.hnet_ssd_bwd_supported(P, N):
-        raise ValueError(f"ssd backward kernel is not built for P={P}, N={N}")
+    bwd = _libs(x, P, N)[1]
     dev, f32 = x.device, torch.float32
     dx = torch.empty_like(x)
     ddt = torch.empty(Bsz, L, H, dtype=f32, device=dev)

@@ -74,7 +74,7 @@ class ServingModel:
         model = build_model(config, vocab_size, cmvn=cmvn, seed=seed, device=self.device)
         if model.ctc is None:
             raise NotImplementedError("serving needs the CTC head (model_conf.ctc_weight "
-                                      "> 0); AED decoding is not ported")
+                                      "> 0); its aed_ids and beam_ids emit modes are not ported")
         if params is not None:
             load_jax_params(model, params)
         self.model = model

@@ -29,7 +29,7 @@ import torch
 import torch.nn as nn
 
 from hnet_mamba_asr_torch.data.features import GlobalCMVN
-from hnet_mamba_asr_torch.models.aed import AEDHead, label_smoothing_loss
+from hnet_mamba_asr_torch.models.aed import AEDHead, label_smoothing_loss, strip_hypothesis
 from hnet_mamba_asr_torch.models.ctc_head import CTCHead, greedy_decode as ctc_host_greedy
 from hnet_mamba_asr_torch.models.encoder import DCASREncoder, EncoderOutput
 from hnet_mamba_asr_torch.ops.ctc_loss import ctc_infeasible, ctc_loss
@@ -81,6 +81,7 @@ def build_aed_head(config, vocab_size: int, dtype=torch.float32, generator=None)
                    n_layers=int(ac.get("n_layers", 6)), n_heads=int(ac.get("n_heads", 4)),
                    d_ff=int(ac.get("d_ff", 2048)), dropout=float(ac.get("dropout", 0.1)),
                    lsm_weight=float(mc.get("lsm_weight", 0.1)),
+                   max_decode_len=int(ac.get("max_decode_len", 512)),
                    moe_experts=int((ac.get("moe", {}) or {}).get("n_experts", 0)),
                    dtype=dtype, generator=generator)
 
@@ -171,13 +172,14 @@ class DCASRModel(nn.Module):
 
     @torch.inference_mode()
     def greedy_decode(self, batch: dict) -> list[list[int]]:
-        """CTC greedy: host-side id lists for every row."""
-        if self.ctc is None:
-            raise NotImplementedError("AED decoding is not ported; greedy_decode needs "
-                                      "the CTC head")
+        """CTC greedy when a CTC head exists, else the AED head's KV-cached
+        greedy decode: host-side id lists for every row."""
         enc = self.encode(batch)
-        ids = self.ctc.frame_argmax(enc.features)
-        return ctc_host_greedy(ids.cpu(), enc.lengths.cpu(), self.ctc.blank_id)
+        if self.ctc is not None:
+            ids = self.ctc.frame_argmax(enc.features)
+            return ctc_host_greedy(ids.cpu(), enc.lengths.cpu(), self.ctc.blank_id)
+        ids = self.aed.greedy_decode(enc.features, enc.lengths).cpu().numpy()
+        return [strip_hypothesis(row, self.aed.eos_id) for row in ids]
 
 
 def _host(value):

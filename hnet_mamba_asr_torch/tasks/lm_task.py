@@ -1,0 +1,101 @@
+"""LM task: config dict -> ``TransformerLM`` wired for ``training/trainer.py``,
+counterpart of ``hnet_mamba_asr_tpu/tasks/lm_task.py``.
+
+``LMModel.loss_fn`` emits ``batch_weight`` = scored tokens (+1 eos per
+line), so that the trainer's weighted loss makes ``exp(loss)`` a token-
+weighted perplexity. Dropout draws from (23, step), as in the JAX task.
+``build_lm`` reads ``lm_conf`` (the LM computes in fp32, as the JAX
+``build_lm`` builds it). ``TokenLineLoader`` batches tokenized text lines
+under a token budget; reading the LM corpus files (``data/lm_text.py``) is
+not ported.
+"""
+from __future__ import annotations
+
+from typing import Any, Mapping, Sequence
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from hnet_mamba_asr_torch.models.lm import TransformerLM
+from hnet_mamba_asr_torch.ops.specaug import seed_from
+
+DROPOUT_SEED = 23
+
+
+class LMModel(nn.Module):
+    """Trainer-contract wrapper around TransformerLM (its parameters under
+    ``lm``, as the JAX task's ``{"lm": params}``)."""
+
+    def __init__(self, lm: TransformerLM, max_tokens: int = 512):
+        super().__init__()
+        self.lm = lm
+        self.max_tokens = max_tokens
+
+    def loss_fn(self, batch: dict, step: int, train: bool):
+        tokens, lens, row_mask = batch["tokens"], batch["token_lens"], batch["row_mask"]
+        gen = (torch.Generator(device=tokens.device).manual_seed(seed_from(DROPOUT_SEED, step))
+               if train else None)
+        loss, acc = self.lm.loss(tokens, lens, gen, row_mask=row_mask)
+        stats = {"loss/total": loss.detach(), "lm/token_acc": acc.detach(),
+                 "batch_weight": ((lens + 1) * row_mask).sum()}
+        return loss, stats
+
+
+def build_lm(config: Mapping[str, Any], vocab_size: int, max_tokens: int | None = None, *,
+             seed: int = 0, device="cuda") -> LMModel:
+    """``lm_conf`` -> LMModel with weights drawn from ``seed``, on ``device``
+    (the card by default), in eval mode."""
+    lc = (config or {}).get("lm_conf", {}) or {}
+    gen = torch.Generator().manual_seed(int(seed))
+    lm = TransformerLM(vocab_size=int(vocab_size), d_model=int(lc.get("d_model", 512)),
+                       n_layers=int(lc.get("n_layers", 8)), n_heads=int(lc.get("n_heads", 8)),
+                       d_ff=int(lc.get("d_ff", 2048)), dropout=float(lc.get("dropout", 0.1)),
+                       lsm_weight=float(lc.get("lsm_weight", 0.0)),
+                       moe_experts=int((lc.get("moe", {}) or {}).get("n_experts", 0)),
+                       generator=gen)
+    model = LMModel(lm, max_tokens=int(max_tokens or lc.get("max_line_tokens", 512)))
+    return model.to(torch.device(device)).eval()
+
+
+class TokenLineLoader:
+    """Token lines -> host batches ``{tokens, token_lens, row_mask}``: lines
+    sorted by length and packed while (rows x longest line) stays within
+    ``batch_tokens``, lines longer than ``max_tokens`` cut, the batches'
+    order shuffled by (seed + epoch); tokens padded with ``pad_id`` to a
+    multiple of 8."""
+
+    def __init__(self, lines: Sequence[Sequence[int]], batch_tokens: int, *,
+                 max_tokens: int = 512, pad_id: int = 3, seed: int = 0, shuffle: bool = True):
+        self.lines = [np.asarray(ln[:max_tokens], np.int32) for ln in lines if len(ln)]
+        self.pad_id, self.seed, self.shuffle, self.epoch = pad_id, seed, shuffle, 0
+        order = sorted(range(len(self.lines)), key=lambda i: len(self.lines[i]))
+        self.batches, cur, cur_max = [], [], 0
+        for i in order:
+            n = len(self.lines[i]) + 1                   # + eos
+            if cur and (len(cur) + 1) * max(cur_max, n) > batch_tokens:
+                self.batches.append(cur)
+                cur, cur_max = [], 0
+            cur.append(i)
+            cur_max = max(cur_max, n)
+        if cur:
+            self.batches.append(cur)
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+
+    def __len__(self) -> int:
+        return len(self.batches)
+
+    def __iter__(self):
+        order = np.arange(len(self.batches))
+        if self.shuffle:
+            order = np.random.default_rng(self.seed + self.epoch).permutation(order)
+        for k in order:
+            rows = [self.lines[i] for i in self.batches[k]]
+            u = max(8, -(-max(len(r) for r in rows) // 8) * 8)
+            tokens = np.full((len(rows), u), self.pad_id, np.int32)
+            for j, r in enumerate(rows):
+                tokens[j, :len(r)] = r
+            yield {"tokens": tokens, "token_lens": np.array([len(r) for r in rows], np.int32),
+                   "row_mask": np.ones(len(rows), bool)}

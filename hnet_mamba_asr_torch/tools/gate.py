@@ -1,9 +1,11 @@
-"""The gate config (``configs/typeA_small_N1.yaml``, Type A Small N=1) and
-its dynamic-chunking sibling (``configs/typeA_small_N2.yaml``) as the port's
-checks and measurements run them: the configs' keys as dicts (the card's
-machine has no PyYAML; ``tests/test_torch_slice.py`` and
-``tests/test_torch_hnet_train.py`` hold the dicts equal to the YAML), seeded
-test audio, CMVN statistics, training batches and a ``Trainer`` on the card.
+"""The gate config (``configs/typeA_small_N1.yaml``, Type A Small N=1), its
+dynamic-chunking sibling (``configs/typeA_small_N2.yaml``), the gate
+config's decode block and the fusion LM (``configs/lm_transformer_500.yaml``)
+as the port's checks and measurements run them: the configs' keys as dicts
+(the card's machine has no PyYAML; ``tests/test_torch_slice.py``,
+``tests/test_torch_hnet_train.py``, ``tests/test_torch_decode.py`` and
+``tests/test_torch_lm.py`` hold the dicts equal to the YAML), seeded test
+audio, CMVN statistics, training batches and a ``Trainer`` on the card.
 ``chip_smoke.py`` and ``tools/measure.py`` both build from here.
 """
 from __future__ import annotations
@@ -64,6 +66,18 @@ N2_TRAIN = {"optim": "adamw",
             "max_epoch": 120, "grad_clip": 1.0, "grad_clip_type": 2.0,
             "log_interval": 50, "accum_grad": 1, "valid_interval_epoch": 5}
 N2_BATCH_BINS = 64000
+# the decode block of configs/typeA_small_N1.yaml: the 7-cell matrix (the LM
+# checkpoint it names is not in the repository; checks draw LM weights)
+GATE_DECODE = {"splits": ["dev-clean", "dev-other", "test-clean", "test-other"],
+               "read_outs": ["ctc", "aed", "joint"], "search": ["greedy", "beam"],
+               "beam_size": 10, "pre_beam": 30, "ctc_weight": 0.3, "length_bonus": 0.0,
+               "lm": "enabled", "lm_config": "configs/lm_transformer_500.yaml",
+               "lm_checkpoint":
+                   "experiments/lm_transformer_500/checkpoints/valid.loss.ave.ckpt",
+               "lm_weight": 0.3, "rescore_weight": 0.6, "rescore_length_bonus": 2.0}
+# the model of configs/lm_transformer_500.yaml (~51 M parameters at V 500)
+LM_CONFIG = {"lm_conf": {"d_model": 512, "n_layers": 16, "n_heads": 8, "d_ff": 2048,
+                         "dropout": 0.1, "lsm_weight": 0.0, "max_line_tokens": 512}}
 VOCAB = 500                     # bpe_500: 501 CTC classes
 SEED = 1                        # experiment.seed
 SR = 16000
@@ -135,3 +149,29 @@ def gate_trainer(config, loader, train_cfg, cmvn, ckpt_dir, **overrides):
     from hnet_mamba_asr_torch.training.trainer import Trainer
     model = build_model(config, VOCAB, cmvn=cmvn, seed=SEED)
     return Trainer(model, loader, dict(train_cfg, **overrides), ckpt_dir=ckpt_dir, seed=SEED)
+
+
+def seeded_tokenizer(path, vocab: int = VOCAB):
+    """A tokenizer with ``vocab`` pieces (the 4 specials, then "▁t4" ...), for
+    decoding models of ``vocab`` classes with seeded weights (the config's
+    bpe_500 model is not in the repository)."""
+    import json
+    from pathlib import Path
+    from hnet_mamba_asr_torch.data.tokenizer import SPECIAL_PIECES, Tokenizer
+    pieces = list(SPECIAL_PIECES) + [f"▁t{i}" for i in range(len(SPECIAL_PIECES), vocab)]
+    path = Path(path)
+    path.write_text(json.dumps({"format": "hmasr-bpe", "version": 1, "pieces": pieces,
+                                "merges": []}, ensure_ascii=False), encoding="utf-8")
+    return Tokenizer(path)
+
+
+def decode_batch_items(rng, n: int, seconds=(2.0, 16.0)) -> list[dict]:
+    """``n`` seeded synthetic utterances of ``seconds`` with 10-40 random
+    reference ids."""
+    items = []
+    for i, s in enumerate(rng.uniform(*seconds, size=n)):
+        w = synth_audio(rng, float(s))
+        items.append({"wave": w, "n_samples": len(w), "id": f"utt{i}", "index": i,
+                      "tokens": rng.integers(4, VOCAB, size=int(rng.integers(10, 40))).astype(
+                          np.int32)})
+    return items

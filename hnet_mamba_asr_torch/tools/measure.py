@@ -8,6 +8,7 @@
     python3 hnet_mamba_asr_torch/tools/measure.py serve [--repo DIR] [--profile] [--config n2]
     python3 hnet_mamba_asr_torch/tools/measure.py phases
     python3 hnet_mamba_asr_torch/tools/measure.py train [--config n2]
+    python3 hnet_mamba_asr_torch/tools/measure.py aed_step
 
 Run as a file, from the root of a checkout. ``--repo`` names the checkout
 whose ``hnet_mamba_asr_torch`` is measured, this one
@@ -59,6 +60,9 @@ call, in turns (old, new, new, old).
   backward / optimizer device time by CUDA events, the kept fraction and
   the buffer's slots, then a profiled update's device time by kernel and
   idle share.
+- ``aed_step``: one AED decode step of the full-width decode run with the
+  attention grouped per utterance or not and the GEMMs in row blocks or
+  not (``measure_aed_step``).
 """
 from __future__ import annotations
 
@@ -400,12 +404,14 @@ def measure_bwd_phases(tag: str) -> None:
                 getattr(lib, fn).argtypes = getattr(bwd, fn).argtypes
                 getattr(lib, fn).restype = getattr(bwd, fn).restype
             mod._loaded["bwd"] = lib
+            mod._loaded["libs"][(64, 128)] = (mod._loaded["lib"], lib)
             times = kernel_times(lambda: mod._backward(*args, states, dy, None, True, False),
                                  "ssd_bwd_chunk")
             print(json.dumps({"version": tag, "bwd_phases": name, "B": 32, "L": 249, "H": 16,
                               "chunk_kernel_ms": sum(times.values()) if times else None}),
                   flush=True)
     mod._loaded["bwd"] = bwd
+    mod._loaded["libs"][(64, 128)] = (mod._loaded["lib"], bwd)
 
 
 PHASES = ("loads of x, B, dt", "cumsum + state term", "cluster barrier 1", "chain",
@@ -573,10 +579,56 @@ def measure_train(tag: str, config: str, routers: str = "init") -> None:
                               for d, k, c in top[:15]]}), flush=True)
 
 
+def measure_aed_step(tag: str) -> None:
+    """The AED decode step of chip_smoke.py's full-width decode run (the gate
+    config's head in bf16 with seeded weights, over the encoder's output for
+    its 8 utterances, 8 x 16 rows as ``BatchedCachedAEDStepper`` runs a beam
+    of 10) at position 32, four ways: the attention one utterance's rows at
+    a time over its own keys (``decode_groups``) or over every row at once,
+    and the GEMMs in blocks of ``DECODE_ROWS`` rows or whole. CUDA events
+    around 20 steps after 3 warm-ups; one JSON line per way."""
+    import copy
+    from hnet_mamba_asr_torch.data.dataset import ItemLoader
+    from hnet_mamba_asr_torch.models import aed
+    from hnet_mamba_asr_torch.tasks import decode_task
+    from hnet_mamba_asr_torch.tasks.asr_task import build_model
+    from hnet_mamba_asr_torch.tools.gate import (
+        GATE_CONFIG, SEED, VOCAB, decode_batch_items, make_cmvn)
+    cfg = copy.deepcopy(GATE_CONFIG)
+    cfg["aed_conf"]["max_decode_len"] = 64
+    model = build_model(cfg, VOCAB, cmvn=make_cmvn("cuda"), seed=SEED)
+    items = decode_batch_items(np.random.default_rng(SEED + 50), 8)
+    enc, _ = decode_task.encode_batch(model, next(iter(ItemLoader(items, 10 ** 7,
+                                                                  shuffle=False))))
+    stepper = decode_task.BatchedCachedAEDStepper(
+        model.aed, enc.features, enc.lengths.cpu().numpy(), beam_rows=10)
+    stepper.start()
+    gen = np.random.default_rng(SEED)
+    for _ in range(31):
+        stepper.advance(gen.integers(0, 10, (8, 10)), gen.integers(4, VOCAB, (8, 10)))
+    rows = stepper.B * stepper.R
+    parents = torch.arange(rows, device="cuda")
+    tokens = torch.randint(4, VOCAB, (rows,), device="cuda")
+    block = aed.DECODE_ROWS
+    try:
+        for groups in (stepper._groups, None):
+            for row_block in (block, 0):
+                aed.DECODE_ROWS = row_block
+                with torch.inference_mode():
+                    ms = cuda_ms(lambda: model.aed.decode_step(
+                        stepper._caches, stepper._kpm, parents, tokens, stepper._pos, groups))
+                print(json.dumps({"version": tag, "aed_step": f"{rows} rows, 6 layers, bf16, "
+                                  f"memory {tuple(enc.features.shape)}, position "
+                                  f"{stepper._pos}", "grouped": groups is not None,
+                                  "row_block": row_block, "ms": ms}), flush=True)
+    finally:
+        aed.DECODE_ROWS = block
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("what", choices=("ssd", "ssd_bwd", "bwd_phases", "ema", "serve", "phases",
-                                     "train"))
+                                     "train", "aed_step"))
     ap.add_argument("--config", choices=("gate", "n2"), default="gate",
                     help="serve / train: the gate config (N = 1) or configs/typeA_small_N2")
     ap.add_argument("--repo", default=str(Path(__file__).resolve().parents[2]))
@@ -602,6 +654,8 @@ def main() -> int:
         measure_phases(tag)
     elif args.what == "ema":
         measure_ema(tag)
+    elif args.what == "aed_step":
+        measure_aed_step(tag)
     elif args.what == "train":
         for routers in ("init", "random") if args.config == "n2" else ("init",):
             measure_train(tag, args.config, routers)

@@ -1,11 +1,12 @@
 """Training loop, counterpart of ``hnet_mamba_asr_tpu/training/trainer.py``
 for one card.
 
-Model contract (the JAX one, built by ``tasks/asr_task.py``): ``loss_fn(batch,
-step, train) -> (loss, stats)`` with "loss/total" and "batch_weight" in the
-stats, and ``greedy_decode(batch) -> list[list[int]]`` for the inline dev
-WER. ``train_loader`` yields host batches (numpy dicts, ``data/dataset.py``)
-and may have ``set_epoch``.
+Model contract (the JAX one, built by ``tasks/asr_task.py`` and
+``tasks/lm_task.py``): ``loss_fn(batch, step, train) -> (loss, stats)`` with
+"loss/total" and "batch_weight" in the stats, and, for an ASR model,
+``greedy_decode(batch) -> list[list[int]]`` for the inline dev WER.
+``train_loader`` yields host batches (numpy dicts, ``data/dataset.py``) and
+may have ``set_epoch``.
 
 - Steps: each batch is a micro-step whose loss is divided by ``accum_grad``
   before its backward, so that the fp32 ``.grad`` of the parameters sums to
@@ -53,6 +54,33 @@ DEVICE_KEYS = ("wave", "wave_lens", "tokens", "token_lens", "row_mask")
 NOT_PORTED = ("scan_steps", "fsdp", "tp", "pp", "sp", "ep")
 
 
+def flatten_config(cfg: dict) -> dict:
+    """A nested config dict -> the flat keys the trainer reads (``train.*``
+    and ``eval.*`` hoisted), counterpart of the JAX package's
+    ``utils/config.py::flatten_config``."""
+    train = cfg.get("train", {}) or {}
+    ev = cfg.get("eval", {}) or {}
+    clash = set(train) & set(ev)
+    if clash:
+        raise ValueError(f"config keys appear in both train: and eval: blocks: {sorted(clash)}")
+    out = {"max_epoch": train.get("max_epoch", 120), "grad_clip": train.get("grad_clip", 5.0),
+           "grad_clip_type": train.get("grad_clip_type", 2.0),
+           "precision": train.get("precision", "bf16"),
+           "log_interval": train.get("log_interval", 50), "max_steps": train.get("max_steps"),
+           "scan_steps": train.get("scan_steps", 1), "tp": train.get("tp", 1),
+           "ckpt_backend": train.get("ckpt_backend", "pickle"),
+           "accum_grad": cfg.get("accum_grad", 1),
+           "valid_interval_epoch": ev.get("valid_interval_epoch", 10),
+           "early_stopping": cfg.get("early_stopping", {}) or {},
+           "optim": cfg.get("optim", "adamw"), "optim_conf": cfg.get("optim_conf", {}) or {},
+           "scheduler": cfg.get("scheduler"),
+           "scheduler_conf": cfg.get("scheduler_conf", {}) or {}}
+    for block in (train, ev):
+        for k, v in block.items():
+            out.setdefault(k, v)
+    return out
+
+
 class Trainer:
     """Single-card training loop over host batches."""
 
@@ -96,7 +124,8 @@ class Trainer:
     def _to_device(self, batch: dict) -> dict:
         out = dict(batch)
         for k in DEVICE_KEYS:
-            out[k] = torch.as_tensor(batch[k]).to(self.device, non_blocking=True)
+            if k in batch:                        # an LM batch has no audio
+                out[k] = torch.as_tensor(batch[k]).to(self.device, non_blocking=True)
         return out
 
     def _micro_step(self, batch: dict) -> dict:
@@ -150,7 +179,8 @@ class Trainer:
             keys = list(stats)
             step_stats.append(torch.stack([stats[k].float() for k in keys]))
             rows = np.asarray(batch["row_mask"], bool)
-            frames += sum(feat_frames(int(n)) for n in np.asarray(batch["wave_lens"])[rows])
+            if "wave_lens" in batch:
+                frames += sum(feat_frames(int(n)) for n in np.asarray(batch["wave_lens"])[rows])
             micro += 1
             if micro % self.accum_grad:
                 continue
@@ -175,8 +205,8 @@ class Trainer:
 
     # ---- validation ------------------------------------------------------------
     def validate(self) -> dict:
-        """Loss and CTC-greedy WER on every dev split (token ids as words when
-        there is no tokenizer)."""
+        """Loss and greedy WER (CTC, or AED without a CTC head) on every dev
+        split (token ids as words when there is no tokenizer)."""
         per_split, agg = {}, {"loss": [], "wer": []}
         decode = (self.tokenizer.decode if self.tokenizer is not None
                   else lambda ids: " ".join(str(int(i)) for i in ids))
@@ -192,7 +222,7 @@ class Trainer:
                 w = float(stats["batch_weight"])
                 ls += float(stats["loss/total"]) * w
                 ws += w
-                if self.model.ctc is not None:
+                if hasattr(self.model, "greedy_decode"):
                     hyps = self.model.greedy_decode(dev_batch)
                     tokens, tlens = np.asarray(batch["tokens"]), np.asarray(batch["token_lens"])
                     for j in np.flatnonzero(np.asarray(batch["row_mask"], bool)):

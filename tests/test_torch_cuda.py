@@ -1,5 +1,6 @@
-"""The hand-written Hopper kernels (the SSD scan and the H-Net EMA, forward
-and backward) against their plain PyTorch versions, on the card. Marked ``gpu``: skipped where no CUDA
+"""The hand-written Hopper kernels (the SSD scan at (P, N) = (64, 128) and,
+fp32, (16, 16), and the H-Net EMA, forward and backward) against their plain
+PyTorch versions, on the card. Marked ``gpu``: skipped where no CUDA
 device is present. Run on the card with
 ``python -m pytest --noconftest tests/test_torch_cuda.py``."""
 import pytest
@@ -98,9 +99,12 @@ def test_alone_equals_batched(cuda, intra_dtype):
 
 
 def test_kernel_refuses_what_it_does_not_take(cuda):
-    x, dt, A, B, C = _inputs(cuda, 1, 8, 2, 16, 16, 1, torch.float32)
+    x, dt, A, B, C = _inputs(cuda, 1, 8, 2, 32, 16, 1, torch.float32)
     with pytest.raises(ValueError, match="not built"):
-        ssd_cuda(x, dt, A, B, C)                          # only P 64, N 128 is built
+        ssd_cuda(x, dt, A, B, C)                  # (64, 128) and (16, 16) are built
+    x, dt, A, B, C = _inputs(cuda, 1, 8, 2, 16, 16, 1, torch.bfloat16)
+    with pytest.raises(ValueError, match="64, 128"):
+        ssd_cuda(x, dt, A, B, C)                  # the (16, 16) build is fp32 only
     x, dt, A, B, C = _inputs(cuda, 1, 8, 2, 64, 128, 1, torch.float32)
     with pytest.raises(TypeError):
         ssd_cuda(x.half(), dt, A, B.half(), C.half())
@@ -170,6 +174,47 @@ def test_kernel_gradients_match_plain(cuda, dtype, shape, intra_dtype):
         bound, mean_bound = ((DA_BOUND[kind],) * 2 if name == "A"
                              else (GRAD_BOUND[kind], GRAD_MEAN_BOUND[kind]))
         assert rel <= bound and mean <= mean_bound, (name, rel, mean)
+
+
+# the fp32 build for headdim 16 and d_state 16 (the tone corpus's narrow
+# models): K 1, K 3 with groups, two rounds
+SMALL_SHAPES = [(3, 37, 4, 16, 16, 1), (2, 130, 4, 16, 16, 2), (2, 8 * Q + 9, 2, 16, 16, 1)]
+
+
+@pytest.mark.parametrize("intra_dtype", [None, "bf16"])
+@pytest.mark.parametrize("shape", SMALL_SHAPES)
+def test_p16_n16_kernels_match_plain(cuda, shape, intra_dtype):
+    """The (P, N) = (16, 16) fp32 forward and backward against the plain
+    version, with the state in and out, at the fp32 bounds."""
+    Bsz, L, H, P, N, G = shape
+    x, dt, A, B, C = _inputs(cuda, *shape, torch.float32, seed=4)
+    g = torch.Generator().manual_seed(5)
+    s0 = torch.randn(Bsz, H, N, P, generator=g).to(cuda)
+    w = torch.randn(Bsz, L, H, P, generator=g).to(cuda)
+    w_final = torch.randn(Bsz, H, N, P, generator=g).to(cuda)
+    y, s = ssd_cuda(x, dt, A, B, C, initial_state=s0, return_final=True,
+                    intra_dtype=intra_dtype)
+    y_p, s_p = ssd_chunked(x, dt, A, B, C, chunk_size=Q, initial_state=s0,
+                           return_final=True, intra_dtype=intra_dtype)
+    bound = BOUND[torch.bfloat16 if intra_dtype == "bf16" else torch.float32]
+    assert ((y - y_p).abs().max() / y_p.abs().max()).item() <= bound
+    assert ((s - s_p).abs().max() / s_p.abs().max()).item() <= STATE_BOUND[torch.float32]
+    before = ssd_cuda.bwd_launches
+    args = (x, dt, A, B, C, s0)
+    got = _grads(lambda *a: ssd_cuda(*a[:5], initial_state=a[5], return_final=True,
+                                     intra_dtype=intra_dtype), args, w, w_final)
+    assert ssd_cuda.bwd_launches == before + 1
+    want = _grads(lambda *a: ssd_chunked(*a[:5], chunk_size=Q, initial_state=a[5],
+                                         return_final=True, intra_dtype=intra_dtype),
+                  args, w, w_final)
+    kind = "bfloat16" if intra_dtype == "bf16" else "float32"
+    for name, a, b in zip(GRAD_NAMES, got, want):
+        d = (a - b).abs()
+        rel = (d.max() / b.abs().max()).item()
+        mean = (d.mean() / b.abs().mean()).item()
+        bound, mean_bound = ((DA_BOUND[kind],) * 2 if name == "A"
+                             else (GRAD_BOUND[kind], GRAD_MEAN_BOUND[kind]))
+        assert torch.isfinite(a).all() and rel <= bound and mean <= mean_bound, (name, rel)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

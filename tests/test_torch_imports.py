@@ -1,6 +1,7 @@
 """The PyTorch port never imports JAX or the JAX package: its serving and
 training slices (N = 1 and the H-Net models: Type A N = 2 with the EMA
-dechunk, Type B, the fixed-pool chunker) and chip_smoke.py run in a fresh
+dechunk, Type B, the fixed-pool chunker), every module of the decode slice
+with a tiny decode of all 7 cells, and chip_smoke.py run in a fresh
 interpreter with jax, flax and hnet_mamba_asr_tpu absent from
 sys.modules."""
 import json
@@ -55,8 +56,32 @@ with tempfile.TemporaryDirectory() as tmp:
                            ckpt_dir=tmp + "/h", device="cpu")
         htrainer.train()
         kept.append(htrainer.history[-1]["kept_fraction"])
+import hnet_mamba_asr_torch.data.audio, hnet_mamba_asr_torch.data.synthetic
+import hnet_mamba_asr_torch.decoders.ctc_decode, hnet_mamba_asr_torch.decoders.joint
+import hnet_mamba_asr_torch.eval.metrics, hnet_mamba_asr_torch.eval.score
+import hnet_mamba_asr_torch.models.lm
+from hnet_mamba_asr_torch.data.dataset import collate_batch
+from hnet_mamba_asr_torch.data.features import compute_cmvn
+from hnet_mamba_asr_torch.data.tokenizer import Tokenizer
+from hnet_mamba_asr_torch.decoders.lm_scorer import CausalLMScorer
+from hnet_mamba_asr_torch.tasks import decode_task
+from hnet_mamba_asr_torch.tasks.lm_task import build_lm
+with tempfile.TemporaryDirectory() as tmp:
+    tok = Tokenizer.train(["a b c", "b c d a"], tmp + "/bpe", vocab_size=12,
+                          hard_vocab_limit=False)
+    dmodel = build_model(dict(cfg, aed_conf=dict(cfg["aed_conf"], max_decode_len=3)),
+                         tok.vocab_size, device="cpu")
+    lm = build_lm({"lm_conf": {"d_model": 16, "n_layers": 1, "n_heads": 2, "d_ff": 32}},
+                  tok.vocab_size, device="cpu")
+    dbatch = collate_batch([dict(it, tokens=np.array(tok.encode("a b"), np.int32))
+                            for it in items], pad_id=3, seed=0, epoch=0)
+    dc = {"read_outs": ["ctc", "aed", "joint"], "search": ["greedy", "beam"], "lm": "on",
+          "beam_size": 2, "pre_beam": 3}
+    cells = {c["name"]: len(decode_task.decode_batch(dmodel, tok, dbatch, c, dc,
+                                                     lm=CausalLMScorer(lm.lm)))
+             for c in decode_task.expand_cells(dc)}
 print(json.dumps({"enc_frames": res["enc_frames"], "steps": trainer.global_step,
-                  "kept": kept,
+                  "kept": kept, "cells": cells,
                   "jax_modules": sorted(m for m in sys.modules if m.split(".")[0] in
                                         ("jax", "jaxlib", "flax", "hnet_mamba_asr_tpu"))}))
 """
@@ -71,3 +96,5 @@ def test_port_runs_without_jax():
     assert out["enc_frames"] == 8            # 6000 samples: 36 mel frames
     assert out["steps"] == 1
     assert len(out["kept"]) == 3 and all(0 < k <= 1 for k in out["kept"])
+    assert out["cells"] == {c: 2 for c in ("ctc_greedy", "ctc_beam", "ctc_beam_lm", "aed_beam",
+                                           "aed_beam_lm", "joint_beam", "joint_beam_lm")}

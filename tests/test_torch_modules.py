@@ -133,3 +133,22 @@ def test_ctc_head(rng):
         ids, np.asarray(jm.apply({"params": tree}, jnp.asarray(feats),
                                  method="frame_argmax")))
     assert tm.blank_id == jm.blank_id == 11
+
+
+@pytest.mark.parametrize("pair", [("DCASREncoder", jencoder.DCASREncoder),
+                                  ("MambaStack", jblock.MambaStack)])
+def test_constructor_defaults_match_jax(pair):
+    """The port's encoder and Mamba stack take JAX's constructor defaults for
+    every argument both have, remat_policy ("full") among them."""
+    import dataclasses
+    import inspect
+    from hnet_mamba_asr_torch.models import encoder, mamba_block
+    name, jcls = pair
+    cls = getattr(encoder, name, None) or getattr(mamba_block, name)
+    mine = {k: p.default for k, p in inspect.signature(cls.__init__).parameters.items()
+            if p.default is not inspect.Parameter.empty}
+    theirs = {f.name: f.default for f in dataclasses.fields(jcls)
+              if f.default is not dataclasses.MISSING}
+    shared = sorted(set(mine) & set(theirs) - {"dtype"})
+    assert "remat_policy" in shared and mine["remat_policy"] == "full"
+    assert {k: mine[k] for k in shared} == {k: theirs[k] for k in shared}
