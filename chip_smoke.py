@@ -45,7 +45,10 @@ calls, at the full width of ``configs/typeA_small_N1.yaml`` and
 4. serve    -- 9 requests through the micro-batching server, one over HTTP,
                in the config's bf16; solo == batched; the kernel's launch
                count is 40 per model call; then the same at N = 2 (40 SSD
-               and 1 EMA launches per call);
+               and 1 EMA launches per call); then the gate config serving
+               beam_ids (the device CTC prefix beam) and aed_ids (AED cap
+               64): 8 requests in one call, each alone and through the
+               micro-batcher, ids equal;
 5. train    -- the gate config (hybrid 0.3 CTC + 0.7 AED, bf16, SpecAugment,
                AED dropout, remat none, accum_grad 2) through ``Trainer``,
                3 updates of 2 micro-batches of 32 x 10 s: finite losses and
@@ -85,18 +88,24 @@ calls, at the full width of ``configs/typeA_small_N1.yaml`` and
 13. decode  -- the full-width gate config (seeded) and the full-width
                ``lm_transformer_500`` LM (seeded): 8 utterances of 2-16 s
                through the 7 cells of the config's decode block, shared
-               encoder, AED cap 64 (seeded weights never emit eos): RTF,
-               encoder and search seconds per cell, the SSD launches, the
-               device's idle share per cell; each utterance alone ==
-               inside the batch in every beam cell, in bf16;
+               encoder, AED cap 64 (seeded weights never emit eos), once on
+               the device searches (the default) and once on the host's
+               (``device_beam: false``): RTF, encoder and search seconds per
+               cell, the SSD launches, the device's idle share per cell; the
+               device engine's kernel launches per search step and host
+               reads of its active mask; the engines' disagreements and
+               ties; the psi and r-scan shares of a joint step; each
+               utterance alone == inside the batch in every beam cell of
+               both engines, in bf16;
 14. parity  -- depth 1 + 2 + 1, a 2-layer AED and a 2-layer LM, fp32, TF32
                off: decode_step log-probs card vs CPU to 1e-5, the 7 cells'
-               transcripts card == CPU, a request alone == inside a batch
-               for ctc_beam_lm and joint_beam.
+               transcripts card == CPU for both engines and device ==
+               lockstep on both sides, a request alone == inside a batch for
+               ctc_beam_lm and joint_beam on both engines.
 
 The line before the last is a JSON summary of the kernels, with the
-launches of the full-width decode run (ssd_fwd) and of the N = 2 training
-run (the others), and every path's counts; the last line is
+launches of the full-width decode run on the device engine (ssd_fwd) and of
+the N = 2 training run (the others), and every path's counts; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
@@ -701,6 +710,71 @@ def phase_serve(cmvn, config=GATE_CONFIG, label="gate", ema_per_call=0):
     return launches
 
 
+def phase_serve_modes(cmvn) -> dict:
+    """The gate config (AED cap DECODE_CAP: seeded weights never emit eos)
+    serving beam_ids and aed_ids in bf16: 8 requests of 2-16 s in one call,
+    through the micro-batcher and each alone; beam ids and eos-cut AED ids
+    alone == batched, the batcher's rows the beam's ids; 40 SSD launches per
+    call; ms per call."""
+    from hnet_mamba_asr_torch.models.aed import strip_hypothesis
+    from hnet_mamba_asr_torch.ops.ssd_cuda import ssd_cuda
+    from hnet_mamba_asr_torch.serving.runtime import ServingModel
+    from hnet_mamba_asr_torch.serving.server import MicroBatcher
+    cfg = copy.deepcopy(GATE_CONFIG)
+    cfg["aed_conf"]["max_decode_len"] = DECODE_CAP
+    model = ServingModel(cfg, None, "cuda", vocab_size=VOCAB, cmvn=cmvn, seed=SEED,
+                         max_batch=8, max_samples=40 * SR, emit=("beam_ids", "aed_ids"))
+    rng = np.random.default_rng(SEED + 3)
+    waves = [synth_audio(rng, float(s)) for s in rng.uniform(2.0, 16.0, size=8)]
+    lens = np.array([len(w) for w in waves])
+    padded = np.zeros((8, lens.max()), np.float32)
+    for i, w in enumerate(waves):
+        padded[i, :len(w)] = w
+    model(padded[:1, :lens[0]], lens[:1])            # cuBLAS / cuDNN set-up
+    torch.cuda.synchronize()
+
+    def rows(out):
+        return ([out["beam_ids"][i, :out["beam_lens"][i]].tolist()
+                 for i in range(len(out["beam_lens"]))],
+                [strip_hypothesis(r, model.eos_id) for r in out["aed_ids"]])
+
+    ssd_cuda.launches = 0
+    t0 = time.perf_counter()
+    batched = rows(model(padded, lens))
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    alone = [rows(model(w[None], [len(w)])) for w in waves]
+    alone_ms = (time.perf_counter() - t0) * 1e3 / len(waves)
+    launches = ssd_cuda.launches
+    batcher = MicroBatcher(model, max_wait_ms=50.0)
+    try:
+        served = [f.result(timeout=300)["ids"] for f in [batcher.submit(w) for w in waves]]
+        stats = batcher.stats()
+    finally:
+        batcher.close()
+    beam_alone = [a[0][0] for a in alone]
+    aed_alone = [a[1][0] for a in alone]
+    log(f"  beam_ids + aed_ids, 8 requests of {sorted(round(len(w) / SR, 2) for w in waves)} "
+        f"s: one call {batch_ms:.1f} ms, alone {alone_ms:.1f} ms a call; beam alone == "
+        f"batched {beam_alone == batched[0]}, aed alone == batched {aed_alone == batched[1]}, "
+        f"micro-batcher rows == beam ids {served == batched[0]} ({stats['batches']} "
+        f"batches); beam lengths {[len(b) for b in batched[0]]}, aed lengths "
+        f"{[len(a) for a in batched[1]]}; ssd launches {launches} over 9 calls")
+    differ = {name: [i for i, (a, b) in enumerate(zip(got, batched[k])) if a != b]
+              for name, got, k in (("beam", beam_alone, 0), ("aed", aed_alone, 1),
+                                   ("batcher", served, 0))}
+    if any(differ.values()):
+        raise AssertionError(f"served ids differ alone and batched, by request: {differ}")
+    if launches != 9 * SSD_CALLS_PER_FORWARD:
+        raise AssertionError(f"{launches} ssd_fwd launches over 9 calls")
+    if not all(0 <= t < VOCAB for ids in batched[0] + batched[1] for t in ids):
+        raise AssertionError("served ids out of the vocabulary")
+    del model
+    torch.cuda.empty_cache()
+    log("phase 4 serve beam_ids / aed_ids: ok")
+    return {"batch_ms": batch_ms, "alone_ms": alone_ms}
+
+
 def phase_train(cmvn, tmp: Path) -> dict:
     """The gate config through Trainer: 3 updates of accum_grad 2 x (32 x
     10 s), hybrid, bf16, SpecAugment, AED dropout, remat none; then one
@@ -1282,24 +1356,67 @@ DECODE_CAP = 64
 DECODE_UTTS = 8
 
 
+# engine labels and their decode blocks: the config's own (device_beam
+# absent: the device searches, the JAX package's default) and the host's
+ENGINES = (("device", {}), ("lockstep", {"device_beam": False}))
+# a disagreement between the engines is a tie when their best scores agree
+# within this share of their magnitude (float32 against float64 scoring)
+TIE_SHARE = 1e-4
+STEP_PROBE = 16                 # search steps profiled for the launches per step
+
+
+def profile_cell(fn) -> tuple[float, int, float]:
+    """(idle share, kernel launches, window s) of one synchronised call of
+    ``fn`` under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    from hnet_mamba_asr_torch.tools.measure import device_rows
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t1) * 1e6
+    rows = device_rows(prof)
+    return 1.0 - sum(r[0] for r in rows) / window_us, sum(r[2] for r in rows), window_us / 1e6
+
+
+def device_call_ms(fn, n: int = 10) -> float:
+    """Mean device ms of ``fn``'s kernels over n calls after 2 warm-ups."""
+    from torch.profiler import ProfilerActivity, profile
+    from hnet_mamba_asr_torch.tools.measure import device_rows
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(r[0] for r in device_rows(prof)) / n / 1e3
+
+
 def phase_decode_full(cmvn, tmp: Path) -> dict:
     """typeA_small_N1 at full width (78,858,409 parameters, seeded, bf16 intra
     bf16) and lm_transformer_500 at full width (seeded, fp32): 8 synthetic
     utterances of 2-16 s in one batch through all 7 cells of the config's
-    decode block with the shared encoder; per cell the real-time factor,
-    encoder and search seconds; the SSD launches of the run; then each cell
-    once more under torch.profiler on the two shortest utterances for the
-    device's idle share; then every utterance alone against its transcript
-    in the batch, in each beam cell."""
-    from torch.profiler import ProfilerActivity, profile
+    decode block with the shared encoder, once per engine: the device
+    searches (the config's default) and the host's (``device_beam: false``).
+    Per cell and engine the real-time factor, encoder and search seconds and
+    the device's idle share (each cell alone under torch.profiler on the two
+    shortest utterances); the device engine's steps and host reads of its
+    active mask; the engines' disagreements (ties: best scores within
+    TIE_SHARE) and, in the CTC cells, what they come from; at the batch of
+    8, the device searches' kernel launches per step (their first
+    STEP_PROBE steps) and the psi and r-scan shares of a joint step; the SSD
+    launches of each run; then every utterance alone against its transcript
+    in the batch, in each beam cell of both engines."""
     from hnet_mamba_asr_torch.data.dataset import ItemLoader, collate_batch
+    from hnet_mamba_asr_torch.decoders import device_beam, device_ctc_beam
+    from hnet_mamba_asr_torch.decoders.ctc_decode import ctc_prefix_beam_search
     from hnet_mamba_asr_torch.decoders.lm_scorer import CausalLMScorer
     from hnet_mamba_asr_torch.ops.ssd_cuda import ssd_cuda
     from hnet_mamba_asr_torch.tasks import decode_task
     from hnet_mamba_asr_torch.tasks.asr_task import build_model
     from hnet_mamba_asr_torch.tasks.lm_task import build_lm
     from hnet_mamba_asr_torch.tools.gate import GATE_DECODE, LM_CONFIG, seeded_tokenizer
-    from hnet_mamba_asr_torch.tools.measure import device_rows
     cfg = copy.deepcopy(GATE_CONFIG)
     cfg["aed_conf"]["max_decode_len"] = DECODE_CAP
     model = build_model(cfg, VOCAB, cmvn=cmvn, seed=SEED)
@@ -1307,70 +1424,193 @@ def phase_decode_full(cmvn, tmp: Path) -> dict:
     lm = build_lm(LM_CONFIG, VOCAB, seed=SEED)
     tok = seeded_tokenizer(tmp / "tok500.model")
     scorer = CausalLMScorer(lm.lm, bos_id=tok.bos_id, eos_id=tok.eos_id, pad_id=tok.pad_id)
-    dc = dict(GATE_DECODE, device_beam=False)
-    cells = decode_task.expand_cells(dc)
     items = decode_batch_items(np.random.default_rng(SEED + 50), DECODE_UTTS)
     audio_s = {it["id"]: it["n_samples"] / SR for it in items}
-    loader = ItemLoader(items, 10 ** 7, shuffle=False)
-    torch.cuda.synchronize()
-    ssd_cuda.launches = 0
-    t0 = time.perf_counter()
-    summaries = decode_task.decode_split_shared(model, tok, loader, cells, dc,
-                                                audio_seconds=audio_s, out_dir=tmp / "full",
-                                                split="synthetic", lm=scorer)
-    wall = time.perf_counter() - t0
-    launches = ssd_cuda.launches
-    # the idle share: each cell alone under the profiler, on the two shortest
-    short = sorted(items, key=lambda it: it["n_samples"])[:2]
-    batch = next(iter(ItemLoader(short, 10 ** 7, shuffle=False)))
-    enc, _ = decode_task.encode_batch(model, batch)
-    idle = {}
-    for cell in cells:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t1 = time.perf_counter()
-            decode_task.decode_batch(model, tok, batch, cell, dc, lm=scorer, enc=enc, enc_s=0.0)
-            torch.cuda.synchronize()
-            window_us = (time.perf_counter() - t1) * 1e6
-        busy = sum(r[0] for r in device_rows(prof))
-        idle[cell["name"]] = 1.0 - busy / window_us
-    # bf16: every utterance alone against its record in the batch of 8
-    records = {c["name"]: {r["id"]: r["hyp"] for r in map(json.loads, (
-        tmp / "full" / c["name"] / "synthetic.jsonl").read_text().splitlines())}
-        for c in cells}
-    t1 = time.perf_counter()
-    alone = [(c["name"], it["id"], decode_task.decode_batch(
-        model, tok, collate_batch([it], pad_id=3, seed=0, epoch=0), c, dc, lm=scorer)[0]["hyp"])
-        for it in items for c in cells if c["search"] == "beam"]
-    differ = sorted({(name, uid) for name, uid, hyp in alone if hyp != records[name][uid]})
-    log(f"  bf16, each of the {DECODE_UTTS} utterances alone vs inside the batch, 6 beam "
-        f"cells: {len(alone) - len(differ)}/{len(alone)} transcripts equal "
-        f"({time.perf_counter() - t1:.1f} s)")
-    if differ:
-        raise AssertionError(f"alone and batched transcripts differ: {differ}")
     total_audio = sum(audio_s.values())
-    rows = {}
-    for s in summaries:
-        rows[s["cell"]] = dict(rtf=s["rtf"], encoder_s=s["encoder_s"], search_s=s["search_s"],
-                               idle_share=idle[s["cell"]], engine=s["engine"])
-        log(f"  {s['cell']:<14} RTF {s['rtf']:.5f}: encoder {s['encoder_s']:.4f} s, search "
-            f"{s['search_s']:.4f} s over {s['n_utts']} utterances ({total_audio:.2f} s of "
-            f"audio); device idle {idle[s['cell']]:.2%} (profiled on the 2 shortest); engine "
-            f"{s['engine']}")
+    loader = ItemLoader(items, 10 ** 7, shuffle=False)
+    short = sorted(items, key=lambda it: it["n_samples"])[:2]
+    short_batch = next(iter(ItemLoader(short, 10 ** 7, shuffle=False)))
+    runs = {}
+    for engine, change in ENGINES:
+        dc = dict(GATE_DECODE, **change)
+        cells = decode_task.expand_cells(dc)
+        torch.cuda.synchronize()
+        ssd_cuda.launches = 0
+        t0 = time.perf_counter()
+        summaries = decode_task.decode_split_shared(
+            model, tok, loader, cells, dc, audio_seconds=audio_s,
+            out_dir=tmp / f"full_{engine}", split="synthetic", lm=scorer)
+        wall = time.perf_counter() - t0
+        launches = ssd_cuda.launches
+        records = {c["name"]: {r["id"]: r for r in map(json.loads, (
+            tmp / f"full_{engine}" / c["name"] / "synthetic.jsonl").read_text().splitlines())}
+            for c in cells}
+        rows = {}
+        t1 = time.perf_counter()
+        enc, _ = decode_task.encode_batch(model, short_batch)
+        for cell in cells:
+            idle, _, _ = profile_cell(lambda: decode_task.decode_batch(
+                model, tok, short_batch, cell, dc, lm=scorer, enc=enc, enc_s=0.0))
+            rec = next(iter(records[cell["name"]].values()))
+            rows[cell["name"]] = dict(idle_short=idle, steps=rec.get("search_steps"),
+                                      host_reads=rec.get("host_reads"))
+        for s in summaries:
+            rows[s["cell"]].update(rtf=s["rtf"], encoder_s=s["encoder_s"],
+                                   search_s=s["search_s"], engine=s["engine"])
+        profiled = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        alone = [(c["name"], it["id"], decode_task.decode_batch(
+            model, tok, collate_batch([it], pad_id=3, seed=0, epoch=0), c, dc,
+            lm=scorer)[0]["hyp"]) for it in items for c in cells if c["search"] == "beam"]
+        differ = sorted({(name, uid) for name, uid, hyp in alone
+                         if hyp != records[name][uid]["hyp"]})
+        log(f"  {engine}: bf16, each of the {DECODE_UTTS} utterances alone vs inside the "
+            f"batch, 6 beam cells: {len(alone) - len(differ)}/{len(alone)} transcripts equal "
+            f"({time.perf_counter() - t1:.1f} s; decode run {wall:.1f} s, profiled cells "
+            f"{profiled:.1f} s)")
+        if differ:
+            raise AssertionError(f"{engine}: alone and batched transcripts differ: {differ}")
+        if launches != 2 * SSD_CALLS_PER_FORWARD:
+            raise AssertionError(f"{engine}: {launches} ssd_fwd launches in the decode run")
+        bad = [s["cell"] for s in summaries if s["n_utts"] != DECODE_UTTS]
+        if bad:
+            raise AssertionError(f"{engine}: cells without a record for every utterance: {bad}")
+        runs[engine] = dict(cells=rows, records=records, launches=launches, wall=wall)
+
+    # the engines' disagreements, and which of them are ties
+    agree = {}
+    for name, dev_recs in runs["device"]["records"].items():
+        n_diff, n_tie = 0, 0
+        for uid, d in dev_recs.items():
+            h = runs["lockstep"]["records"][name][uid]
+            if d["hyp"] == h["hyp"]:
+                continue
+            n_diff += 1
+            a, b = d["score"], h["score"]
+            tie = (a is not None and b is not None
+                   and abs(a - b) <= TIE_SHARE * max(abs(a), abs(b)))
+            n_tie += tie
+            log(f"    {name} {uid}: device {a} vs lockstep {b}: {'tie' if tie else 'no tie'}")
+        agree[name] = {"differ": n_diff, "ties": n_tie}
+
+    t1 = time.perf_counter()
+    full_batch = next(iter(loader))
+    K, P = GATE_DECODE["beam_size"], GATE_DECODE["pre_beam"]
+    lm_w = GATE_DECODE["lm_weight"]
+    with torch.inference_mode():
+        enc, _ = decode_task.encode_batch(model, full_batch)
+        lengths = enc.lengths.cpu().numpy()
+        logp = model.ctc.log_probs(enc.features)
+        B, T, W = logp.shape
+        lm_cap = min(T + 1, device_ctc_beam.LM_CACHE_CAP)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+        # where the CTC cells' disagreements come from: bf16 logits give
+        # exactly equal log-probs, which the engines order differently (the
+        # device's top_k: the lower class first; the host's reversed argsort:
+        # the higher); the device search again in float64, then both engines
+        # once the ties are broken by U(0, 1e-5) noise in float64
+        valid = torch.arange(T, device="cuda")[None, :] < enc.lengths[:, None]
+        top = torch.sort(logp[..., :W - 1], dim=-1, descending=True).values
+        boundary_ties = (top[..., P - 1] == top[..., P])[valid].float().mean().item()
+        untied = logp.double() + 1e-5 * torch.rand(logp.shape, generator=gen, device="cuda",
+                                                   dtype=torch.float64)
+        row_of = {u: i for i, u in enumerate(full_batch["ids"])}
+        for name, w in (("ctc_beam", 0.0), ("ctc_beam_lm", lm_w)):
+            host = runs["lockstep"]["records"][name]
+            uids = [u for u, d in runs["device"]["records"][name].items()
+                    if d["hyp"] != host[u]["hyp"]]
+            if not uids:
+                continue
+            kw = dict(K=K, P=P, blank=W - 1, lm_weight=w, lm=lm.lm if w else None, lm_cap=lm_cap)
+            toks, blen, _ = device_ctc_beam._beam_scan(logp.double(), enc.lengths, **kw)
+            agree[name]["f64_equal"] = sum(
+                tok.decode(toks[row_of[u], :int(blen[row_of[u]])].tolist()) == host[u]["hyp"]
+                for u in uids)
+            toks, blen, _ = device_ctc_beam._beam_scan(untied, enc.lengths, **kw)
+            want = ctc_prefix_beam_search(untied.cpu().numpy(), lengths, blank_id=W - 1,
+                                          beam_size=K, pre_beam=P, lm=scorer if w else None,
+                                          lm_weight=w)
+            agree[name]["untied_equal"] = sum(toks[b, :int(blen[b])].tolist() == want[b]
+                                              for b in range(B))
+
+        # kernel launches per step of each device search at the batch of 8:
+        # its first STEP_PROBE frames / label steps under the profiler
+        per_step = {}
+        for name, w in (("ctc_beam", 0.0), ("ctc_beam_lm", lm_w)):
+            _, kernels, _ = profile_cell(lambda: device_ctc_beam._beam_scan(
+                logp[:, :STEP_PROBE], enc.lengths.clamp(max=STEP_PROBE), K=K, P=P,
+                blank=W - 1, lm_weight=w, lm=lm.lm if w else None, lm_cap=lm_cap))
+            per_step[name] = kernels / STEP_PROBE
+        for name, ctc in (("aed_beam", None), ("joint_beam", logp)):
+            st = {}
+            idle, kernels, window = profile_cell(lambda: device_beam._beam_scan(
+                model.aed, enc.features, lengths.tolist(),
+                torch.full((B,), STEP_PROBE, device="cuda"), ctc, beam_size=K, nbest=1,
+                length_bonus=0.0, pre=P, n_iters=STEP_PROBE,
+                ctc_weight=GATE_DECODE["ctc_weight"] if ctc is not None else 0.0,
+                blank=W - 1, stats=st))
+            per_step[name] = kernels / st["steps"]
+            if ctc is not None:
+                step_ms = (1.0 - idle) * window * 1e3 / st["steps"]
+
+        # the CTC prefix terms' share of a joint step, at the run's shapes
+        C = P + 1
+        r_state = torch.stack([-20.0 - torch.rand((B, K, T), generator=gen, device="cuda"),
+                               torch.cumsum(logp[:, None, :, W - 1], -1).expand(B, K, T)], -1)
+        cand = torch.randint(0, W - 1, (B, K, C), generator=gen, device="cuda")
+        last_frame = torch.as_tensor(lengths - 1, device="cuda")
+        t_mid = 16
+        psi_ms = device_call_ms(lambda: device_beam._ctc_prefix_psi(
+            logp, r_state, cand, cand[..., 0], t_mid, last_frame))
+        scan_ms = device_call_ms(lambda: device_beam._ctc_advance_r(
+            logp, r_state, cand[..., 1], cand[..., 0], t_mid, W - 1))
+    shares = {"psi_ms": psi_ms, "r_scan_ms": scan_ms, "joint_step_device_ms": step_ms,
+              "psi_share": psi_ms / step_ms, "r_scan_share": scan_ms / step_ms}
+    for name, n in per_step.items():
+        runs["device"]["cells"][name]["launches_per_step"] = n
+    probes_s = time.perf_counter() - t1
+
+    for s_name in runs["device"]["cells"]:
+        for engine, _ in ENGINES:
+            c = runs[engine]["cells"][s_name]
+            extra = ""
+            if engine == "device" and c["steps"] is not None:
+                extra = (f"; {c['steps']} search steps, {c['host_reads']} host reads of the "
+                         f"active mask")
+            if engine == "device" and "launches_per_step" in c:
+                extra += f", {c['launches_per_step']:.1f} device ops a step at B {B}"
+            log(f"  {s_name:<14} {engine:<8} RTF {c['rtf']:.5f}: encoder {c['encoder_s']:.4f} s, "
+                f"search {c['search_s']:.4f} s over {DECODE_UTTS} utterances "
+                f"({total_audio:.2f} s of audio); device idle {c['idle_short']:.2%} (the 2 "
+                f"shortest){extra}")
+        a = agree[s_name]
+        log(f"  {s_name:<14} engines differ on {a['differ']}/{DECODE_UTTS} utterances, "
+            f"{a['ties']} of them ties"
+            + (f"; with float64 scores the device search gives the lockstep transcript on "
+               f"{a['f64_equal']} of them; with the exact ties broken, float64 device == "
+               f"lockstep on {a['untied_equal']}/{B} utterances" if "f64_equal" in a else ""))
+    log(f"  exact ties at the pre-beam boundary (the non-blank log-probs ranked {P} and "
+        f"{P + 1} equal): {boundary_ties:.2%} of the frames")
+    log(f"  joint step (B {B}, R {K}, C {C}, T {T}, step {t_mid}): psi {psi_ms:.4f} ms, r-scan "
+        f"{scan_ms:.4f} ms of a {step_ms:.4f} ms device step ({shares['psi_share']:.1%}, "
+        f"{shares['r_scan_share']:.1%}); probes {probes_s:.1f} s")
     log(f"  full width: {n_params:,} ASR parameters, LM "
         f"{sum(p.numel() for p in lm.parameters()):,}; {DECODE_UTTS} utterances of "
         f"{sorted(round(a, 2) for a in audio_s.values())} s in one batch, shared encoder: "
-        f"ssd_fwd launches {launches} (the untimed warm-up pass and the one timed pass, "
-        f"{SSD_CALLS_PER_FORWARD} each); {wall:.1f} s in all; cuts: AED cap {DECODE_CAP} "
-        f"tokens (seeded weights never emit eos)")
-    if n_params != 78_858_409 or launches != 2 * SSD_CALLS_PER_FORWARD:
-        raise AssertionError(f"full-width decode: {n_params} parameters, {launches} launches")
-    bad = [s["cell"] for s in summaries if s["n_utts"] != DECODE_UTTS]
-    if bad:
-        raise AssertionError(f"cells without a record for every utterance: {bad}")
-    del model, lm, scorer, enc
+        f"ssd_fwd launches per engine {[runs[e]['launches'] for e, _ in ENGINES]} (the "
+        f"untimed warm-up pass and the one timed pass, {SSD_CALLS_PER_FORWARD} each); "
+        f"{sum(r['wall'] for r in runs.values()):.1f} s of decode runs; cuts: AED cap "
+        f"{DECODE_CAP} tokens (seeded weights never emit eos)")
+    if n_params != 78_858_409:
+        raise AssertionError(f"full-width decode: {n_params} parameters")
+    del model, lm, scorer, enc, logp, r_state, untied
     torch.cuda.empty_cache()
     log("phase 13 decode full width: ok")
-    return {"cells": rows, "launches": launches, "n_params": n_params}
+    return {"engines": {e: {k: v for k, v in r.items() if k != "records"}
+                        for e, r in runs.items()},
+            "agree": agree, "boundary_ties": boundary_ties, "joint_shares": shares,
+            "n_params": n_params}
 
 
 # card against CPU: decode_step log-probs to 1e-5 of their max, fp32, TF32 off
@@ -1381,8 +1621,10 @@ SMALL_CAP = 12
 def phase_decode_parity(cmvn, tmp: Path) -> dict:
     """Depth 1 + 2 + 1, a 2-layer AED and a 2-layer LM, full width, fp32
     (intra off), TF32 off, seeded: decode_step log-probs card vs CPU; all 7
-    cells' transcripts card vs CPU on 4 utterances of 1.5-3 s; a request alone
-    and inside the batch for ctc_beam_lm and joint_beam on the card."""
+    cells' transcripts on 4 utterances of 1.5-3 s through both engines (the
+    device searches and the host's), card == CPU for each engine and device
+    == lockstep on each side; a request alone and inside the batch for
+    ctc_beam_lm and joint_beam on the card, for each engine."""
     from hnet_mamba_asr_torch.data.dataset import collate_batch
     from hnet_mamba_asr_torch.decoders.lm_scorer import CausalLMScorer
     from hnet_mamba_asr_torch.tasks import decode_task
@@ -1397,11 +1639,9 @@ def phase_decode_parity(cmvn, tmp: Path) -> dict:
     cfg["aed_conf"].update(n_layers=2, max_decode_len=SMALL_CAP)
     lm_cfg = {"lm_conf": dict(LM_CONFIG["lm_conf"], n_layers=2)}
     tok = seeded_tokenizer(tmp / "tok500_parity.model")
-    dc = dict(GATE_DECODE, device_beam=False)
-    cells = decode_task.expand_cells(dc)
     items = decode_batch_items(np.random.default_rng(SEED + 60), 4, seconds=(1.5, 3.0))
     batch = collate_batch(items, pad_id=3, seed=0, epoch=0)
-    hyps, steps = {}, {}
+    hyps, steps, alone = {}, {}, {}
     for dev in ("cuda", "cpu"):
         model = build_model(cfg, VOCAB, cmvn=cmvn, seed=SEED, device=dev)
         lm = build_lm(lm_cfg, VOCAB, seed=SEED, device=dev)
@@ -1416,15 +1656,17 @@ def phase_decode_parity(cmvn, tmp: Path) -> dict:
             lp1, _ = model.aed.decode_step(caches, kpm, par.flip(0), torch.arange(
                 5, 5 + rows, device=dev), 1)
         steps[dev] = (lp0.cpu(), lp1.cpu())
-        hyps[dev] = {c["name"]: [r["hyp"] for r in decode_task.decode_batch(
-            model, tok, batch, c, dc, lm=scorer, enc=enc, enc_s=0.0)] for c in cells}
-        if dev == "cuda":
-            alone = {}
-            for name in ("ctc_beam_lm", "joint_beam"):
-                cell = next(c for c in cells if c["name"] == name)
-                alone[name] = [decode_task.decode_batch(
-                    model, tok, collate_batch([it], pad_id=3, seed=0, epoch=0), cell, dc,
-                    lm=scorer)[0]["hyp"] for it in items]
+        for engine, change in ENGINES:
+            dc = dict(GATE_DECODE, **change)
+            cells = decode_task.expand_cells(dc)
+            hyps[dev, engine] = {c["name"]: [r["hyp"] for r in decode_task.decode_batch(
+                model, tok, batch, c, dc, lm=scorer, enc=enc, enc_s=0.0)] for c in cells}
+            if dev == "cuda":
+                for name in ("ctc_beam_lm", "joint_beam"):
+                    cell = next(c for c in cells if c["name"] == name)
+                    alone[engine, name] = [decode_task.decode_batch(
+                        model, tok, collate_batch([it], pad_id=3, seed=0, epoch=0), cell, dc,
+                        lm=scorer)[0]["hyp"] for it in items]
         del model, lm, scorer, enc
     # bos and pad sit at -1e9 on both sides; the bound reads the other classes
     keep = torch.ones(VOCAB, dtype=torch.bool)
@@ -1435,19 +1677,24 @@ def phase_decode_parity(cmvn, tmp: Path) -> dict:
         f"{step_err:.3e} over the classes other than bos and pad (bound {STEP_BOUND:g})")
     if not step_err <= STEP_BOUND:
         raise AssertionError(f"decode_step log-probs part card vs CPU: {step_err:.3e}")
-    differ = [n for n in hyps["cpu"] if hyps["cuda"][n] != hyps["cpu"][n]]
-    for n in hyps["cpu"]:
-        log(f"  {n:<14} card == CPU: {n not in differ}; "
-            f"{sum(len(h.split()) for h in hyps['cuda'][n])} words over {len(items)} utterances")
-    if differ:
+    failed = []
+    pairs = [(f"{e} card == CPU", ("cuda", e), ("cpu", e)) for e, _ in ENGINES] + [
+        (f"{d} device == lockstep", (d, "device"), (d, "lockstep")) for d in ("cuda", "cpu")]
+    for label, a, b in pairs:
+        differ = [n for n in hyps[b] if hyps[a][n] != hyps[b][n]]
+        log(f"  {label}: {7 - len(differ)}/7 cells equal; "
+            f"{sum(len(h.split()) for n in hyps[a] for h in hyps[a][n])} words over "
+            f"{len(items)} utterances")
         for n in differ:
-            log(f"    {n}: card {hyps['cuda'][n]} | CPU {hyps['cpu'][n]}")
-        raise AssertionError(f"card and CPU transcripts differ in {differ}")
-    for name, got in alone.items():
-        ok = got == hyps["cuda"][name]
-        log(f"  {name}: each of {len(items)} requests alone == inside the batch: {ok}")
+            log(f"    {n}: {hyps[a][n]} | {hyps[b][n]}")
+            failed.append((label, n))
+    for (engine, name), got in alone.items():
+        ok = got == hyps["cuda", engine][name]
+        log(f"  {engine} {name}: each of {len(items)} requests alone == inside the batch: {ok}")
         if not ok:
-            raise AssertionError(f"{name}: alone {got} vs batched {hyps['cuda'][name]}")
+            failed.append((f"{engine} alone == batched", name))
+    if failed:
+        raise AssertionError(f"decode parity failed: {failed}")
     torch.cuda.empty_cache()
     log("phase 14 decode parity: ok")
     return {"step_err": step_err}
@@ -1473,6 +1720,7 @@ def main() -> int:
     phase_hnet_model(cmvn)
     phase_serve(cmvn)
     phase_serve(cmvn, N2_CONFIG, "n2", ema_per_call=1)
+    modes = phase_serve_modes(cmvn)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         train = phase_train(cmvn, Path(tmp))
         train_n2 = phase_train_n2(cmvn, Path(tmp))
@@ -1501,9 +1749,13 @@ def main() -> int:
         f"tone matrix WER "
         + ", ".join(f"{k} {v['wer']:.2f}" for k, v in matrix.items())
         + f"; N=2 kept {n2['kept'][0]:.4f} -> {n2['kept'][-1]:.4f} over {n2['updates']} "
-        f"updates; full-width RTF "
-        + ", ".join(f"{k} {v['rtf']:.4f}" for k, v in full["cells"].items())
-        + f"; {time.perf_counter() - t_start:.1f} s in all")
+        f"updates; full-width RTF device / lockstep "
+        + ", ".join(f"{k} {v['rtf']:.4f} / {full['engines']['lockstep']['cells'][k]['rtf']:.4f}"
+                    for k, v in full["engines"]["device"]["cells"].items())
+        + f"; engines differ {sum(a['differ'] for a in full['agree'].values())} times "
+        f"({sum(a['ties'] for a in full['agree'].values())} ties); served beam_ids + aed_ids "
+        f"{modes['batch_ms']:.1f} ms for 8 requests; {time.perf_counter() - t_start:.1f} s "
+        f"in all")
     main_shape = ("bfloat16", TRAIN_ROWS, 249, 16)
     fwd = next(r for r in fwd_rows if (r["dtype"], r["B"], r["L"], r["H"]) == main_shape)
     bwd = next(r for r in bwd_rows if (r["dtype"], r["B"], r["L"], r["H"]) == main_shape
@@ -1513,15 +1765,17 @@ def main() -> int:
     log(f"kernel summary: ssd_fwd / ssd_bwd at bf16 (intra bf16) B{TRAIN_ROWS} L249 H16 P64 "
         f"N128 (a micro-batch of 32 x 10 s, main stack); ema_fwd / ema_bwd at bf16 B64 M256 "
         f"D384 (the dechunk of 64 x 10 s); launches: ssd_fwd from the full-width decode run "
-        f"(this slice's main path: one warm-up and one shared encoder pass), the others from "
+        f"of the device engine (this slice's main path: one warm-up and one shared encoder "
+        f"pass; its searches launch no hand kernel), the others from "
         f"the N=2 training run (3 micro-steps of 64 x 10 s, remat full), every path's in "
         f"launches_by_path; no single PyTorch call computes the scan, the EMA or their "
         f"gradients")
-    by_path = {"decode_full_width": {"ssd_fwd": full["launches"]},
+    by_path = {"decode_device_engine": {"ssd_fwd": full["engines"]["device"]["launches"]},
+               "decode_lockstep": {"ssd_fwd": full["engines"]["lockstep"]["launches"]},
                "train_n2": train_n2["launches"],
                "gate_proof_tone_n1": gate["launches"],
                "train_gate": {"ssd_fwd": train["ssd_fwd"], "ssd_bwd": train["ssd_bwd"]}}
-    launches = dict(train_n2["launches"], ssd_fwd=full["launches"])
+    launches = dict(train_n2["launches"], ssd_fwd=full["engines"]["device"]["launches"])
     ssd = lambda r: dict(max_abs_err=r["abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                          bound_ms=r["bound_ms"], bound_by=r["bound_by"])
     ema_row = lambda k: dict(max_abs_err=ema["abs_err"][k], ms=ema["ms"][k],

@@ -66,11 +66,12 @@ class CMVNAccumulator:
         return stats
 
 
-def compute_cmvn(manifest, *, n_mels: int = 80, device="cpu",
+def compute_cmvn(manifest, *, n_mels: int = 80, device="cuda",
                  out: str | Path | None = None) -> GlobalCMVN:
     """Global CMVN over every utterance of a WAV manifest, one utterance at a
-    time through the log-mel frontend on ``device`` (``scripts/compute_cmvn.py``);
-    ``out`` also saves the statistics as ``.npz``."""
+    time through the log-mel frontend on ``device`` (the card by default;
+    ``scripts/compute_cmvn.py``); ``out`` also saves the statistics as
+    ``.npz``."""
     from hnet_mamba_asr_torch.data.audio import load_manifest, read_wav
     from hnet_mamba_asr_torch.ops.melspec import log_mel_spectrogram
     acc = CMVNAccumulator(n_mels=n_mels)

@@ -46,13 +46,14 @@ def _advance_beam(beam: dict, frame: np.ndarray, blank_id: int, pre_beam: int,
 
 
 def ctc_prefix_beam_search(log_probs, lengths, *, blank_id: int, beam_size: int = 10,
-                           pre_beam: int = 30, lm=None, lm_weight: float = 0.0
-                           ) -> list[list[int]]:
+                           pre_beam: int = 30, lm=None, lm_weight: float = 0.0,
+                           scores: list | None = None) -> list[list[int]]:
     """log_probs [B, T, V+1] (device array or numpy), lengths [B] ->
     one bare-id list per utterance.
 
     ``lm`` is any object with ``next_logprobs(prefixes) -> [n, V]`` (e.g.
-    decoders.lm_scorer.CausalLMScorer).
+    decoders.lm_scorer.CausalLMScorer). ``scores`` (a list) receives each
+    utterance's best score (acoustic + fused LM).
     """
     lp_all = np.asarray(log_probs, dtype=np.float64)
     lens = np.asarray(lengths)
@@ -84,7 +85,9 @@ def ctc_prefix_beam_search(log_probs, lengths, *, blank_id: int, beam_size: int 
                                      beam_size, lm_weight, lm_rows, row_of)
     out: list[list[int]] = []
     for b in range(B):
-        best = max(beams[b].items(),
-                   key=lambda kv: np.logaddexp(kv[1][0], kv[1][1]) + kv[1][2])[0]
+        best, (pb, pnb, lms) = max(beams[b].items(),
+                                   key=lambda kv: np.logaddexp(kv[1][0], kv[1][1]) + kv[1][2])
         out.append(list(best))
+        if scores is not None:
+            scores.append(float(np.logaddexp(pb, pnb) + lms))
     return out

@@ -343,15 +343,19 @@ def joint_beam_search_nbest_lockstep(memory_lengths, *, batch_stepper,
 
 
 def lm_rescore_batch(nbests: list[list[Hypothesis]], lm, lm_weight: float, *,
-                     ctc_weight: float, length_bonus: float = 0.0
-                     ) -> list[list[int]]:
+                     ctc_weight: float, length_bonus: float = 0.0,
+                     scores: list | None = None) -> list[list[int]]:
     """lm_rescore over a whole batch with ONE LM call: every utterance's
     n-best flattens into a single sequence_logprob, then the per-utterance
     re-rank is identical to lm_rescore (same formula, same tie behavior).
     Hypotheses already carrying a fused ``.lm`` score (device beam with
-    lm=...) are used as-is — only unscored ones pay the LM call."""
+    lm=...) are used as-is — only unscored ones pay the LM call.
+    ``scores`` (a list) receives each utterance's best re-rank score (None
+    for an empty n-best)."""
     flat = [h for nb in nbests for h in nb]
     if not flat:
+        if scores is not None:
+            scores.extend([None] * len(nbests))
         return [[] for _ in nbests]
     lm_scores = np.asarray([h.lm if h.lm is not None else 0.0 for h in flat])
     need = [i for i, h in enumerate(flat) if h.lm is None]
@@ -363,6 +367,8 @@ def lm_rescore_batch(nbests: list[list[Hypothesis]], lm, lm_weight: float, *,
     for nb in nbests:
         if not nb:
             out.append([])
+            if scores is not None:
+                scores.append(None)
             continue
         best, best_score = nb[0], float("-inf")
         for h, lms in zip(nb, lm_scores[k:k + len(nb)].tolist()):
@@ -372,6 +378,8 @@ def lm_rescore_batch(nbests: list[list[Hypothesis]], lm, lm_weight: float, *,
                 best_score, best = s, h
         k += len(nb)
         out.append(best.tokens)
+        if scores is not None:
+            scores.append(best_score)
     return out
 
 

@@ -25,8 +25,9 @@ same step in a loop, eos-filled after a row ends. As in the JAX head,
 ``greedy_decode`` zeroes the pad row's embedding and ``decode_step`` does
 not, and the positional encoding is sliced at ``pos``. The GEMMs of the
 decode path run in blocks of ``DECODE_ROWS`` rows (``models/mamba2.py::dense``),
-and the beams' steps attend one utterance's rows at a time over its own keys
-(``decode_groups``), so that a beam's scores do not depend on the batch.
+and the beams' and the greedy decode's steps attend one utterance's rows at
+a time over its own keys (``decode_groups``), so that a beam's scores do not
+depend on the batch.
 The MoE FFN is not ported.
 """
 from __future__ import annotations
@@ -236,11 +237,13 @@ def key_slots(valid: int, available: int) -> int:
     return min(available, -(-valid // KEY_BLOCK) * KEY_BLOCK)
 
 
-def decode_groups(lengths, rows_per_group: int, slots: int) -> list[tuple[int, int, int]]:
+def decode_groups(lengths, rows_per_group: int) -> list[tuple[int, int, int]]:
     """(first row, end row, memory keys) of each utterance's rows, for
     ``decode_step``: utterance i owns rows [i * rows_per_group, (i + 1) *
-    rows_per_group) and reads ``key_slots(length_i, slots)`` memory frames."""
-    return [(i * rows_per_group, (i + 1) * rows_per_group, key_slots(int(n), slots))
+    rows_per_group) and reads its length rounded up to ``KEY_BLOCK`` memory
+    frames, which ``decode_start``'s padded memory always holds: the count
+    does not depend on the batch's longest utterance."""
+    return [(i * rows_per_group, (i + 1) * rows_per_group, key_slots(int(n), 1 << 30))
             for i, n in enumerate(lengths)]
 
 
@@ -320,8 +323,11 @@ class AEDHead(nn.Module):
         return logits
 
     def decode_start(self, memory: torch.Tensor, memory_lengths: torch.Tensor, cap: int):
-        """Per-layer caches and the memory padding mask for ``decode_step``."""
+        """Per-layer caches and the memory padding mask for ``decode_step``.
+        The memory is padded (masked) to a ``KEY_BLOCK`` multiple of frames,
+        so that ``decode_groups`` reads the same keys alone and batched."""
         mem = memory.to(self.dtype)
+        mem = F.pad(mem, (0, 0, 0, key_slots(mem.shape[1], 1 << 30) - mem.shape[1]))
         kpm = pad_mask(memory_lengths, mem.shape[1])
         return [layer.init_cache(mem, cap) for layer in self.layers], kpm
 
@@ -343,17 +349,20 @@ class AEDHead(nn.Module):
     def greedy_decode(self, memory: torch.Tensor, memory_lengths: torch.Tensor,
                       max_len: int | None = None) -> torch.Tensor:
         """KV-cached greedy decode: ids [B, cap], each row eos-filled after
-        its first eos (``strip_hypothesis`` cuts it on the host)."""
+        its first eos (``strip_hypothesis`` cuts it on the host). Each step
+        attends one utterance at a time (``decode_groups``), so that a
+        request's ids do not depend on the batch."""
         cap = self.max_decode_len if max_len is None else int(max_len)
         B = memory.shape[0]
         caches, kpm = self.decode_start(memory, memory_lengths, cap + 1)
+        groups = decode_groups(memory_lengths.tolist(), 1)
         tok = torch.full((B,), self.bos_id, dtype=torch.long, device=memory.device)
         finished = torch.zeros(B, dtype=torch.bool, device=memory.device)
         out = []
         for t in range(cap):
             x = self._embed_step(tok, t, zero_pad=True)
             for layer, cache in zip(self.layers, caches):
-                x, _ = layer.step(x, cache, t, kpm)
+                x, _ = layer.step(x, cache, t, kpm, groups)
             nxt = torch.argmax(self._step_logits(x), dim=-1)
             nxt = torch.where(finished, self.eos_id, nxt)
             finished = finished | (nxt == self.eos_id)

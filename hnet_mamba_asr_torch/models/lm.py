@@ -45,10 +45,12 @@ class HeadsDense(nn.Module):
         lecun_normal_(self.weight, d_model, generator)
         self.bias = nn.Parameter(torch.zeros((n_heads, dh) if into_heads else (d_model,)))
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: torch.dtype, rows: int = 0) -> torch.Tensor:
+        """``rows``: the GEMM's row block (``models/mamba2.py::dense``)."""
         w = (self.weight.reshape(-1, self.d_model) if self.into_heads
              else self.weight.reshape(self.d_model, -1))
-        return dense(x, SimpleNamespace(weight=w, bias=self.bias.reshape(-1)), dtype)
+        return dense(x, SimpleNamespace(weight=w, bias=self.bias.reshape(-1)), dtype,
+                     row_block=rows)
 
 
 class SelfAttention(nn.Module):

@@ -1,11 +1,14 @@
-"""Serving runtime: the offline CTC serving forward in eager PyTorch.
+"""Serving runtime: the offline serving forward in eager PyTorch.
 
 Counterpart of ``hnet_mamba_asr_tpu/serving/runtime.py``'s ``ServingModel``
-for the ``frame_ids`` emit mode that ``scripts/export_serving.py`` exports:
-raw padded waveform -> log-mel -> CMVN -> encoder -> CTC frame argmax, then
-the host collapse of repeats and blanks. PyTorch runs eagerly, so there are
-no shape buckets; the ``max_batch`` and ``max_samples`` limits take their
-place and fail with the JAX runtime's words.
+for the emit modes that ``scripts/export_serving.py`` exports: raw padded
+waveform -> log-mel -> CMVN -> encoder, then per mode the CTC frame argmax
+(``frame_ids``, collapsed on the host), the CTC log-probs (``log_probs``),
+the AED head's KV-cached greedy decode (``aed_ids``, eos-filled after the
+first eos) or the device CTC prefix beam (``beam_ids`` / ``beam_lens``,
+``decoders/device_ctc_beam.py::beam_scan``). PyTorch runs eagerly, so there
+are no shape buckets; the ``max_batch`` and ``max_samples`` limits take
+their place and fail with the JAX runtime's words.
 
 Weights come from a JAX param tree or ``params.npz`` (``convert.py``), or are
 drawn from a seed.
@@ -19,12 +22,15 @@ import torch
 
 from hnet_mamba_asr_torch.convert import load_jax_params, load_params_npz
 from hnet_mamba_asr_torch.data.features import GlobalCMVN
+from hnet_mamba_asr_torch.decoders.device_ctc_beam import beam_scan
+from hnet_mamba_asr_torch.models.aed import strip_hypothesis
 # the CTC collapse of repeats and blanks, per valid row span
 from hnet_mamba_asr_torch.models.ctc_head import greedy_decode as collapse_ctc
 from hnet_mamba_asr_torch.tasks.asr_task import build_model
 
-EMIT_PORTED = ("frame_ids", "log_probs")
-EMIT_NOT_PORTED = ("aed_ids", "beam_ids", "rnnt_ids", "rnnt_beam_ids")
+EMIT_PORTED = ("frame_ids", "log_probs", "aed_ids", "beam_ids")
+EMIT_NOT_PORTED = ("rnnt_ids", "rnnt_beam_ids")
+BEAM_SIZE, PRE_BEAM = 10, 30    # beam_ids' search: the JAX export's defaults
 
 
 def detokenize(tok_meta: dict, ids) -> str:
@@ -39,9 +45,22 @@ def detokenize(tok_meta: dict, ids) -> str:
     return "".join(out).replace(wb, " ").strip()
 
 
+def ids_per_row(out: dict, blank_id: int | None, eos_id: int | None) -> list[list[int]]:
+    """Token ids per utterance from a serving call's outputs, in the JAX
+    runtime's precedence: the CTC prefix beam beats CTC greedy, which beats
+    the AED greedy decode (cut at its first eos)."""
+    if "beam_ids" in out:
+        return [row[:int(n)].tolist() for row, n in zip(out["beam_ids"], out["beam_lens"])]
+    if "frame_ids" in out:
+        return collapse_ctc(out["frame_ids"], out["enc_lengths"], blank_id)
+    if "aed_ids" in out:
+        return [strip_hypothesis(row, eos_id) for row in out["aed_ids"]]
+    raise ValueError(f"outputs {sorted(out)} hold no frame_ids, beam_ids or aed_ids")
+
+
 class ServingModel:
-    """Callable serving model: ``(wave [B, S], wave_lens [B]) -> {enc_lengths,
-    frame_ids}`` as numpy arrays.
+    """Callable serving model: ``(wave [B, S], wave_lens [B]) ->
+    {enc_lengths, <emit modes>}`` as numpy arrays.
 
     ``params``: a JAX param tree, the path of a JAX ``params.npz``, or None
     for weights drawn from ``seed`` (then ``vocab_size`` is required).
@@ -72,14 +91,17 @@ class ServingModel:
             cmvn = GlobalCMVN.load(cmvn)
         self.device = torch.device(device)
         model = build_model(config, vocab_size, cmvn=cmvn, seed=seed, device=self.device)
-        if model.ctc is None:
-            raise NotImplementedError("serving needs the CTC head (model_conf.ctc_weight "
-                                      "> 0); its aed_ids and beam_ids emit modes are not ported")
+        for e in emit:
+            head = model.aed if e == "aed_ids" else model.ctc
+            if head is None:
+                raise ValueError(f"emit mode {e!r} needs the model's "
+                                 f"{'AED' if e == 'aed_ids' else 'CTC'} head")
         if params is not None:
             load_jax_params(model, params)
         self.model = model
         self.vocab_size = int(vocab_size)
-        self.blank_id = self.model.ctc.blank_id
+        self.blank_id = model.ctc.blank_id if model.ctc is not None else None
+        self.eos_id = model.aed.eos_id if model.aed is not None else None
         self.emit = emit
         self.tokenizer = tokenizer
         self.max_batch, self.max_samples = int(max_batch), int(max_samples)
@@ -106,16 +128,22 @@ class ServingModel:
         out = {"enc_lengths": enc.lengths}
         if "frame_ids" in self.emit:
             out["frame_ids"] = self.model.ctc.frame_argmax(enc.features)
-        if "log_probs" in self.emit:
-            out["log_probs"] = self.model.ctc.log_probs(enc.features)
+        if "log_probs" in self.emit or "beam_ids" in self.emit:
+            logp = self.model.ctc.log_probs(enc.features)
+            if "log_probs" in self.emit:
+                out["log_probs"] = logp
+            if "beam_ids" in self.emit:
+                out["beam_ids"], out["beam_lens"] = beam_scan(
+                    logp, enc.lengths, beam_size=BEAM_SIZE, pre_beam=PRE_BEAM,
+                    blank_id=self.blank_id)
+        if "aed_ids" in self.emit:
+            out["aed_ids"] = self.model.aed.greedy_decode(enc.features, enc.lengths)
         return {k: v.cpu().numpy() for k, v in out.items()}
 
     def transcribe_ids(self, wave, wave_lens) -> list[list[int]]:
-        """CTC greedy token ids per utterance."""
-        if "frame_ids" not in self.emit:
-            raise ValueError(f"model emits {self.emit}, not frame_ids")
-        out = self(wave, wave_lens)
-        return collapse_ctc(out["frame_ids"], out["enc_lengths"], self.blank_id)
+        """Token ids per utterance: the CTC prefix beam when the model emits
+        beam_ids, else CTC greedy, else the AED greedy decode."""
+        return ids_per_row(self(wave, wave_lens), self.blank_id, self.eos_id)
 
     def transcribe_text(self, wave, wave_lens) -> list[str]:
         if self.tokenizer is None:

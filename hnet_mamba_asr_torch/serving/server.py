@@ -5,7 +5,11 @@ background worker coalesces requests that arrive within a short window into
 one padded batch, runs the model once, and fans the results back out.
 
     python -m hnet_mamba_asr_torch.serving.server --config-json cfg.json \
-        --params artifact/params.npz --device cuda --port 8000
+        --params artifact/params.npz --device cuda --port 8000 [--emit beam_ids]
+
+A row's ids come from the CTC prefix beam (``beam_ids``), else CTC greedy
+(``frame_ids``), else the AED greedy decode cut at its first eos
+(``aed_ids``), as in the JAX server.
 
 HTTP surface (JSON responses):
     POST /v1/transcribe   body = WAV (PCM16 mono) or raw float32 PCM
@@ -29,7 +33,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
-from hnet_mamba_asr_torch.serving.runtime import ServingModel, collapse_ctc, detokenize
+from hnet_mamba_asr_torch.serving.runtime import ServingModel, detokenize, ids_per_row
 
 
 def decode_audio(body: bytes, content_type: str) -> np.ndarray:
@@ -59,8 +63,9 @@ class MicroBatcher:
 
     def __init__(self, model: ServingModel, max_batch: int | None = None,
                  max_wait_ms: float = 20.0):
-        if "frame_ids" not in model.emit:
-            raise ValueError(f"the batcher serves frame_ids; model emits {model.emit}")
+        if not {"beam_ids", "frame_ids", "aed_ids"} & set(model.emit):
+            raise ValueError(f"the batcher serves beam_ids, frame_ids or aed_ids; model "
+                             f"emits {model.emit}")
         self.model = model
         self.max_batch = min(int(max_batch or model.max_batch), model.max_batch)
         self.max_samples = model.max_samples
@@ -160,7 +165,7 @@ class MicroBatcher:
 
     def _per_row(self, out: dict, n: int) -> list[dict]:
         tok = self.model.tokenizer
-        ids = collapse_ctc(out["frame_ids"], out["enc_lengths"], self.model.blank_id)
+        ids = ids_per_row(out, self.model.blank_id, self.model.eos_id)
         rows = []
         for i in range(n):
             r: dict = {"ids": ids[i], "enc_frames": int(out["enc_lengths"][i])}
@@ -235,6 +240,8 @@ def main(argv=None, config: dict | None = None):
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--max-wait-ms", type=float, default=20.0)
     ap.add_argument("--max-batch", type=int, default=8)
+    ap.add_argument("--emit", default="frame_ids",
+                    help="comma-separated emit modes: frame_ids, log_probs, aed_ids, beam_ids")
     args = ap.parse_args(argv)
     if config is None:
         if args.config_json is None:
@@ -242,7 +249,8 @@ def main(argv=None, config: dict | None = None):
         with open(args.config_json) as f:
             config = json.load(f)
     model = ServingModel(config, args.params, args.device, vocab_size=args.vocab_size,
-                         cmvn=args.cmvn, seed=args.seed, max_batch=args.max_batch)
+                         cmvn=args.cmvn, seed=args.seed, max_batch=args.max_batch,
+                         emit=tuple(args.emit.split(",")))
     httpd, batcher = make_server(model, args.host, args.port, args.max_wait_ms,
                                  args.max_batch)
     print(f"serving on {httpd.server_address} (device {model.device}, "

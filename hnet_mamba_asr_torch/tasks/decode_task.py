@@ -9,12 +9,15 @@ ctc_greedy, ctc_beam, ctc_beam_lm, aed_beam, aed_beam_lm, joint_beam,
 joint_beam_lm. RNN-T cells raise ``NotImplementedError`` (the head is not
 ported).
 
-Engines. The port runs the JAX package's host lockstep engines: one
-batched device call per global step for AED / joint (``decode.batch_beams``
-false: one utterance at a time) and one per frame for the CTC beams, with
-host scoring in float64. The on-device searches are not ported:
-``decode.device_beam: true`` raises; absent, the lockstep engine runs, and
-every record states its ``engine``.
+Engines. By default, as in the JAX package, every beam cell runs on the
+device: ``decoders/device_ctc_beam.py`` for the CTC prefix beam (LM fusion
+inside the frame loop) and ``decoders/device_beam.py`` for the AED and joint
+beams (the pool's LM scores in the same call), scoring in float32.
+``decode.device_beam: false`` runs the host engines instead, scoring in
+float64: one batched device call per global step for AED / joint
+(``decode.batch_beams`` false: one utterance at a time) and one per frame
+for the CTC beams. Every record states its ``engine``; the device engine's
+records add their search steps and host reads.
 
 Timing: device work is fenced with ``torch.cuda.synchronize()`` before the
 clock is read, and a cell's search time is amortized over its utterances;
@@ -35,6 +38,8 @@ import numpy as np
 import torch
 
 from hnet_mamba_asr_torch.decoders.ctc_decode import ctc_prefix_beam_search
+from hnet_mamba_asr_torch.decoders.device_beam import beam_search_device
+from hnet_mamba_asr_torch.decoders.device_ctc_beam import ctc_beam_search_device
 from hnet_mamba_asr_torch.decoders.joint import (
     joint_beam_search_nbest, joint_beam_search_nbest_lockstep, lm_rescore_batch)
 from hnet_mamba_asr_torch.decoders.lm_scorer import CausalLMScorer, bucket
@@ -44,8 +49,6 @@ from hnet_mamba_asr_torch.models.ctc_head import greedy_decode as ctc_host_greed
 logger = logging.getLogger(__name__)
 
 SAMPLE_RATE = 16000
-DEVICE_BEAM_SLICE = ("the on-device beams (decoders/device_beam.py, "
-                     "decoders/device_ctc_beam.py) come in the port's next decode slice")
 
 
 def as_str_list(value, default: list[str]) -> list[str]:
@@ -97,17 +100,15 @@ def check_heads(model, cells: list[dict]) -> None:
 
 
 def engine_for(decode_cfg: Mapping[str, Any], cell: Mapping[str, Any]) -> str:
-    """The search engine of a cell: greedy, lockstep or serial; an explicit
-    ``device_beam: true`` raises."""
+    """The search engine of a cell: greedy; device (``device_beam`` absent or
+    true); or, with ``device_beam: false``, lockstep or serial."""
     dc = dict(decode_cfg or {})
     if cell["read_out"] == "rnnt":
         raise NotImplementedError(f"cell {cell['name']}: the RNN-T head is not ported")
     if cell["search"] == "greedy":
         return "greedy"
-    if bool(dc.get("device_beam", False)):
-        raise NotImplementedError(f"decode.device_beam: true is not ported; "
-                                  f"{DEVICE_BEAM_SLICE}. Set decode.device_beam: false "
-                                  "for the host lockstep engines")
+    if bool(dc.get("device_beam", True)):
+        return "device"
     if cell["read_out"] != "ctc" and not bool(dc.get("batch_beams", True)):
         return "serial"
     return "lockstep"
@@ -193,7 +194,7 @@ class CachedAEDStepper:
         mem = self.features[b:b + 1].expand(self.rows, -1, -1)
         mlen = self.lengths[b:b + 1].expand(self.rows)
         caches, self._kpm = self.aed.decode_start(mem, mlen, self.cap)
-        self._groups = decode_groups([int(self.lengths[b])], self.rows, mem.shape[1])
+        self._groups = decode_groups([int(self.lengths[b])], self.rows)
         bos = torch.full((self.rows,), self.aed.bos_id, dtype=torch.long, device=dev)
         logp, self._caches = self.aed.decode_step(caches, self._kpm,
                                                   torch.arange(self.rows, device=dev), bos, 0,
@@ -248,7 +249,7 @@ class BatchedCachedAEDStepper:
                        if k in ("self_k", "self_v") else v.repeat_interleave(R, dim=0))
                    for k, v in c.items()} for c in caches]
         self._kpm = kpm.repeat_interleave(R, dim=0)
-        self._groups = decode_groups(self.lengths.tolist(), R, self.features.shape[1])
+        self._groups = decode_groups(self.lengths.tolist(), R)
         bos = torch.full((rows,), self.aed.bos_id, dtype=torch.long, device=dev)
         logp, self._caches = self.aed.decode_step(caches, self._kpm,
                                                   torch.arange(rows, device=dev), bos, 0,
@@ -308,7 +309,10 @@ def decode_batch(model, tokenizer, batch: dict, cell: Mapping[str, Any],
                  decode_cfg: Mapping[str, Any], lm=None, enc=None,
                  enc_s: float | None = None) -> list[dict]:
     """One collated host batch through one cell -> per-utterance records
-    {id, ref, hyp, decode_s, encoder_s, search_s, engine}.
+    {id, ref, hyp, decode_s, encoder_s, search_s, engine, score} (score: the
+    beam's own score of hyp, after any LM re-rank; None for greedy); the device engine
+    adds the batch's ``search_steps`` (frames or label steps) and
+    ``host_reads`` (of its active mask).
 
     ``enc`` / ``enc_s``: a precomputed EncoderOutput and the encoder seconds
     to charge this cell (``decode_split_shared``)."""
@@ -334,50 +338,70 @@ def decode_batch(model, tokenizer, batch: dict, cell: Mapping[str, Any],
     lengths = enc.lengths.cpu().numpy()
 
     hyps: list[list[int]] = []
+    scores: list = []                                    # the engine's score of each hyp
+    steps: dict = {}
     t0 = time.perf_counter()
     if cell["read_out"] == "ctc" and cell["search"] == "greedy":
         frame_ids = model.ctc.frame_argmax(enc.features).cpu()
         hyps = ctc_host_greedy(frame_ids, lengths, model.ctc.blank_id)[:n_real]
     elif cell["read_out"] == "ctc":                      # prefix beam (+/-LM)
-        logp = model.ctc.log_probs(enc.features).cpu().numpy()
+        logp = model.ctc.log_probs(enc.features)
+        if engine != "device":
+            logp = logp.cpu().numpy()
+        _sync(device)
         dt = time.perf_counter() - t0
         enc_s += dt                                      # shared projection: amortized
         t0 += dt
-        hyps = ctc_prefix_beam_search(
-            logp[:n_real], lengths[:n_real], blank_id=model.ctc.blank_id,
-            beam_size=beam_size, pre_beam=int(pre_beam or 30), lm=use_lm,
-            lm_weight=lm_weight)
+        kw = dict(blank_id=model.ctc.blank_id, beam_size=beam_size,
+                  pre_beam=int(pre_beam or 30), lm=use_lm, lm_weight=lm_weight,
+                  scores=scores)
+        if engine == "device":
+            hyps = ctc_beam_search_device(logp, lengths, n_utts=n_real, **kw)
+            steps = {"steps": int(logp.shape[1]), "host_reads": 0}
+        else:
+            hyps = ctc_prefix_beam_search(logp[:n_real], lengths[:n_real], **kw)
     else:                                                # aed / joint beam
         ctc_w = 0.0 if cell["read_out"] == "aed" else float(dc.get("ctc_weight", 0.3))
-        ctc_logp = (model.ctc.log_probs(enc.features).cpu().numpy() if ctc_w > 0.0
-                    else None)
+        ctc_logp = model.ctc.log_probs(enc.features) if ctc_w > 0.0 else None
         pre = int(pre_beam) if pre_beam else None
-        kw = dict(vocab_size=model.aed.vocab_size, beam_size=beam_size, ctc_weight=ctc_w,
-                  bos_id=tokenizer.bos_id, eos_id=tokenizer.eos_id, pad_id=tokenizer.pad_id,
-                  blank_id=model.ctc.blank_id if model.ctc is not None else None,
-                  length_bonus=length_bonus, pre_beam=pre,
-                  max_decode_len=model.aed.max_decode_len)
         nbest = beam_size if cell["lm"] else 1
-        if engine == "lockstep":
-            stepper = BatchedCachedAEDStepper(model.aed, enc.features, lengths,
-                                              beam_rows=beam_size, n_utts=n_real)
-            nbest_all = joint_beam_search_nbest_lockstep(
-                lengths[:n_real], batch_stepper=stepper,
-                ctc_log_probs=ctc_logp[:n_real] if ctc_logp is not None else None,
-                nbest=nbest, **kw)
-        else:                                            # serial: one utterance at a time
-            stepper = CachedAEDStepper(model.aed, enc.features, lengths, beam_rows=beam_size)
-            nbest_all = []
-            for i in range(n_real):
-                lp_i = ctc_logp[i:i + 1, :lengths[i]] if ctc_logp is not None else None
-                nbest_all += joint_beam_search_nbest(
-                    None, lengths[i:i + 1], ctc_log_probs=lp_i, nbest=nbest,
-                    aed_next_logprobs=_UttStepper(stepper, i), **kw)
+        if engine == "device":
+            nbest_all = beam_search_device(
+                model.aed, enc.features, lengths, beam_size=beam_size, nbest=nbest,
+                length_bonus=length_bonus, pre_beam=pre, n_utts=n_real,
+                ctc_log_probs=ctc_logp, ctc_weight=ctc_w,
+                blank_id=model.ctc.blank_id if model.ctc is not None else None,
+                lm=use_lm, stats=steps)
+        else:
+            ctc_logp = ctc_logp.cpu().numpy() if ctc_logp is not None else None
+            kw = dict(vocab_size=model.aed.vocab_size, beam_size=beam_size, ctc_weight=ctc_w,
+                      bos_id=tokenizer.bos_id, eos_id=tokenizer.eos_id,
+                      pad_id=tokenizer.pad_id,
+                      blank_id=model.ctc.blank_id if model.ctc is not None else None,
+                      length_bonus=length_bonus, pre_beam=pre,
+                      max_decode_len=model.aed.max_decode_len)
+            if engine == "lockstep":
+                stepper = BatchedCachedAEDStepper(model.aed, enc.features, lengths,
+                                                  beam_rows=beam_size, n_utts=n_real)
+                nbest_all = joint_beam_search_nbest_lockstep(
+                    lengths[:n_real], batch_stepper=stepper,
+                    ctc_log_probs=ctc_logp[:n_real] if ctc_logp is not None else None,
+                    nbest=nbest, **kw)
+            else:                                        # serial: one utterance at a time
+                stepper = CachedAEDStepper(model.aed, enc.features, lengths,
+                                           beam_rows=beam_size)
+                nbest_all = []
+                for i in range(n_real):
+                    lp_i = ctc_logp[i:i + 1, :lengths[i]] if ctc_logp is not None else None
+                    nbest_all += joint_beam_search_nbest(
+                        None, lengths[i:i + 1], ctc_log_probs=lp_i, nbest=nbest,
+                        aed_next_logprobs=_UttStepper(stepper, i), **kw)
         if cell["lm"]:
             hyps = lm_rescore_batch(nbest_all, use_lm, rescore_weight, ctc_weight=ctc_w,
-                                    length_bonus=rescore_length_bonus)
+                                    length_bonus=rescore_length_bonus, scores=scores)
         else:
             hyps = [nb[0].tokens if nb else [] for nb in nbest_all]
+            scores = [nb[0].score if nb else None for nb in nbest_all]
     _sync(device)
     search_s = (time.perf_counter() - t0) / max(n_real, 1)
 
@@ -390,7 +414,10 @@ def decode_batch(model, tokenizer, batch: dict, cell: Mapping[str, Any],
         records.append({"id": ids[i], "ref": tokenizer.decode(ref_ids),
                         "hyp": tokenizer.decode(hyps[i]),
                         "decode_s": round(per_utt_enc + search_s, 6),
-                        "encoder_s": per_utt_enc, "search_s": search_s, "engine": engine})
+                        "encoder_s": per_utt_enc, "search_s": search_s, "engine": engine,
+                        "score": scores[i] if scores else None,
+                        **({"search_steps": steps["steps"], "host_reads": steps["host_reads"]}
+                           if steps else {})})
     return records
 
 

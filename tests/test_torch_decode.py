@@ -1,9 +1,10 @@
 """The port's decode slice against the JAX package on the CPU, fp32: the AED
 head's KV-cached ``decode_step`` and ``greedy_decode``, the 7-cell matrix of
 ``tasks/decode_task.py`` on a tiny hybrid model trained for one step (JAX's
-``decode_batch`` with ``device_beam: false``), a JAX pickle checkpoint
-loaded by the port, ``expand_cells``, the engines' refusals and the gate
-config's decode literal. Weights are one seeded param tree carried across by
+``decode_batch`` with ``device_beam: false``, and with it absent: the
+device engines of both packages), a JAX pickle checkpoint loaded by the
+port, ``expand_cells``, the engines and refusals, and the gate config's
+decode literal. Weights are one seeded param tree carried across by
 ``convert.py``."""
 import copy
 import json
@@ -163,6 +164,28 @@ def test_seven_cells_match_jax(tone, tmp_path):
     assert scores["gate"]["evaluated"] and scores["gate"]["cell"] == "ctc_greedy"
 
 
+def test_default_engine_seven_cells_match_jax(tone):
+    """With device_beam absent both packages run their device searches: the
+    7 cells of the checkpoint JAX wrote give JAX's default decode_batch
+    transcripts, the six beam cells on the port's device engine, and each
+    utterance decoded alone gives its batched transcript."""
+    params, _ = decode_task.load_model_params(tone["ckpt"])
+    model = build_model(tone["cfg"], tone["tok"].vocab_size, device="cpu")
+    convert.load_jax_params(model, params)
+    dc = {k: v for k, v in DECODE.items() if k != "device_beam"}
+    alone = collate_batch(tone["items"][2:3], pad_id=3, seed=0, epoch=0)
+    for cell in decode_task.expand_cells(dc):
+        recs = decode_task.decode_batch(model, tone["tok"], tone["batch"], cell, dc,
+                                        lm=tone["lm"])
+        want = jdecode.decode_batch(tone["jmodel"], tone["params"], tone["tok"],
+                                    tone["batch"], cell, dc, lm=tone["jlm"])
+        assert [r["hyp"] for r in recs] == [r["hyp"] for r in want], cell["name"]
+        engine = "greedy" if cell["search"] == "greedy" else "device"
+        assert {r["engine"] for r in recs} == {engine}, cell["name"]
+        one = decode_task.decode_batch(model, tone["tok"], alone, cell, dc, lm=tone["lm"])
+        assert one[0]["hyp"] == recs[2]["hyp"], cell["name"]
+
+
 def test_serial_engine_and_one_utterance_alone(tone):
     """batch_beams false (one utterance at a time) gives the lockstep
     transcripts, and an utterance decoded alone gives its batched one."""
@@ -199,8 +222,10 @@ def test_model_greedy_decode_without_ctc_matches_jax(tone):
 
 
 def test_expand_cells_and_refusals():
-    """expand_cells gives JAX's cells for several decode blocks; an explicit
-    device_beam: true and the RNN-T cells raise NotImplementedError."""
+    """expand_cells gives JAX's cells for several decode blocks; the beam
+    cells' engine is the device search when device_beam is absent or true,
+    as in JAX, and the host's with device_beam: false; the RNN-T cells raise
+    NotImplementedError."""
     blocks = [{}, GATE_DECODE, {"read_outs": "aed", "search": "beam", "lm": "none"},
               {"read_outs": ["joint", "ctc"], "search": ["beam", "greedy"], "lm": True},
               {"read_outs": ["rnnt", "ctc"], "lm": "enabled"}]
@@ -210,10 +235,11 @@ def test_expand_cells_and_refusals():
         with pytest.raises(ValueError):
             decode_task.expand_cells(bad)
     beam = {"read_out": "joint", "search": "beam", "lm": False, "name": "joint_beam"}
-    with pytest.raises(NotImplementedError, match="device_beam.py"):
-        decode_task.engine_for({"device_beam": True}, beam)
-    assert decode_task.engine_for({}, beam) == "lockstep"
-    assert decode_task.engine_for({"batch_beams": False}, beam) == "serial"
+    assert decode_task.engine_for({"device_beam": True}, beam) == "device"
+    assert decode_task.engine_for({}, beam) == "device"
+    assert decode_task.engine_for({"device_beam": False}, beam) == "lockstep"
+    assert decode_task.engine_for({"device_beam": False, "batch_beams": False},
+                                  beam) == "serial"
     rnnt = {"read_out": "rnnt", "search": "greedy", "lm": False, "name": "rnnt_greedy"}
     with pytest.raises(NotImplementedError, match="RNN-T"):
         decode_task.engine_for({}, rnnt)

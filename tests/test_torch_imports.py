@@ -1,7 +1,8 @@
 """The PyTorch port never imports JAX or the JAX package: its serving and
 training slices (N = 1 and the H-Net models: Type A N = 2 with the EMA
 dechunk, Type B, the fixed-pool chunker), every module of the decode slice
-with a tiny decode of all 7 cells, and chip_smoke.py run in a fresh
+with a tiny decode of all 7 cells (the beams on the device searches), the
+aed_ids and beam_ids serving modes, and chip_smoke.py run in a fresh
 interpreter with jax, flax and hnet_mamba_asr_tpu absent from
 sys.modules."""
 import json
@@ -80,8 +81,16 @@ with tempfile.TemporaryDirectory() as tmp:
     cells = {c["name"]: len(decode_task.decode_batch(dmodel, tok, dbatch, c, dc,
                                                      lm=CausalLMScorer(lm.lm)))
              for c in decode_task.expand_cells(dc)}
+    smodel = ServingModel(dict(cfg, aed_conf=dict(cfg["aed_conf"], max_decode_len=3)), None,
+                          "cpu", vocab_size=30, emit=("aed_ids", "beam_ids"))
+    served = smodel(np.stack([it["wave"] for it in items]), np.array([6000, 6000]))
 print(json.dumps({"enc_frames": res["enc_frames"], "steps": trainer.global_step,
                   "kept": kept, "cells": cells,
+                  "engines": sorted({r["engine"] for c in decode_task.expand_cells(dc)
+                                     for r in decode_task.decode_batch(
+                                         dmodel, tok, dbatch, c, dc,
+                                         lm=CausalLMScorer(lm.lm))}),
+                  "served": {k: list(v.shape) for k, v in served.items()},
                   "jax_modules": sorted(m for m in sys.modules if m.split(".")[0] in
                                         ("jax", "jaxlib", "flax", "hnet_mamba_asr_tpu"))}))
 """
@@ -98,3 +107,6 @@ def test_port_runs_without_jax():
     assert len(out["kept"]) == 3 and all(0 < k <= 1 for k in out["kept"])
     assert out["cells"] == {c: 2 for c in ("ctc_greedy", "ctc_beam", "ctc_beam_lm", "aed_beam",
                                            "aed_beam_lm", "joint_beam", "joint_beam_lm")}
+    assert out["engines"] == ["device", "greedy"]
+    assert out["served"] == {"enc_lengths": [2], "aed_ids": [2, 3], "beam_ids": [2, 8],
+                             "beam_lens": [2]}

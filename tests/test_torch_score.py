@@ -118,7 +118,7 @@ def test_synthetic_corpora_and_cmvn_match_jax(tmp_path):
         assert [dict(json.loads(a), audio="") for a in p] == \
             [dict(json.loads(b), audio="") for b in j]
     manifest = tmp_path / "p" / "manifests" / "train-960.jsonl"
-    cmvn = compute_cmvn(manifest, n_mels=20, out=tmp_path / "cmvn.npz")
+    cmvn = compute_cmvn(manifest, n_mels=20, device="cpu", out=tmp_path / "cmvn.npz")
     acc = CMVNAccumulator(n_mels=20)
     for e in got:
         wave, _ = read_audio(e["audio"])

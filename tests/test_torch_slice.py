@@ -120,9 +120,17 @@ def test_serving_limits_and_modes():
         sm(np.zeros((3, 800), np.float32), [800] * 3)
     with pytest.raises(ValueError, match="no bucket fits batch=1 samples=8001"):
         sm(np.zeros((1, 8001), np.float32), [8001])
-    for mode in ("aed_ids", "rnnt_ids", "beam_ids"):
+    # the RNN-T modes are not ported; aed_ids needs the AED head, which this
+    # CTC-only model lacks; beam_ids serves the CTC prefix beam
+    for mode in ("rnnt_ids", "rnnt_beam_ids"):
         with pytest.raises(NotImplementedError):
             ServingModel(NARROW_CONFIG, None, "cpu", vocab_size=NARROW_VOCAB, emit=(mode,))
+    with pytest.raises(ValueError, match="AED head"):
+        ServingModel(NARROW_CONFIG, None, "cpu", vocab_size=NARROW_VOCAB, emit=("aed_ids",))
+    beam = ServingModel(NARROW_CONFIG, None, "cpu", vocab_size=NARROW_VOCAB, emit=("beam_ids",))
+    wave = np.random.default_rng(0).normal(size=(2, 4000)).astype(np.float32)
+    out = beam(wave, [4000, 2600])
+    assert out["beam_ids"].shape[0] == 2 and (out["beam_lens"] <= out["beam_ids"].shape[1]).all()
     # Type B and N > 1 build (tests/test_torch_hnet_train.py holds them to
     # JAX); a fixed-pool chunker needs an integer stride
     for cfg_change in ({"arch_type": "B"}, {"hnet": {"compression_N": 2}}):
