@@ -32,10 +32,12 @@ calls, at the full width of ``configs/typeA_small_N1.yaml`` and
                and d(initial_state);
    ema      -- the EMA kernels (forward and backward) against the plain
                recurrence and the plain matmul form at the dechunk's shapes
-               (B 64 M 128 / 256, B 8 M 880, D 384 and 512, B 1), bf16 and
-               fp32, with saturated P and M = 1: zbar, dz, dP, zero dP at
-               saturated slots, two calls bitwise equal; both times and the
-               bound;
+               (B 64 M 128 / 256, B 8 M 880, D 384 and 512, B 1 M 64 / 880),
+               bf16 and fp32, with saturated P, M = 1, M = 64 and 65 (one
+               chunk of the kernel's scan, and one slot more) and D 1030
+               (nine channel tiles, element loads): zbar, dz, dP, zero dP
+               at saturated slots, two calls bitwise equal; both times and
+               the bound;
 3. model    -- the whole model on the card (kernel path) against the same
                weights and batch on the CPU (plain path), fp32, TF32 off;
    hnet     -- the same at N = 2 (Type A), N = 4 (Type B, n_mid 1) and with
@@ -401,6 +403,10 @@ def phase_ema():
              for shape in EMA_SHAPES]
     cases += [(dtype, (64, 256, 384), True) for dtype in (torch.bfloat16, torch.float32)]
     cases += [(dtype, (4, 1, 384), False) for dtype in (torch.bfloat16, torch.float32)]
+    # one chunk of the kernel's scan and one slot more; a D of nine channel
+    # tiles that 16 bytes of channels do not divide (no channel cap)
+    cases += [(dtype, shape, True) for dtype in (torch.bfloat16, torch.float32)
+              for shape in ((2, 64, 384), (2, 65, 384), (2, 70, 1030))]
     rows = []
     for dtype, (Bsz, M, D), saturate in cases:
         name = str(dtype).removeprefix("torch.")
@@ -1789,8 +1795,8 @@ def main() -> int:
         for name, source, replaces, row in (
             ("ssd_fwd", "ssd_fwd.cu", "hnet_mamba_asr_tpu/ops/ssd_pallas.py:33", ssd(fwd)),
             ("ssd_bwd", "ssd_bwd.cu", "hnet_mamba_asr_tpu/ops/ssd.py:148", ssd(bwd)),
-            ("ema_fwd", "ema.cu", "hnet_mamba_asr_tpu/ops/ema.py:30", ema_row("fwd")),
-            ("ema_bwd", "ema.cu", "hnet_mamba_asr_tpu/ops/ema.py:30", ema_row("bwd")))]}))
+            ("ema_fwd", "ema.cu", "hnet_mamba_asr_tpu/ops/ema.py:34", ema_row("fwd")),
+            ("ema_bwd", "ema.cu", "hnet_mamba_asr_tpu/ops/ema.py:34", ema_row("bwd")))]}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,8 @@
     python3 hnet_mamba_asr_torch/tools/measure.py ssd   [--repo DIR]
     python3 hnet_mamba_asr_torch/tools/measure.py ssd_bwd [--repo DIR]
     python3 hnet_mamba_asr_torch/tools/measure.py bwd_phases
-    python3 hnet_mamba_asr_torch/tools/measure.py ema
+    python3 hnet_mamba_asr_torch/tools/measure.py ema   [--repo DIR]
+    python3 hnet_mamba_asr_torch/tools/measure.py ema_phases
     python3 hnet_mamba_asr_torch/tools/measure.py serve [--repo DIR] [--profile] [--config n2]
     python3 hnet_mamba_asr_torch/tools/measure.py phases
     python3 hnet_mamba_asr_torch/tools/measure.py train [--config n2]
@@ -40,9 +41,16 @@ call, in turns (old, new, new, old).
   The variants compute wrong gradients: only their times are read.
 - ``ema``: the H-Net EMA kernels (``ops/ema_cuda.py``) at ``EMA_SHAPES``
   (``chip_smoke.py``'s), bf16 and fp32: the forward's and the backward's
-  device time per call, the plain version's (``ema_smooth`` and autograd
-  of it, CUDA events) and the bounds of ``ema_cost`` / ``ema_bwd_cost``;
-  one JSON line per shape.
+  device time per call and device kernels per call, the plain version's
+  time (``ema_smooth`` and autograd of it, CUDA events) and the bounds of
+  ``ema_cost`` / ``ema_bwd_cost``; one JSON line per shape. It calls
+  ``_forward`` / ``_backward``, whose arguments are the same in every
+  version, so ``--repo`` times the parent too (old, new, new, old).
+- ``ema_phases``: where an EMA CTA spends its time, from a build with
+  ``-DEMA_PHASE_CLOCKS`` whose CTAs stamp the global timer at their phase
+  bounds (``EMA_PHASES``): the call's span, the spread of the CTAs' starts
+  and each phase's mean length, at bf16 B 64 M 256, B 8 M 880, B 1 M 880
+  and B 1 M 64 (D 384).
 - ``serve``: whole-model serve calls of the gate config (``--config n2``:
   configs/typeA_small_N2.yaml, its routers drawn at random so that they
   keep about half the frames) in bf16 with seeded weights, host clock
@@ -217,6 +225,22 @@ def kernel_times(fn, match: str, n: int = 20, tries: int = 3) -> dict:
     return {}
 
 
+def kernel_launches(fn, match: str, n: int = 10) -> float | None:
+    """Device kernels whose name contains ``match`` that one call of ``fn``
+    launches, from a ``torch.profiler`` trace of n calls after a warm-up
+    (None when the trace holds no such kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    count = sum(ev.count for ev in prof.key_averages()
+                if match in ev.key and device_us(ev) > 0)
+    return count / n if count else None
+
+
 def host_us(fn, n: int = 50) -> float:
     """Mean host time in us of one call of ``fn``: what the caller's thread
     spends to enqueue it (the device is not waited for)."""
@@ -268,8 +292,10 @@ def measure_ssd(tag: str) -> None:
 BWD_SHAPES = ((32, 249, 16), (32, 249, 12), (8, 873, 16), (1, 249, 16))   # chip_smoke.py's
 # the EMA's [B, M, D]: training micro-batches of 64 x 10 s (M <= 128 or 256
 # slots of the compressed buffer), a 35 s utterance's 880 slots at N = 1 of
-# stage 1, Type B's stage 2 (D 512), one short request
-EMA_SHAPES = ((64, 128, 384), (64, 256, 384), (8, 880, 384), (32, 128, 512), (1, 64, 384))
+# stage 1, Type B's stage 2 (D 512), one short request, and a 35 s request
+# served alone at N = 2 (M <= L: the longest buffer it can have)
+EMA_SHAPES = ((64, 128, 384), (64, 256, 384), (8, 880, 384), (32, 128, 512), (1, 64, 384),
+              (1, 880, 384))
 
 
 def ema_inputs(Bsz, M, D, dtype, seed=0, saturate=False):
@@ -302,6 +328,8 @@ def measure_ema(tag: str) -> None:
             row = {"version": tag, "dtype": name, "B": Bsz, "M": M, "D": D,
                    "fwd_ms": kernel_ms(fwd, "ema_fwd"), "fwd_call_ms": cuda_ms(fwd),
                    "bwd_ms": kernel_ms(bwd, "ema_bwd"), "bwd_call_ms": cuda_ms(bwd),
+                   "fwd_launches": kernel_launches(fwd, "ema_fwd"),
+                   "bwd_launches": kernel_launches(bwd, "ema_bwd"),
                    "plain_fwd_ms": cuda_ms(lambda: ema_smooth(z, p)),
                    "plain_bwd_ms": cuda_ms(lambda: torch.autograd.grad(
                        y_plain, (zl, pl), g, retain_graph=True, allow_unused=True))}
@@ -312,6 +340,49 @@ def measure_ema(tag: str) -> None:
                             f"{key}_bound_by": cost["bound_by"],
                             f"{key}_share": cost["bound_ms"] / ms if ms else None})
             print(json.dumps(row), flush=True)
+
+
+# the phases an EMA CTA stamps (-DEMA_PHASE_CLOCKS), in order
+EMA_PHASES = {"fwd": ("ticket", "loads", "pass 1", "publish aggregate and look-back",
+                      "barrier", "publish prefix", "pass 2", "store"),
+              "bwd": ("ticket", "loads of g", "pass 1", "publish aggregate and look-back",
+                      "barrier", "publish prefix", "loads of z, zbar", "pass 2", "dP partials",
+                      "counter and store of dz", "dP sum")}
+
+
+def measure_ema_phases(tag: str) -> None:
+    """Where a CTA of the EMA kernels spends its time: a build with
+    -DEMA_PHASE_CLOCKS whose CTAs stamp the global timer at their phase
+    bounds; per direction and bf16 shape the call's span, the spread of the
+    CTAs' starts, and each phase's mean length over the CTAs."""
+    from hnet_mamba_asr_torch.ops import ema_cuda as mod
+    lib = mod.build(("EMA_PHASE_CLOCKS",))
+    lib.hnet_ema_phase_times.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.hnet_ema_phase_times.restype = ctypes.c_int
+    for Bsz, M, D in ((64, 256, 384), (8, 880, 384), (1, 880, 384), (1, 64, 384)):
+        z, p = ema_inputs(Bsz, M, D, torch.bfloat16)
+        g = torch.randn(z.shape, generator=torch.Generator().manual_seed(1)
+                        ).to("cuda", torch.bfloat16)
+        zbar = mod._forward(z, p, 1e-4)
+        n = Bsz * -(-M // 64) * -(-D // 128)
+        for way, run in (("fwd", lambda: mod._forward(z, p, 1e-4)),
+                         ("bwd", lambda: mod._backward(z, p, zbar, g, 1e-4))):
+            for _ in range(4):
+                run()
+            torch.cuda.synchronize()
+            stamps = np.zeros((n, 16), np.uint64)
+            if lib.hnet_ema_phase_times(stamps.ctypes.data, n) != 0:
+                raise RuntimeError("could not read the phase stamps")
+            k = len(EMA_PHASES[way]) + 1
+            t = stamps[:, :k].astype(np.float64) / 1e3                  # us
+            d = np.diff(t, axis=1)
+            print(json.dumps({"version": tag, "way": way, "B": Bsz, "M": M, "D": D,
+                              "ctas": n, "span_us": float(t[:, -1].max() - t[:, 0].min()),
+                              "start_spread_us": float(t[:, 0].max() - t[:, 0].min()),
+                              "cta_us": float((t[:, -1] - t[:, 0]).mean()),
+                              "phases_us": {name: float(d[:, i].mean())
+                                            for i, name in enumerate(EMA_PHASES[way])}}),
+                  flush=True)
 
 
 def measure_ssd_bwd(tag: str) -> None:
@@ -627,8 +698,8 @@ def measure_aed_step(tag: str) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("what", choices=("ssd", "ssd_bwd", "bwd_phases", "ema", "serve", "phases",
-                                     "train", "aed_step"))
+    ap.add_argument("what", choices=("ssd", "ssd_bwd", "bwd_phases", "ema", "ema_phases",
+                                     "serve", "phases", "train", "aed_step"))
     ap.add_argument("--config", choices=("gate", "n2"), default="gate",
                     help="serve / train: the gate config (N = 1) or configs/typeA_small_N2")
     ap.add_argument("--repo", default=str(Path(__file__).resolve().parents[2]))
@@ -654,6 +725,8 @@ def main() -> int:
         measure_phases(tag)
     elif args.what == "ema":
         measure_ema(tag)
+    elif args.what == "ema_phases":
+        measure_ema_phases(tag)
     elif args.what == "aed_step":
         measure_aed_step(tag)
     elif args.what == "train":

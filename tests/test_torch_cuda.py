@@ -266,9 +266,12 @@ def test_training_call_is_differentiable(cuda):
 #   1e-3. In bf16 it also rounds its weights to bf16: 1e-2.
 SEQ_BOUND = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 EMA_BOUND = {torch.float32: 1e-3, torch.bfloat16: 1e-2}
-# (B, M, D): M = 1; a partial tile and a D that is no multiple of 32; two
-# tiles at Type B's stage-2 width; a 35 s utterance's slots at N = 1
-EMA_SHAPES = [(3, 1, 384), (2, 70, 100), (4, 256, 512), (1, 880, 384)]
+# (B, M, D): M = 1; a partial chunk and a D that 16 bytes of bf16 channels do
+# not divide; four chunks at Type B's stage-2 width (four channel tiles); a 35 s
+# utterance's slots at N = 1 (14 chunks); M = one chunk and one chunk + 1
+# (the kernel's chunk is 64 slots); D 1030, nine channel tiles, the last of 6
+EMA_SHAPES = [(3, 1, 384), (2, 70, 100), (4, 256, 512), (1, 880, 384), (2, 64, 384),
+              (2, 65, 384), (2, 70, 1030)]
 
 
 def _ema_inputs(cuda, Bsz, M, D, dtype, seed=0):
@@ -312,27 +315,56 @@ def test_ema_kernel_matches_plain(cuda, dtype, shape):
         assert torch.equal(out, z)
 
 
-def test_ema_backward_is_deterministic(cuda):
-    """The sum over d runs by shuffles and a fixed-order sum of the warps'
-    partials, with no atomics: two calls give bitwise-equal gradients."""
+@pytest.mark.parametrize("shape", [(8, 300, 384)] + EMA_SHAPES[3:])
+def test_ema_backward_is_deterministic(cuda, shape):
+    """The carries fold in chunk order wherever the look-back stops, and dP
+    sums each tile's channels and then the tiles in a fixed order, with no
+    float atomics: two calls give bitwise-equal outputs and gradients."""
     from hnet_mamba_asr_torch.ops.ema_cuda import _backward, _forward
     for dtype in (torch.float32, torch.bfloat16):
-        z, p = _ema_inputs(cuda, 8, 300, 384, dtype, seed=2)
+        z, p = _ema_inputs(cuda, *shape, dtype, seed=2)
         g = torch.randn(z.shape, generator=torch.Generator().manual_seed(3)).to(cuda, dtype)
         zbar = _forward(z, p, 1e-4)
+        assert torch.equal(zbar, _forward(z, p, 1e-4))
         one, two = _backward(z, p, zbar, g, 1e-4), _backward(z, p, zbar, g, 1e-4)
         assert all(torch.equal(a, b) for a, b in zip(one, two))
 
 
 def test_ema_kernel_refuses_what_it_does_not_take(cuda):
+    from hnet_mamba_asr_torch.ops.ema_cuda import _forward
     z, p = _ema_inputs(cuda, 1, 8, 16, torch.float32)
     with pytest.raises(TypeError):
         ema_cuda(z.half(), p)
     with pytest.raises(TypeError):
         ema_cuda(z, p.to(torch.bfloat16))
-    with pytest.raises(ValueError, match="D <= 1024"):
-        ema_cuda(torch.zeros(1, 8, 1025, device=cuda), p)
+    # no channel cap: D 1025 (not a multiple of 16 bytes of channels) is taken
+    wide = torch.randn(1, 8, 1025, generator=torch.Generator().manual_seed(4)).to(cuda)
+    got = ema_cuda(wide, p)
+    want = ema_smooth_sequential(wide, p)
+    assert ((got - want).abs().max() / want.abs().max()).item() <= SEQ_BOUND[torch.float32]
     with pytest.raises(ValueError):
         ema_cuda(z, p[:, :4].contiguous())
+    with pytest.raises(ValueError):
+        ema_cuda(z, p.cpu())
+    with pytest.raises(ValueError):
+        _forward(z[:, :, ::2], p, 1e-4)
     with torch.no_grad():
         assert ema_cuda(z.requires_grad_(), p).grad_fn is None
+
+
+def test_ema_kernels_refuse_cuda_graph_capture(cuda):
+    """Every replay of a captured graph would reuse the epoch of its capture
+    and take the look-back flags of the replay before it for its own: a call
+    under capture raises before it launches, and the kernels work on after."""
+    from hnet_mamba_asr_torch.ops.ema_cuda import _backward, _forward
+    z, p = _ema_inputs(cuda, 2, 200, 384, torch.float32)
+    g = torch.randn(z.shape, generator=torch.Generator().manual_seed(1)).to(cuda)
+    zbar = _forward(z, p, 1e-4)          # built and warmed up outside the capture
+    dz, dp = _backward(z, p, zbar, g, 1e-4)
+    for call in (lambda: _forward(z, p, 1e-4), lambda: _backward(z, p, zbar, g, 1e-4)):
+        with pytest.raises(RuntimeError, match="CUDA graph"):
+            with torch.cuda.graph(torch.cuda.CUDAGraph()):
+                call()
+    torch.cuda.synchronize()
+    assert torch.equal(_forward(z, p, 1e-4), zbar)
+    assert all(torch.equal(a, b) for a, b in zip(_backward(z, p, zbar, g, 1e-4), (dz, dp)))
