@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU: serve, train and decode
-Type A Small at N=1 and with H-Net dynamic chunking at N=2.
+Type A Small at N=1, with H-Net dynamic chunking at N=2, with the RNN-T head
+and with an MoE AED decoder.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
@@ -11,7 +12,8 @@ calls, at the full width of ``configs/typeA_small_N1.yaml`` and
 
 1. build    -- compile the hand-written kernels (SSD forward and backward
                at (P, N) = (64, 128) and, fp32 only, (16, 16); the H-Net
-               EMA) from ``csrc/``, one nvcc per library, started together;
+               EMA; the RNN-T lattice) from ``csrc/``, one nvcc per
+               library, started together;
 2. kernel   -- the forward kernel against its plain PyTorch version
                (``ssd_chunked`` at the kernel's chunk length and
                intra_dtype) at the serving shapes (B 8 and 1, L 248 / 873 /
@@ -38,6 +40,15 @@ calls, at the full width of ``configs/typeA_small_N1.yaml`` and
                (nine channel tiles, element loads): zbar, dz, dP, zero dP
                at saturated slots, two calls bitwise equal; both times and
                the bound;
+   rnnt     -- the RNN-T lattice kernels (forward and backward) against
+               autograd of the plain ``lattice_nll`` at B 32 T 249 U 64
+               (training), B 8 T 380 U 128 (the decode batch), B 1 T 880
+               U 256 (35 s), U 512 and with edge rows (T_b 1, U_b 0,
+               feat_length 0, rows shorter than the batch): the loss
+               against fp32, both gradients against fp64, every frame's
+               and label's alignment mass, zeros outside the lattices,
+               two calls bitwise equal; planted faults of the gradients
+               rejected by the same check; both times, the bound;
 3. model    -- the whole model on the card (kernel path) against the same
                weights and batch on the CPU (plain path), fp32, TF32 off;
    hnet     -- the same at N = 2 (Type A), N = 4 (Type B, n_mid 1) and with
@@ -50,7 +61,8 @@ calls, at the full width of ``configs/typeA_small_N1.yaml`` and
                and 1 EMA launches per call); then the gate config serving
                beam_ids (the device CTC prefix beam) and aed_ids (AED cap
                64): 8 requests in one call, each alone and through the
-               micro-batcher, ids equal;
+               micro-batcher, ids equal; then the RNN-T config serving
+               rnnt_ids and rnnt_beam_ids the same way;
 5. train    -- the gate config (hybrid 0.3 CTC + 0.7 AED, bf16, SpecAugment,
                AED dropout, remat none, accum_grad 2) through ``Trainer``,
                3 updates of 2 micro-batches of 32 x 10 s: finite losses and
@@ -61,13 +73,18 @@ calls, at the full width of ``configs/typeA_small_N1.yaml`` and
                micro-batch of 64 x 10 s, remat full, the damped router
                group): 3 updates, finite, a positive ratio loss, the
                router's rate and eps, 80 + 40 SSD and 1 + 1 EMA launches per
-               micro-step;
+               micro-step; then the RNN-T config (the gate config with
+               rnnt_weight 1.0, 79,703,198 parameters): 3 updates of 2 x 32
+               x 10 s, 40 + 40 SSD and 1 + 1 lattice launches per
+               micro-step, step time and peak memory;
 6. descent  -- 5 updates on one fixed batch of 8 x 10 s at a constant lr of
                1e-3: the loss falls;
 7. grads    -- one fp32 micro-step at full width and depth 1 + 2 + 1 on the
                card and on the CPU: every parameter's gradient agrees
                (1e-3 of its max; the first conv's 1e-2); then at N = 2,
                the boundaries equal first, the router's leaves included;
+               then the RNN-T config (the same bounds), one launch of
+               each lattice kernel;
 8. bench    -- ``bench.py``'s gate-cell step (CTC only, clip 5 + AdamW
                1e-3): mel-frames/s at 32 x 10 s with remat none and at
                64 x 10 s with remat full;
@@ -96,18 +113,38 @@ calls, at the full width of ``configs/typeA_small_N1.yaml`` and
                cell, the SSD launches, the device's idle share per cell; the
                device engine's kernel launches per search step and host
                reads of its active mask; the engines' disagreements and
-               ties; the psi and r-scan shares of a joint step; each
+               ties; the psi and r-scan shares of a joint step; every
                utterance alone == inside the batch in every beam cell of
                both engines, in bf16;
 14. parity  -- depth 1 + 2 + 1, a 2-layer AED and a 2-layer LM, fp32, TF32
                off: decode_step log-probs card vs CPU to 1e-5, the 7 cells'
                transcripts card == CPU for both engines and device ==
                lockstep on both sides, a request alone == inside a batch for
-               ctc_beam_lm and joint_beam on both engines.
+               ctc_beam_lm and joint_beam on both engines;
+15. rnnt    -- the RNN-T config at full width and the full-width LM: the
+               8 utterances of phase 13 through rnnt_greedy, rnnt_beam and
+               rnnt_beam_lm on the device engine and the host's (its
+               rnnt_beam_lm on the 2 shortest): RTF, encoder and search
+               seconds, idle share; the engines' transcripts equal (where
+               they part in bf16, in fp32 but on ties); the shortest
+               request alone == batched in rnnt_beam_lm;
+16. gate    -- after 11, on its corpus: the RNN-T recipe of
+               tests/test_overfit_gate_rnnt.py (rnnt 1.0, ctc 0, d_pred 32,
+               d_joint 64, lr 5e-3, 240 epochs) through the lattice
+               kernels, rnnt_greedy and the gate at 15.0; test-clean
+               through rnnt_beam and rnnt_beam_lm (11's LM) as well, on
+               both engines: transcripts equal (or tied), the 4 shortest
+               utterances alone == batched in both beam cells;
+17. moe     -- MoEFFN (8 experts, top 2) card vs CPU in fp32 with capacity
+               drops; the MoE gate config through Trainer (3 updates,
+               moe/aux and moe/dropped finite); aed_beam at full width and
+               the AED's dropped share; ctc_beam_lm with the MoE LM scored
+               dropless, the 2 shortest requests alone == batched.
 
 The line before the last is a JSON summary of the kernels, with the
-launches of the full-width decode run on the device engine (ssd_fwd) and of
-the N = 2 training run (the others), and every path's counts; the last line is
+launches of the full-width decode run on the device engine (ssd_fwd), of
+the RNN-T training run (rnnt_fwd, rnnt_bwd) and of the N = 2 training run
+(the others), and every path's counts; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
@@ -216,10 +253,11 @@ def log(msg: str) -> None:
 
 
 def phase_build():
-    from hnet_mamba_asr_torch.ops import cuda_build, ema_cuda, ssd_cuda
+    from hnet_mamba_asr_torch.ops import cuda_build, ema_cuda, rnnt_cuda, ssd_cuda
     t0 = time.perf_counter()
     info = ssd_cuda.build()
     ema_cuda.build()
+    rnnt_cuda.build()
     seconds = time.perf_counter() - t0
     for line in info["log"].splitlines():
         if line.endswith(".cu:") or "registers" in line or "spill" in line:
@@ -955,7 +993,9 @@ def phase_grads(cmvn, config=GATE_CONFIG, label="gate") -> float:
     1 + 2 + 1, intra_dtype off, on the card (kernels) and on the CPU (plain
     path): every parameter's gradient agrees (at N > 1 after the
     boundaries, compared first, with the routers drawn at random:
-    ``draw_routers``)."""
+    ``draw_routers``) within PARAM_GRAD_BOUND of its max and
+    PARAM_GRAD_MEAN_BOUND of its mean (the first conv's leaves within
+    CONV1_GRAD_BOUND)."""
     from hnet_mamba_asr_torch.tasks.asr_task import build_model
     from hnet_mamba_asr_torch.training.trainer import DEVICE_KEYS
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -993,7 +1033,8 @@ def phase_grads(cmvn, config=GATE_CONFIG, label="gate") -> float:
         f"{len(gp)} parameter gradients, max|d|/max|g| worst "
         + ", ".join(f"{r[0]:.2e} ({r[2]}, bound {r[3]:g})" for r in rows[:4])
         + f"; mean|d|/mean|g| worst {worst_mean:.2e} (bound {PARAM_GRAD_MEAN_BOUND:g})"
-        + "".join(f"; {r[2]} {r[0]:.2e}" for r in rows if ".router." in r[2]))
+        + "".join(f"; {r[2]} {r[0]:.2e}" for r in rows if ".router." in r[2]
+                  or r[2].startswith("rnnt.")))
     over = [r for r in rows if not r[0] <= r[3]]
     if over or not (worst_mean <= PARAM_GRAD_MEAN_BOUND
                     and abs(loss_k - loss_p) <= 1e-4 * abs(loss_p)):
@@ -1264,12 +1305,13 @@ TONE_LM_TRAIN = {"optim": "adamw", "optim_conf": {"lr": 3e-3, "weight_decay": 0.
                  "valid_interval_epoch": 1000}
 
 
-def phase_tone_matrix(tmp: Path) -> dict:
+def phase_tone_matrix(tmp: Path) -> tuple:
     """The hybrid tone model (ctc 0.3, aed 0.7, GATE_EPOCHS epochs) and a
     narrow LM trained on the training text (~300 updates), then all 7 cells
     on test-clean: each cell's WER and seconds per utterance, a hypothesis
     for every utterance, ctc_greedy through the gate, and every AED and
-    joint cell below its WER at the model's initial weights."""
+    joint cell below its WER at the model's initial weights. Returns the
+    cells' rows and the LM's scorer (phase 16 fuses it)."""
     from hnet_mamba_asr_torch.data.audio import load_manifest
     from hnet_mamba_asr_torch.data.synthetic import overfit_config
     from hnet_mamba_asr_torch.decoders.lm_scorer import CausalLMScorer
@@ -1314,7 +1356,7 @@ def phase_tone_matrix(tmp: Path) -> dict:
     del trainer, lm_trainer, init_model
     torch.cuda.empty_cache()
     log("phase 11 tone matrix: ok")
-    return rows
+    return rows, scorer
 
 
 def phase_n2_stability(tmp: Path) -> dict:
@@ -1706,6 +1748,597 @@ def phase_decode_parity(cmvn, tmp: Path) -> dict:
     return {"step_err": step_err}
 
 
+# ---- the RNN-T family and the MoE FFN ----------------------------------------------
+def phase_rnnt_kernel() -> list:
+    """The RNN-T lattice kernels against the plain version at the training
+    shape (B 32 T 249 U 64), the decode batch's (B 8 T 380 U 128), a 35 s
+    utterance's (B 1 T 880 U 256), U 512 and with edge rows (T_b 1, U_b 0,
+    feat_length 0, rows shorter than the batch), as ``measure.rnnt_check``
+    holds them: the loss against the plain version in fp32, both gradients
+    against it in fp64, the alignment mass of every frame and label, zeros
+    outside each lattice; two calls bitwise equal; at the training shape,
+    planted faults of the backward (``measure.rnnt_faults``) each rejected
+    by that check; the kernels' time, their bound and the plain version's
+    time (``measure.rnnt_timing``)."""
+    import importlib.util
+    from hnet_mamba_asr_torch.ops import rnnt_cuda
+    from hnet_mamba_asr_torch.ops.rnnt_loss import lattice_nll
+    from hnet_mamba_asr_torch.tools.measure import (
+        RNNT_EDGE, RNNT_GRAD_BOUND, RNNT_LOSS_RTOL, RNNT_MASS_BOUND, RNNT_SHAPES, rnnt_check,
+        rnnt_faults, rnnt_inputs, rnnt_timing)
+    rows = []
+    for (Bsz, T, U), lengths in [(s, None) for s in RNNT_SHAPES] + [RNNT_EDGE]:
+        blank, label, fl, tl = rnnt_inputs(Bsz, T, U, seed=SEED, lengths=lengths)
+        g = torch.randn(Bsz, generator=torch.Generator().manual_seed(SEED)).cuda()
+
+        def kernel_grads():
+            b, lab = blank.clone().requires_grad_(), label.clone().requires_grad_()
+            loss = rnnt_cuda.RNNTLattice.apply(b, lab, fl, tl)
+            return (loss.detach(), *torch.autograd.grad(loss, (b, lab), g))
+
+        def plain_grads(dtype):
+            b = blank.to(dtype).clone().requires_grad_()
+            lab = label.to(dtype).clone().requires_grad_()
+            loss = lattice_nll(b, lab, fl, tl)
+            return (loss.detach(), *torch.autograd.grad(loss, (b, lab), g.to(dtype)))
+
+        got, again = kernel_grads(), kernel_grads()
+        ref, ref64 = plain_grads(torch.float32), plain_grads(torch.float64)
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+        c = rnnt_check(got, ref, ref64, fl, tl, g)
+        faults = {}
+        if (Bsz, T, U) == RNNT_SHAPES[0]:
+            faults = {name: rnnt_check((got[0], db, dl), ref, ref64, fl, tl, g)
+                      for name, (db, dl) in rnnt_faults(got[1], got[2], fl, tl).items()}
+        tm = rnnt_timing(blank, label, fl, tl, g)
+        ms, plain, cost = tm["ms"], tm["plain_ms"], tm["cost"]
+        log(f"  rnnt B{Bsz} T{T} U{U}{' edge rows' if lengths else ''}: loss rel "
+            f"{c['loss_rel']:.3e} (bound {RNNT_LOSS_RTOL:g}); grads against fp64 max|d|/max|g| "
+            f"kernel {c['grad_err']:.3e} (bound {RNNT_GRAD_BOUND:g}), plain fp32 "
+            f"{c['plain_err']:.3e}, kernel vs plain fp32 {c['grad_err_fp32']:.3e}; alignment "
+            f"mass {c['mass']:.3e} of |g| (bound {RNNT_MASS_BOUND:g}); zeros outside the "
+            f"lattices {c['zeros']}, bitwise repeat {bitwise}; kernel fwd {ms['fwd']:.4f} ms "
+            f"bwd {ms['bwd']:.4f} ms, plain fwd {plain['fwd']:.3f} ms bwd {plain['bwd']:.3f} "
+            f"ms; bound fwd {cost['fwd']['bound_ms'] * 1e3:.2f} us bwd "
+            f"{cost['bwd']['bound_ms'] * 1e3:.2f} us ({cost['fwd']['bound_by']}), share "
+            f"{tm['share']['fwd']:.2%} / {tm['share']['bwd']:.2%}")
+        for name, f in faults.items():
+            log(f"    planted fault, {name}: grads {f['grad_err']:.3e}, mass {f['mass']:.3e}, "
+                f"zeros {f['zeros']}: {'rejected' if not f['ok'] else 'NOT REJECTED'}")
+        if not (c["ok"] and bitwise) or any(f["ok"] for f in faults.values()):
+            raise AssertionError(f"rnnt kernels at B {Bsz} T {T} U {U}: {c}, bitwise "
+                                 f"{bitwise}, planted faults passed: "
+                                 f"{[n for n, f in faults.items() if f['ok']]}")
+        rows.append(dict(B=Bsz, T=T, U=U, edge=lengths is not None, ms=ms, plain_ms=plain,
+                         cost=cost, check=c,
+                         abs_err={"fwd": (got[0] - ref[0]).abs().max().item(),
+                                  "bwd": max((a.double() - b).abs().max().item()
+                                             for a, b in zip(got[1:], ref64[1:]))}))
+        del blank, label, got, again, ref, ref64
+        torch.cuda.empty_cache()
+    found = importlib.util.find_spec("torchaudio") is not None
+    log(f"  library: torchaudio {'installed' if found else 'not installed'}; no PyTorch "
+        f"call computes the transducer lattice")
+    log("phase 2 rnnt: ok")
+    return rows
+
+
+def phase_rnnt_grads(cmvn) -> dict:
+    """phase_grads for the gate config with the RNN-T head (depth 1 + 2 + 1,
+    fp32): the card's micro-step goes through the lattice kernels, one
+    launch each way."""
+    from hnet_mamba_asr_torch.ops.rnnt_cuda import rnnt_loss_cuda
+    from hnet_mamba_asr_torch.tools.gate import RNNT_CONFIG
+    rnnt_loss_cuda.launches = rnnt_loss_cuda.bwd_launches = 0
+    phase_grads(cmvn, RNNT_CONFIG, "rnnt")
+    launches = {"rnnt_fwd": rnnt_loss_cuda.launches, "rnnt_bwd": rnnt_loss_cuda.bwd_launches}
+    if launches != {"rnnt_fwd": 1, "rnnt_bwd": 1}:
+        raise AssertionError(f"the card's RNN-T micro-step launched {launches}")
+    return launches
+
+
+def phase_train_config(cmvn, tmp: Path, config=None, label="rnnt") -> dict:
+    """The gate config with the RNN-T head (or ``config``: the MoE AED
+    decoder) through Trainer: 3 updates of accum_grad 2 x (32 x 10 s), bf16:
+    finite losses, 40 + 40 SSD launches and (RNN-T) one rnnt_fwd and one
+    rnnt_bwd launch per micro-step; step time and peak memory; with MoE the
+    moe/aux and moe/dropped stats finite."""
+    from hnet_mamba_asr_torch.ops.rnnt_cuda import rnnt_loss_cuda
+    from hnet_mamba_asr_torch.ops.ssd_cuda import ssd_cuda
+    from hnet_mamba_asr_torch.tools.gate import RNNT_CONFIG
+    config = RNNT_CONFIG if config is None else config
+    accum = GATE_TRAIN["accum_grad"]
+    batches = train_batches(np.random.default_rng(SEED + 13), 3 * accum, TRAIN_ROWS)
+    trainer = gate_trainer(config, batches, GATE_TRAIN, cmvn, tmp / f"train_{label}",
+                           max_steps=3)
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    torch.cuda.reset_peak_memory_stats()
+    ssd_cuda.launches = ssd_cuda.bwd_launches = 0
+    rnnt_loss_cuda.launches = rnnt_loss_cuda.bwd_launches = 0
+    trainer.train()
+    torch.cuda.synchronize()
+    launches = {"ssd_fwd": ssd_cuda.launches, "ssd_bwd": ssd_cuda.bwd_launches,
+                "rnnt_fwd": rnnt_loss_cuda.launches, "rnnt_bwd": rnnt_loss_cuda.bwd_launches}
+    peak = torch.cuda.max_memory_allocated()
+    micro = accum * len(trainer.history)
+    moe = "moe/aux" in trainer.history[0]
+    for r in trainer.history:
+        extra = (f", moe aux {r['moe/aux']:.4f} dropped {r['moe/dropped']:.4f}" if moe
+                 else f", rnnt {r['loss/rnnt']:.4f}")
+        log(f"  {label} step {r['step']}: loss {r['loss/total']:.4f} (ctc {r['loss/ctc']:.4f}, "
+            f"aed {r['loss/aed']:.4f}{extra}) grad norm {r['grad_norm']:.6g}; {r['ms']:.1f} ms "
+            f"(CUDA events)")
+        vals = [r["loss/total"], r["grad_norm"]] + ([r["moe/aux"], r["moe/dropped"]] if moe
+                                                   else [r["loss/rnnt"]])
+        if not all(math.isfinite(v) for v in vals):
+            raise AssertionError(f"{label} step {r['step']}: not finite: {r}")
+    timed = trainer.history[1:]
+    step_ms = float(np.mean([r["ms"] for r in timed]))
+    fps = float(np.mean([r["frames"] for r in timed])) / step_ms * 1e3
+    log(f"  {label}: {n_params:,} parameters; {step_ms:.1f} ms per update of {accum} x "
+        f"({TRAIN_ROWS} x 10 s) after one warm-up update, {fps:.0f} mel-frames/s; "
+        f"max_memory_allocated {peak / 1e9:.2f} GB; launches per micro-step "
+        + ", ".join(f"{k} {v / micro:g}" for k, v in launches.items()))
+    want_rnnt = micro if config is RNNT_CONFIG else 0
+    if (len(trainer.history) != 3 or launches["ssd_fwd"] != SSD_CALLS_PER_FORWARD * micro
+            or launches["ssd_bwd"] != SSD_CALLS_PER_FORWARD * micro
+            or launches["rnnt_fwd"] != want_rnnt or launches["rnnt_bwd"] != want_rnnt):
+        raise AssertionError(f"{label}: {len(trainer.history)} updates, launches {launches} "
+                             f"over {micro} micro-steps")
+    if config is RNNT_CONFIG and n_params != 79_703_198:
+        raise AssertionError(f"the RNN-T config has {n_params} parameters")
+    del trainer
+    torch.cuda.empty_cache()
+    log(f"phase 5 train {label}: ok")
+    return {"launches": launches, "step_ms": step_ms, "fps": fps, "peak": peak,
+            "n_params": n_params}
+
+
+def _requests(seed: int, n: int = 8):
+    rng = np.random.default_rng(seed)
+    waves = [synth_audio(rng, float(s)) for s in rng.uniform(2.0, 16.0, size=n)]
+    lens = np.array([len(w) for w in waves])
+    padded = np.zeros((n, lens.max()), np.float32)
+    for i, w in enumerate(waves):
+        padded[i, :len(w)] = w
+    return waves, lens, padded
+
+
+def phase_rnnt_serve(cmvn) -> dict:
+    """The RNN-T config serving rnnt_ids (greedy) and rnnt_beam_ids (the
+    device beam, 10 wide) in bf16: 8 requests of 2-16 s in one call, each
+    alone and through the micro-batcher: ids equal; ms per call."""
+    from hnet_mamba_asr_torch.serving.runtime import ServingModel
+    from hnet_mamba_asr_torch.serving.server import MicroBatcher
+    from hnet_mamba_asr_torch.tools.gate import RNNT_CONFIG
+    model = ServingModel(RNNT_CONFIG, None, "cuda", vocab_size=VOCAB, cmvn=cmvn, seed=SEED,
+                         max_batch=8, max_samples=40 * SR, emit=("rnnt_ids", "rnnt_beam_ids"))
+    waves, lens, padded = _requests(SEED + 4)
+    model(padded[:1, :lens[0]], lens[:1])
+
+    def rows(out):
+        return ([out["rnnt_ids"][i, :out["rnnt_lens"][i]].tolist() for i in range(len(lens))],
+                [out["rnnt_beam_ids"][i, :out["rnnt_beam_lens"][i]].tolist()
+                 for i in range(len(lens))])
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batched = rows(model(padded, lens))
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    alone = [model(w[None], [len(w)]) for w in waves]
+    alone_ms = (time.perf_counter() - t0) * 1e3 / len(waves)
+    greedy_alone = [o["rnnt_ids"][0, :o["rnnt_lens"][0]].tolist() for o in alone]
+    beam_alone = [o["rnnt_beam_ids"][0, :o["rnnt_beam_lens"][0]].tolist() for o in alone]
+    batcher = MicroBatcher(model, max_wait_ms=50.0)
+    try:
+        served = [f.result(timeout=600)["ids"] for f in [batcher.submit(w) for w in waves]]
+        stats = batcher.stats()
+    finally:
+        batcher.close()
+    log(f"  rnnt_ids + rnnt_beam_ids, 8 requests of "
+        f"{sorted(round(len(w) / SR, 2) for w in waves)} s: one call {batch_ms:.1f} ms, alone "
+        f"{alone_ms:.1f} ms a call; greedy alone == batched {greedy_alone == batched[0]}, beam "
+        f"alone == batched {beam_alone == batched[1]}, micro-batcher rows == beam ids "
+        f"{served == batched[1]} ({stats['batches']} batches); greedy lengths "
+        f"{[len(b) for b in batched[0]]}, beam lengths {[len(b) for b in batched[1]]}")
+    differ = {name: [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+              for name, got, want in (("greedy", greedy_alone, batched[0]),
+                                      ("beam", beam_alone, batched[1]),
+                                      ("batcher", served, batched[1]))}
+    if any(differ.values()):
+        raise AssertionError(f"served RNN-T ids differ alone and batched: {differ}")
+    if not all(0 <= t < VOCAB for ids in batched[0] + batched[1] for t in ids):
+        raise AssertionError("served RNN-T ids out of the vocabulary")
+    del model
+    torch.cuda.empty_cache()
+    log("phase 4 serve rnnt_ids / rnnt_beam_ids: ok")
+    return {"batch_ms": batch_ms, "alone_ms": alone_ms}
+
+
+# the full-width RNN-T decode run: the config's search settings over the
+# transducer's cells, the engines of ENGINES (the host's transducer engine
+# is "serial": one utterance at a time)
+RNNT_DECODE = {"read_outs": ["rnnt"], "search": ["greedy", "beam"], "beam_size": 10,
+               "lm": "enabled", "lm_weight": 0.3, "rescore_weight": 0.6,
+               "rescore_length_bonus": 2.0}
+# what the run spends on the slowest searches, to stay within its time
+# limit: the host's rnnt_beam_lm, one utterance at a time in Python, decodes
+# the RNNT_HOST_LM_UTTS shortest of the 8 (the device engine all 8), and the
+# device engine's rnnt_beam_lm decodes the RNNT_ALONE shortest alone
+RNNT_HOST_LM_UTTS = 2
+RNNT_ALONE = 1
+
+
+def phase_rnnt_decode_full(cmvn, tmp: Path) -> dict:
+    """The RNN-T config at full width (seeded, bf16) and the full-width LM
+    (seeded, fp32): phase 13's 8 utterances through rnnt_greedy, rnnt_beam
+    and rnnt_beam_lm with the shared encoder on the device engine and the
+    host's (its rnnt_beam_lm over the RNNT_HOST_LM_UTTS shortest): per cell
+    and engine the RTF, encoder and search seconds, and on the device engine
+    the device's idle share (the cell alone on the first STEP_PROBE frames
+    of the shortest utterance under torch.profiler); the engines'
+    disagreements in bf16 and their scores; where they part, those
+    utterances again with the same weights in fp32, where the two engines
+    give the same transcripts (a disagreement only where the best scores
+    tie within TIE_SHARE); the RNNT_ALONE shortest utterances alone ==
+    batched in rnnt_beam_lm on the device engine (the served modes hold all
+    8 alone == batched, phase 4)."""
+    from hnet_mamba_asr_torch.data.dataset import ItemLoader, collate_batch
+    from hnet_mamba_asr_torch.decoders.lm_scorer import CausalLMScorer
+    from hnet_mamba_asr_torch.ops.ssd_cuda import ssd_cuda
+    from hnet_mamba_asr_torch.tasks import decode_task
+    from hnet_mamba_asr_torch.tasks.asr_task import build_model
+    from hnet_mamba_asr_torch.tasks.lm_task import build_lm
+    from hnet_mamba_asr_torch.tools.gate import LM_CONFIG, RNNT_CONFIG, seeded_tokenizer
+    model = build_model(RNNT_CONFIG, VOCAB, cmvn=cmvn, seed=SEED)
+    lm = build_lm(LM_CONFIG, VOCAB, seed=SEED)
+    tok = seeded_tokenizer(tmp / "tok500_rnnt.model")
+    scorer = CausalLMScorer(lm.lm, bos_id=tok.bos_id, eos_id=tok.eos_id, pad_id=tok.pad_id)
+    items = decode_batch_items(np.random.default_rng(SEED + 50), DECODE_UTTS)
+    audio_s = {it["id"]: it["n_samples"] / SR for it in items}
+    by_length = sorted(items, key=lambda it: it["n_samples"])
+    short_batch = next(iter(ItemLoader(by_length[:1], 10 ** 7, shuffle=False)))
+    runs = {}
+    for engine, change in ENGINES:
+        dc = dict(RNNT_DECODE, **change)
+        cells = decode_task.expand_cells(dc)
+        # (cells, utterances) of each decode run of this engine
+        plan = [(cells, items)]
+        if engine == "lockstep":
+            plan = [([c for c in cells if c["name"] != "rnnt_beam_lm"], items),
+                    ([c for c in cells if c["name"] == "rnnt_beam_lm"],
+                     by_length[:RNNT_HOST_LM_UTTS])]
+        torch.cuda.synchronize()
+        ssd_cuda.launches = 0
+        t0 = time.perf_counter()
+        summaries = [s for run_cells, run_items in plan
+                     for s in decode_task.decode_split_shared(
+                         model, tok, ItemLoader(run_items, 10 ** 7, shuffle=False), run_cells,
+                         dc, audio_seconds={it["id"]: audio_s[it["id"]] for it in run_items},
+                         out_dir=tmp / f"rnnt_{engine}", split="synthetic", lm=scorer)]
+        wall = time.perf_counter() - t0
+        launches = ssd_cuda.launches
+        records = {c["name"]: {r["id"]: r for r in map(json.loads, (
+            tmp / f"rnnt_{engine}" / c["name"] / "synthetic.jsonl").read_text().splitlines())}
+            for c in cells}
+        rows = {c["name"]: dict(idle_short=None, utts=len(run_items))
+                for run_cells, run_items in plan for c in run_cells}
+        t1 = time.perf_counter()
+        enc, _ = decode_task.encode_batch(model, short_batch)
+        # the profiler's cost grows with the launches it records: the
+        # searches' first STEP_PROBE frames
+        enc = enc._replace(features=enc.features[:, :STEP_PROBE],
+                           lengths=enc.lengths.clamp(max=STEP_PROBE))
+        for cell in cells if engine == "device" else ():
+            idle, _, _ = profile_cell(lambda: decode_task.decode_batch(
+                model, tok, short_batch, cell, dc, lm=scorer, enc=enc, enc_s=0.0))
+            rows[cell["name"]]["idle_short"] = idle
+        log(f"  {engine}: decode run {wall:.1f} s, profiled cells "
+            f"{time.perf_counter() - t1:.1f} s")
+        for s in summaries:
+            rows[s["cell"]].update(rtf=s["rtf"], encoder_s=s["encoder_s"],
+                                   search_s=s["search_s"], engine=s["engine"], n=s["n_utts"])
+        runs[engine] = dict(cells=rows, records=records, wall=wall, launches=launches,
+                            forwards=2 * len(plan))
+    agree = {name: sorted(u for u, h in runs["lockstep"]["records"][name].items()
+                          if h["hyp"] != runs["device"]["records"][name][u]["hyp"])
+             for name in runs["device"]["records"]}
+    # where the engines part in bf16: the same weights in fp32, where they
+    # agree but on ties (float32 scores against float64)
+    fp32 = {}
+    if any(agree.values()):
+        cfg32 = copy.deepcopy(RNNT_CONFIG)
+        cfg32["train"]["precision"] = "fp32"
+        cfg32["encoder_conf"]["ssd_intra_dtype"] = None
+        model32 = build_model(cfg32, VOCAB, cmvn=cmvn, seed=SEED)
+        for cell in decode_task.expand_cells(RNNT_DECODE):
+            uids = agree[cell["name"]]
+            if not uids:
+                continue
+            batch = next(iter(ItemLoader([it for it in items if it["id"] in uids], 10 ** 7,
+                                         shuffle=False)))
+            enc32, _ = decode_task.encode_batch(model32, batch)
+            got = {e: decode_task.decode_batch(model32, tok, batch, cell,
+                                               dict(RNNT_DECODE, **ch), lm=scorer, enc=enc32,
+                                               enc_s=0.0) for e, ch in ENGINES}
+            diff, ties = 0, 0
+            for d, h in zip(got["device"], got["lockstep"]):
+                if d["hyp"] == h["hyp"]:
+                    continue
+                diff += 1
+                a, b = d["score"], h["score"]
+                ties += (a is not None and b is not None
+                         and abs(a - b) <= TIE_SHARE * max(abs(a), abs(b)))
+            fp32[cell["name"]] = {"differ": diff, "ties": ties}
+        del model32
+    dc = dict(RNNT_DECODE)
+    lm_cell = next(c for c in decode_task.expand_cells(dc) if c["name"] == "rnnt_beam_lm")
+    t1 = time.perf_counter()
+    alone = {it["id"]: decode_task.decode_batch(model, tok, collate_batch(
+        [it], pad_id=3, seed=0, epoch=0), lm_cell, dc, lm=scorer)[0]["hyp"]
+        for it in by_length[:RNNT_ALONE]}
+    alone_s = time.perf_counter() - t1
+    alone_ok = all(h == runs["device"]["records"]["rnnt_beam_lm"][u]["hyp"]
+                   for u, h in alone.items())
+    for name in runs["device"]["cells"]:
+        for engine, _ in ENGINES:
+            c = runs[engine]["cells"][name]
+            idle = ("not measured" if c["idle_short"] is None
+                    else f"{c['idle_short']:.2%} (the shortest alone, {STEP_PROBE} frames)")
+            audio = sum(sorted(audio_s.values())[:c["utts"]])
+            log(f"  {name:<13} {c['engine']:<7} RTF {c['rtf']:.5f}: encoder "
+                f"{c['encoder_s']:.4f} s, search {c['search_s']:.4f} s over {c['utts']} "
+                f"utterances ({audio:.2f} s of audio); device idle {idle}")
+        log(f"  {name:<13} engines differ in bf16 on {len(agree[name])}/"
+            f"{len(runs['lockstep']['records'][name])}"
+            + (f"; in fp32 on {fp32[name]['differ']} of those, {fp32[name]['ties']} of them "
+               f"ties" if name in fp32 else ""))
+    log(f"  rnnt_beam_lm device engine: the {RNNT_ALONE} shortest requests alone == inside "
+        f"the batch {alone_ok} ({alone_s:.1f} s); decode runs "
+        f"{[round(r['wall'], 1) for r in runs.values()]} s; hypothesis lengths (device) "
+        + ", ".join(f"{n} {[len(r['hyp'].split()) for r in recs.values()]}"
+                    for n, recs in runs["device"]["records"].items()))
+    bad = [n for n, f in fp32.items() if f["differ"] != f["ties"]]
+    missing = [(e, n) for e, r in runs.items() for n, c in r["cells"].items()
+               if c["n"] != c["utts"]]
+    if bad or missing or not alone_ok:
+        raise AssertionError(f"RNN-T decode: fp32 engines differ beyond ties in {bad}, cells "
+                             f"without every utterance {missing}, alone == batched {alone_ok}")
+    if any(r["launches"] != r["forwards"] * SSD_CALLS_PER_FORWARD for r in runs.values()):
+        raise AssertionError(f"RNN-T decode ssd launches {[r['launches'] for r in runs.values()]}")
+    del model, lm, scorer, enc
+    torch.cuda.empty_cache()
+    log("phase 15 rnnt decode full width: ok")
+    return {"engines": {e: r["cells"] for e, r in runs.items()},
+            "bf16_differ": {k: len(v) for k, v in agree.items()}, "fp32": fp32}
+
+
+# the RNN-T tone gate (tests/test_overfit_gate_rnnt.py's recipe): JAX trains
+# 240 epochs from its own draw; see RNNT_GATE_EPOCHS
+RNNT_GATE_EPOCHS = 240
+RNNT_GATE_WER = 15.0            # tests/test_overfit_gate_rnnt.py's bar
+# the trained transducer's three cells (the gate config's search settings;
+# the LM is phase 11's narrow tone LM) and the test-clean utterances, the
+# shortest first, decoded alone in each beam cell on the device engine
+RNNT_TONE_DECODE = dict(RNNT_DECODE, batch_bins=8000)
+RNNT_TONE_ALONE = 4
+
+
+def rnnt_tone_decode(model, tok, root: Path, lm, out: Path) -> dict:
+    """test-clean through rnnt_greedy, rnnt_beam and rnnt_beam_lm (fp32
+    model, fused ``lm``) on the device engine and the host's: each cell's
+    scores, the engines' disagreements (ties: best scores within
+    TIE_SHARE), and the RNNT_TONE_ALONE shortest utterances alone against
+    their device-engine transcripts in the batch, in both beam cells."""
+    from hnet_mamba_asr_torch.data.dataset import ItemLoader, collate_batch, manifest_items
+    from hnet_mamba_asr_torch.eval.score import score_decode_dir
+    from hnet_mamba_asr_torch.tasks import decode_task
+    manifest = root / "manifests" / "test-clean.jsonl"
+    items = manifest_items(manifest, tok)
+    records, scores = {}, {}
+    for engine, change in ENGINES:
+        dc = dict(RNNT_TONE_DECODE, **change)
+        cells = decode_task.expand_cells(dc)
+        decode_task.decode_split_shared(
+            model, tok, ItemLoader(items, dc["batch_bins"], shuffle=False), cells, dc,
+            out_dir=out / engine, split="test-clean", lm=lm,
+            audio_seconds=decode_task.audio_seconds_from_manifest(manifest))
+        scores[engine] = score_decode_dir(out / engine, n_bootstrap=50,
+                                          goal_cfg={"sane_test_clean_wer_below": RNNT_GATE_WER},
+                                          gate_cell="rnnt_greedy")
+        records[engine] = {c["name"]: {r["id"]: r for r in map(json.loads, (
+            out / engine / c["name"] / "test-clean.jsonl").read_text().splitlines())}
+            for c in cells}
+    agree = {}
+    for name, dev in records["device"].items():
+        host = records["lockstep"][name]
+        differ = [u for u in dev if dev[u]["hyp"] != host[u]["hyp"]]
+        ties = [u for u in differ if dev[u]["score"] is not None
+                and host[u]["score"] is not None
+                and abs(dev[u]["score"] - host[u]["score"])
+                <= TIE_SHARE * max(abs(dev[u]["score"]), abs(host[u]["score"]))]
+        agree[name] = {"n": len(dev), "differ": len(differ), "ties": len(ties)}
+    dc = dict(RNNT_TONE_DECODE)
+    beam_cells = [c for c in decode_task.expand_cells(dc) if c["search"] == "beam"]
+    shortest = sorted(items, key=lambda it: it["n_samples"])[:RNNT_TONE_ALONE]
+    alone = [(c["name"], it["id"], decode_task.decode_batch(
+        model, tok, collate_batch([it], pad_id=tok.pad_id, seed=0, epoch=0), c, dc,
+        lm=lm)[0]["hyp"]) for it in shortest for c in beam_cells]
+    alone_differ = [(n, u) for n, u, h in alone if h != records["device"][n][u]["hyp"]]
+    lengths = {n: float(np.mean([len(r["hyp"].split()) for r in recs.values()]))
+               for n, recs in records["device"].items()}
+    return {"scores": scores, "agree": agree, "alone": len(alone),
+            "alone_differ": alone_differ, "mean_words": lengths}
+
+
+def phase_rnnt_gate(tmp: Path, lm) -> dict:
+    """The RNN-T gate proof on the tone corpus (phase 10's): overfit_config
+    with ctc 0, rnnt 1.0, d_pred 32, d_joint 64, lr 5e-3 for
+    RNNT_GATE_EPOCHS epochs through Trainer, the lattice kernels' gradients
+    (one launch each way per update), then test-clean through decode_task's
+    rnnt_greedy, rnnt_beam and rnnt_beam_lm (phase 11's tone LM) on both
+    engines (``rnnt_tone_decode``) and the port's score gate: the dev WER
+    collapses below RNNT_GATE_WER and below its first value, test-clean's
+    rnnt_greedy WER is below RNNT_GATE_WER on 24 utterances, the engines
+    give the same transcripts in every cell (or tie), and the beam cells
+    decode the RNNT_TONE_ALONE shortest utterances alone as in the batch."""
+    from hnet_mamba_asr_torch.data.synthetic import overfit_config
+    from hnet_mamba_asr_torch.ops.rnnt_cuda import rnnt_loss_cuda
+    from hnet_mamba_asr_torch.ops.ssd_cuda import ssd_cuda
+    root = tmp / "gate"
+    tok, cmvn = tone_load(root)
+    cfg = overfit_config(root, max_epoch=RNNT_GATE_EPOCHS, lr=5.0e-3, valid_interval=40,
+                         ctc_weight=0.0)
+    cfg["model_conf"]["rnnt_weight"] = 1.0
+    cfg["rnnt_conf"] = {"d_pred": 32, "d_joint": 64}
+    ssd_cuda.launches = ssd_cuda.bwd_launches = 0
+    rnnt_loss_cuda.launches = rnnt_loss_cuda.bwd_launches = 0
+    t0 = time.perf_counter()
+    trainer = tone_train(cfg, tok, cmvn, root, "rnnt")
+    train_s = time.perf_counter() - t0
+    launches = {"ssd_fwd": ssd_cuda.launches, "ssd_bwd": ssd_cuda.bwd_launches,
+                "rnnt_fwd": rnnt_loss_cuda.launches, "rnnt_bwd": rnnt_loss_cuda.bwd_launches}
+    wers = list(trainer.metric_history[("valid", "wer")].values())
+    losses = [r["loss/total"] for r in trainer.history]
+    log(f"  rnnt gate: {len(trainer.history)} updates in {train_s:.1f} s, loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, dev WER every 40 epochs "
+        f"{[round(w, 2) for w in wers]}; launches {launches}")
+    if not (wers and wers[-1] < RNNT_GATE_WER and wers[-1] < wers[0]
+            and all(math.isfinite(v) for v in losses)):
+        raise AssertionError(f"the RNN-T gate model did not learn: dev WER {wers}")
+    if launches["rnnt_fwd"] < len(trainer.history) or launches["rnnt_bwd"] != len(
+            trainer.history):
+        raise AssertionError(f"the RNN-T training did not run the lattice kernels: {launches}")
+    t0 = time.perf_counter()
+    res = rnnt_tone_decode(trainer.model, tok, root, lm, root / "decode_rnnt")
+    gate = res["scores"]["device"]["gate"]
+    cells = {e: sc["splits"]["test-clean"]["cells"] for e, sc in res["scores"].items()}
+    for name, a in res["agree"].items():
+        log(f"  {name:<13} test-clean WER device {cells['device'][name]['wer']:.3f}, host "
+            f"{cells['lockstep'][name]['wer']:.3f}, {res['mean_words'][name]:.1f} words an "
+            f"utterance; engines differ on {a['differ']}/{a['n']}, {a['ties']} of them ties")
+    log(f"  rnnt_greedy gate {gate}; beam cells alone == inside the batch on "
+        f"{res['alone'] - len(res['alone_differ'])}/{res['alone']} ({RNNT_TONE_ALONE} "
+        f"shortest utterances x 2 cells); decodes {time.perf_counter() - t0:.1f} s")
+    n = cells["device"]["rnnt_greedy"]["n_utts"]
+    apart = [k for k, a in res["agree"].items() if a["differ"] != a["ties"] or a["n"] != n]
+    if not (n == 24 and cells["device"]["rnnt_greedy"]["wer"] < RNNT_GATE_WER
+            and gate.get("passed")):
+        raise AssertionError(f"the RNN-T gate failed: {cells['device']['rnnt_greedy']}, {gate}")
+    if apart or res["alone_differ"]:
+        raise AssertionError(f"RNN-T tone decode: engines apart beyond ties in {apart}, "
+                             f"alone != batched {res['alone_differ']}")
+    del trainer
+    torch.cuda.empty_cache()
+    log("phase 16 rnnt gate proof: ok")
+    return {"dev_wer": wers, "wer": cells["device"]["rnnt_greedy"]["wer"],
+            "launches": launches, "train_s": train_s, "updates": len(losses),
+            "agree": res["agree"]}
+
+
+# MoEFFN card vs CPU in fp32 (TF32 off): the routing equal, then the output
+# and aux to 1e-5 and every gradient to 1e-4 of its max (summation order)
+MOE_BOUND = 1e-5
+MOE_GRAD_BOUND = 1e-4
+# the capacity factor of that check: random tokens spread over the experts
+# evenly enough that 1.25 drops none; at 0.5 each expert owns 100 slots of
+# its ~200 choices and drops are present
+MOE_FFN_CAPACITY = 0.5
+MOE_ALONE = 2                   # ctc_beam_lm requests with the MoE LM decoded alone
+
+
+def phase_moe(cmvn, tmp: Path) -> dict:
+    """The MoE FFN and models: MoEFFN (d 384, d_ff 2048, 8 experts, top 2,
+    capacity MOE_FFN_CAPACITY) card vs CPU in fp32 on 4 x 200 tokens with a
+    token mask, capacity drops present; the MoE gate config through Trainer (3
+    updates); aed_beam at full width on the MoE model (AED cap DECODE_CAP),
+    and the dropped share of its teacher-forced decoder on the batch's
+    references; ctc_beam_lm at full width with the MoE fusion LM scored
+    dropless, the MOE_ALONE shortest requests alone == inside the batch."""
+    from hnet_mamba_asr_torch.data.dataset import ItemLoader, collate_batch
+    from hnet_mamba_asr_torch.decoders.lm_scorer import CausalLMScorer
+    from hnet_mamba_asr_torch.models.moe import MoEFFN
+    from hnet_mamba_asr_torch.tasks import decode_task
+    from hnet_mamba_asr_torch.tasks.asr_task import build_model
+    from hnet_mamba_asr_torch.tasks.lm_task import build_lm
+    from hnet_mamba_asr_torch.tools.gate import (
+        GATE_DECODE, LM_MOE_CONFIG, MOE, MOE_CONFIG, seeded_tokenizer)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(SEED)
+    x = torch.randn(4, 200, 384, generator=gen)
+    mask = torch.ones(4, 200, dtype=torch.bool)
+    mask[3, 120:] = False
+    g = torch.randn(x.shape, generator=gen)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        m = MoEFFN(384, 2048, MOE["n_experts"], MOE["top_k"], MOE_FFN_CAPACITY,
+                   generator=torch.Generator().manual_seed(SEED)).to(dev)
+        xd = x.to(dev).requires_grad_()
+        y, aux, dropped = m(xd, mask.to(dev))
+        grads = torch.autograd.grad((y * g.to(dev)).sum() + aux, [xd] + list(m.parameters()))
+        out[dev] = (y.detach().cpu(), aux.item(), dropped.item(), [t.cpu() for t in grads])
+    (yk, auxk, dk, gk), (yp, auxp, dp, gp) = out["cuda"], out["cpu"]
+    y_err = ((yk - yp).abs().max() / yp.abs().max()).item()
+    g_err = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(gk, gp))
+    log(f"  MoEFFN fp32 card vs CPU, 4 x 200 tokens (120 of the last masked): dropped "
+        f"{dk:.4f} (CPU {dp:.4f}), aux {auxk:.6f} (CPU {auxp:.6f}), y max|d|/max|y| "
+        f"{y_err:.3e} (bound {MOE_BOUND:g}), gradients worst {g_err:.3e} (bound "
+        f"{MOE_GRAD_BOUND:g})")
+    if not (dk == dp and dk > 0 and y_err <= MOE_BOUND and g_err <= MOE_GRAD_BOUND
+            and abs(auxk - auxp) <= MOE_BOUND * abs(auxp)):
+        raise AssertionError("MoEFFN card and CPU disagree")
+    train = phase_train_config(cmvn, tmp, MOE_CONFIG, "moe")
+
+    # aed_beam at full width on the MoE model, and the MoE LM scoring dropless
+    cfg = copy.deepcopy(MOE_CONFIG)
+    cfg["aed_conf"]["max_decode_len"] = DECODE_CAP
+    model = build_model(cfg, VOCAB, cmvn=cmvn, seed=SEED)
+    lm = build_lm(decode_task.dropless(LM_MOE_CONFIG), VOCAB, seed=SEED)
+    tok = seeded_tokenizer(tmp / "tok500_moe.model")
+    scorer = CausalLMScorer(lm.lm, bos_id=tok.bos_id, eos_id=tok.eos_id, pad_id=tok.pad_id)
+    items = decode_batch_items(np.random.default_rng(SEED + 50), DECODE_UTTS)
+    audio_s = {it["id"]: it["n_samples"] / SR for it in items}
+    dc = dict(GATE_DECODE, read_outs=["ctc", "aed"])
+    cells = [c for c in decode_task.expand_cells(dc) if c["name"] in ("aed_beam", "ctc_beam_lm")]
+    summaries = decode_task.decode_split_shared(
+        model, tok, ItemLoader(items, 10 ** 7, shuffle=False), cells, dc,
+        audio_seconds=audio_s, out_dir=tmp / "moe_decode", split="synthetic", lm=scorer)
+    recs = {c["name"]: {r["id"]: r["hyp"] for r in map(json.loads, (
+        tmp / "moe_decode" / c["name"] / "synthetic.jsonl").read_text().splitlines())}
+        for c in cells}
+    lm_cell = next(c for c in cells if c["name"] == "ctc_beam_lm")
+    alone_ok = all(decode_task.decode_batch(model, tok, collate_batch([it], pad_id=3, seed=0,
+                                                                      epoch=0), lm_cell, dc,
+                                            lm=scorer)[0]["hyp"] == recs["ctc_beam_lm"][it["id"]]
+                   for it in sorted(items, key=lambda it: it["n_samples"])[:MOE_ALONE])
+    batch = next(iter(ItemLoader(items, 10 ** 7, shuffle=False)))
+    enc, _ = decode_task.encode_batch(model, batch)
+    with torch.inference_mode():
+        toks = torch.as_tensor(batch["tokens"]).cuda()
+        ys_in, _, _ = model.aed.add_sos_eos(toks, torch.as_tensor(batch["token_lens"]).cuda())
+        stats = []
+        model.aed(enc.features, enc.lengths, ys_in, moe_stats=stats)
+        aed_dropped = float(sum(d for _, d in stats) / len(stats))
+    for s in summaries:
+        log(f"  MoE {s['cell']:<12} RTF {s['rtf']:.5f}: encoder {s['encoder_s']:.4f} s, search "
+            f"{s['search_s']:.4f} s over {s['n_utts']} utterances, engine {s['engine']}")
+    log(f"  MoE AED teacher-forced on the references: dropped share {aed_dropped:.4f} "
+        f"(capacity 1.25: a request alone and in a batch route differently by design, not "
+        f"compared); MoE LM dropless (capacity factor "
+        f"{lm.lm.blocks[0].moe.capacity_factor:g}): ctc_beam_lm {MOE_ALONE} requests alone == "
+        f"inside the batch {alone_ok}; LM parameters {sum(p.numel() for p in lm.parameters()):,}")
+    if not alone_ok or any(s["n_utts"] != DECODE_UTTS for s in summaries):
+        raise AssertionError("MoE decode: a cell lacks records, or the dropless LM's "
+                             "ctc_beam_lm differs alone and batched")
+    del model, lm, scorer, enc
+    torch.cuda.empty_cache()
+    log("phase 17 moe: ok")
+    return {"train": train, "aed_dropped": aed_dropped, "ffn_dropped": dk,
+            "rtf": {s["cell"]: s["rtf"] for s in summaries}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1717,29 +2350,43 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
         f"device {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     t_start = time.perf_counter()
-    phase_build()
-    fwd_rows = phase_kernel()
-    bwd_rows = phase_backward()
-    ema_rows = phase_ema()
+
+    def run(fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        log(f"  ({fn.__name__}: {time.perf_counter() - t0:.1f} s)")
+        return out
+
+    run(phase_build)
+    fwd_rows = run(phase_kernel)
+    bwd_rows = run(phase_backward)
+    ema_rows = run(phase_ema)
+    rnnt_rows = run(phase_rnnt_kernel)
     cmvn = make_cmvn("cuda")
-    phase_model(cmvn)
-    phase_hnet_model(cmvn)
-    phase_serve(cmvn)
-    phase_serve(cmvn, N2_CONFIG, "n2", ema_per_call=1)
-    modes = phase_serve_modes(cmvn)
+    run(phase_model, cmvn)
+    run(phase_hnet_model, cmvn)
+    run(phase_serve, cmvn)
+    run(phase_serve, cmvn, N2_CONFIG, "n2", ema_per_call=1)
+    modes = run(phase_serve_modes, cmvn)
+    rnnt_serve = run(phase_rnnt_serve, cmvn)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        train = phase_train(cmvn, Path(tmp))
-        train_n2 = phase_train_n2(cmvn, Path(tmp))
-        phase_descent(cmvn, Path(tmp))
-        phase_grads(cmvn)
-        phase_grads(cmvn, N2_CONFIG, "n2")
-        bench = phase_bench(Path(tmp))
-        intra = phase_intra_blocks(cmvn)
-        gate = phase_gate_proof(Path(tmp))
-        matrix = phase_tone_matrix(Path(tmp))
-        n2 = phase_n2_stability(Path(tmp))
-        full = phase_decode_full(cmvn, Path(tmp))
-        phase_decode_parity(cmvn, Path(tmp))
+        train = run(phase_train, cmvn, Path(tmp))
+        train_n2 = run(phase_train_n2, cmvn, Path(tmp))
+        train_rnnt = run(phase_train_config, cmvn, Path(tmp))
+        run(phase_descent, cmvn, Path(tmp))
+        run(phase_grads, cmvn)
+        run(phase_grads, cmvn, N2_CONFIG, "n2")
+        rnnt_grads = run(phase_rnnt_grads, cmvn)
+        bench = run(phase_bench, Path(tmp))
+        intra = run(phase_intra_blocks, cmvn)
+        gate = run(phase_gate_proof, Path(tmp))
+        matrix, tone_lm = run(phase_tone_matrix, Path(tmp))
+        rnnt_gate = run(phase_rnnt_gate, Path(tmp), tone_lm)
+        n2 = run(phase_n2_stability, Path(tmp))
+        full = run(phase_decode_full, cmvn, Path(tmp))
+        rnnt_full = run(phase_rnnt_decode_full, cmvn, Path(tmp))
+        moe = run(phase_moe, cmvn, Path(tmp))
+        run(phase_decode_parity, cmvn, Path(tmp))
     log(f"training summary: gate config {train['step_ms']:.1f} ms per update of 2 x 32 x 10 s, "
         f"{train['fps']:.0f} mel-frames/s, peak {train['peak'] / 1e9:.2f} GB; N=2 config "
         f"{train_n2['step_ms']:.1f} ms per update of 64 x 10 s, {train_n2['fps']:.0f} "
@@ -1762,31 +2409,53 @@ def main() -> int:
         f"({sum(a['ties'] for a in full['agree'].values())} ties); served beam_ids + aed_ids "
         f"{modes['batch_ms']:.1f} ms for 8 requests; {time.perf_counter() - t_start:.1f} s "
         f"in all")
+    log(f"rnnt and moe summary: RNN-T config ({train_rnnt['n_params']:,} parameters) "
+        f"{train_rnnt['step_ms']:.1f} ms per update of 2 x 32 x 10 s, {train_rnnt['fps']:.0f} "
+        f"mel-frames/s, peak {train_rnnt['peak'] / 1e9:.2f} GB; MoE config "
+        f"({moe['train']['n_params']:,}) {moe['train']['step_ms']:.1f} ms, peak "
+        f"{moe['train']['peak'] / 1e9:.2f} GB; served rnnt_ids + rnnt_beam_ids "
+        f"{rnnt_serve['batch_ms']:.1f} ms for 8 requests; RNN-T RTF device / serial "
+        + ", ".join(f"{k} {v['rtf']:.4f} / {rnnt_full['engines']['lockstep'][k]['rtf']:.4f}"
+                    for k, v in rnnt_full["engines"]["device"].items())
+        + f"; RNN-T tone gate dev WER {rnnt_gate['dev_wer']}, test-clean "
+        f"{rnnt_gate['wer']:.3f}; MoE AED dropped {moe['aed_dropped']:.4f}, RTF "
+        + ", ".join(f"{k} {v:.4f}" for k, v in moe["rtf"].items()))
     main_shape = ("bfloat16", TRAIN_ROWS, 249, 16)
     fwd = next(r for r in fwd_rows if (r["dtype"], r["B"], r["L"], r["H"]) == main_shape)
     bwd = next(r for r in bwd_rows if (r["dtype"], r["B"], r["L"], r["H"]) == main_shape
                and r["intra"] == "bf16")
     ema = next(r for r in ema_rows if (r["dtype"], r["B"], r["M"], r["D"], r["saturate"])
                == ("bfloat16", 64, 256, 384, False))
+    rnnt = next(r for r in rnnt_rows if (r["B"], r["T"], r["U"]) == (TRAIN_ROWS, 249, 64))
     log(f"kernel summary: ssd_fwd / ssd_bwd at bf16 (intra bf16) B{TRAIN_ROWS} L249 H16 P64 "
         f"N128 (a micro-batch of 32 x 10 s, main stack); ema_fwd / ema_bwd at bf16 B64 M256 "
-        f"D384 (the dechunk of 64 x 10 s); launches: ssd_fwd from the full-width decode run "
-        f"of the device engine (this slice's main path: one warm-up and one shared encoder "
-        f"pass; its searches launch no hand kernel), the others from "
-        f"the N=2 training run (3 micro-steps of 64 x 10 s, remat full), every path's in "
-        f"launches_by_path; no single PyTorch call computes the scan, the EMA or their "
-        f"gradients")
+        f"D384 (the dechunk of 64 x 10 s); rnnt_fwd / rnnt_bwd at fp32 B{TRAIN_ROWS} T249 "
+        f"U64 (a micro-batch of 32 x 10 s); launches: ssd_fwd from the full-width decode run "
+        f"of the device engine (one warm-up and one shared encoder pass; its searches launch "
+        f"no hand kernel), rnnt_fwd / rnnt_bwd from the RNN-T training run (this slice's main "
+        f"path: 3 updates of 2 micro-steps), the others from the N=2 training run (3 "
+        f"micro-steps of 64 x 10 s, remat full), every path's in launches_by_path; no single "
+        f"PyTorch call computes the scan, the EMA, the transducer lattice or their gradients "
+        f"(torchaudio is not installed)")
     by_path = {"decode_device_engine": {"ssd_fwd": full["engines"]["device"]["launches"]},
                "decode_lockstep": {"ssd_fwd": full["engines"]["lockstep"]["launches"]},
                "train_n2": train_n2["launches"],
                "gate_proof_tone_n1": gate["launches"],
-               "train_gate": {"ssd_fwd": train["ssd_fwd"], "ssd_bwd": train["ssd_bwd"]}}
-    launches = dict(train_n2["launches"], ssd_fwd=full["engines"]["device"]["launches"])
+               "train_gate": {"ssd_fwd": train["ssd_fwd"], "ssd_bwd": train["ssd_bwd"]},
+               "train_rnnt": train_rnnt["launches"], "grads_rnnt": rnnt_grads,
+               "gate_proof_rnnt_tone": rnnt_gate["launches"],
+               "train_moe": moe["train"]["launches"]}
+    launches = dict(train_n2["launches"], ssd_fwd=full["engines"]["device"]["launches"],
+                    rnnt_fwd=train_rnnt["launches"]["rnnt_fwd"],
+                    rnnt_bwd=train_rnnt["launches"]["rnnt_bwd"])
     ssd = lambda r: dict(max_abs_err=r["abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                          bound_ms=r["bound_ms"], bound_by=r["bound_by"])
     ema_row = lambda k: dict(max_abs_err=ema["abs_err"][k], ms=ema["ms"][k],
                              plain_ms=ema["plain"][k], bound_ms=ema["cost"][k]["bound_ms"],
                              bound_by=ema["cost"][k]["bound_by"])
+    rnnt_row = lambda k: dict(max_abs_err=rnnt["abs_err"][k], ms=rnnt["ms"][k],
+                              plain_ms=rnnt["plain_ms"][k], bound_ms=rnnt["cost"][k]["bound_ms"],
+                              bound_by=rnnt["cost"][k]["bound_by"])
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"hnet_mamba_asr_torch/csrc/{source}",
          "replaces": replaces, "launches": launches[name],
@@ -1796,7 +2465,10 @@ def main() -> int:
             ("ssd_fwd", "ssd_fwd.cu", "hnet_mamba_asr_tpu/ops/ssd_pallas.py:33", ssd(fwd)),
             ("ssd_bwd", "ssd_bwd.cu", "hnet_mamba_asr_tpu/ops/ssd.py:148", ssd(bwd)),
             ("ema_fwd", "ema.cu", "hnet_mamba_asr_tpu/ops/ema.py:34", ema_row("fwd")),
-            ("ema_bwd", "ema.cu", "hnet_mamba_asr_tpu/ops/ema.py:34", ema_row("bwd")))]}))
+            ("ema_bwd", "ema.cu", "hnet_mamba_asr_tpu/ops/ema.py:34", ema_row("bwd")),
+            ("rnnt_fwd", "rnnt.cu", "hnet_mamba_asr_tpu/ops/rnnt_loss.py:34", rnnt_row("fwd")),
+            ("rnnt_bwd", "rnnt.cu", "hnet_mamba_asr_tpu/ops/rnnt_loss.py:34",
+             rnnt_row("bwd")))]}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

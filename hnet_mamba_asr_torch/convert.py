@@ -19,10 +19,11 @@ change so:
 - ``block_<i>`` <-> ``blocks.<i>`` and ``layer_<i>`` <-> ``layers.<i>``;
   every other name is kept.
 
-The ``rnnt`` subtree is skipped (its head is not ported), and so is the
-``aed`` subtree when the model has no AED head; a log line says so. int8-
-quantized artifacts raise, and so does any key that the model does not have
-or that it has and the tree lacks.
+MoE FFNs keep their stacked leaves as they are (``router`` [D, E], ``w1``
+[E, D, F], ``b1``, ``w2`` [E, F, D], ``b2``). A head subtree (``ctc``,
+``aed``, ``rnnt``) is skipped when the model lacks that head; a log line
+says so. int8-quantized artifacts raise, and so does any key that the model
+does not have or that it has and the tree lacks.
 """
 from __future__ import annotations
 
@@ -133,7 +134,7 @@ def state_dict_to_jax_tree(state_dict: dict) -> dict:
     return tree
 
 
-def jax_to_state_dict(tree: dict, skip: tuple[str, ...] = ("rnnt",)) -> dict[str, torch.Tensor]:
+def jax_to_state_dict(tree: dict, skip: tuple[str, ...] = ()) -> dict[str, torch.Tensor]:
     """JAX param tree -> the port's state_dict keys and layouts (fp32),
     without the top-level subtrees named in ``skip``."""
     skipped = [k for k in skip if k in tree]

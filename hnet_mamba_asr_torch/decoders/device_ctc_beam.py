@@ -42,6 +42,7 @@ import torch.nn.functional as F
 from hnet_mamba_asr_torch.models.aed import DECODE_ROWS, key_slots
 from hnet_mamba_asr_torch.models.mamba2 import dense
 from hnet_mamba_asr_torch.models.mamba_block import layer_norm
+from hnet_mamba_asr_torch.models.moe import dense_mix
 
 NEG_INF = -1.0e9
 LM_CACHE_CAP = 512              # LM ring slots at most (the JAX search's lm_cache_cap)
@@ -78,7 +79,9 @@ def _lm_step(lm, caches, tokens, pos, write_mask, keys: int | None = None):
     default). -> (log-probs [R, V], caches, written in place). Numerics are
     ``TransformerLM.forward``'s: sqrt(d) embedding scale, pad embedding
     zeroed, sinusoidal positions, pre-LN blocks (eps 1e-6), q scaled by
-    1/sqrt(dh), tanh GELU."""
+    1/sqrt(dh), tanh GELU; an MoE block's FFN in its dense-mix form
+    (``models/moe.py::dense_mix``), exact at the dropless capacity
+    ``tasks/decode_task.py::load_lm_scorer`` gives a fusion LM."""
     f32 = torch.float32
     R, d = tokens.shape[0], lm.d_model
     H = lm.blocks[0].self_attn.n_heads
@@ -104,6 +107,9 @@ def _lm_step(lm, caches, tokens, pos, write_mask, keys: int | None = None):
         o = (w.transpose(1, 2)[..., None] * cv[:, :n]).sum(1).reshape(R, d)
         x = x + at.out(o, f32, rows=DECODE_ROWS)
         h = layer_norm(x, block.norm2, f32)
+        if block.moe is not None:                        # dropless scoring: exact
+            x = x + dense_mix(block.moe, h, f32, rows=DECODE_ROWS)
+            continue
         ff = F.gelu(dense(h, block.linear1, f32, row_block=DECODE_ROWS), approximate="tanh")
         x = x + dense(ff, block.linear2, f32, row_block=DECODE_ROWS)
     logits = dense(x, lm.out, f32, row_block=DECODE_ROWS)

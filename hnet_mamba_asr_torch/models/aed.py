@@ -28,7 +28,13 @@ decode path run in blocks of ``DECODE_ROWS`` rows (``models/mamba2.py::dense``),
 and the beams' and the greedy decode's steps attend one utterance's rows at
 a time over its own keys (``decode_groups``), so that a beam's scores do not
 depend on the batch.
-The MoE FFN is not ported.
+
+With ``moe_experts`` > 0 every layer's FFN is the routed ``MoEFFN``
+(``models/moe.py``); the forward routes only the tokens of ``token_mask``
+(``ys_in != pad`` when none is given, as in JAX) and appends each layer's
+(aux, dropped) to the ``moe_stats`` list a caller passes. A decode step
+routes every row, as JAX's does; where capacity drops tokens, a row's
+result depends on the rows routed beside it, by design.
 """
 from __future__ import annotations
 
@@ -41,6 +47,7 @@ import torch.nn.functional as F
 
 from hnet_mamba_asr_torch.models.mamba2 import dense, new_linear
 from hnet_mamba_asr_torch.models.mamba_block import LN_EPS, layer_norm
+from hnet_mamba_asr_torch.models.moe import MoEFFN
 
 NEG_INF = -1e9
 # the row block of every decode GEMM (models/mamba2.py::dense): the beam's
@@ -165,7 +172,8 @@ class DecoderLayerQKNorm(nn.Module):
     """Pre-LN decoder layer: self-attn -> cross-attn -> GELU (tanh) FFN."""
 
     def __init__(self, d_model: int, n_heads: int, d_ff: int, dropout: float,
-                 dtype: torch.dtype = torch.float32, generator=None):
+                 dtype: torch.dtype = torch.float32, generator=None, moe_experts: int = 0,
+                 moe_top_k: int = 2, moe_capacity_factor: float = 1.25):
         super().__init__()
         self.dropout, self.dtype = dropout, dtype
         self.self_attn = MHAQKNorm(d_model, n_heads, dropout, dtype=dtype, generator=generator)
@@ -173,18 +181,30 @@ class DecoderLayerQKNorm(nn.Module):
                                     generator=generator)
         self.norm1, self.norm2, self.norm3 = (nn.LayerNorm(d_model, eps=LN_EPS)
                                               for _ in range(3))
-        self.linear1 = new_linear(d_model, d_ff, True, generator)
-        self.linear2 = new_linear(d_ff, d_model, True, generator)
+        if moe_experts > 0:
+            self.moe = MoEFFN(d_model, d_ff, moe_experts, moe_top_k, moe_capacity_factor,
+                              dtype, generator)
+        else:
+            self.moe = None
+            self.linear1 = new_linear(d_model, d_ff, True, generator)
+            self.linear2 = new_linear(d_ff, d_model, True, generator)
 
-    def _ffn(self, x, generator=None, rows: int = 0) -> torch.Tensor:
+    def _ffn(self, x, generator=None, rows: int = 0, token_mask=None,
+             moe_stats: list | None = None) -> torch.Tensor:
         cd, rate = self.dtype, self.dropout
         h = layer_norm(x, self.norm3, cd)
+        if self.moe is not None:
+            y, aux, dropped = self.moe(h, token_mask)
+            if moe_stats is not None:
+                moe_stats.append((aux, dropped))
+            return x + dropout(y, rate, generator)
         ff = dropout(F.gelu(dense(h, self.linear1, cd, row_block=rows), approximate="tanh"),
                      rate, generator)
         return x + dropout(dense(ff, self.linear2, cd, row_block=rows), rate, generator)
 
     def forward(self, x, memory, tgt_mask, memory_key_padding_mask,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None, token_mask=None,
+                moe_stats: list | None = None) -> torch.Tensor:
         cd, rate = self.dtype, self.dropout
         h = layer_norm(x, self.norm1, cd)
         x = x + dropout(self.self_attn(h, h, h, attn_mask=tgt_mask, generator=generator),
@@ -193,7 +213,7 @@ class DecoderLayerQKNorm(nn.Module):
         x = x + dropout(self.cross_attn(h, memory, memory,
                                         key_padding_mask=memory_key_padding_mask,
                                         generator=generator), rate, generator)
-        return self._ffn(x, generator)
+        return self._ffn(x, generator, token_mask=token_mask, moe_stats=moe_stats)
 
     # ---- KV-cached incremental decode ---------------------------------------
     def init_cache(self, memory: torch.Tensor, cap: int) -> dict:
@@ -269,11 +289,10 @@ class AEDHead(nn.Module):
                  d_ff: int = 2048, dropout: float = 0.1, lsm_weight: float = 0.1,
                  bos_id: int = 1, eos_id: int = 2, pad_id: int = 3,
                  max_decode_len: int = 512, max_pe_len: int = 5000, moe_experts: int = 0,
+                 moe_top_k: int = 2, moe_capacity_factor: float = 1.25,
                  dtype: torch.dtype = torch.float32, generator=None):
         super().__init__()
-        if moe_experts > 0:
-            raise NotImplementedError("the MoE FFN of the AED head (aed_conf.moe) is not "
-                                      "ported; models/moe.py comes in a later slice")
+        self.moe_experts = moe_experts
         self.vocab_size, self.d_model = vocab_size, d_model
         self.lsm_weight, self.dtype = lsm_weight, dtype
         self.bos_id, self.eos_id, self.pad_id = bos_id, eos_id, pad_id
@@ -284,7 +303,8 @@ class AEDHead(nn.Module):
         self.register_buffer("pe", torch.from_numpy(sinusoidal_pe(max_pe_len, d_model)),
                              persistent=False)
         self.layers = nn.ModuleList(
-            DecoderLayerQKNorm(d_model, n_heads, d_ff, dropout, dtype, generator)
+            DecoderLayerQKNorm(d_model, n_heads, d_ff, dropout, dtype, generator, moe_experts,
+                               moe_top_k, moe_capacity_factor)
             for _ in range(n_layers))
         self.final_norm = nn.LayerNorm(d_model, eps=LN_EPS)
         self.out = new_linear(d_model, vocab_size, True, generator)
@@ -294,17 +314,24 @@ class AEDHead(nn.Module):
         return add_sos_eos(ys, ys_lens, self.bos_id, self.eos_id, self.pad_id)
 
     def forward(self, memory: torch.Tensor, memory_lengths: torch.Tensor,
-                ys_in: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+                ys_in: torch.Tensor, generator: torch.Generator | None = None,
+                token_mask: torch.Tensor | None = None,
+                moe_stats: list | None = None) -> torch.Tensor:
         """memory [B, S, d], ys_in [B, T] -> logits [B, T, V] in the compute
-        dtype; ``generator`` turns dropout on (training)."""
+        dtype; ``generator`` turns dropout on (training). MoE layers route the
+        tokens of ``token_mask`` (default: ys_in != pad) and append their
+        (aux, dropped) to ``moe_stats``."""
         mem = memory.to(self.dtype)
         emb = self.embed(ys_in).to(self.dtype) * math.sqrt(self.d_model)
         emb = torch.where((ys_in == self.pad_id)[..., None], 0.0, emb)
         x = (emb.float() + self.pe[None, :ys_in.shape[1]]).to(self.dtype)
         tmask = causal_mask(ys_in.shape[1], ys_in.device)
         kpm = pad_mask(memory_lengths, mem.shape[1])
+        if token_mask is None and self.moe_experts > 0:
+            token_mask = ys_in != self.pad_id            # routing skips pad slots
         for layer in self.layers:
-            x = layer(x, mem, tmask, kpm, generator=generator)
+            x = layer(x, mem, tmask, kpm, generator=generator, token_mask=token_mask,
+                      moe_stats=moe_stats)
         return dense(layer_norm(x, self.final_norm, self.dtype), self.out, self.dtype)
 
     # ---- beam-facing incremental decode ----------------------------------------

@@ -15,6 +15,10 @@ are [H, dh, d] and ``out``'s is [d, H, dh] (``convert.py`` carries flax's
 
 ``decoders/lm_scorer.py`` gives every scoring call one of a few fixed
 shapes, so that a prefix's score does not depend on the batch.
+
+With ``moe_experts`` > 0 each block's FFN is the routed ``MoEFFN``
+(``models/moe.py``); the loss routes the scored positions of the real rows
+only and returns the layers' (aux, dropped) beside it (``moe_stats``).
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ from hnet_mamba_asr_torch.models.aed import (
     add_sos_eos, dropout, label_smoothing_loss, pad_mask, sinusoidal_pe)
 from hnet_mamba_asr_torch.models.mamba2 import dense, lecun_normal_, new_linear
 from hnet_mamba_asr_torch.models.mamba_block import LN_EPS, layer_norm
+from hnet_mamba_asr_torch.models.moe import MoEFFN
 
 
 class HeadsDense(nn.Module):
@@ -81,22 +86,36 @@ class LMBlock(nn.Module):
     """Pre-LN block: LN -> attention -> +res; LN -> GELU FFN -> +res."""
 
     def __init__(self, d_model: int, n_heads: int, d_ff: int, dropout_rate: float,
-                 dtype: torch.dtype = torch.float32, generator=None):
+                 dtype: torch.dtype = torch.float32, generator=None, moe_experts: int = 0,
+                 moe_top_k: int = 2, moe_capacity_factor: float = 1.25):
         super().__init__()
         self.dropout, self.dtype = dropout_rate, dtype
         self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.self_attn = SelfAttention(d_model, n_heads, dropout_rate, dtype, generator)
         self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.linear1 = new_linear(d_model, d_ff, True, generator)
-        self.linear2 = new_linear(d_ff, d_model, True, generator)
+        if moe_experts > 0:
+            self.moe = MoEFFN(d_model, d_ff, moe_experts, moe_top_k, moe_capacity_factor,
+                              dtype, generator)
+        else:
+            self.moe = None
+            self.linear1 = new_linear(d_model, d_ff, True, generator)
+            self.linear2 = new_linear(d_ff, d_model, True, generator)
 
-    def forward(self, x, mask, generator=None) -> torch.Tensor:
+    def forward(self, x, mask, generator=None, token_mask=None,
+                moe_stats: list | None = None) -> torch.Tensor:
         cd, rate = self.dtype, self.dropout
         h = layer_norm(x, self.norm1, cd)
         x = x + dropout(self.self_attn(h, mask, generator), rate, generator)
         h = layer_norm(x, self.norm2, cd)
-        ff = dropout(F.gelu(dense(h, self.linear1, cd), approximate="tanh"), rate, generator)
-        return x + dropout(dense(ff, self.linear2, cd), rate, generator)
+        if self.moe is not None:
+            ff, aux, dropped = self.moe(h, token_mask)
+            if moe_stats is not None:
+                moe_stats.append((aux, dropped))
+        else:
+            ff = dropout(F.gelu(dense(h, self.linear1, cd), approximate="tanh"), rate,
+                         generator)
+            ff = dense(ff, self.linear2, cd)
+        return x + dropout(ff, rate, generator)
 
 
 class TransformerLM(nn.Module):
@@ -105,12 +124,11 @@ class TransformerLM(nn.Module):
     def __init__(self, vocab_size: int, d_model: int = 512, n_layers: int = 16,
                  n_heads: int = 8, d_ff: int = 2048, dropout: float = 0.1,
                  lsm_weight: float = 0.1, bos_id: int = 1, eos_id: int = 2, pad_id: int = 3,
-                 max_pe_len: int = 5000, moe_experts: int = 0,
+                 max_pe_len: int = 5000, moe_experts: int = 0, moe_top_k: int = 2,
+                 moe_capacity_factor: float = 1.25,
                  dtype: torch.dtype = torch.float32, generator=None):
         super().__init__()
-        if moe_experts > 0:
-            raise NotImplementedError("the MoE FFN of the LM (lm_conf.moe) is not ported; "
-                                      "models/moe.py comes in a later slice")
+        self.moe_experts = moe_experts
         self.vocab_size, self.d_model = vocab_size, d_model
         self.lsm_weight, self.dtype = lsm_weight, dtype
         self.bos_id, self.eos_id, self.pad_id = bos_id, eos_id, pad_id
@@ -119,35 +137,40 @@ class TransformerLM(nn.Module):
             self.embed.weight.normal_(0.0, 1.0 / math.sqrt(d_model), generator=generator)
         self.register_buffer("pe", torch.from_numpy(sinusoidal_pe(max_pe_len, d_model)),
                              persistent=False)
-        self.blocks = nn.ModuleList(LMBlock(d_model, n_heads, d_ff, dropout, dtype, generator)
+        self.blocks = nn.ModuleList(LMBlock(d_model, n_heads, d_ff, dropout, dtype, generator,
+                                            moe_experts, moe_top_k, moe_capacity_factor)
                                     for _ in range(n_layers))
         self.out = new_linear(d_model, vocab_size, True, generator)
 
-    def forward(self, ids: torch.Tensor, generator: torch.Generator | None = None
+    def forward(self, ids: torch.Tensor, generator: torch.Generator | None = None,
+                token_mask: torch.Tensor | None = None, moe_stats: list | None = None
                 ) -> torch.Tensor:
         """ids [B, T] -> logits [B, T, V] in the compute dtype; ``generator``
-        turns dropout on (training)."""
+        turns dropout on (training). MoE blocks route the tokens of
+        ``token_mask`` (all by default, as in JAX) and append their (aux,
+        dropped) to ``moe_stats``."""
         T = ids.shape[1]
         emb = self.embed(ids).to(self.dtype) * math.sqrt(self.d_model)
         emb = torch.where((ids == self.pad_id)[..., None], 0.0, emb)
         x = (emb.float() + self.pe[None, :T]).to(self.dtype)
         mask = torch.ones(T, T, dtype=torch.bool, device=ids.device).tril()[None, None]
         for block in self.blocks:
-            x = block(x, mask, generator)
+            x = block(x, mask, generator, token_mask, moe_stats)
         return dense(x, self.out, self.dtype)
 
     def loss(self, tokens: torch.Tensor, token_lengths: torch.Tensor,
              generator: torch.Generator | None = None,
-             row_mask: torch.Tensor | None = None):
+             row_mask: torch.Tensor | None = None, moe_stats: list | None = None):
         """(label-smoothed CE over [w.., eos], next-token accuracy); padded
-        batch rows (``row_mask`` False) count in neither."""
+        batch rows (``row_mask`` False) count in neither, and MoE blocks route
+        neither them nor the positions past a row's eos."""
         ys_in, ys_out, out_lens = add_sos_eos(tokens, token_lengths, self.bos_id,
                                               self.eos_id, self.pad_id)
-        logits = self(ys_in, generator)
-        loss = label_smoothing_loss(logits, ys_out, out_lens, self.lsm_weight,
-                                    row_mask=row_mask)
         mask = ~pad_mask(out_lens, ys_out.shape[1])
         if row_mask is not None:
             mask = mask & row_mask[:, None]
+        logits = self(ys_in, generator, mask if self.moe_experts > 0 else None, moe_stats)
+        loss = label_smoothing_loss(logits, ys_out, out_lens, self.lsm_weight,
+                                    row_mask=row_mask)
         acc = ((logits.argmax(-1) == ys_out) & mask).sum() / mask.sum().clamp(min=1)
         return loss, acc

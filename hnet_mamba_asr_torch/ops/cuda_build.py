@@ -4,7 +4,7 @@ interface under ``_build/`` beside this package.
 
 A library's name carries a hash of its source, the headers it includes and
 the flags, so an edited source or header is rebuilt and never mixed with an
-old library. ``ops/ssd_cuda.py`` and ``ops/ema_cuda.py`` load their
+old library. ``ops/ssd_cuda.py``, ``ops/ema_cuda.py`` and ``ops/rnnt_cuda.py`` load their
 libraries from here with ``ctypes``; the first of them to launch builds all
 of them.
 """
@@ -26,7 +26,8 @@ SOURCES = {"ssd_fwd": (CSRC / "ssd_fwd.cu", (CSRC / "ssd_common.cuh",)),
            "ssd_bwd": (CSRC / "ssd_bwd.cu", (CSRC / "ssd_common.cuh",)),
            "ssd_fwd_p16n16": (CSRC / "ssd_fwd.cu", (CSRC / "ssd_common.cuh",)),
            "ssd_bwd_p16n16": (CSRC / "ssd_bwd.cu", (CSRC / "ssd_common.cuh",)),
-           "ema": (CSRC / "ema.cu", ())}
+           "ema": (CSRC / "ema.cu", ()),
+           "rnnt": (CSRC / "rnnt.cu", ())}
 # macros a library is always built with: the SSD kernels for headdim 16 and
 # d_state 16 (the narrow models of the tone-corpus gate; fp32 kernels only)
 FIXED_DEFINES = {"ssd_fwd_p16n16": ("SSD_HEADDIM=16", "SSD_DSTATE=16"),

@@ -5,8 +5,11 @@ for the emit modes that ``scripts/export_serving.py`` exports: raw padded
 waveform -> log-mel -> CMVN -> encoder, then per mode the CTC frame argmax
 (``frame_ids``, collapsed on the host), the CTC log-probs (``log_probs``),
 the AED head's KV-cached greedy decode (``aed_ids``, eos-filled after the
-first eos) or the device CTC prefix beam (``beam_ids`` / ``beam_lens``,
-``decoders/device_ctc_beam.py::beam_scan``). PyTorch runs eagerly, so there
+first eos), the device CTC prefix beam (``beam_ids`` / ``beam_lens``,
+``decoders/device_ctc_beam.py::beam_scan``), the RNN-T head's greedy search
+(``rnnt_ids`` / ``rnnt_lens``) or its device beam (``rnnt_beam_ids`` /
+``rnnt_beam_lens``, ``decoders/device_rnnt_beam.py::beam_decode``), as JAX's
+``serving/export.py`` defines them. PyTorch runs eagerly, so there
 are no shape buckets; the ``max_batch`` and ``max_samples`` limits take
 their place and fail with the JAX runtime's words.
 
@@ -23,14 +26,14 @@ import torch
 from hnet_mamba_asr_torch.convert import load_jax_params, load_params_npz
 from hnet_mamba_asr_torch.data.features import GlobalCMVN
 from hnet_mamba_asr_torch.decoders.device_ctc_beam import beam_scan
+from hnet_mamba_asr_torch.decoders.device_rnnt_beam import beam_decode
 from hnet_mamba_asr_torch.models.aed import strip_hypothesis
 # the CTC collapse of repeats and blanks, per valid row span
 from hnet_mamba_asr_torch.models.ctc_head import greedy_decode as collapse_ctc
 from hnet_mamba_asr_torch.tasks.asr_task import build_model
 
-EMIT_PORTED = ("frame_ids", "log_probs", "aed_ids", "beam_ids")
-EMIT_NOT_PORTED = ("rnnt_ids", "rnnt_beam_ids")
-BEAM_SIZE, PRE_BEAM = 10, 30    # beam_ids' search: the JAX export's defaults
+EMIT_MODES = ("frame_ids", "log_probs", "aed_ids", "beam_ids", "rnnt_ids", "rnnt_beam_ids")
+BEAM_SIZE, PRE_BEAM = 10, 30    # the beams' width: the JAX export's defaults
 
 
 def detokenize(tok_meta: dict, ids) -> str:
@@ -48,14 +51,18 @@ def detokenize(tok_meta: dict, ids) -> str:
 def ids_per_row(out: dict, blank_id: int | None, eos_id: int | None) -> list[list[int]]:
     """Token ids per utterance from a serving call's outputs, in the JAX
     runtime's precedence: the CTC prefix beam beats CTC greedy, which beats
-    the AED greedy decode (cut at its first eos)."""
-    if "beam_ids" in out:
-        return [row[:int(n)].tolist() for row, n in zip(out["beam_ids"], out["beam_lens"])]
-    if "frame_ids" in out:
-        return collapse_ctc(out["frame_ids"], out["enc_lengths"], blank_id)
+    the RNN-T beam, which beats RNN-T greedy, which beats the AED greedy
+    decode (cut at its first eos)."""
+    for key, lens in (("beam_ids", "beam_lens"), ("frame_ids", None),
+                      ("rnnt_beam_ids", "rnnt_beam_lens"), ("rnnt_ids", "rnnt_lens")):
+        if key in out and lens is None:
+            return collapse_ctc(out[key], out["enc_lengths"], blank_id)
+        if key in out:
+            return [row[:int(n)].tolist() for row, n in zip(out[key], out[lens])]
     if "aed_ids" in out:
         return [strip_hypothesis(row, eos_id) for row in out["aed_ids"]]
-    raise ValueError(f"outputs {sorted(out)} hold no frame_ids, beam_ids or aed_ids")
+    raise ValueError(f"outputs {sorted(out)} hold no frame_ids, beam_ids, rnnt_ids, "
+                     "rnnt_beam_ids or aed_ids")
 
 
 class ServingModel:
@@ -76,26 +83,24 @@ class ServingModel:
                  emit: tuple[str, ...] = ("frame_ids",)):
         emit = tuple(emit)
         for e in emit:
-            if e in EMIT_NOT_PORTED:
-                raise NotImplementedError(f"emit mode {e!r} is not ported; "
-                                          f"choices: {EMIT_PORTED}")
-            if e not in EMIT_PORTED:
-                raise ValueError(f"unknown emit mode {e!r}; choices: {EMIT_PORTED}")
+            if e not in EMIT_MODES:
+                raise ValueError(f"unknown emit mode {e!r}; choices: {EMIT_MODES}")
         if isinstance(params, (str, Path)):
             params = load_params_npz(params)
         if vocab_size is None:
             if params is None:
                 raise ValueError("vocab_size is required for seeded weights")
-            vocab_size = int(np.asarray(params["ctc"]["proj"]["kernel"]).shape[1]) - 1
+            vocab_size = (int(np.asarray(params["ctc"]["proj"]["kernel"]).shape[1]) - 1
+                          if "ctc" in params else
+                          int(np.asarray(params["rnnt"]["out"]["kernel"]).shape[1]) - 1)
         if isinstance(cmvn, (str, Path)):
             cmvn = GlobalCMVN.load(cmvn)
         self.device = torch.device(device)
         model = build_model(config, vocab_size, cmvn=cmvn, seed=seed, device=self.device)
         for e in emit:
-            head = model.aed if e == "aed_ids" else model.ctc
-            if head is None:
-                raise ValueError(f"emit mode {e!r} needs the model's "
-                                 f"{'AED' if e == 'aed_ids' else 'CTC'} head")
+            name = "AED" if e == "aed_ids" else "RNNT" if e.startswith("rnnt") else "CTC"
+            if getattr(model, name.lower()) is None:
+                raise ValueError(f"emit mode {e!r} needs the model's {name} head")
         if params is not None:
             load_jax_params(model, params)
         self.model = model
@@ -138,11 +143,16 @@ class ServingModel:
                     blank_id=self.blank_id)
         if "aed_ids" in self.emit:
             out["aed_ids"] = self.model.aed.greedy_decode(enc.features, enc.lengths)
+        if "rnnt_ids" in self.emit:
+            out["rnnt_ids"], out["rnnt_lens"] = self.model.rnnt.greedy_decode(
+                enc.features, enc.lengths)
+        if "rnnt_beam_ids" in self.emit:
+            out["rnnt_beam_ids"], out["rnnt_beam_lens"] = beam_decode(
+                self.model.rnnt, enc.features, enc.lengths, BEAM_SIZE)
         return {k: v.cpu().numpy() for k, v in out.items()}
 
     def transcribe_ids(self, wave, wave_lens) -> list[list[int]]:
-        """Token ids per utterance: the CTC prefix beam when the model emits
-        beam_ids, else CTC greedy, else the AED greedy decode."""
+        """Token ids per utterance, in ``ids_per_row``'s precedence."""
         return ids_per_row(self(wave, wave_lens), self.blank_id, self.eos_id)
 
     def transcribe_text(self, wave, wave_lens) -> list[str]:

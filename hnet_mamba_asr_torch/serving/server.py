@@ -53,6 +53,10 @@ def decode_audio(body: bytes, content_type: str) -> np.ndarray:
         return pcm / 32768.0
 
 
+# the emit modes that carry token ids (runtime.ids_per_row reads them)
+IDS_MODES = ("beam_ids", "frame_ids", "rnnt_beam_ids", "rnnt_ids", "aed_ids")
+
+
 class MicroBatcher:
     """Coalesce concurrent requests into padded batches for the model.
 
@@ -63,9 +67,9 @@ class MicroBatcher:
 
     def __init__(self, model: ServingModel, max_batch: int | None = None,
                  max_wait_ms: float = 20.0):
-        if not {"beam_ids", "frame_ids", "aed_ids"} & set(model.emit):
-            raise ValueError(f"the batcher serves beam_ids, frame_ids or aed_ids; model "
-                             f"emits {model.emit}")
+        if not set(IDS_MODES) & set(model.emit):
+            raise ValueError(f"the batcher serves {', '.join(IDS_MODES)}; model emits "
+                             f"{model.emit}")
         self.model = model
         self.max_batch = min(int(max_batch or model.max_batch), model.max_batch)
         self.max_samples = model.max_samples

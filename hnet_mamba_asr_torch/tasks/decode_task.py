@@ -6,17 +6,20 @@ beam only; the LM lives on the beam side: first-pass shallow fusion for the
 CTC prefix beam (``lm_weight``), second-pass n-best rescoring for AED and
 joint (``rescore_weight`` / ``rescore_length_bonus``). The matrix:
 ctc_greedy, ctc_beam, ctc_beam_lm, aed_beam, aed_beam_lm, joint_beam,
-joint_beam_lm. RNN-T cells raise ``NotImplementedError`` (the head is not
-ported).
+joint_beam_lm; transducer models add rnnt_greedy, rnnt_beam and rnnt_beam_lm
+(first-pass fusion at ``lm_weight``, then the surviving beam re-ranked at
+``rescore_weight`` with ``ctc_weight`` 0).
 
 Engines. By default, as in the JAX package, every beam cell runs on the
 device: ``decoders/device_ctc_beam.py`` for the CTC prefix beam (LM fusion
-inside the frame loop) and ``decoders/device_beam.py`` for the AED and joint
-beams (the pool's LM scores in the same call), scoring in float32.
-``decode.device_beam: false`` runs the host engines instead, scoring in
-float64: one batched device call per global step for AED / joint
-(``decode.batch_beams`` false: one utterance at a time) and one per frame
-for the CTC beams. Every record states its ``engine``; the device engine's
+inside the frame loop), ``decoders/device_beam.py`` for the AED and joint
+beams (the pool's LM scores in the same call) and
+``decoders/device_rnnt_beam.py`` for the transducer beam (LM fusion inside
+the frame loop), scoring in float32. ``decode.device_beam: false`` runs the
+host engines instead, scoring in float64: one batched device call per
+global step for AED / joint (``decode.batch_beams`` false: one utterance at
+a time), one per frame for the CTC beams and one per expansion round of an
+utterance's frame for the transducer (``decoders/rnnt_decode.py``). Every record states its ``engine``; the device engine's
 records add their search steps and host reads.
 
 Timing: device work is fenced with ``torch.cuda.synchronize()`` before the
@@ -40,11 +43,14 @@ import torch
 from hnet_mamba_asr_torch.decoders.ctc_decode import ctc_prefix_beam_search
 from hnet_mamba_asr_torch.decoders.device_beam import beam_search_device
 from hnet_mamba_asr_torch.decoders.device_ctc_beam import ctc_beam_search_device
+from hnet_mamba_asr_torch.decoders.device_rnnt_beam import beam_decode_nbest
 from hnet_mamba_asr_torch.decoders.joint import (
-    joint_beam_search_nbest, joint_beam_search_nbest_lockstep, lm_rescore_batch)
+    Hypothesis, joint_beam_search_nbest, joint_beam_search_nbest_lockstep, lm_rescore_batch)
 from hnet_mamba_asr_torch.decoders.lm_scorer import CausalLMScorer, bucket
+from hnet_mamba_asr_torch.decoders.rnnt_decode import rnnt_beam_search
 from hnet_mamba_asr_torch.models.aed import decode_groups
 from hnet_mamba_asr_torch.models.ctc_head import greedy_decode as ctc_host_greedy
+from hnet_mamba_asr_torch.models.rnnt import rnnt_host_greedy
 
 logger = logging.getLogger(__name__)
 
@@ -94,22 +100,21 @@ def check_heads(model, cells: list[dict]) -> None:
             raise ValueError(f"cell {c['name']}: model has no CTC head")
         if c["read_out"] in ("aed", "joint") and model.aed is None:
             raise ValueError(f"cell {c['name']}: model has no AED head")
-        if c["read_out"] == "rnnt":
-            raise NotImplementedError(f"cell {c['name']}: the RNN-T head and its decode "
-                                      "are not ported")
+        if c["read_out"] == "rnnt" and model.rnnt is None:
+            raise ValueError(f"cell {c['name']}: model has no RNNT head")
 
 
 def engine_for(decode_cfg: Mapping[str, Any], cell: Mapping[str, Any]) -> str:
     """The search engine of a cell: greedy; device (``device_beam`` absent or
-    true); or, with ``device_beam: false``, lockstep or serial."""
+    true); or, with ``device_beam: false``, lockstep or serial (the
+    transducer's host beam runs one utterance at a time)."""
     dc = dict(decode_cfg or {})
-    if cell["read_out"] == "rnnt":
-        raise NotImplementedError(f"cell {cell['name']}: the RNN-T head is not ported")
     if cell["search"] == "greedy":
         return "greedy"
     if bool(dc.get("device_beam", True)):
         return "device"
-    if cell["read_out"] != "ctc" and not bool(dc.get("batch_beams", True)):
+    if cell["read_out"] == "rnnt" or (cell["read_out"] != "ctc"
+                                      and not bool(dc.get("batch_beams", True))):
         return "serial"
     return "lockstep"
 
@@ -152,13 +157,27 @@ def load_lm_scorer(decode_cfg: Mapping[str, Any], lm_config: Mapping[str, Any], 
     dc = dict(decode_cfg or {})
     if not dc.get("lm_checkpoint"):
         raise ValueError("decode.lm requires decode.lm_checkpoint")
-    if ((lm_config or {}).get("lm_conf", {}) or {}).get("moe"):
-        raise NotImplementedError("an MoE fusion LM (lm_conf.moe) is not ported")
-    lm = build_lm(lm_config, tokenizer.vocab_size, device=device)
+    lm = build_lm(dropless(lm_config), tokenizer.vocab_size, device=device)
     params, _ = load_model_params(dc["lm_checkpoint"])
     load_jax_params(lm, params if "lm" in params else {"lm": params})
     return CausalLMScorer(lm.lm, bos_id=tokenizer.bos_id, eos_id=tokenizer.eos_id,
                           pad_id=tokenizer.pad_id)
+
+
+def dropless(lm_config: Mapping[str, Any]) -> Mapping[str, Any]:
+    """An MoE LM config with capacity_factor E / top_k, as JAX's
+    ``load_lm_scorer`` sets it: C >= S, so no token is dropped and a prefix's
+    score never depends on what else shares the batch (and the device
+    searches' dense-mix LM step is the module's function). Other configs as
+    they are."""
+    lc = (lm_config or {}).get("lm_conf", {}) or {}
+    mc = lc.get("moe")
+    if not mc:
+        return lm_config
+    E, k = int(mc.get("n_experts", 0)), int(mc.get("top_k", 2))
+    logger.info("fusion LM is MoE (E=%d top_k=%d): dropless scoring (capacity_factor "
+                "-> %.1f)", E, k, E / max(k, 1))
+    return dict(lm_config, lm_conf=dict(lc, moe=dict(mc, capacity_factor=E / max(k, 1))))
 
 
 def length_bonus_for(decode_cfg: Mapping[str, Any]) -> float:
@@ -344,6 +363,11 @@ def decode_batch(model, tokenizer, batch: dict, cell: Mapping[str, Any],
     if cell["read_out"] == "ctc" and cell["search"] == "greedy":
         frame_ids = model.ctc.frame_argmax(enc.features).cpu()
         hyps = ctc_host_greedy(frame_ids, lengths, model.ctc.blank_id)[:n_real]
+    elif cell["read_out"] == "rnnt" and cell["search"] == "greedy":
+        hyps = rnnt_host_greedy(*model.rnnt.greedy_decode(enc.features, enc.lengths))[:n_real]
+    elif cell["read_out"] == "rnnt":                     # transducer beam
+        hyps = _rnnt_beam(model, enc, n_real, cell, engine, beam_size, use_lm, lm_weight,
+                          rescore_weight, rescore_length_bonus, scores, steps)
     elif cell["read_out"] == "ctc":                      # prefix beam (+/-LM)
         logp = model.ctc.log_probs(enc.features)
         if engine != "device":
@@ -419,6 +443,59 @@ def decode_batch(model, tokenizer, batch: dict, cell: Mapping[str, Any],
                         **({"search_steps": steps["steps"], "host_reads": steps["host_reads"]}
                            if steps else {})})
     return records
+
+
+def _rnnt_beam(model, enc, n_real: int, cell, engine: str, beam_size: int, lm,
+               lm_weight: float, rescore_weight: float, rescore_length_bonus: float,
+               scores: list, steps: dict) -> list[list[int]]:
+    """The transducer beam of a batch on ``engine``: the best hypothesis per
+    utterance, or, in the LM cell, first-pass fusion at ``lm_weight`` (when
+    set) and the surviving beam re-ranked by ``lm_rescore_batch`` at
+    ``rescore_weight`` with ctc_weight 0 (the acoustic score in ``.aed``).
+    The device engine's fused pool carries its LM log-probs (eos included)
+    in ``.lm``; its ``.score`` is acoustic + lm_weight * that, on another
+    scale than the host engine's label-only fused score, so the two
+    engines' scores are not compared; the re-rank reads ``.aed`` and
+    ``.lm``."""
+    rnnt = model.rnnt
+    if engine == "device":
+        steps.update(steps=int(enc.features.shape[1]), host_reads=0)
+    if not cell["lm"]:                                   # the best hypothesis, its score
+        if engine == "device":
+            ftoks, fplen, fscore = beam_decode_nbest(rnnt, enc.features, enc.lengths,
+                                                     beam_size)
+            best = torch.argmax(fscore, dim=1)
+            ar = torch.arange(ftoks.shape[0], device=ftoks.device)
+            out = rnnt_host_greedy(ftoks[ar, best], fplen[ar, best])[:n_real]
+            scores.extend(fscore[ar, best][:n_real].tolist())
+        else:
+            nbest = rnnt_beam_search(rnnt, enc.features, enc.lengths, beam_size=beam_size,
+                                     nbest=1)[:n_real]
+            out = [nb[0].tokens for nb in nbest]
+            scores.extend(nb[0].aed for nb in nbest)
+        return out
+    fuse = lm_weight != 0.0
+    if engine == "device":
+        res = beam_decode_nbest(rnnt, enc.features, enc.lengths, beam_size,
+                                lm=lm.lm if fuse else None, lm_weight=lm_weight)
+        ftoks, fplen, fscore = (r.cpu().numpy() for r in res[:3])
+        flms = res[3].cpu().numpy() if fuse else None
+        nbest_all = []
+        for b in range(n_real):
+            rows = [Hypothesis(tokens=ftoks[b, k, :fplen[b, k]].tolist(),
+                               aed=float(fscore[b, k]), ctc=0.0,
+                               lm=float(flms[b, k]) if fuse else None,
+                               score=float(fscore[b, k])
+                               + (lm_weight * float(flms[b, k]) if fuse else 0.0))
+                    for k in range(fscore.shape[1]) if fscore[b, k] > -5.0e8]
+            rows.sort(key=lambda h: h.score, reverse=True)
+            nbest_all.append(rows[:beam_size])
+    else:
+        nbest_all = rnnt_beam_search(rnnt, enc.features, enc.lengths, beam_size=beam_size,
+                                     nbest=beam_size, lm=lm if fuse else None,
+                                     lm_weight=lm_weight)[:n_real]
+    return lm_rescore_batch(nbest_all, lm, rescore_weight, ctc_weight=0.0,
+                            length_bonus=rescore_length_bonus, scores=scores)
 
 
 def _summary(cell: str, n: int, dec_s: float, aud_s: float, enc_s: float, search_s: float,

@@ -3,7 +3,8 @@ counterpart of ``hnet_mamba_asr_tpu/tasks/lm_task.py``.
 
 ``LMModel.loss_fn`` emits ``batch_weight`` = scored tokens (+1 eos per
 line), so that the trainer's weighted loss makes ``exp(loss)`` a token-
-weighted perplexity. Dropout draws from (23, step), as in the JAX task.
+weighted perplexity. Dropout draws from (23, step), as in the JAX task. An
+MoE LM (``lm_conf.moe``) adds its load-balance aux loss at ``aux_weight``.
 ``build_lm`` reads ``lm_conf`` (the LM computes in fp32, as the JAX
 ``build_lm`` builds it). ``TokenLineLoader`` batches tokenized text lines
 under a token budget; reading the LM corpus files (``data/lm_text.py``) is
@@ -18,6 +19,7 @@ import torch
 import torch.nn as nn
 
 from hnet_mamba_asr_torch.models.lm import TransformerLM
+from hnet_mamba_asr_torch.models.moe import moe_aux
 from hnet_mamba_asr_torch.ops.specaug import seed_from
 
 DROPOUT_SEED = 23
@@ -27,18 +29,26 @@ class LMModel(nn.Module):
     """Trainer-contract wrapper around TransformerLM (its parameters under
     ``lm``, as the JAX task's ``{"lm": params}``)."""
 
-    def __init__(self, lm: TransformerLM, max_tokens: int = 512):
+    def __init__(self, lm: TransformerLM, max_tokens: int = 512, moe_aux_weight: float = 0.0):
         super().__init__()
         self.lm = lm
         self.max_tokens = max_tokens
+        self.moe_aux_weight = moe_aux_weight
 
     def loss_fn(self, batch: dict, step: int, train: bool):
+        """-> (loss, stats); an MoE LM adds its load-balance aux loss at
+        ``moe_aux_weight`` and the stats moe/aux and moe/dropped."""
         tokens, lens, row_mask = batch["tokens"], batch["token_lens"], batch["row_mask"]
         gen = (torch.Generator(device=tokens.device).manual_seed(seed_from(DROPOUT_SEED, step))
                if train else None)
-        loss, acc = self.lm.loss(tokens, lens, gen, row_mask=row_mask)
-        stats = {"loss/total": loss.detach(), "lm/token_acc": acc.detach(),
-                 "batch_weight": ((lens + 1) * row_mask).sum()}
+        moe_stats = [] if self.lm.moe_experts > 0 else None
+        loss, acc = self.lm.loss(tokens, lens, gen, row_mask=row_mask, moe_stats=moe_stats)
+        stats = {"lm/token_acc": acc.detach(), "batch_weight": ((lens + 1) * row_mask).sum()}
+        if moe_stats is not None:
+            aux, mstats = moe_aux(moe_stats, self.moe_aux_weight)
+            loss = loss + aux
+            stats.update(mstats)
+        stats["loss/total"] = loss.detach()
         return loss, stats
 
 
@@ -47,14 +57,18 @@ def build_lm(config: Mapping[str, Any], vocab_size: int, max_tokens: int | None 
     """``lm_conf`` -> LMModel with weights drawn from ``seed``, on ``device``
     (the card by default), in eval mode."""
     lc = (config or {}).get("lm_conf", {}) or {}
+    mc = lc.get("moe", {}) or {}
     gen = torch.Generator().manual_seed(int(seed))
     lm = TransformerLM(vocab_size=int(vocab_size), d_model=int(lc.get("d_model", 512)),
                        n_layers=int(lc.get("n_layers", 8)), n_heads=int(lc.get("n_heads", 8)),
                        d_ff=int(lc.get("d_ff", 2048)), dropout=float(lc.get("dropout", 0.1)),
                        lsm_weight=float(lc.get("lsm_weight", 0.0)),
-                       moe_experts=int((lc.get("moe", {}) or {}).get("n_experts", 0)),
+                       moe_experts=int(mc.get("n_experts", 0)),
+                       moe_top_k=int(mc.get("top_k", 2)),
+                       moe_capacity_factor=float(mc.get("capacity_factor", 1.25)),
                        generator=gen)
-    model = LMModel(lm, max_tokens=int(max_tokens or lc.get("max_line_tokens", 512)))
+    model = LMModel(lm, max_tokens=int(max_tokens or lc.get("max_line_tokens", 512)),
+                    moe_aux_weight=float(mc.get("aux_weight", 0.01)))
     return model.to(torch.device(device)).eval()
 
 

@@ -1,7 +1,8 @@
 """The gate config (``configs/typeA_small_N1.yaml``, Type A Small N=1), its
 dynamic-chunking sibling (``configs/typeA_small_N2.yaml``), the gate
-config's decode block and the fusion LM (``configs/lm_transformer_500.yaml``)
-as the port's checks and measurements run them: the configs' keys as dicts
+config's decode block, the fusion LM (``configs/lm_transformer_500.yaml``),
+and the gate config with an RNN-T head or an MoE AED decoder (and the LM with
+MoE blocks), as the port's checks and measurements run them: the configs' keys as dicts
 (the card's machine has no PyYAML; ``tests/test_torch_slice.py``,
 ``tests/test_torch_hnet_train.py``, ``tests/test_torch_decode.py`` and
 ``tests/test_torch_lm.py`` hold the dicts equal to the YAML), seeded test
@@ -78,6 +79,18 @@ GATE_DECODE = {"splits": ["dev-clean", "dev-other", "test-clean", "test-other"],
 # the model of configs/lm_transformer_500.yaml (~51 M parameters at V 500)
 LM_CONFIG = {"lm_conf": {"d_model": 512, "n_layers": 16, "n_heads": 8, "d_ff": 2048,
                          "dropout": 0.1, "lsm_weight": 0.0, "max_line_tokens": 512}}
+# the gate config with the transducer head beside its CTC and AED heads
+# (model_conf.rnnt_weight 1.0, rnnt_conf at the JAX defaults): one model for
+# the 10-cell matrix
+RNNT_CONFIG = {**GATE_CONFIG,
+               "model_conf": {**GATE_CONFIG["model_conf"], "rnnt_weight": 1.0},
+               "rnnt_conf": {"d_pred": 256, "d_joint": 512, "context": 2, "max_symbols": 4,
+                             "max_decode_len": 512}}
+# the gate config with a routed MoE FFN in every AED decoder layer, and the
+# fusion LM with the same MoE in every block (scored dropless at decode)
+MOE = {"n_experts": 8, "top_k": 2, "capacity_factor": 1.25, "aux_weight": 0.01}
+MOE_CONFIG = {**GATE_CONFIG, "aed_conf": {**GATE_CONFIG["aed_conf"], "moe": MOE}}
+LM_MOE_CONFIG = {"lm_conf": {**LM_CONFIG["lm_conf"], "moe": MOE}}
 VOCAB = 500                     # bpe_500: 501 CTC classes
 SEED = 1                        # experiment.seed
 SR = 16000

@@ -8,8 +8,9 @@
     python3 hnet_mamba_asr_torch/tools/measure.py ema_phases
     python3 hnet_mamba_asr_torch/tools/measure.py serve [--repo DIR] [--profile] [--config n2]
     python3 hnet_mamba_asr_torch/tools/measure.py phases
-    python3 hnet_mamba_asr_torch/tools/measure.py train [--config n2]
+    python3 hnet_mamba_asr_torch/tools/measure.py train [--config n2|rnnt|moe]
     python3 hnet_mamba_asr_torch/tools/measure.py aed_step
+    python3 hnet_mamba_asr_torch/tools/measure.py rnnt  [--repo DIR]
 
 Run as a file, from the root of a checkout. ``--repo`` names the checkout
 whose ``hnet_mamba_asr_torch`` is measured, this one
@@ -64,13 +65,21 @@ call, in turns (old, new, new, old).
   B 1 L 873 H 12.
 - ``train``: one update of the gate config's training step (``measure_train``;
   ``--config n2``: the N = 2 config's, one micro-batch of 64 x 10 s, remat
-  full, with the routers at their init and drawn at random): forward /
+  full, with the routers at their init and drawn at random; ``--config
+  rnnt``: the gate config with the RNN-T head, ``--config moe``: with the
+  MoE AED decoder, both as the gate config's update): forward /
   backward / optimizer device time by CUDA events, the kept fraction and
   the buffer's slots, then a profiled update's device time by kernel and
   idle share.
 - ``aed_step``: one AED decode step of the full-width decode run with the
   attention grouped per utterance or not and the GEMMs in row blocks or
   not (``measure_aed_step``).
+- ``rnnt``: the RNN-T lattice kernels (``ops/rnnt_cuda.py``) at
+  ``RNNT_SHAPES`` (``chip_smoke.py``'s): the forward's and the backward's
+  device time per call, the plain version's time (``lattice_nll`` and
+  autograd of it, CUDA events) and the bounds of ``rnnt_cost`` /
+  ``rnnt_bwd_cost``; one JSON line per shape. It calls ``_forward`` /
+  ``_backward``, so ``--repo`` times another version too.
 """
 from __future__ import annotations
 
@@ -143,6 +152,36 @@ def ema_bwd_cost(Bsz: int, M: int, D: int, dtype: str) -> dict:
     forward); ~6 FLOPs per element (h, dz, the dP term and its sum)."""
     es = 2 if dtype == "bfloat16" else 4
     return _bound(4 * Bsz * M * D * es + 2 * Bsz * M * 4, 6 * Bsz * M * D, "float32")
+
+
+def _lattice_cells(feat_lens, tgt_lens, T: int, U: int) -> tuple[int, int]:
+    """(blank cells, label cells) of the rows' lattices: T_b (U_b + 1) and
+    T_b U_b, T_b = clamp(feat_length, 1, T), U_b = clamp(target_length, 0, U)."""
+    tb = np.clip(np.asarray(feat_lens), 1, T)
+    ub = np.clip(np.asarray(tgt_lens), 0, U)
+    return int((tb * (ub + 1)).sum()), int((tb * ub).sum())
+
+
+def rnnt_cost(feat_lens, tgt_lens, T: int, U: int) -> dict:
+    """Least time of one RNN-T lattice forward on the H100, for this run's
+    lengths: the blank and label scores of each row's lattice read once,
+    the blank shares over the lattice and the loss written once; ~12 fp32
+    operations a cell (two adds, the logaddexp's max, difference, exp, log1p
+    and add, the share's add, reciprocal and select) at the SIMT rate."""
+    n1, n2 = _lattice_cells(feat_lens, tgt_lens, T, U)
+    B = len(np.asarray(feat_lens))
+    return _bound(4 * (2 * n1 + n2) + 12 * B, 12 * n1, "float32")
+
+
+def rnnt_bwd_cost(feat_lens, tgt_lens, T: int, U: int) -> dict:
+    """Least time of one RNN-T lattice backward given the loss's gradient:
+    the blank shares of each row's lattice read once, dblank [B, T, U+1] and
+    dlabel [B, T, U] written once (zeros outside the lattices included); ~6
+    fp32 operations a cell (two products, 1 - w, the sum and the two scales
+    by -g)."""
+    n1, _ = _lattice_cells(feat_lens, tgt_lens, T, U)
+    B = len(np.asarray(feat_lens))
+    return _bound(4 * n1 + 4 * B * T * (2 * U + 1) + 12 * B, 6 * n1, "float32")
 
 
 def _bound(nbytes: int, flops: int, dtype: str) -> dict:
@@ -512,11 +551,158 @@ def measure_phases(tag: str) -> None:
               flush=True)
 
 
+# the RNN-T lattice's [B, T, U]: a training micro-batch of 32 x 10 s (U 64
+# tokens at most), the full-width decode batch (8 utterances, T 380, 128
+# ids), a 35 s utterance (T 880, 256 ids) and the AED cap of U 512; then
+# the edge rows (T_b 1, U_b 0, feat_length 0, rows shorter than the batch)
+RNNT_SHAPES = ((32, 249, 64), (8, 380, 128), (1, 880, 256), (2, 300, 512))
+RNNT_EDGE = ((6, 40, 12), ((40, 12), (1, 5), (17, 0), (0, 3), (25, 7), (1, 0)))
+
+
+def rnnt_inputs(Bsz: int, T: int, U: int, seed: int = 0, lengths=None):
+    """(blank [B, T, U+1], label [B, T, U] fp32 log-probs, feat_lengths,
+    target_lengths) on the card: the lattice scores of random joint logits
+    over 501 classes (blank 500, targets in [0, 500)), with the row lengths
+    given as (T_b, U_b) pairs, or drawn in [T/2, T] and [U/2, U] with the
+    first row full."""
+    from hnet_mamba_asr_torch.ops.rnnt_loss import lattice_scores
+    gen = torch.Generator().manual_seed(seed)
+    if lengths is None:
+        fl = torch.randint(T // 2, T + 1, (Bsz,), generator=gen)
+        tl = torch.randint(U // 2, U + 1, (Bsz,), generator=gen)
+        fl[0], tl[0] = T, U
+    else:
+        fl, tl = (torch.tensor(x) for x in zip(*lengths))
+    blank, label = [], []
+    for b in range(Bsz):                 # a row at a time: [T, U+1, 501] fp32
+        logits = (torch.randn(1, T, U + 1, 501, generator=gen) * 2).cuda()
+        tg = torch.randint(0, 500, (1, U), generator=gen).cuda()
+        s = lattice_scores(logits, tg, tl[b:b + 1].cuda(), 500)
+        blank.append(s[0])
+        label.append(s[1])
+    return (torch.cat(blank).contiguous(), torch.cat(label).contiguous(), fl.cuda(),
+            tl.cuda())
+
+
+# the lattice kernels against the plain version on the same fp32 scores:
+# the loss to RNNT_LOSS_RTOL of itself against the plain version in fp32;
+# both gradients against the plain version in fp64 to RNNT_GRAD_BOUND of
+# their largest; and the alignment mass. Every alignment leaves each frame
+# t < T_b by one blank and emits each label u < U_b once, so a row's dblank
+# summed over u is -g_b at every such frame and its dlabel summed over t is
+# -g_b at every such label. The sums are held to RNNT_MASS_BOUND of |g_b|:
+# a fault on cells of low occupancy, which the bound on the largest
+# gradient cannot see, moves them (rnnt_faults).
+RNNT_LOSS_RTOL = 1e-5
+RNNT_GRAD_BOUND = 2e-3
+RNNT_MASS_BOUND = 1e-5
+
+
+def lattice_masks(feat_lens, tgt_lens, T: int, U: int):
+    """(blank [B, T, U+1], label [B, T, U]) bool masks of the cells inside
+    each row's lattice."""
+    dev = feat_lens.device
+    t = torch.arange(T, device=dev)[None, :, None]
+    u = torch.arange(U + 1, device=dev)[None, None, :]
+    tb = feat_lens.clamp(1, T)[:, None, None]
+    ub = tgt_lens.clamp(0, U)[:, None, None]
+    return (t < tb) & (u <= ub), (t < tb) & (u[..., :U] < ub)
+
+
+def rnnt_check(got, ref, ref64, feat_lens, tgt_lens, g) -> dict:
+    """Hold the kernels' (loss, dblank, dlabel) against the plain version's
+    in fp32 (``ref``) and fp64 (``ref64``) for incoming gradients ``g``:
+    the readings, and ``ok`` when each is within its bound and every value
+    is finite and exactly 0 outside the lattices."""
+    B, T, U1 = got[1].shape
+    U = U1 - 1
+    in_b, in_l = lattice_masks(feat_lens, tgt_lens, T, U)
+    gmax = max(ref64[1].abs().max().item(), ref64[2].abs().max().item())
+    err = lambda x, y: max((a.double() - b.double()).abs().max().item()
+                           for a, b in zip(x[1:], y[1:])) / gmax
+    g64 = g.double()
+    frames = (got[1].double().sum(2) + g64[:, None]).abs() / g64.abs()[:, None]
+    labels = (got[2].double().sum(1) + g64[:, None]).abs() / g64.abs()[:, None]
+    mass = max(frames[in_b[:, :, 0]].max().item(),
+               labels[in_l[:, 0, :]].max().item() if in_l.any() else 0.0)
+    r = {"loss_rel": ((got[0] - ref[0]).abs() / ref[0].abs()).max().item(),
+         "grad_err": err(got, ref64), "grad_err_fp32": err(got, ref),
+         "plain_err": err(ref, ref64), "mass": mass,
+         "finite": all(bool(torch.isfinite(a).all()) for a in got),
+         "zeros": not (got[1][~in_b].any() or got[2][~in_l].any())}
+    r["ok"] = bool(r["finite"] and r["zeros"] and r["loss_rel"] <= RNNT_LOSS_RTOL
+                   and r["grad_err"] <= RNNT_GRAD_BOUND and r["mass"] <= RNNT_MASS_BOUND)
+    return r
+
+
+def rnnt_faults(dblank, dlabel, feat_lens, tgt_lens) -> dict:
+    """Planted faults of a lattice backward, each of which ``rnnt_check``
+    must reject: name -> (dblank, dlabel)."""
+    B, T, U1 = dblank.shape
+    in_b, in_l = lattice_masks(feat_lens, tgt_lens, T, U1 - 1)
+    last = torch.arange(T, device=dblank.device)[None, :, None] == (
+        feat_lens.clamp(1, T) - 1)[:, None, None]
+    small = dblank.abs() < 1e-4 * dblank.abs().max()
+    return {"dlabel shifted by one label": (dblank, torch.roll(dlabel, 1, dims=2) * in_l),
+            "the last frame's blank zeroed": (torch.where(last, 0.0, dblank), dlabel),
+            "blank cells below 1e-4 of the largest zeroed": (torch.where(small, 0.0, dblank),
+                                                             dlabel)}
+
+
+def rnnt_timing(blank, label, feat_lens, tgt_lens, g) -> dict:
+    """The kernels' device ms (their own time in a profiler trace, else the
+    call's), their launch counts per call and call ms, the plain version's
+    forward and backward ms, and the bound of each kernel for these
+    lengths."""
+    from hnet_mamba_asr_torch.ops import rnnt_cuda as mod
+    from hnet_mamba_asr_torch.ops.rnnt_loss import lattice_nll
+    T, U = label.shape[1], label.shape[2]
+    fi, ti = feat_lens.int(), tgt_lens.int()
+    _, share = mod._forward(blank, label, fi, ti)
+    fwd = lambda: mod._forward(blank, label, fi, ti)
+    bwd = lambda: mod._backward(share, fi, ti, g)
+    bl, lb = blank.clone().requires_grad_(), label.clone().requires_grad_()
+    y_plain = lattice_nll(bl, lb, feat_lens, tgt_lens)
+    r = {"call_ms": {"fwd": cuda_ms(fwd), "bwd": cuda_ms(bwd)},
+         "launches": {"fwd": kernel_launches(fwd, "rnnt_fwd"),
+                      "bwd": kernel_launches(bwd, "rnnt_bwd")},
+         "plain_ms": {"fwd": cuda_ms(lambda: lattice_nll(blank, label, feat_lens, tgt_lens),
+                                     n=3),
+                      "bwd": cuda_ms(lambda: torch.autograd.grad(y_plain, (bl, lb), g,
+                                                                 retain_graph=True), n=3)},
+         "cost": {"fwd": rnnt_cost(feat_lens.cpu(), tgt_lens.cpu(), T, U),
+                  "bwd": rnnt_bwd_cost(feat_lens.cpu(), tgt_lens.cpu(), T, U)}}
+    r["ms"] = {"fwd": kernel_ms(fwd, "rnnt_fwd") or r["call_ms"]["fwd"],
+               "bwd": kernel_ms(bwd, "rnnt_bwd") or r["call_ms"]["bwd"]}
+    r["share"] = {k: r["cost"][k]["bound_ms"] / r["ms"][k] for k in ("fwd", "bwd")}
+    return r
+
+
+def measure_rnnt(tag: str) -> None:
+    from hnet_mamba_asr_torch.ops import rnnt_cuda as mod
+    mod.build()
+    for (Bsz, T, U), lengths in [(shape, None) for shape in RNNT_SHAPES] + [RNNT_EDGE]:
+        blank, label, fl, tl = rnnt_inputs(Bsz, T, U, lengths=lengths)
+        g = torch.randn(Bsz, generator=torch.Generator().manual_seed(1)).cuda()
+        r = rnnt_timing(blank, label, fl, tl, g)
+        row = {"version": tag, "B": Bsz, "T": T, "U": U, "edge_rows": lengths is not None}
+        for k in ("fwd", "bwd"):
+            row.update({f"{k}_ms": r["ms"][k], f"{k}_call_ms": r["call_ms"][k],
+                        f"{k}_launches": r["launches"][k], f"plain_{k}_ms": r["plain_ms"][k],
+                        f"{k}_bound_ms": r["cost"][k]["bound_ms"],
+                        f"{k}_bound_by": r["cost"][k]["bound_by"], f"{k}_share": r["share"][k]})
+        print(json.dumps(row), flush=True)
+        del blank, label
+        torch.cuda.empty_cache()
+
+
 def _configs() -> dict:
     """name -> (model config, trainer config, rows per micro-batch)."""
     from hnet_mamba_asr_torch.tools import gate
     return {"gate": (gate.GATE_CONFIG, gate.GATE_TRAIN, gate.TRAIN_ROWS),
-            "n2": (gate.N2_CONFIG, gate.N2_TRAIN, gate.N2_TRAIN_ROWS)}
+            "n2": (gate.N2_CONFIG, gate.N2_TRAIN, gate.N2_TRAIN_ROWS),
+            "rnnt": (gate.RNNT_CONFIG, gate.GATE_TRAIN, gate.TRAIN_ROWS),
+            "moe": (gate.MOE_CONFIG, gate.GATE_TRAIN, gate.TRAIN_ROWS)}
 
 
 def measure_serve(tag: str, profile: bool, config: str) -> None:
@@ -582,6 +768,7 @@ def measure_train(tag: str, config: str, routers: str = "init") -> None:
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     from hnet_mamba_asr_torch.ops.ema_cuda import ema_cuda
+    from hnet_mamba_asr_torch.ops.rnnt_cuda import rnnt_loss_cuda
     from hnet_mamba_asr_torch.ops.ssd_cuda import ssd_cuda
     from hnet_mamba_asr_torch.tools import gate
     model_cfg, train_cfg, rows = _configs()[config]
@@ -617,6 +804,7 @@ def measure_train(tag: str, config: str, routers: str = "init") -> None:
 
     split: list = []
     ssd_cuda.launches = ssd_cuda.bwd_launches = ema_cuda.launches = ema_cuda.bwd_launches = 0
+    rnnt_loss_cuda.launches = rnnt_loss_cuda.bwd_launches = 0
     torch.cuda.reset_peak_memory_stats()
     update(split)
     fwd = sum(e[0].elapsed_time(e[1]) for e in split[:-1])
@@ -624,7 +812,9 @@ def measure_train(tag: str, config: str, routers: str = "init") -> None:
     opt = split[-1][0].elapsed_time(split[-1][1])
     total = split[0][0].elapsed_time(split[-1][1])
     launches = {"ssd_fwd_launches": ssd_cuda.launches, "ssd_bwd_launches": ssd_cuda.bwd_launches,
-                "ema_fwd_launches": ema_cuda.launches, "ema_bwd_launches": ema_cuda.bwd_launches}
+                "ema_fwd_launches": ema_cuda.launches, "ema_bwd_launches": ema_cuda.bwd_launches,
+                "rnnt_fwd_launches": rnnt_loss_cuda.launches,
+                "rnnt_bwd_launches": rnnt_loss_cuda.bwd_launches}
     with torch.no_grad():
         enc = trainer.model.encode(dev[0])
     print(json.dumps({"version": tag, "config": config, "routers": routers,
@@ -699,9 +889,10 @@ def measure_aed_step(tag: str) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("what", choices=("ssd", "ssd_bwd", "bwd_phases", "ema", "ema_phases",
-                                     "serve", "phases", "train", "aed_step"))
-    ap.add_argument("--config", choices=("gate", "n2"), default="gate",
-                    help="serve / train: the gate config (N = 1) or configs/typeA_small_N2")
+                                     "serve", "phases", "train", "aed_step", "rnnt"))
+    ap.add_argument("--config", choices=("gate", "n2", "rnnt", "moe"), default="gate",
+                    help="serve / train: the gate config (N = 1), configs/typeA_small_N2, "
+                         "or the gate config with the RNN-T head or the MoE AED decoder")
     ap.add_argument("--repo", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--tag", default=None, help="label of the version in the output")
     ap.add_argument("--profile", action="store_true")
@@ -729,6 +920,8 @@ def main() -> int:
         measure_ema_phases(tag)
     elif args.what == "aed_step":
         measure_aed_step(tag)
+    elif args.what == "rnnt":
+        measure_rnnt(tag)
     elif args.what == "train":
         for routers in ("init", "random") if args.config == "n2" else ("init",):
             measure_train(tag, args.config, routers)

@@ -1,7 +1,7 @@
 """The hand-written Hopper kernels (the SSD scan at (P, N) = (64, 128) and,
-fp32, (16, 16), and the H-Net EMA, forward and backward) against their plain
-PyTorch versions, on the card. Marked ``gpu``: skipped where no CUDA
-device is present. Run on the card with
+fp32, (16, 16), the H-Net EMA and the RNN-T lattice, forward and backward)
+against their plain PyTorch versions, on the card. Marked ``gpu``: skipped
+where no CUDA device is present. Run on the card with
 ``python -m pytest --noconftest tests/test_torch_cuda.py``."""
 import pytest
 import torch
@@ -368,3 +368,105 @@ def test_ema_kernels_refuse_cuda_graph_capture(cuda):
     torch.cuda.synchronize()
     assert torch.equal(_forward(z, p, 1e-4), zbar)
     assert all(torch.equal(a, b) for a, b in zip(_backward(z, p, zbar, g, 1e-4), (dz, dp)))
+
+
+# ---- the RNN-T lattice kernels ----------------------------------------------------
+# held as tools/measure.py::rnnt_check holds them (chip_smoke.py phase 2):
+# the loss against the plain lattice_nll in fp32 to RNNT_LOSS_RTOL, both
+# gradients against it in fp64 to RNNT_GRAD_BOUND of their largest, and
+# every frame's blank gradients and every label's label gradients summed
+# to -g_b within RNNT_MASS_BOUND of |g_b| (each alignment leaves each frame
+# by one blank and emits each label once); zeros outside each lattice exact
+
+
+def _rnnt_case(shape):
+    from hnet_mamba_asr_torch.tools.measure import RNNT_EDGE, RNNT_SHAPES, rnnt_inputs
+    if shape == "edge":
+        return rnnt_inputs(*RNNT_EDGE[0], seed=5, lengths=RNNT_EDGE[1])
+    return rnnt_inputs(*RNNT_SHAPES[shape], seed=5)
+
+
+@pytest.mark.parametrize("shape", [0, 1, 2, 3, "edge"])
+def test_rnnt_kernels_match_plain(cuda, shape):
+    """The loss and both gradients against autograd of ``lattice_nll`` in
+    fp32 and fp64 at the training, decode-batch, 35 s and U 512 shapes and
+    with edge rows (T_b 1, U_b 0, feat_length 0, rows shorter than the
+    batch): the alignment mass conserved, the zeros outside each lattice
+    exact, one launch each way; at the training shape, planted faults of
+    the gradients rejected by the same check."""
+    from hnet_mamba_asr_torch.ops.rnnt_cuda import RNNTLattice, rnnt_loss_cuda
+    from hnet_mamba_asr_torch.ops.rnnt_loss import lattice_nll
+    from hnet_mamba_asr_torch.tools.measure import rnnt_check, rnnt_faults
+    blank, label, fl, tl = _rnnt_case(shape)
+    g = torch.randn(blank.shape[0], generator=torch.Generator().manual_seed(2)).to(cuda)
+    b1, l1 = blank.clone().requires_grad_(), label.clone().requires_grad_()
+    before = (rnnt_loss_cuda.launches, rnnt_loss_cuda.bwd_launches)
+    loss = RNNTLattice.apply(b1, l1, fl, tl)
+    got = (loss.detach(), *torch.autograd.grad(loss, (b1, l1), g))
+    assert (rnnt_loss_cuda.launches, rnnt_loss_cuda.bwd_launches) == (before[0] + 1,
+                                                                      before[1] + 1)
+    refs = []
+    for dtype in (torch.float32, torch.float64):
+        b2, l2 = blank.to(dtype).clone().requires_grad_(), label.to(dtype).clone().requires_grad_()
+        ref = lattice_nll(b2, l2, fl, tl)
+        refs.append((ref.detach(), *torch.autograd.grad(ref, (b2, l2), g.to(dtype))))
+    torch.cuda.synchronize()
+    c = rnnt_check(got, *refs, fl, tl, g)
+    assert c["ok"], c
+    if shape == 0:
+        for name, (db, dl) in rnnt_faults(got[1], got[2], fl, tl).items():
+            assert not rnnt_check((got[0], db, dl), *refs, fl, tl, g)["ok"], name
+
+
+def test_rnnt_kernels_are_deterministic(cuda):
+    """No atomics: two calls give bitwise-equal losses and gradients."""
+    from hnet_mamba_asr_torch.ops.rnnt_cuda import _backward, _forward
+    from hnet_mamba_asr_torch.tools.measure import lattice_masks
+    blank, label, fl, tl = _rnnt_case(0)
+    fi, ti = fl.int(), tl.int()
+    g = torch.randn(blank.shape[0], generator=torch.Generator().manual_seed(3)).to(cuda)
+    (loss, share), (loss2, share2) = (_forward(blank, label, fi, ti),
+                                      _forward(blank, label, fi, ti))
+    inside = lattice_masks(fl, tl, blank.shape[1], label.shape[2])[0]
+    assert torch.equal(loss, loss2) and torch.equal(share[inside], share2[inside])
+    one = _backward(share, fi, ti, g)
+    two = _backward(share, fi, ti, g)
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+
+
+def test_rnnt_loss_through_the_logits(cuda):
+    """``rnnt_loss_cuda`` on bf16 joint logits (log-softmax and gathers in
+    PyTorch, the lattice in the kernels) against the plain ``rnnt_loss`` on
+    the same logits: the losses to 1e-5 relative, the logits' gradient to
+    one bf16 ulp of its largest value; a feat_length 0 row finite."""
+    from hnet_mamba_asr_torch.ops.rnnt_cuda import rnnt_loss_cuda
+    from hnet_mamba_asr_torch.ops.rnnt_loss import rnnt_loss
+    gen = torch.Generator().manual_seed(3)
+    logits = (torch.randn(4, 50, 11, 501, generator=gen) * 2).to(cuda, torch.bfloat16)
+    targets = torch.randint(0, 500, (4, 10), generator=gen).to(cuda)
+    fl = torch.tensor([50, 31, 0, 7], device=cuda)
+    tl = torch.tensor([10, 4, 2, 0], device=cuda)
+    grads = []
+    for fn in (rnnt_loss_cuda, rnnt_loss):
+        x = logits.clone().requires_grad_()
+        loss = fn(x, fl, targets, tl, blank_id=500, reduction="none")
+        grads.append((loss.detach(), torch.autograd.grad(loss.sum(), x)[0].float()))
+    (a, ga), (b, gb) = grads
+    assert torch.isfinite(a).all() and ((a - b).abs() / b.abs()).max().item() <= 1e-5
+    assert (ga - gb).abs().max().item() <= 2.0 ** -8 * gb.abs().max().item()
+
+
+def test_rnnt_kernels_refuse_what_they_do_not_take(cuda):
+    from hnet_mamba_asr_torch.ops.rnnt_cuda import lattice_nll_cuda
+    blank, label, fl, tl = _rnnt_case("edge")
+    with pytest.raises(TypeError):
+        lattice_nll_cuda(blank.double(), label.double(), fl, tl)
+    with pytest.raises(ValueError):
+        lattice_nll_cuda(blank, label[..., :-1].contiguous(), fl, tl)
+    with pytest.raises(ValueError):
+        lattice_nll_cuda(blank.cpu(), label.cpu(), fl, tl)
+    wide = torch.zeros(1, 2, 6200, device=cuda)
+    with pytest.raises(ValueError, match="U <="):
+        lattice_nll_cuda(wide, wide[..., 1:].contiguous(), fl[:1], tl[:1])
+    with torch.no_grad():
+        assert lattice_nll_cuda(blank.requires_grad_(), label, fl, tl).grad_fn is None

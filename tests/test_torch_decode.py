@@ -224,8 +224,8 @@ def test_model_greedy_decode_without_ctc_matches_jax(tone):
 def test_expand_cells_and_refusals():
     """expand_cells gives JAX's cells for several decode blocks; the beam
     cells' engine is the device search when device_beam is absent or true,
-    as in JAX, and the host's with device_beam: false; the RNN-T cells raise
-    NotImplementedError."""
+    as in JAX, and the host's with device_beam: false, the RNN-T cells'
+    too."""
     blocks = [{}, GATE_DECODE, {"read_outs": "aed", "search": "beam", "lm": "none"},
               {"read_outs": ["joint", "ctc"], "search": ["beam", "greedy"], "lm": True},
               {"read_outs": ["rnnt", "ctc"], "lm": "enabled"}]
@@ -241,8 +241,10 @@ def test_expand_cells_and_refusals():
     assert decode_task.engine_for({"device_beam": False, "batch_beams": False},
                                   beam) == "serial"
     rnnt = {"read_out": "rnnt", "search": "greedy", "lm": False, "name": "rnnt_greedy"}
-    with pytest.raises(NotImplementedError, match="RNN-T"):
-        decode_task.engine_for({}, rnnt)
+    assert decode_task.engine_for({}, rnnt) == "greedy"
+    rnnt_beam = dict(rnnt, search="beam", name="rnnt_beam")
+    assert decode_task.engine_for({}, rnnt_beam) == "device"
+    assert decode_task.engine_for({"device_beam": False}, rnnt_beam) == "serial"
 
 
 def test_decode_literal_matches_yaml():

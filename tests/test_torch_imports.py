@@ -1,10 +1,11 @@
 """The PyTorch port never imports JAX or the JAX package: its serving and
 training slices (N = 1 and the H-Net models: Type A N = 2 with the EMA
 dechunk, Type B, the fixed-pool chunker), every module of the decode slice
-with a tiny decode of all 7 cells (the beams on the device searches), the
-aed_ids and beam_ids serving modes, and chip_smoke.py run in a fresh
-interpreter with jax, flax and hnet_mamba_asr_tpu absent from
-sys.modules."""
+with a tiny decode of all 10 cells (the beams on the device searches) by a
+model with the RNN-T head and an MoE AED decoder and an MoE LM, the
+aed_ids, beam_ids, rnnt_ids and rnnt_beam_ids serving modes, and
+chip_smoke.py run in a fresh interpreter with jax, flax and
+hnet_mamba_asr_tpu absent from sys.modules."""
 import json
 import subprocess
 import sys
@@ -19,6 +20,8 @@ torch.set_num_threads(1)
 import chip_smoke
 import hnet_mamba_asr_torch.tools.measure
 import hnet_mamba_asr_torch.ops.cuda_build, hnet_mamba_asr_torch.ops.ema_cuda
+import hnet_mamba_asr_torch.ops.rnnt_cuda, hnet_mamba_asr_torch.models.moe
+import hnet_mamba_asr_torch.decoders.rnnt_decode, hnet_mamba_asr_torch.decoders.device_rnnt_beam
 from hnet_mamba_asr_torch.models.fixed_pool import FixedPoolChunker
 from hnet_mamba_asr_torch.models.hnet_chunk import DynamicChunker
 from hnet_mamba_asr_torch.serving.runtime import ServingModel
@@ -67,22 +70,26 @@ from hnet_mamba_asr_torch.data.tokenizer import Tokenizer
 from hnet_mamba_asr_torch.decoders.lm_scorer import CausalLMScorer
 from hnet_mamba_asr_torch.tasks import decode_task
 from hnet_mamba_asr_torch.tasks.lm_task import build_lm
+moe = {"n_experts": 2, "top_k": 1}
+rcfg = dict(cfg, model_conf=dict(cfg["model_conf"], rnnt_weight=1.0),
+            rnnt_conf={"d_pred": 8, "d_joint": 16, "max_decode_len": 6},
+            aed_conf=dict(cfg["aed_conf"], max_decode_len=3, moe=moe))
 with tempfile.TemporaryDirectory() as tmp:
     tok = Tokenizer.train(["a b c", "b c d a"], tmp + "/bpe", vocab_size=12,
                           hard_vocab_limit=False)
-    dmodel = build_model(dict(cfg, aed_conf=dict(cfg["aed_conf"], max_decode_len=3)),
-                         tok.vocab_size, device="cpu")
-    lm = build_lm({"lm_conf": {"d_model": 16, "n_layers": 1, "n_heads": 2, "d_ff": 32}},
+    dmodel = build_model(rcfg, tok.vocab_size, device="cpu")
+    lm = build_lm(decode_task.dropless({"lm_conf": {"d_model": 16, "n_layers": 1,
+                                                    "n_heads": 2, "d_ff": 32, "moe": moe}}),
                   tok.vocab_size, device="cpu")
     dbatch = collate_batch([dict(it, tokens=np.array(tok.encode("a b"), np.int32))
                             for it in items], pad_id=3, seed=0, epoch=0)
-    dc = {"read_outs": ["ctc", "aed", "joint"], "search": ["greedy", "beam"], "lm": "on",
-          "beam_size": 2, "pre_beam": 3}
+    dc = {"read_outs": ["ctc", "aed", "joint", "rnnt"], "search": ["greedy", "beam"],
+          "lm": "on", "beam_size": 2, "pre_beam": 3}
     cells = {c["name"]: len(decode_task.decode_batch(dmodel, tok, dbatch, c, dc,
                                                      lm=CausalLMScorer(lm.lm)))
              for c in decode_task.expand_cells(dc)}
-    smodel = ServingModel(dict(cfg, aed_conf=dict(cfg["aed_conf"], max_decode_len=3)), None,
-                          "cpu", vocab_size=30, emit=("aed_ids", "beam_ids"))
+    smodel = ServingModel(rcfg, None, "cpu", vocab_size=30,
+                          emit=("aed_ids", "beam_ids", "rnnt_ids", "rnnt_beam_ids"))
     served = smodel(np.stack([it["wave"] for it in items]), np.array([6000, 6000]))
 print(json.dumps({"enc_frames": res["enc_frames"], "steps": trainer.global_step,
                   "kept": kept, "cells": cells,
@@ -106,7 +113,9 @@ def test_port_runs_without_jax():
     assert out["steps"] == 1
     assert len(out["kept"]) == 3 and all(0 < k <= 1 for k in out["kept"])
     assert out["cells"] == {c: 2 for c in ("ctc_greedy", "ctc_beam", "ctc_beam_lm", "aed_beam",
-                                           "aed_beam_lm", "joint_beam", "joint_beam_lm")}
+                                           "aed_beam_lm", "joint_beam", "joint_beam_lm",
+                                           "rnnt_greedy", "rnnt_beam", "rnnt_beam_lm")}
     assert out["engines"] == ["device", "greedy"]
     assert out["served"] == {"enc_lengths": [2], "aed_ids": [2, 3], "beam_ids": [2, 8],
-                             "beam_lens": [2]}
+                             "beam_lens": [2], "rnnt_ids": [2, 6], "rnnt_lens": [2],
+                             "rnnt_beam_ids": [2, 6], "rnnt_beam_lens": [2]}

@@ -120,11 +120,21 @@ def test_serving_limits_and_modes():
         sm(np.zeros((3, 800), np.float32), [800] * 3)
     with pytest.raises(ValueError, match="no bucket fits batch=1 samples=8001"):
         sm(np.zeros((1, 8001), np.float32), [8001])
-    # the RNN-T modes are not ported; aed_ids needs the AED head, which this
-    # CTC-only model lacks; beam_ids serves the CTC prefix beam
+    # the RNN-T modes need the RNN-T head and aed_ids the AED head, which this
+    # CTC-only model lacks (JAX's export refuses them alike); with the head
+    # rnnt_ids serves the transducer's greedy search; beam_ids serves the CTC
+    # prefix beam
     for mode in ("rnnt_ids", "rnnt_beam_ids"):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="RNNT head"):
             ServingModel(NARROW_CONFIG, None, "cpu", vocab_size=NARROW_VOCAB, emit=(mode,))
+    rnnt_cfg = dict(NARROW_CONFIG, model_conf={"ctc_weight": 1.0, "rnnt_weight": 1.0},
+                    rnnt_conf={"d_pred": 8, "d_joint": 16, "max_decode_len": 12})
+    rnnt = ServingModel(rnnt_cfg, None, "cpu", vocab_size=NARROW_VOCAB, emit=("rnnt_ids",))
+    wave = np.random.default_rng(1).normal(size=(2, 4000)).astype(np.float32)
+    out = rnnt(wave, [4000, 2600])
+    assert out["rnnt_ids"].shape == (2, 12) and (out["rnnt_lens"] <= 12).all()
+    assert rnnt.transcribe_ids(wave, [4000, 2600]) == [
+        out["rnnt_ids"][b, :out["rnnt_lens"][b]].tolist() for b in range(2)]
     with pytest.raises(ValueError, match="AED head"):
         ServingModel(NARROW_CONFIG, None, "cpu", vocab_size=NARROW_VOCAB, emit=("aed_ids",))
     beam = ServingModel(NARROW_CONFIG, None, "cpu", vocab_size=NARROW_VOCAB, emit=("beam_ids",))

@@ -193,8 +193,18 @@ def test_aed_forward_and_label_smoothing_match_jax(rng):
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4)
     loss = label_smoothing_loss(got, t_out, t_lens, 0.1, row_mask=torch.from_numpy(row_mask))
     np.testing.assert_allclose(loss.item(), want_loss, rtol=LOSS_RTOL)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        AEDHead(V, d, moe_experts=4)
+    # the MoE decoder (aed_conf.moe): the flax head's logits, pad slots unrouted
+    jmoe_head = jaed.AEDHead(vocab_size=V, d_model=d, n_layers=2, n_heads=2, d_ff=48,
+                             moe_experts=4, moe_top_k=2, moe_capacity_factor=1.0)
+    mparams = module_tree(jmoe_head, jnp.asarray(mem), jnp.asarray(mlens), ys_in, seed=3)
+    want_moe = np.asarray(jax.jit(jmoe_head.apply)({"params": mparams}, jnp.asarray(mem),
+                                                   jnp.asarray(mlens), ys_in))
+    moe_head = AEDHead(V, d, n_layers=2, n_heads=2, d_ff=48, moe_experts=4, moe_top_k=2,
+                       moe_capacity_factor=1.0)
+    moe_head.load_state_dict(convert.jax_to_state_dict(mparams), strict=True)
+    with torch.no_grad():
+        got_moe = moe_head(torch.from_numpy(mem), torch.from_numpy(mlens), t_in)
+    np.testing.assert_allclose(got_moe.numpy(), want_moe, rtol=0, atol=1e-4)
 
 
 def test_aed_dropout_is_a_function_of_the_step(rng):
@@ -262,10 +272,12 @@ def test_build_model_heads_and_refusals():
     ctc_only = copy.deepcopy(HYBRID_CONFIG)
     ctc_only["model_conf"] = {"ctc_weight": 1.0, "aed_weight": 0.0}
     assert _port_model(ctc_only).aed is None
+    # the MoE AED decoder builds with the JAX model's parameter tree
     moe = copy.deepcopy(HYBRID_CONFIG)
     moe["aed_conf"]["moe"] = {"n_experts": 4}
-    with pytest.raises(NotImplementedError):
-        _port_model(moe)
+    jmoe = jtask.build_model(moe, V)
+    tree = seeded_tree(jax.eval_shape(jmoe.init_params, jax.random.PRNGKey(0)))
+    assert _port_model(moe, tree).aed.layers[0].moe.n_experts == 4
     bad = copy.deepcopy(HYBRID_CONFIG)
     bad["encoder_conf"]["remat_policy"] = "offload"
     with pytest.raises(ValueError, match="remat_policy"):
