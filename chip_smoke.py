@@ -40,15 +40,20 @@ calls, at the full width of ``configs/typeA_small_N1.yaml`` and
                (nine channel tiles, element loads): zbar, dz, dP, zero dP
                at saturated slots, two calls bitwise equal; both times and
                the bound;
-   rnnt     -- the RNN-T lattice kernels (forward and backward) against
-               autograd of the plain ``lattice_nll`` at B 32 T 249 U 64
-               (training), B 8 T 380 U 128 (the decode batch), B 1 T 880
-               U 256 (35 s), U 512 and with edge rows (T_b 1, U_b 0,
-               feat_length 0, rows shorter than the batch): the loss
-               against fp32, both gradients against fp64, every frame's
-               and label's alignment mass, zeros outside the lattices,
-               two calls bitwise equal; planted faults of the gradients
-               rejected by the same check; both times, the bound;
+   rnnt     -- the RNN-T loss kernels (rnnt_fwd: logits -> loss, lse and
+               the blank shares, two launches; rnnt_bwd: -> dlogits, two
+               launches) against the plain pair (``rnnt_fwd_plain`` /
+               ``rnnt_bwd_plain``) from the joint's padded bf16 and fp32
+               logits at B 32 T 249 U 64 (training), B 8 T 380 U 128 (the
+               decode batch), B 1 T 880 U 256 (35 s), U 512 and with edge
+               rows (T_b 1, U_b 0, feat_length 0, rows shorter than the
+               batch, a target equal to the blank and one past V; also as
+               501 contiguous columns): the loss against fp32, cb / cl and
+               dlogits against fp64, every frame's and label's alignment
+               mass, each cell's dlogits summed to 0, zeros outside the
+               lattices and in the pad columns, two calls bitwise equal;
+               four planted faults rejected by the same check; the times
+               of each launch, the bound;
 3. model    -- the whole model on the card (kernel path) against the same
                weights and batch on the CPU (plain path), fp32, TF32 off;
    hnet     -- the same at N = 2 (Type A), N = 4 (Type B, n_mid 1) and with
@@ -75,16 +80,18 @@ calls, at the full width of ``configs/typeA_small_N1.yaml`` and
                router's rate and eps, 80 + 40 SSD and 1 + 1 EMA launches per
                micro-step; then the RNN-T config (the gate config with
                rnnt_weight 1.0, 79,703,198 parameters): 3 updates of 2 x 32
-               x 10 s, 40 + 40 SSD and 1 + 1 lattice launches per
-               micro-step, step time and peak memory;
+               x 10 s, 40 + 40 SSD and 1 + 1 loss calls per micro-step,
+               step time and peak memory; a profiled micro-step: its device
+               time by kernel class on the joint's lattice, no
+               log-softmax, gather, select, slice, cast or copy there;
 6. descent  -- 5 updates on one fixed batch of 8 x 10 s at a constant lr of
                1e-3: the loss falls;
 7. grads    -- one fp32 micro-step at full width and depth 1 + 2 + 1 on the
                card and on the CPU: every parameter's gradient agrees
                (1e-3 of its max; the first conv's 1e-2); then at N = 2,
                the boundaries equal first, the router's leaves included;
-               then the RNN-T config (the same bounds), one launch of
-               each lattice kernel;
+               then the RNN-T config (the same bounds), one call of each
+               loss kernel pair (from the joint's fp32 logits);
 8. bench    -- ``bench.py``'s gate-cell step (CTC only, clip 5 + AdamW
                1e-3): mel-frames/s at 32 x 10 s with remat none and at
                64 x 10 s with remat full;
@@ -250,6 +257,11 @@ HNET_VARIANTS = (
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def kernel_name(key: str) -> str:
+    """A profiler row's kernel name without its namespace and arguments."""
+    return key.split("::")[-1].split("<")[0].split("(")[0]
 
 
 def phase_build():
@@ -1750,84 +1762,103 @@ def phase_decode_parity(cmvn, tmp: Path) -> dict:
 
 # ---- the RNN-T family and the MoE FFN ----------------------------------------------
 def phase_rnnt_kernel() -> list:
-    """The RNN-T lattice kernels against the plain version at the training
-    shape (B 32 T 249 U 64), the decode batch's (B 8 T 380 U 128), a 35 s
-    utterance's (B 1 T 880 U 256), U 512 and with edge rows (T_b 1, U_b 0,
-    feat_length 0, rows shorter than the batch), as ``measure.rnnt_check``
-    holds them: the loss against the plain version in fp32, both gradients
-    against it in fp64, the alignment mass of every frame and label, zeros
-    outside each lattice; two calls bitwise equal; at the training shape,
-    planted faults of the backward (``measure.rnnt_faults``) each rejected
-    by that check; the kernels' time, their bound and the plain version's
-    time (``measure.rnnt_timing``)."""
+    """The RNN-T loss kernels against the plain pair (``rnnt_fwd_plain`` /
+    ``rnnt_bwd_plain``) from the joint's padded bf16 and fp32 logits at the
+    training shape (B 32 T 249 U 64), the decode batch's (B 8 T 380 U 128),
+    a 35 s utterance's (B 1 T 880 U 256), U 512 and with edge rows (T_b 1,
+    U_b 0, feat_length 0, rows shorter than the batch, a target equal to the
+    blank and one past V; and there the logits as 501 contiguous columns,
+    which take element loads), as ``measure.rnnt_check`` holds them: the
+    loss against the plain pair in fp32, cb / cl and dlogits against it in
+    fp64, the alignment mass of every frame and label, each cell's dlogits
+    summed to 0, zeros outside each lattice and in the pad columns; two
+    calls bitwise equal; at the training shape, the four planted faults
+    (``measure.rnnt_faults``) each rejected by that check; the kernels'
+    time and each launch's, their bound and the plain version's time
+    (``measure.rnnt_timing``)."""
     import importlib.util
     from hnet_mamba_asr_torch.ops import rnnt_cuda
-    from hnet_mamba_asr_torch.ops.rnnt_loss import lattice_nll
+    from hnet_mamba_asr_torch.ops.rnnt_loss import rnnt_bwd_plain, rnnt_fwd_plain
     from hnet_mamba_asr_torch.tools.measure import (
-        RNNT_EDGE, RNNT_GRAD_BOUND, RNNT_LOSS_RTOL, RNNT_MASS_BOUND, RNNT_SHAPES, rnnt_check,
-        rnnt_faults, rnnt_inputs, rnnt_timing)
+        RNNT_BLANK, RNNT_CELL_BOUND, RNNT_CLASSES, RNNT_EDGE, RNNT_GRAD_BOUND, RNNT_LOSS_RTOL,
+        RNNT_MASS_BOUND, RNNT_SHAPES, rnnt_check, rnnt_faults, rnnt_inputs, rnnt_pair,
+        rnnt_timing)
+
     rows = []
-    for (Bsz, T, U), lengths in [(s, None) for s in RNNT_SHAPES] + [RNNT_EDGE]:
-        blank, label, fl, tl = rnnt_inputs(Bsz, T, U, seed=SEED, lengths=lengths)
+    cases = [(dtype, s, None, False) for s in RNNT_SHAPES for dtype in (torch.bfloat16,
+                                                                         torch.float32)]
+    cases += [(dtype, RNNT_EDGE[0], RNNT_EDGE[1], packed) for packed in (False, True)
+              for dtype in (torch.bfloat16, torch.float32)]
+    for dtype, (Bsz, T, U), lengths, packed in cases:
+        logits, tg, fl, tl = rnnt_inputs(Bsz, T, U, dtype, seed=SEED, lengths=lengths)
+        classes = RNNT_CLASSES
+        if packed:
+            logits, classes = logits[..., :RNNT_CLASSES].contiguous(), None
         g = torch.randn(Bsz, generator=torch.Generator().manual_seed(SEED)).cuda()
-
-        def kernel_grads():
-            b, lab = blank.clone().requires_grad_(), label.clone().requires_grad_()
-            loss = rnnt_cuda.RNNTLattice.apply(b, lab, fl, tl)
-            return (loss.detach(), *torch.autograd.grad(loss, (b, lab), g))
-
-        def plain_grads(dtype):
-            b = blank.to(dtype).clone().requires_grad_()
-            lab = label.to(dtype).clone().requires_grad_()
-            loss = lattice_nll(b, lab, fl, tl)
-            return (loss.detach(), *torch.autograd.grad(loss, (b, lab), g.to(dtype)))
-
-        got, again = kernel_grads(), kernel_grads()
-        ref, ref64 = plain_grads(torch.float32), plain_grads(torch.float64)
+        got = rnnt_pair(rnnt_cuda._forward, rnnt_cuda._backward, logits, tg, fl, tl, g, classes)
+        again = rnnt_pair(rnnt_cuda._forward, rnnt_cuda._backward, logits, tg, fl, tl, g,
+                          classes)
         torch.cuda.synchronize()
         bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
-        c = rnnt_check(got, ref, ref64, fl, tl, g)
+        del again
+        ref, ref64 = (rnnt_pair(rnnt_fwd_plain, rnnt_bwd_plain, logits.to(d), tg, fl, tl,
+                                g.to(d), classes) for d in (torch.float32, torch.float64))
+        c = rnnt_check(got, ref, ref64, fl, tl, g, RNNT_CLASSES)
+        name = str(dtype).removeprefix("torch.")
         faults = {}
         if (Bsz, T, U) == RNNT_SHAPES[0]:
-            faults = {name: rnnt_check((got[0], db, dl), ref, ref64, fl, tl, g)
-                      for name, (db, dl) in rnnt_faults(got[1], got[2], fl, tl).items()}
-        tm = rnnt_timing(blank, label, fl, tl, g)
-        ms, plain, cost = tm["ms"], tm["plain_ms"], tm["cost"]
-        log(f"  rnnt B{Bsz} T{T} U{U}{' edge rows' if lengths else ''}: loss rel "
-            f"{c['loss_rel']:.3e} (bound {RNNT_LOSS_RTOL:g}); grads against fp64 max|d|/max|g| "
-            f"kernel {c['grad_err']:.3e} (bound {RNNT_GRAD_BOUND:g}), plain fp32 "
-            f"{c['plain_err']:.3e}, kernel vs plain fp32 {c['grad_err_fp32']:.3e}; alignment "
-            f"mass {c['mass']:.3e} of |g| (bound {RNNT_MASS_BOUND:g}); zeros outside the "
-            f"lattices {c['zeros']}, bitwise repeat {bitwise}; kernel fwd {ms['fwd']:.4f} ms "
-            f"bwd {ms['bwd']:.4f} ms, plain fwd {plain['fwd']:.3f} ms bwd {plain['bwd']:.3f} "
-            f"ms; bound fwd {cost['fwd']['bound_ms'] * 1e3:.2f} us bwd "
-            f"{cost['bwd']['bound_ms'] * 1e3:.2f} us ({cost['fwd']['bound_by']}), share "
-            f"{tm['share']['fwd']:.2%} / {tm['share']['bwd']:.2%}")
-        for name, f in faults.items():
-            log(f"    planted fault, {name}: grads {f['grad_err']:.3e}, mass {f['mass']:.3e}, "
-                f"zeros {f['zeros']}: {'rejected' if not f['ok'] else 'NOT REJECTED'}")
-        if not (c["ok"] and bitwise) or any(f["ok"] for f in faults.values()):
-            raise AssertionError(f"rnnt kernels at B {Bsz} T {T} U {U}: {c}, bitwise "
-                                 f"{bitwise}, planted faults passed: "
-                                 f"{[n for n, f in faults.items() if f['ok']]}")
-        rows.append(dict(B=Bsz, T=T, U=U, edge=lengths is not None, ms=ms, plain_ms=plain,
-                         cost=cost, check=c,
-                         abs_err={"fwd": (got[0] - ref[0]).abs().max().item(),
-                                  "bwd": max((a.double() - b).abs().max().item()
-                                             for a, b in zip(got[1:], ref64[1:]))}))
-        del blank, label, got, again, ref, ref64
+            faults = {k: rnnt_check(f, ref, ref64, fl, tl, g, RNNT_CLASSES)
+                      for k, f in rnnt_faults(got, fl, tl, tg, RNNT_BLANK).items()}
+        abs_err = {"fwd": (got[0] - ref[0]).abs().max().item(),
+                   "bwd": (got[3].double() - ref64[3]).abs().max().item()}
+        del ref, ref64
+        tm = rnnt_timing(logits, tg, fl, tl, g) if not packed else None
+        log(f"  rnnt {name} B{Bsz} T{T} U{U}{' edge rows' if lengths else ''}"
+            f"{', 501 contiguous columns' if packed else ''}: loss rel {c['loss_rel']:.3e} "
+            f"(bound {RNNT_LOSS_RTOL:g}); cb/cl against fp64 max|d|/max|g| kernel "
+            f"{c['grad_err']:.3e} (bound {RNNT_GRAD_BOUND:g}), plain fp32 {c['plain_err']:.3e}; "
+            f"dlogits beyond one {name} rounding {c['dlogit_err']:.3e} of their max (bound "
+            f"{RNNT_GRAD_BOUND:g}); cells' dlogit sums {c['cell_sum']:.3e} of |cb| + |cl| "
+            f"(bound {RNNT_CELL_BOUND[dtype]:g}); alignment mass {c['mass']:.3e} of |g| (bound "
+            f"{RNNT_MASS_BOUND:g}); zeros outside the lattices and in the pad columns "
+            f"{c['zeros']}, bitwise repeat {bitwise}")
+        if tm is not None:
+            ms, plain, cost = tm["ms"], tm["plain_ms"], tm["cost"]
+            log(f"    kernel fwd {ms['fwd']:.4f} ms bwd {ms['bwd']:.4f} ms ("
+                + ", ".join(f"{kernel_name(k)} {v:.4f}"
+                            for part in tm["parts"].values() for k, v in part.items())
+                + f"; launches a call {tm['launches']['fwd']} / {tm['launches']['bwd']}), plain "
+                f"fwd {plain['fwd']:.3f} ms bwd {plain['bwd']:.3f} ms; bound fwd "
+                f"{cost['fwd']['bound_ms'] * 1e3:.2f} us bwd "
+                f"{cost['bwd']['bound_ms'] * 1e3:.2f} us ({cost['fwd']['bound_by']}), share "
+                f"{tm['share']['fwd']:.2%} / "
+                f"{tm['share']['bwd']:.2%}")
+        for k, f in faults.items():
+            log(f"    planted fault, {k}: cb/cl {f['grad_err']:.3e}, mass {f['mass']:.3e}, "
+                f"cell sums {f['cell_sum']:.3e}, dlogits {f['dlogit_err']:.3e}, zeros "
+                f"{f['zeros']}: {'rejected' if not f['ok'] else 'NOT REJECTED'}")
+        if not (c["ok"] and bitwise) or any(f["ok"] for f in faults.values()) or (
+                tm is not None and tm["launches"] != {"fwd": 2, "bwd": 2}):
+            raise AssertionError(f"rnnt kernels at {name} B {Bsz} T {T} U {U}: {c}, bitwise "
+                                 f"{bitwise}, launches {tm and tm['launches']}, planted faults "
+                                 f"passed: {[k for k, f in faults.items() if f['ok']]}")
+        if tm is not None:
+            rows.append(dict(dtype=name, B=Bsz, T=T, U=U, edge=lengths is not None, ms=ms,
+                             plain_ms=plain, cost=cost, check=c, abs_err=abs_err,
+                             parts=tm["parts"]))
+        del logits, got
         torch.cuda.empty_cache()
     found = importlib.util.find_spec("torchaudio") is not None
     log(f"  library: torchaudio {'installed' if found else 'not installed'}; no PyTorch "
-        f"call computes the transducer lattice")
+        f"call computes the transducer loss")
     log("phase 2 rnnt: ok")
     return rows
 
 
 def phase_rnnt_grads(cmvn) -> dict:
     """phase_grads for the gate config with the RNN-T head (depth 1 + 2 + 1,
-    fp32): the card's micro-step goes through the lattice kernels, one
-    launch each way."""
+    fp32): the card's micro-step goes through the loss kernels, one call
+    each way."""
     from hnet_mamba_asr_torch.ops.rnnt_cuda import rnnt_loss_cuda
     from hnet_mamba_asr_torch.tools.gate import RNNT_CONFIG
     rnnt_loss_cuda.launches = rnnt_loss_cuda.bwd_launches = 0
@@ -1888,11 +1919,49 @@ def phase_train_config(cmvn, tmp: Path, config=None, label="rnnt") -> dict:
                              f"over {micro} micro-steps")
     if config is RNNT_CONFIG and n_params != 79_703_198:
         raise AssertionError(f"the RNN-T config has {n_params} parameters")
+    step = None
+    if config is RNNT_CONFIG:
+        step = rnnt_micro_step(trainer, batches[0])
     del trainer
     torch.cuda.empty_cache()
     log(f"phase 5 train {label}: ok")
     return {"launches": launches, "step_ms": step_ms, "fps": fps, "peak": peak,
-            "n_params": n_params}
+            "n_params": n_params, "step": step}
+
+
+# the kernel classes of measure.STEP_CLASSES that the RNN-T micro-step must
+# not run on the joint's lattice: the loss kernels take the logits as the
+# joint's GEMM writes them and return dlogits in the same layout
+RNNT_ABSENT = ("log-softmax", "gather / scatter / select / slice", "cast / copy")
+
+
+def rnnt_micro_step(trainer, batch) -> dict:
+    """One RNN-T micro-step (forward and backward of ``loss_fn``) profiled
+    (``measure.rnnt_step_profile``): the device ms by kernel class on the
+    ops that span the joint's lattice, listed with the loss kernels; no
+    log-softmax, gather, select, slice, cast or copy kernel over the
+    lattice, and the two forward and two backward loss launches."""
+    from hnet_mamba_asr_torch.ops.rnnt_cuda import rnnt_loss_cuda
+    from hnet_mamba_asr_torch.tools.measure import rnnt_step_profile
+    b = trainer._to_device(batch)
+    trainer.model.train()
+    before = (rnnt_loss_cuda.launches, rnnt_loss_cuda.bwd_launches)
+    prof = rnnt_step_profile(trainer.model, b)
+    calls = (rnnt_loss_cuda.launches - before[0], rnnt_loss_cuda.bwd_launches - before[1])
+    log(f"  rnnt micro-step profile, lattice {prof['lattice']}: device {prof['device_ms']:.2f} "
+        f"ms; on the lattice by class "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in prof["classes_ms"].items())
+        + "; loss kernels " + ", ".join(f"{kernel_name(k)} {v:.4f} ms"
+                                       for k, v in prof["loss_kernels_ms"].items())
+        + f"; {calls[0]} forward and {calls[1]} backward calls in 2 profiled micro-steps")
+    for k, v in list(prof["lattice_ops_ms"].items())[:12]:
+        log(f"    {v:8.3f} ms  {k}")
+    present = {k: v for k, v in prof["classes_ms"].items() if k in RNNT_ABSENT and v > 0}
+    names = [kernel_name(k) for k in prof["loss_kernels_ms"]]
+    if present or calls != (2, 2) or len(names) != 4:
+        raise AssertionError(f"the RNN-T micro-step ran {present} on the lattice, loss calls "
+                             f"{calls}, loss kernels {names}")
+    return prof
 
 
 def _requests(seed: int, n: int = 8):
@@ -2411,7 +2480,10 @@ def main() -> int:
         f"in all")
     log(f"rnnt and moe summary: RNN-T config ({train_rnnt['n_params']:,} parameters) "
         f"{train_rnnt['step_ms']:.1f} ms per update of 2 x 32 x 10 s, {train_rnnt['fps']:.0f} "
-        f"mel-frames/s, peak {train_rnnt['peak'] / 1e9:.2f} GB; MoE config "
+        f"mel-frames/s, peak {train_rnnt['peak'] / 1e9:.2f} GB, a micro-step's device "
+        f"{train_rnnt['step']['device_ms']:.2f} ms (on the joint's lattice: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in train_rnnt["step"]["classes_ms"].items())
+        + f" ms); MoE config "
         f"({moe['train']['n_params']:,}) {moe['train']['step_ms']:.1f} ms, peak "
         f"{moe['train']['peak'] / 1e9:.2f} GB; served rnnt_ids + rnnt_beam_ids "
         f"{rnnt_serve['batch_ms']:.1f} ms for 8 requests; RNN-T RTF device / serial "
@@ -2426,11 +2498,14 @@ def main() -> int:
                and r["intra"] == "bf16")
     ema = next(r for r in ema_rows if (r["dtype"], r["B"], r["M"], r["D"], r["saturate"])
                == ("bfloat16", 64, 256, 384, False))
-    rnnt = next(r for r in rnnt_rows if (r["B"], r["T"], r["U"]) == (TRAIN_ROWS, 249, 64))
+    rnnt = next(r for r in rnnt_rows
+                if (r["dtype"], r["B"], r["T"], r["U"]) == ("bfloat16", TRAIN_ROWS, 249, 64))
     log(f"kernel summary: ssd_fwd / ssd_bwd at bf16 (intra bf16) B{TRAIN_ROWS} L249 H16 P64 "
         f"N128 (a micro-batch of 32 x 10 s, main stack); ema_fwd / ema_bwd at bf16 B64 M256 "
-        f"D384 (the dechunk of 64 x 10 s); rnnt_fwd / rnnt_bwd at fp32 B{TRAIN_ROWS} T249 "
-        f"U64 (a micro-batch of 32 x 10 s); launches: ssd_fwd from the full-width decode run "
+        f"D384 (the dechunk of 64 x 10 s); rnnt_fwd / rnnt_bwd from bf16 logits at "
+        f"B{TRAIN_ROWS} T249 U64 V+1 501 in 504 columns (a micro-batch of 32 x 10 s; two "
+        f"launches a call each way, their times summed); launches (calls): ssd_fwd from the "
+        f"full-width decode run "
         f"of the device engine (one warm-up and one shared encoder pass; its searches launch "
         f"no hand kernel), rnnt_fwd / rnnt_bwd from the RNN-T training run (this slice's main "
         f"path: 3 updates of 2 micro-steps), the others from the N=2 training run (3 "

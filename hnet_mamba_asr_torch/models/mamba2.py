@@ -44,7 +44,8 @@ def new_linear(d_in: int, d_out: int, bias: bool, generator) -> nn.Linear:
 
 
 def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype, *,
-          row_multiple: int = 1, col_multiple: int = 1, row_block: int = 0) -> torch.Tensor:
+          row_multiple: int = 1, col_multiple: int = 1, row_block: int = 0,
+          keep_pad: bool = False) -> torch.Tensor:
     """``layer(x)`` in the compute ``dtype`` from fp32 weights, as a flax
     Dense with ``param_dtype=float32`` computes.
 
@@ -61,6 +62,9 @@ def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype, *,
     a wide range (the decode path: a beam's rows, a batch's memory): the
     rows run as GEMMs of exactly ``row_block`` rows each, the last padded,
     so that every call has one shape whatever the row count.
+    ``keep_pad`` returns the padded columns too (zeros of the padded weight
+    rows and bias), without a slice whose backward would copy the gradient
+    into a zero-filled buffer of the padded shape.
     """
     w, b = layer.weight.to(dtype), layer.bias
     b = None if b is None else b.to(dtype)
@@ -77,6 +81,8 @@ def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype, *,
         return out[:m, :n_out].reshape(*x.shape[:-1], n_out)
     if row_multiple > 1:
         rows = F.pad(rows, (0, 0, 0, max(row_multiple, -(-m // row_multiple) * row_multiple) - m))
+    if keep_pad and rows.shape[0] == m:
+        return F.linear(rows, w, b).reshape(*x.shape[:-1], w.shape[0])
     return F.linear(rows, w, b)[:m, :n_out].reshape(*x.shape[:-1], n_out)
 
 

@@ -5,9 +5,11 @@ The predictor embeds the last ``context`` emitted tokens (most recent first,
 bos-filled) and projects their concatenation to the joint width; the joint
 is tanh(enc_proj(memory) + pred_proj(history)) -> Dense(V+1), blank the last
 class (id V), as in the CTC head. Training evaluates the joint over the
-whole [B, T, U+1] lattice and hands the logits to ``ops/rnnt_cuda.py``
-(the lattice kernels on the card, the plain ``ops/rnnt_loss.py`` on the
-CPU). Parameters keep the JAX names (``embed``, ``pred_proj``, ``enc_proj``,
+whole [B, T, U+1] lattice and hands its GEMM output, padded to ``OUT_COLS``
+columns, with the number of classes to ``ops/rnnt_cuda.py`` (the loss
+kernels on the card, which read the bf16 logits in place and return their
+gradient in the same layout; the plain ``ops/rnnt_loss.py`` on the CPU).
+Parameters keep the JAX names (``embed``, ``pred_proj``, ``enc_proj``,
 ``out``) and are stored in fp32; the compute dtype is the model's.
 
 Greedy decode is frame-synchronous: per frame up to ``max_symbols`` joint
@@ -83,13 +85,15 @@ class RNNTHead(nn.Module):
         return padded[:, cols]
 
     # ---- joint ----------------------------------------------------------------
-    def _logits(self, x: torch.Tensor, rows: int = 0) -> torch.Tensor:
+    def _logits(self, x: torch.Tensor, rows: int = 0, padded: bool = False) -> torch.Tensor:
         return dense(torch.tanh(x), self.out, self.dtype, col_multiple=OUT_COLS,
-                     row_block=rows)
+                     row_block=rows, keep_pad=padded)
 
     def joint(self, enc_f: torch.Tensor, pred_f: torch.Tensor) -> torch.Tensor:
-        """enc_f [B, T, J], pred_f [B, U+1, J] -> logits [B, T, U+1, V+1]."""
-        return self._logits(enc_f[:, :, None, :] + pred_f[:, None, :, :])
+        """enc_f [B, T, J], pred_f [B, U+1, J] -> logits [B, T, U+1, V+1
+        rounded up to OUT_COLS]: the GEMM's output, its pad columns (zeros)
+        after the V+1 classes."""
+        return self._logits(enc_f[:, :, None, :] + pred_f[:, None, :, :], padded=True)
 
     def loss(self, memory: torch.Tensor, memory_lengths: torch.Tensor, targets: torch.Tensor,
              target_lengths: torch.Tensor) -> torch.Tensor:
@@ -98,7 +102,8 @@ class RNNTHead(nn.Module):
         enc_f = dense(memory.to(self.dtype), self.enc_proj, self.dtype)
         pred_f = self._predict(self._histories(targets, target_lengths))
         return rnnt_loss_cuda(self.joint(enc_f, pred_f), memory_lengths, targets,
-                              target_lengths, blank_id=self.blank_id, reduction="none")
+                              target_lengths, blank_id=self.blank_id, reduction="none",
+                              classes=self.num_classes)
 
     # ---- decode ------------------------------------------------------------------
     def encode_features(self, memory: torch.Tensor) -> torch.Tensor:

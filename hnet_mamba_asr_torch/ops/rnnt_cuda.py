@@ -1,23 +1,29 @@
-"""The Hopper RNN-T lattice kernels (``csrc/rnnt.cu``): bind, launch,
+"""The Hopper RNN-T loss kernels (``csrc/rnnt.cu``): bind, launch,
 differentiate.
 
 Counterpart of ``hnet_mamba_asr_tpu/ops/rnnt_loss.py::rnnt_loss``, which the
-JAX package leaves to XLA as a frame scan. The log-softmax over V+1 and the
-gathers of the blank and target columns stay PyTorch ops
-(``ops/rnnt_loss.py::lattice_scores``); the kernels take the two fp32 score
-arrays and walk the lattice, forward (``rnnt_fwd``: the per-row loss and
-each cell's share of its mass that came in by the blank) and backward
-(``rnnt_bwd``: both gradients, from the shares alone). The source is
+JAX package leaves to XLA. The kernels compute the whole function from the
+joint's logits: the forward (``rnnt_fwd``, two launches: a pass over the
+logits for each lattice cell's fp32 log-sum-exp and its blank and label
+scores, then the wavefront for the per-row loss and each cell's blank
+share ``w``) and the backward (``rnnt_bwd``, two launches: the reverse
+wavefront over ``w`` for the coefficients ``cb`` / ``cl``, then a pass that
+writes dlogits from the logits, ``lse`` and the coefficients). The source is
 compiled with the port's other kernels (``ops/cuda_build.py``) and loaded
 with ``ctypes``.
 
 ``rnnt_loss_cuda`` is the wrapper the RNN-T head calls. CPU logits go to
 the plain version, ``ops/rnnt_loss.py::rnnt_loss``, which autograd
 differentiates; CUDA logits launch the kernels or raise. ``RNNTLattice``
-joins the pair as one autograd node, and autograd carries its gradients back
-through the gathers and the log-softmax into the joint's logits.
+joins the pair as one autograd node on the logits: it keeps the logits,
+``lse`` and ``w`` and returns dlogits. The logits may carry pad columns past
+``classes`` (the joint GEMM's output padded to a multiple of 8), which the
+kernels skip and give zero gradient, and their rows may be any fixed number
+of elements apart, so a padded or sliced GEMM output is read in place.
 ``rnnt_loss_cuda.launches`` and ``rnnt_loss_cuda.bwd_launches`` count the
-launches.
+forward and backward calls. ``ops/rnnt_loss.py::rnnt_fwd_plain`` /
+``rnnt_bwd_plain`` are the plain versions with the signatures of
+``_forward`` / ``_backward``.
 """
 from __future__ import annotations
 
@@ -27,10 +33,11 @@ import threading
 import torch
 
 from hnet_mamba_asr_torch.ops import cuda_build
-from hnet_mamba_asr_torch.ops.rnnt_loss import lattice_scores, reduce_loss, rnnt_loss
+from hnet_mamba_asr_torch.ops.rnnt_loss import reduce_loss, rnnt_loss
 
 _lock = threading.Lock()
 _loaded: dict = {}
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def build():
@@ -39,12 +46,14 @@ def build():
     with _lock:
         if "lib" not in _loaded:
             lib = ctypes.CDLL(str(info["paths"]["rnnt"]))
-            ptr, c_int = ctypes.c_void_p, ctypes.c_int
+            ptr, c_int, c_ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             lib.hnet_rnnt_max_labels.argtypes = []
             lib.hnet_rnnt_max_labels.restype = c_int
-            lib.hnet_rnnt_fwd.argtypes = [ptr] * 6 + [c_int] * 4 + [ptr]
+            lib.hnet_rnnt_fwd.argtypes = ([c_int, ptr, c_ll, c_int, c_int] + [ptr] * 8
+                                          + [c_int] * 3 + [ptr])
             lib.hnet_rnnt_fwd.restype = c_int
-            lib.hnet_rnnt_bwd.argtypes = [ptr] * 6 + [c_int] * 4 + [ptr]
+            lib.hnet_rnnt_bwd.argtypes = ([c_int, ptr, ptr, c_ll, c_int, c_int] + [ptr] * 8
+                                          + [c_int] * 3 + [ptr])
             lib.hnet_rnnt_bwd.restype = c_int
             lib.hnet_rnnt_error_string.argtypes = [c_int]
             lib.hnet_rnnt_error_string.restype = ctypes.c_char_p
@@ -52,25 +61,34 @@ def build():
         return _loaded["lib"]
 
 
-def threads_for(U: int) -> int:
-    """A CTA's threads: a warp per 32 cells of the widest diagonal (U+1), at
-    most 512 (they stride beyond)."""
-    return min(512, -(-(U + 1) // 32) * 32)
+def _rows(logits: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """(logits, ld): the logits with their (b, t, u) rows ld elements apart,
+    a copy only where the layout has no such stride."""
+    B, T, U1, W = logits.shape
+    ld = logits.stride(2) if U1 > 1 else (logits.stride(1) if T > 1 else W)
+    want = (T * U1 * ld, U1 * ld, ld, 1)
+    if ld >= W and all(n == 1 or s == w for n, s, w in zip(logits.shape, logits.stride(), want)):
+        return logits, ld
+    return logits.contiguous(), W
 
 
-def _check(blank: torch.Tensor, label: torch.Tensor, lib) -> None:
-    if blank.dtype != torch.float32 or label.dtype != torch.float32:
-        raise TypeError(f"rnnt kernels take fp32 scores, got {blank.dtype} and {label.dtype}")
-    if blank.dim() != 3 or label.dim() != 3 or tuple(label.shape) != (
-            blank.shape[0], blank.shape[1], blank.shape[2] - 1):
-        raise ValueError(f"rnnt kernels take blank [B, T, U+1] and label [B, T, U], got "
-                         f"{tuple(blank.shape)} and {tuple(label.shape)}")
-    if blank.device.type != "cuda" or label.device != blank.device:
-        raise ValueError(f"rnnt kernel inputs must be on one CUDA device, got {blank.device} "
-                         f"and {label.device}")
-    if blank.shape[2] - 1 > lib.hnet_rnnt_max_labels():
-        raise ValueError(f"rnnt kernels take U <= {lib.hnet_rnnt_max_labels()}, got "
-                         f"{blank.shape[2] - 1}")
+def _check(logits: torch.Tensor, targets: torch.Tensor, classes: int, blank_id: int,
+           lib) -> None:
+    if logits.dtype not in DTYPES:
+        raise TypeError(f"rnnt kernels take bf16 or fp32 logits, got {logits.dtype}")
+    if logits.dim() != 4 or logits.shape[1] < 1:
+        raise ValueError(f"rnnt kernels take logits [B, T, U+1, V], got {tuple(logits.shape)}")
+    if logits.device.type != "cuda":
+        raise ValueError(f"rnnt kernel inputs must be on a CUDA device, got {logits.device}")
+    B, _, U1, W = logits.shape
+    if tuple(targets.shape) != (B, U1 - 1):
+        raise ValueError(f"targets {tuple(targets.shape)} do not match logits "
+                         f"{tuple(logits.shape)}: want [B, U]")
+    if not 0 < classes <= W or not 0 <= blank_id < classes:
+        raise ValueError(f"classes {classes} / blank_id {blank_id} outside the logits' {W} "
+                         "columns")
+    if U1 - 1 > lib.hnet_rnnt_max_labels():
+        raise ValueError(f"rnnt kernels take U <= {lib.hnet_rnnt_max_labels()}, got {U1 - 1}")
 
 
 def _raise_on(lib, code: int, what: str) -> None:
@@ -79,97 +97,110 @@ def _raise_on(lib, code: int, what: str) -> None:
         raise RuntimeError(f"rnnt {what} kernel launch failed: cudaError {code} ({msg})")
 
 
-def _lengths(x: torch.Tensor, device) -> torch.Tensor:
+def _ints(x, device) -> torch.Tensor:
     return torch.as_tensor(x, device=device).to(torch.int32).contiguous()
 
 
-def _forward(blank, label, feat_lengths, target_lengths):
-    """Launch the forward kernel: (loss [B], share [B, T, U+1])."""
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _forward(logits, targets, feat_lengths, target_lengths, blank_id: int,
+             classes: int | None = None):
+    """Launch the forward pair: (loss [B], lse [B, T, U+1], w [B, T+U, U+1])
+    from logits [B, T, U+1, W] (the first ``classes`` columns, all W
+    without it)."""
     lib = build()
-    _check(blank, label, lib)
-    B, T, U1 = blank.shape
-    share = torch.empty_like(blank)
-    loss = torch.empty(B, dtype=torch.float32, device=blank.device)
+    classes = logits.shape[-1] if classes is None else classes
+    _check(logits, targets, classes, blank_id, lib)
+    logits, ld = _rows(logits)
+    B, T, U1, _ = logits.shape
+    dev = logits.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    lse = torch.empty((B, T, U1), **f32)
+    sblank, slabel, share = (torch.empty((B, T + U1 - 1, U1), **f32) for _ in range(3))
+    loss = torch.empty(B, **f32)
     if B:
-        with torch.cuda.device(blank.device):
-            code = lib.hnet_rnnt_fwd(blank.data_ptr(), label.data_ptr(),
-                                     feat_lengths.data_ptr(), target_lengths.data_ptr(),
+        tg, fl, tl = (_ints(x, dev) for x in (targets, feat_lengths, target_lengths))
+        with torch.cuda.device(dev):
+            code = lib.hnet_rnnt_fwd(DTYPES[logits.dtype], logits.data_ptr(), ld, classes,
+                                     blank_id, tg.data_ptr(), fl.data_ptr(), tl.data_ptr(),
+                                     lse.data_ptr(), sblank.data_ptr(), slabel.data_ptr(),
                                      share.data_ptr(), loss.data_ptr(), B, T, U1 - 1,
-                                     threads_for(U1 - 1),
-                                     torch.cuda.current_stream(blank.device).cuda_stream)
+                                     _stream(dev))
         _raise_on(lib, code, "forward")
         rnnt_loss_cuda.launches += 1
-    return loss, share
+    return loss, lse, share
 
 
-def _backward(share, feat_lengths, target_lengths, g):
-    """Launch the backward kernel: (dblank [B, T, U+1], dlabel [B, T, U])."""
+def _backward(logits, lse, w, targets, feat_lengths, target_lengths, blank_id: int, g,
+              classes: int | None = None):
+    """Launch the backward pair: (dlogits in the logits' dtype, shape and
+    row stride; cb, cl [B, T+U, U+1]) from the forward's lse and shares and
+    the loss's gradient g [B]."""
     lib = build()
-    B, T, U1 = share.shape
-    g = g.float().contiguous()
-    dblank = torch.empty_like(share)
-    dlabel = torch.empty((B, T, U1 - 1), dtype=torch.float32, device=share.device)
+    classes = logits.shape[-1] if classes is None else classes
+    _check(logits, targets, classes, blank_id, lib)
+    logits, ld = _rows(logits)
+    B, T, U1, W = logits.shape
+    dev = logits.device
+    dlogits = torch.empty((B, T, U1, ld), dtype=logits.dtype, device=dev)[..., :W]
+    cb, cl = torch.empty_like(w), torch.empty_like(w)
     if B:
-        with torch.cuda.device(share.device):
-            code = lib.hnet_rnnt_bwd(share.data_ptr(), feat_lengths.data_ptr(),
-                                     target_lengths.data_ptr(), g.data_ptr(),
-                                     dblank.data_ptr(), dlabel.data_ptr(), B, T, U1 - 1,
-                                     threads_for(U1 - 1),
-                                     torch.cuda.current_stream(share.device).cuda_stream)
+        tg, fl, tl = (_ints(x, dev) for x in (targets, feat_lengths, target_lengths))
+        g = g.to(dev, torch.float32).contiguous()
+        with torch.cuda.device(dev):
+            code = lib.hnet_rnnt_bwd(DTYPES[logits.dtype], logits.data_ptr(),
+                                     dlogits.data_ptr(), ld, classes, blank_id, tg.data_ptr(),
+                                     fl.data_ptr(), tl.data_ptr(), lse.data_ptr(),
+                                     w.data_ptr(), g.data_ptr(), cb.data_ptr(), cl.data_ptr(),
+                                     B, T, U1 - 1, _stream(dev))
         _raise_on(lib, code, "backward")
         rnnt_loss_cuda.bwd_launches += 1
-    return dblank, dlabel
+    return dlogits, cb, cl
 
 
 class RNNTLattice(torch.autograd.Function):
-    """blank [B, T, U+1], label [B, T, U] fp32 log-probs, lengths [B] -> the
-    per-row NLL [B]: the forward kernel, and the backward kernel over the
-    kept shares."""
+    """logits [B, T, U+1, W] (bf16 or fp32; ``classes`` of the W columns),
+    targets [B, U], lengths [B] -> the per-row NLL [B]: the forward pair, and
+    the backward pair over the kept logits, lse and shares -> dlogits."""
 
     @staticmethod
-    def forward(ctx, blank, label, feat_lengths, target_lengths):
-        fl = _lengths(feat_lengths, blank.device)
-        tl = _lengths(target_lengths, blank.device)
-        blank, label = blank.contiguous(), label.contiguous()
-        loss, share = _forward(blank, label, fl, tl)
-        ctx.save_for_backward(share, fl, tl)
+    def forward(ctx, logits, targets, feat_lengths, target_lengths, blank_id, classes):
+        x, _ = _rows(logits)
+        dev = x.device
+        tg, fl, tl = (_ints(v, dev) for v in (targets, feat_lengths, target_lengths))
+        loss, lse, w = _forward(x, tg, fl, tl, blank_id, classes)
+        ctx.save_for_backward(x, lse, w, tg, fl, tl)
+        ctx.blank_id, ctx.classes = blank_id, classes
         return loss
 
     @staticmethod
     def backward(ctx, g):
-        share, fl, tl = ctx.saved_tensors
-        dblank, dlabel = _backward(share, fl, tl, g)
-        return dblank, dlabel, None, None
-
-
-def lattice_nll_cuda(blank: torch.Tensor, label: torch.Tensor, feat_lengths,
-                     target_lengths) -> torch.Tensor:
-    """The kernels' entry on score arrays already on the card: an
-    ``RNNTLattice`` node when grad mode is on and a score requires grad,
-    else the forward kernel alone."""
-    if torch.is_grad_enabled() and (blank.requires_grad or label.requires_grad):
-        return RNNTLattice.apply(blank, label, feat_lengths, target_lengths)
-    return _forward(blank.contiguous(), label.contiguous(),
-                    _lengths(feat_lengths, blank.device),
-                    _lengths(target_lengths, blank.device))[0]
+        x, lse, w, tg, fl, tl = ctx.saved_tensors
+        dlogits, _, _ = _backward(x, lse, w, tg, fl, tl, ctx.blank_id, g, ctx.classes)
+        return dlogits, None, None, None, None, None
 
 
 def rnnt_loss_cuda(logits: torch.Tensor, feat_lengths: torch.Tensor, targets: torch.Tensor,
-                   target_lengths: torch.Tensor, *, blank_id: int,
-                   reduction: str = "mean") -> torch.Tensor:
+                   target_lengths: torch.Tensor, *, blank_id: int, reduction: str = "mean",
+                   classes: int | None = None) -> torch.Tensor:
     """``rnnt_loss``'s contract: logits [B, T, U+1, V] in any float dtype
     (the log-softmax runs in fp32) -> [B] for "none", else a scalar.
+    ``classes``: the number of classes when the logits carry pad columns
+    after them (ignored, zero gradient).
 
-    On CPU tensors it runs the plain ``rnnt_loss``. On CUDA tensors it takes
-    the log-softmax and the gathers in PyTorch and walks the lattice with
-    the kernels."""
+    On CPU tensors it runs the plain ``rnnt_loss``. On CUDA tensors it
+    launches the kernels (bf16 or fp32 logits) or raises."""
     if logits.device.type == "cpu":
-        return rnnt_loss(logits, feat_lengths, targets, target_lengths, blank_id=blank_id,
+        x = logits if classes is None else logits[..., :classes]
+        return rnnt_loss(x, feat_lengths, targets, target_lengths, blank_id=blank_id,
                          reduction=reduction)
     if logits.device.type != "cuda":
         raise ValueError(f"rnnt kernels run on CUDA tensors, got {logits.device}")
-    blank, label = lattice_scores(logits, targets, target_lengths, blank_id)
-    return reduce_loss(lattice_nll_cuda(blank, label, feat_lengths, target_lengths), reduction)
+    classes = logits.shape[-1] if classes is None else classes
+    return reduce_loss(RNNTLattice.apply(logits, targets, feat_lengths, target_lengths, blank_id,
+                                      classes), reduction)
 
 
 rnnt_loss_cuda.launches = 0

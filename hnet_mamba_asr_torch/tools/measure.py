@@ -74,12 +74,17 @@ call, in turns (old, new, new, old).
 - ``aed_step``: one AED decode step of the full-width decode run with the
   attention grouped per utterance or not and the GEMMs in row blocks or
   not (``measure_aed_step``).
-- ``rnnt``: the RNN-T lattice kernels (``ops/rnnt_cuda.py``) at
-  ``RNNT_SHAPES`` (``chip_smoke.py``'s): the forward's and the backward's
-  device time per call, the plain version's time (``lattice_nll`` and
-  autograd of it, CUDA events) and the bounds of ``rnnt_cost`` /
-  ``rnnt_bwd_cost``; one JSON line per shape. It calls ``_forward`` /
-  ``_backward``, so ``--repo`` times another version too.
+- ``rnnt``: the RNN-T loss through ``rnnt_loss_cuda`` at ``RNNT_SHAPES``
+  and the edge rows (``chip_smoke.py``'s), bf16 and fp32 logits (the
+  joint's padded GEMM output): forward and backward to the logits, CUDA
+  events per call, the device time of every kernel a call runs and of the
+  loss kernels among them, the bounds of ``rnnt_cost`` / ``rnnt_bwd_cost``
+  and the plain ``rnnt_loss``'s time (forward, and autograd to the
+  logits); one JSON line per shape. The entry is the same in every
+  version (a parent without ``classes`` gets the logits sliced, as its
+  head passed them), so ``--repo`` times the parent too (old, new, new,
+  old). ``train --config rnnt`` adds one micro-step's device time by
+  kernel class on the joint's lattice (``rnnt_step_profile``).
 """
 from __future__ import annotations
 
@@ -155,33 +160,38 @@ def ema_bwd_cost(Bsz: int, M: int, D: int, dtype: str) -> dict:
 
 
 def _lattice_cells(feat_lens, tgt_lens, T: int, U: int) -> tuple[int, int]:
-    """(blank cells, label cells) of the rows' lattices: T_b (U_b + 1) and
-    T_b U_b, T_b = clamp(feat_length, 1, T), U_b = clamp(target_length, 0, U)."""
+    """(cells, label cells) of the rows' lattices: T_b (U_b + 1) and T_b U_b,
+    T_b = clamp(feat_length, 1, T), U_b = clamp(target_length, 0, U)."""
     tb = np.clip(np.asarray(feat_lens), 1, T)
     ub = np.clip(np.asarray(tgt_lens), 0, U)
     return int((tb * (ub + 1)).sum()), int((tb * ub).sum())
 
 
-def rnnt_cost(feat_lens, tgt_lens, T: int, U: int) -> dict:
-    """Least time of one RNN-T lattice forward on the H100, for this run's
-    lengths: the blank and label scores of each row's lattice read once,
-    the blank shares over the lattice and the loss written once; ~12 fp32
-    operations a cell (two adds, the logaddexp's max, difference, exp, log1p
-    and add, the share's add, reciprocal and select) at the SIMT rate."""
-    n1, n2 = _lattice_cells(feat_lens, tgt_lens, T, U)
-    B = len(np.asarray(feat_lens))
-    return _bound(4 * (2 * n1 + n2) + 12 * B, 12 * n1, "float32")
-
-
-def rnnt_bwd_cost(feat_lens, tgt_lens, T: int, U: int) -> dict:
-    """Least time of one RNN-T lattice backward given the loss's gradient:
-    the blank shares of each row's lattice read once, dblank [B, T, U+1] and
-    dlabel [B, T, U] written once (zeros outside the lattices included); ~6
-    fp32 operations a cell (two products, 1 - w, the sum and the two scales
-    by -g)."""
+def rnnt_cost(feat_lens, tgt_lens, T: int, U: int, V: int, itemsize: int) -> dict:
+    """Least time of the RNN-T loss's forward from the logits on the H100,
+    for this run's lengths: the V logits of every lattice cell read once
+    (``itemsize`` bytes each), its lse and blank share written once (fp32),
+    the targets and lengths read and the loss written; ~5 fp32 operations a
+    logit (the max, the difference, its scale, exp and the sum) at the SIMT
+    rate."""
     n1, _ = _lattice_cells(feat_lens, tgt_lens, T, U)
     B = len(np.asarray(feat_lens))
-    return _bound(4 * n1 + 4 * B * T * (2 * U + 1) + 12 * B, 6 * n1, "float32")
+    return _bound(n1 * V * itemsize + 8 * n1 + 4 * B * (U + 3), 5 * n1 * V, "float32")
+
+
+def rnnt_bwd_cost(feat_lens, tgt_lens, T: int, U: int, V: int, cols: int,
+                  itemsize: int) -> dict:
+    """Least time of the RNN-T loss's backward given the loss's gradient:
+    the logits of every lattice cell read once, dlogits written once over
+    the whole [B, T, U+1, cols] buffer (zeros outside the lattices and in
+    the pad columns), lse and the shares of every lattice cell read, the
+    coefficients cb and cl of every cell written; ~5 fp32 operations a logit
+    (the difference, its scale, exp, the multiply-add, the one-hot term)."""
+    n1, _ = _lattice_cells(feat_lens, tgt_lens, T, U)
+    B = len(np.asarray(feat_lens))
+    rows = B * T * (U + 1)
+    return _bound(n1 * V * itemsize + rows * cols * itemsize + 8 * n1 + 8 * rows
+                  + 4 * B * (U + 3), 5 * n1 * V, "float32")
 
 
 def _bound(nbytes: int, flops: int, dtype: str) -> dict:
@@ -551,21 +561,26 @@ def measure_phases(tag: str) -> None:
               flush=True)
 
 
-# the RNN-T lattice's [B, T, U]: a training micro-batch of 32 x 10 s (U 64
+# the RNN-T loss's [B, T, U]: a training micro-batch of 32 x 10 s (U 64
 # tokens at most), the full-width decode batch (8 utterances, T 380, 128
 # ids), a 35 s utterance (T 880, 256 ids) and the AED cap of U 512; then
-# the edge rows (T_b 1, U_b 0, feat_length 0, rows shorter than the batch)
+# the edge rows (T_b 1, U_b 0, feat_length 0, rows shorter than the batch,
+# a target equal to the blank and one past V)
 RNNT_SHAPES = ((32, 249, 64), (8, 380, 128), (1, 880, 256), (2, 300, 512))
 RNNT_EDGE = ((6, 40, 12), ((40, 12), (1, 5), (17, 0), (0, 3), (25, 7), (1, 0)))
+RNNT_EDGE_TARGETS = ((0, 3, 500), (4, 1, 777))     # (row, label, id)
+RNNT_CLASSES = 501          # bpe_500's V + 1, the blank last
+RNNT_BLANK = 500
+RNNT_COLS = 504             # the joint GEMM's columns (models/rnnt.py::OUT_COLS)
 
 
-def rnnt_inputs(Bsz: int, T: int, U: int, seed: int = 0, lengths=None):
-    """(blank [B, T, U+1], label [B, T, U] fp32 log-probs, feat_lengths,
-    target_lengths) on the card: the lattice scores of random joint logits
-    over 501 classes (blank 500, targets in [0, 500)), with the row lengths
-    given as (T_b, U_b) pairs, or drawn in [T/2, T] and [U/2, U] with the
-    first row full."""
-    from hnet_mamba_asr_torch.ops.rnnt_loss import lattice_scores
+def rnnt_inputs(Bsz: int, T: int, U: int, dtype=torch.bfloat16, seed: int = 0, lengths=None):
+    """(logits [B, T, U+1, RNNT_COLS] in ``dtype``, targets [B, U],
+    feat_lengths, target_lengths) on the card: the joint's padded GEMM
+    output, RNNT_CLASSES classes of N(0, 4) logits and the pad columns set
+    to 1e4, which the kernels must not read; targets in [0, RNNT_BLANK);
+    the row lengths given as (T_b, U_b) pairs (then RNNT_EDGE_TARGETS as
+    well), or drawn in [T/2, T] and [U/2, U] with the first row full."""
     gen = torch.Generator().manual_seed(seed)
     if lengths is None:
         fl = torch.randint(T // 2, T + 1, (Bsz,), generator=gen)
@@ -573,34 +588,47 @@ def rnnt_inputs(Bsz: int, T: int, U: int, seed: int = 0, lengths=None):
         fl[0], tl[0] = T, U
     else:
         fl, tl = (torch.tensor(x) for x in zip(*lengths))
-    blank, label = [], []
-    for b in range(Bsz):                 # a row at a time: [T, U+1, 501] fp32
-        logits = (torch.randn(1, T, U + 1, 501, generator=gen) * 2).cuda()
-        tg = torch.randint(0, 500, (1, U), generator=gen).cuda()
-        s = lattice_scores(logits, tg, tl[b:b + 1].cuda(), 500)
-        blank.append(s[0])
-        label.append(s[1])
-    return (torch.cat(blank).contiguous(), torch.cat(label).contiguous(), fl.cuda(),
-            tl.cuda())
+    targets = torch.randint(0, RNNT_BLANK, (Bsz, U), generator=gen)
+    if lengths is not None:
+        for b, u, y in RNNT_EDGE_TARGETS:
+            targets[b, u] = y
+    cuda_gen = torch.Generator(device="cuda").manual_seed(seed)
+    logits = torch.empty((Bsz, T, U + 1, RNNT_COLS), dtype=dtype, device="cuda")
+    for b in range(Bsz):                 # a row at a time in fp32
+        logits[b] = torch.randn((T, U + 1, RNNT_COLS), generator=cuda_gen, device="cuda") * 2
+    logits[..., RNNT_CLASSES:] = 1e4
+    return logits, targets.cuda(), fl.cuda(), tl.cuda()
 
 
-# the lattice kernels against the plain version on the same fp32 scores:
-# the loss to RNNT_LOSS_RTOL of itself against the plain version in fp32;
-# both gradients against the plain version in fp64 to RNNT_GRAD_BOUND of
-# their largest; and the alignment mass. Every alignment leaves each frame
-# t < T_b by one blank and emits each label u < U_b once, so a row's dblank
-# summed over u is -g_b at every such frame and its dlabel summed over t is
-# -g_b at every such label. The sums are held to RNNT_MASS_BOUND of |g_b|:
-# a fault on cells of low occupancy, which the bound on the largest
-# gradient cannot see, moves them (rnnt_faults).
+# the loss kernels against the plain pair (ops/rnnt_loss.py::rnnt_fwd_plain,
+# rnnt_bwd_plain) on the same logits: the loss to RNNT_LOSS_RTOL of itself
+# against the plain pair in fp32; cb and cl (the gradients of the blank and
+# label scores) against the plain pair in fp64 to RNNT_GRAD_BOUND of their
+# largest; and the alignment mass. Every alignment leaves each frame t < T_b
+# by one blank and emits each label u < U_b once, so a row's cb summed over
+# u is -g_b at every such frame and its cl summed over t is -g_b at every
+# such label. The sums are held to RNNT_MASS_BOUND of |g_b|: a fault on
+# cells of low occupancy, which the bound on the largest gradient cannot
+# see, moves them (rnnt_faults). dlogits against the plain pair in fp64:
+# one rounding to the logits' dtype of each element (RNNT_ROUNDING of it)
+# plus RNNT_GRAD_BOUND of their largest. Each lattice cell's dlogits summed
+# over v is 0 (the softmax sums to 1): held to RNNT_CELL_BOUND of |cb| +
+# |cl| at the cell (bf16: up to 2 (|cb| + |cl|) of terms, each rounded by
+# 2^-8 of itself at most), plus V steps of the dtype's smallest subnormal
+# where a cell's terms underflow; this is the check that sees a softmax
+# term dropped on cells of low occupancy.
 RNNT_LOSS_RTOL = 1e-5
 RNNT_GRAD_BOUND = 2e-3
 RNNT_MASS_BOUND = 1e-5
+RNNT_ROUNDING = {torch.float64: 0.0, torch.float32: 0.0, torch.bfloat16: 2.0 ** -8}
+RNNT_CELL_BOUND = {torch.float64: 1e-5, torch.float32: 1e-5, torch.bfloat16: 1e-2}
+RNNT_SUBNORMAL = {torch.float64: 2.0 ** -1074, torch.float32: 2.0 ** -149,
+                  torch.bfloat16: 2.0 ** -133}
 
 
 def lattice_masks(feat_lens, tgt_lens, T: int, U: int):
-    """(blank [B, T, U+1], label [B, T, U]) bool masks of the cells inside
-    each row's lattice."""
+    """(cells [B, T, U+1], label cells [B, T, U]) bool masks of each row's
+    lattice."""
     dev = feat_lens.device
     t = torch.arange(T, device=dev)[None, :, None]
     u = torch.arange(U + 1, device=dev)[None, None, :]
@@ -609,91 +637,261 @@ def lattice_masks(feat_lens, tgt_lens, T: int, U: int):
     return (t < tb) & (u <= ub), (t < tb) & (u[..., :U] < ub)
 
 
-def rnnt_check(got, ref, ref64, feat_lens, tgt_lens, g) -> dict:
-    """Hold the kernels' (loss, dblank, dlabel) against the plain version's
-    in fp32 (``ref``) and fp64 (``ref64``) for incoming gradients ``g``:
-    the readings, and ``ok`` when each is within its bound and every value
-    is finite and exactly 0 outside the lattices."""
+def rnnt_result(loss, dlogits, cb, cl) -> tuple:
+    """A pair's outputs (``_forward``'s loss, ``_backward``'s dlogits, cb,
+    cl, or the plain pair's) as ``rnnt_check`` takes them: (loss, cb
+    [B, T, U+1], cl [B, T, U], dlogits)."""
+    from hnet_mamba_asr_torch.ops.rnnt_loss import unskew
+    T = dlogits.shape[1]
+    return loss, unskew(cb, T), unskew(cl, T)[..., :-1], dlogits
+
+
+def rnnt_pair(fwd, bwd, logits, targets, feat_lens, tgt_lens, g, classes=None,
+              blank_id: int = RNNT_BLANK) -> tuple:
+    """A forward and backward pair (the kernels' ``_forward`` / ``_backward``
+    or the plain ``rnnt_fwd_plain`` / ``rnnt_bwd_plain``) on the logits, as
+    ``rnnt_check`` takes their results (``rnnt_result``)."""
+    args = (targets, feat_lens, tgt_lens, blank_id)
+    loss, lse, w = fwd(logits, *args, classes)
+    return rnnt_result(loss, *bwd(logits, lse, w, *args, g, classes))
+
+
+def rnnt_check(got, ref, ref64, feat_lens, tgt_lens, g, classes: int) -> dict:
+    """Hold the kernels' (loss, cb, cl, dlogits) (``rnnt_result``) against
+    the plain pair's in fp32 (``ref``) and fp64 (``ref64``) for incoming
+    gradients ``g``: the readings, and ``ok`` when each is within its bound
+    and every value is finite and exactly 0 outside the lattices and in the
+    pad columns."""
     B, T, U1 = got[1].shape
     U = U1 - 1
     in_b, in_l = lattice_masks(feat_lens, tgt_lens, T, U)
-    gmax = max(ref64[1].abs().max().item(), ref64[2].abs().max().item())
+    dtype = got[3].dtype
+    gmax = max(r.abs().max().item() for r in ref64[1:3] if r.numel())
     err = lambda x, y: max((a.double() - b.double()).abs().max().item()
-                           for a, b in zip(x[1:], y[1:])) / gmax
+                           for a, b in zip(x[1:3], y[1:3]) if a.numel()) / gmax
     g64 = g.double()
     frames = (got[1].double().sum(2) + g64[:, None]).abs() / g64.abs()[:, None]
     labels = (got[2].double().sum(1) + g64[:, None]).abs() / g64.abs()[:, None]
     mass = max(frames[in_b[:, :, 0]].max().item(),
                labels[in_l[:, 0, :]].max().item() if in_l.any() else 0.0)
+    d, d64 = got[3][..., :classes].double(), ref64[3][..., :classes].double()
+    dl_err = (((d - d64).abs() - RNNT_ROUNDING[dtype] * d64.abs()).clamp(min=0).max().item()
+              / d64.abs().max().item())
+    occupancy = got[1].double().abs() + torch.nn.functional.pad(got[2].double().abs(), (0, 1))
+    cell = (d.sum(-1).abs() - classes * RNNT_SUBNORMAL[dtype]).clamp(min=0)
+    cell = (cell / occupancy.clamp(min=1e-300))[in_b].max().item()
+    del d, d64
     r = {"loss_rel": ((got[0] - ref[0]).abs() / ref[0].abs()).max().item(),
          "grad_err": err(got, ref64), "grad_err_fp32": err(got, ref),
-         "plain_err": err(ref, ref64), "mass": mass,
+         "plain_err": err(ref, ref64), "mass": mass, "dlogit_err": dl_err, "cell_sum": cell,
          "finite": all(bool(torch.isfinite(a).all()) for a in got),
-         "zeros": not (got[1][~in_b].any() or got[2][~in_l].any())}
+         "zeros": not (got[1][~in_b].any() or got[2][~in_l].any() or got[3][~in_b].any()
+                       or got[3][..., classes:].any())}
     r["ok"] = bool(r["finite"] and r["zeros"] and r["loss_rel"] <= RNNT_LOSS_RTOL
-                   and r["grad_err"] <= RNNT_GRAD_BOUND and r["mass"] <= RNNT_MASS_BOUND)
+                   and r["grad_err"] <= RNNT_GRAD_BOUND and r["mass"] <= RNNT_MASS_BOUND
+                   and r["dlogit_err"] <= RNNT_GRAD_BOUND
+                   and r["cell_sum"] <= RNNT_CELL_BOUND[dtype])
     return r
 
 
-def rnnt_faults(dblank, dlabel, feat_lens, tgt_lens) -> dict:
-    """Planted faults of a lattice backward, each of which ``rnnt_check``
-    must reject: name -> (dblank, dlabel)."""
-    B, T, U1 = dblank.shape
+def rnnt_faults(got, feat_lens, tgt_lens, targets, blank_id: int) -> dict:
+    """Planted faults of the loss's backward, each of which ``rnnt_check``
+    must reject: name -> (loss, cb, cl, dlogits), from ``got`` as
+    ``rnnt_result`` gives it."""
+    loss, cb, cl, dlogits = got
+    B, T, U1 = cb.shape
     in_b, in_l = lattice_masks(feat_lens, tgt_lens, T, U1 - 1)
-    last = torch.arange(T, device=dblank.device)[None, :, None] == (
+    last = torch.arange(T, device=cb.device)[None, :, None] == (
         feat_lens.clamp(1, T) - 1)[:, None, None]
-    small = dblank.abs() < 1e-4 * dblank.abs().max()
-    return {"dlabel shifted by one label": (dblank, torch.roll(dlabel, 1, dims=2) * in_l),
-            "the last frame's blank zeroed": (torch.where(last, 0.0, dblank), dlabel),
-            "blank cells below 1e-4 of the largest zeroed": (torch.where(small, 0.0, dblank),
-                                                             dlabel)}
+    small = cb.abs() < 1e-4 * cb.abs().max()
+    cl_cells = torch.nn.functional.pad(cl, (0, 1))
+    occupancy = cb.abs() + cl_cells.abs()
+    low = in_b & (occupancy > 0) & (occupancy < 1e-4 * occupancy.max())
+    # the one-hot terms alone: the softmax term dropped
+    hot = torch.zeros(dlogits.shape, dtype=torch.float32, device=dlogits.device)
+    hot[..., blank_id] = cb
+    tgt = torch.nn.functional.pad(targets.long().clamp(0, dlogits.shape[-1] - 1), (0, 1))
+    hot.scatter_add_(3, tgt[:, None, :, None].expand(B, T, U1, 1), cl_cells[..., None].float())
+    return {"cl shifted by one label": (loss, cb, torch.roll(cl, 1, dims=2) * in_l, dlogits),
+            "the last frame's blank zeroed": (loss, torch.where(last, 0.0, cb), cl, dlogits),
+            "blank cells below 1e-4 of the largest zeroed": (
+                loss, torch.where(small, 0.0, cb), cl, dlogits),
+            "the softmax term dropped on cells below 1e-4 of the largest occupancy": (
+                loss, cb, cl, torch.where(low[..., None], hot.to(dlogits.dtype), dlogits))}
 
 
-def rnnt_timing(blank, label, feat_lens, tgt_lens, g) -> dict:
+def rnnt_timing(logits, targets, feat_lens, tgt_lens, g) -> dict:
     """The kernels' device ms (their own time in a profiler trace, else the
-    call's), their launch counts per call and call ms, the plain version's
-    forward and backward ms, and the bound of each kernel for these
-    lengths."""
+    call's) and each kernel's, their launches per call and call ms, the
+    plain version's ms (``rnnt_loss`` on the logits, and autograd of it to
+    the logits) and the bound of each pair for these lengths."""
     from hnet_mamba_asr_torch.ops import rnnt_cuda as mod
-    from hnet_mamba_asr_torch.ops.rnnt_loss import lattice_nll
-    T, U = label.shape[1], label.shape[2]
-    fi, ti = feat_lens.int(), tgt_lens.int()
-    _, share = mod._forward(blank, label, fi, ti)
-    fwd = lambda: mod._forward(blank, label, fi, ti)
-    bwd = lambda: mod._backward(share, fi, ti, g)
-    bl, lb = blank.clone().requires_grad_(), label.clone().requires_grad_()
-    y_plain = lattice_nll(bl, lb, feat_lens, tgt_lens)
+    from hnet_mamba_asr_torch.ops.rnnt_loss import rnnt_loss
+    B, T, U1, cols = logits.shape
+    args = (targets, feat_lens.int(), tgt_lens.int(), RNNT_BLANK)
+    _, lse, w = mod._forward(logits, *args, RNNT_CLASSES)
+    fwd = lambda: mod._forward(logits, *args, RNNT_CLASSES)
+    bwd = lambda: mod._backward(logits, lse, w, *args, g, RNNT_CLASSES)
+    x = logits[..., :RNNT_CLASSES].detach().clone().requires_grad_()
+    plain = lambda y: rnnt_loss(y, feat_lens, targets, tgt_lens, blank_id=RNNT_BLANK,
+                                reduction="none")
+    y_plain = plain(x)
+    size = logits.element_size()
     r = {"call_ms": {"fwd": cuda_ms(fwd), "bwd": cuda_ms(bwd)},
          "launches": {"fwd": kernel_launches(fwd, "rnnt_fwd"),
                       "bwd": kernel_launches(bwd, "rnnt_bwd")},
-         "plain_ms": {"fwd": cuda_ms(lambda: lattice_nll(blank, label, feat_lens, tgt_lens),
-                                     n=3),
-                      "bwd": cuda_ms(lambda: torch.autograd.grad(y_plain, (bl, lb), g,
+         "plain_ms": {"fwd": cuda_ms(lambda: plain(x.detach()), n=3),
+                      "bwd": cuda_ms(lambda: torch.autograd.grad(y_plain, x, g,
                                                                  retain_graph=True), n=3)},
-         "cost": {"fwd": rnnt_cost(feat_lens.cpu(), tgt_lens.cpu(), T, U),
-                  "bwd": rnnt_bwd_cost(feat_lens.cpu(), tgt_lens.cpu(), T, U)}}
-    r["ms"] = {"fwd": kernel_ms(fwd, "rnnt_fwd") or r["call_ms"]["fwd"],
-               "bwd": kernel_ms(bwd, "rnnt_bwd") or r["call_ms"]["bwd"]}
+         "cost": {"fwd": rnnt_cost(feat_lens.cpu(), tgt_lens.cpu(), T, U1 - 1, RNNT_CLASSES,
+                                   size),
+                  "bwd": rnnt_bwd_cost(feat_lens.cpu(), tgt_lens.cpu(), T, U1 - 1,
+                                       RNNT_CLASSES, cols, size)}}
+    r["parts"] = {"fwd": kernel_times(fwd, "rnnt_fwd"), "bwd": kernel_times(bwd, "rnnt_bwd")}
+    r["ms"] = {k: sum(r["parts"][k].values()) or r["call_ms"][k] for k in ("fwd", "bwd")}
     r["share"] = {k: r["cost"][k]["bound_ms"] / r["ms"][k] for k in ("fwd", "bwd")}
     return r
 
 
+def call_device_ms(fn, n: int = 5) -> dict:
+    """Device ms of one call of ``fn``, every kernel it runs, and the ms of
+    those whose name holds "rnnt", from a ``torch.profiler`` trace of n calls
+    after a warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    return {"all": sum(d for d, _, _ in rows) / n / 1e3,
+            "rnnt_kernels": sum(d for d, k, _ in rows if "rnnt" in k) / n / 1e3,
+            "kernels": {k[:70]: [d / n / 1e3, c / n] for d, k, c in rows}}
+
+
 def measure_rnnt(tag: str) -> None:
+    """The loss through its public entry, ``rnnt_loss_cuda``, as the RNN-T
+    head calls it (this tree: the padded logits and their classes; a parent
+    without ``classes``: the logits sliced to their classes, as its head
+    passed them), forward and backward to the padded logits: CUDA events
+    per call, the device time of every kernel a call runs and of the loss
+    kernels among them; and this tree's bounds. The plain version's ms for
+    the tree that has the fused pair."""
+    import inspect
     from hnet_mamba_asr_torch.ops import rnnt_cuda as mod
+    from hnet_mamba_asr_torch.ops.rnnt_loss import rnnt_loss
+    fused = "classes" in inspect.signature(mod.rnnt_loss_cuda).parameters
     mod.build()
-    for (Bsz, T, U), lengths in [(shape, None) for shape in RNNT_SHAPES] + [RNNT_EDGE]:
-        blank, label, fl, tl = rnnt_inputs(Bsz, T, U, lengths=lengths)
-        g = torch.randn(Bsz, generator=torch.Generator().manual_seed(1)).cuda()
-        r = rnnt_timing(blank, label, fl, tl, g)
-        row = {"version": tag, "B": Bsz, "T": T, "U": U, "edge_rows": lengths is not None}
-        for k in ("fwd", "bwd"):
-            row.update({f"{k}_ms": r["ms"][k], f"{k}_call_ms": r["call_ms"][k],
-                        f"{k}_launches": r["launches"][k], f"plain_{k}_ms": r["plain_ms"][k],
-                        f"{k}_bound_ms": r["cost"][k]["bound_ms"],
-                        f"{k}_bound_by": r["cost"][k]["bound_by"], f"{k}_share": r["share"][k]})
-        print(json.dumps(row), flush=True)
-        del blank, label
-        torch.cuda.empty_cache()
+    for dtype in (torch.bfloat16, torch.float32):
+        for (Bsz, T, U), lengths in [(shape, None) for shape in RNNT_SHAPES] + [RNNT_EDGE]:
+            logits, tg, fl, tl = rnnt_inputs(Bsz, T, U, dtype, lengths=lengths)
+            g = torch.randn(Bsz, generator=torch.Generator().manual_seed(1)).cuda()
+
+            def loss_of(x):
+                if fused:
+                    return mod.rnnt_loss_cuda(x, fl, tg, tl, blank_id=RNNT_BLANK,
+                                              reduction="none", classes=RNNT_CLASSES)
+                return mod.rnnt_loss_cuda(x[..., :RNNT_CLASSES], fl, tg, tl, blank_id=RNNT_BLANK,
+                                          reduction="none")
+
+            leaf = logits.detach().requires_grad_()
+            y = loss_of(leaf)
+            fwd = lambda: loss_of(logits)
+            bwd = lambda: torch.autograd.grad(y, leaf, g, retain_graph=True)
+            size = logits.element_size()
+            row = {"version": tag, "dtype": str(dtype).removeprefix("torch."), "B": Bsz, "T": T,
+                   "U": U, "edge_rows": lengths is not None,
+                   "fwd_call_ms": cuda_ms(fwd), "bwd_call_ms": cuda_ms(bwd),
+                   "fwd_device": call_device_ms(fwd), "bwd_device": call_device_ms(bwd),
+                   "fwd_bound_ms": rnnt_cost(fl.cpu(), tl.cpu(), T, U, RNNT_CLASSES,
+                                             size)["bound_ms"],
+                   "bwd_bound_ms": rnnt_bwd_cost(fl.cpu(), tl.cpu(), T, U, RNNT_CLASSES,
+                                                 RNNT_COLS, size)["bound_ms"]}
+            if fused:
+                x = logits[..., :RNNT_CLASSES].detach().clone().requires_grad_()
+                yp = rnnt_loss(x, fl, tg, tl, blank_id=RNNT_BLANK, reduction="none")
+                row["plain_fwd_ms"] = cuda_ms(lambda: rnnt_loss(
+                    x.detach(), fl, tg, tl, blank_id=RNNT_BLANK, reduction="none"), n=3)
+                row["plain_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
+                    yp, x, g, retain_graph=True), n=3)
+                del x, yp
+            print(json.dumps(row), flush=True)
+            del logits, leaf, y
+            torch.cuda.empty_cache()
+
+
+# one RNN-T micro-step's device time on the ops whose inputs span the
+# joint's lattice, by the op's name: (class, substrings), first match
+STEP_CLASSES = (("log-softmax", ("softmax",)),
+                ("gather / scatter / select / slice", ("gather", "scatter", "index", "select",
+                                                       "slice")),
+                ("cast / copy", ("copy", "_to_copy")),
+                ("fill / zeros", ("fill", "zero")),
+                ("joint GEMMs", ("mm", "linear")))
+
+
+def rnnt_step_profile(model, batch) -> dict:
+    """One RNN-T micro-step (``loss_fn`` forward and backward, after one
+    warm-up) under ``torch.profiler`` with shapes: the device ms of the
+    kernels launched by ops whose inputs span the joint's lattice ([B, T,
+    U+1, ...] or [B, T, U, ...], or its B T (U+1) rows as one dimension) by
+    ``STEP_CLASSES``
+    (else "joint elementwise": the add, tanh and sums), the loss kernels'
+    (names holding "rnnt_"), the step's whole device time, and the lattice
+    ops' names and input shapes."""
+    from collections import defaultdict
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    head, shapes = model.rnnt, []
+    joint = head.joint
+
+    def spy(*a, **kw):
+        out = joint(*a, **kw)
+        shapes.append(tuple(out.shape))
+        return out
+
+    head.joint = spy
+    try:
+        for k in range(2):
+            model.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                         record_shapes=True) as prof:
+                loss, _ = model.loss_fn(batch, 0, True)
+                loss.backward()
+                torch.cuda.synchronize()
+    finally:
+        del head.joint
+    model.zero_grad(set_to_none=True)
+    B, T, U1 = shapes[-1][:3]
+    rows = B * T * U1
+
+    def spans(input_shapes) -> bool:
+        for s in input_shapes or ():
+            s = list(s) if isinstance(s, (list, tuple)) else []
+            if rows in s[:2] or (s[:2] == [B, T] and len(s) > 2 and s[2] in (U1 - 1, U1)):
+                return True
+        return False
+
+    classes, ops = defaultdict(float), defaultdict(float)
+    for ev in prof.key_averages(group_by_input_shape=True):
+        us = device_us(ev)
+        if (ev.device_type == DeviceType.CUDA or us <= 0 or "rnnt" in ev.key.lower()
+                or not spans(ev.input_shapes)):
+            continue
+        name = next((c for c, keys in STEP_CLASSES if any(k in ev.key for k in keys)),
+                    "joint elementwise")
+        classes[name] += us / 1e3
+        ops[f"{ev.key} {ev.input_shapes}"[:160]] += us / 1e3
+    kernels = device_rows(prof)
+    loss_kernels = {k[:60]: d / 1e3 for d, k, _ in kernels if "rnnt_" in k}
+    return {"lattice": [B, T, U1, shapes[-1][3]],
+            "device_ms": sum(d for d, _, _ in kernels) / 1e3,
+            "classes_ms": dict(classes, **{"loss kernels": sum(loss_kernels.values())}),
+            "loss_kernels_ms": loss_kernels,
+            "lattice_ops_ms": dict(sorted(ops.items(), key=lambda kv: -kv[1]))}
 
 
 def _configs() -> dict:
@@ -838,6 +1036,10 @@ def measure_train(tag: str, config: str, routers: str = "init") -> None:
                       "idle_share": 1 - busy / window_us,
                       "top": [{"name": k[:90], "ms": d / 1e3, "share": d / busy, "count": c}
                               for d, k, c in top[:15]]}), flush=True)
+    if config == "rnnt":
+        print(json.dumps({"version": tag, "config": config,
+                          "rnnt_micro_step": rnnt_step_profile(trainer.model, dev[0])}),
+              flush=True)
 
 
 def measure_aed_step(tag: str) -> None:

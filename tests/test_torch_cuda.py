@@ -370,75 +370,116 @@ def test_ema_kernels_refuse_cuda_graph_capture(cuda):
     assert all(torch.equal(a, b) for a, b in zip(_backward(z, p, zbar, g, 1e-4), (dz, dp)))
 
 
-# ---- the RNN-T lattice kernels ----------------------------------------------------
+# ---- the RNN-T loss kernels -------------------------------------------------------
 # held as tools/measure.py::rnnt_check holds them (chip_smoke.py phase 2):
-# the loss against the plain lattice_nll in fp32 to RNNT_LOSS_RTOL, both
-# gradients against it in fp64 to RNNT_GRAD_BOUND of their largest, and
-# every frame's blank gradients and every label's label gradients summed
-# to -g_b within RNNT_MASS_BOUND of |g_b| (each alignment leaves each frame
-# by one blank and emits each label once); zeros outside each lattice exact
+# the loss against the plain pair (ops/rnnt_loss.py::rnnt_fwd_plain,
+# rnnt_bwd_plain) in fp32 to RNNT_LOSS_RTOL; cb and cl against it in fp64
+# to RNNT_GRAD_BOUND of their largest, every frame's cb and every label's cl
+# summed to -g_b within RNNT_MASS_BOUND of |g_b| (each alignment leaves each
+# frame by one blank and emits each label once); dlogits against it in fp64
+# to one rounding to the logits' dtype plus RNNT_GRAD_BOUND of their
+# largest, each cell's sum over v to 0 within RNNT_CELL_BOUND of |cb| + |cl|;
+# zeros outside each lattice and in the pad columns exact
 
 
-def _rnnt_case(shape):
+def _rnnt_case(shape, dtype=torch.bfloat16):
     from hnet_mamba_asr_torch.tools.measure import RNNT_EDGE, RNNT_SHAPES, rnnt_inputs
     if shape == "edge":
-        return rnnt_inputs(*RNNT_EDGE[0], seed=5, lengths=RNNT_EDGE[1])
-    return rnnt_inputs(*RNNT_SHAPES[shape], seed=5)
+        return rnnt_inputs(*RNNT_EDGE[0], dtype, seed=5, lengths=RNNT_EDGE[1])
+    return rnnt_inputs(*RNNT_SHAPES[shape], dtype, seed=5)
 
 
+def _rnnt_refs(logits, targets, fl, tl, g, classes):
+    from hnet_mamba_asr_torch.ops.rnnt_loss import rnnt_bwd_plain, rnnt_fwd_plain
+    from hnet_mamba_asr_torch.tools.measure import rnnt_pair
+    return [rnnt_pair(rnnt_fwd_plain, rnnt_bwd_plain, x, targets, fl, tl, g.to(x.dtype), classes)
+            for x in (logits.float(), logits.double())]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape", [0, 1, 2, 3, "edge"])
-def test_rnnt_kernels_match_plain(cuda, shape):
-    """The loss and both gradients against autograd of ``lattice_nll`` in
-    fp32 and fp64 at the training, decode-batch, 35 s and U 512 shapes and
-    with edge rows (T_b 1, U_b 0, feat_length 0, rows shorter than the
-    batch): the alignment mass conserved, the zeros outside each lattice
-    exact, one launch each way; at the training shape, planted faults of
-    the gradients rejected by the same check."""
-    from hnet_mamba_asr_torch.ops.rnnt_cuda import RNNTLattice, rnnt_loss_cuda
-    from hnet_mamba_asr_torch.ops.rnnt_loss import lattice_nll
-    from hnet_mamba_asr_torch.tools.measure import rnnt_check, rnnt_faults
-    blank, label, fl, tl = _rnnt_case(shape)
-    g = torch.randn(blank.shape[0], generator=torch.Generator().manual_seed(2)).to(cuda)
-    b1, l1 = blank.clone().requires_grad_(), label.clone().requires_grad_()
+def test_rnnt_kernels_match_plain(cuda, shape, dtype):
+    """The loss, cb, cl and dlogits against the plain pair in fp32 and fp64
+    at the training, decode-batch, 35 s and U 512 shapes and with edge rows
+    (T_b 1, U_b 0, feat_length 0, rows shorter than the batch, a target
+    equal to the blank and one past V), from the joint's padded bf16 and
+    fp32 logits: the alignment mass conserved, each cell's dlogits summing
+    to 0, the zeros outside each lattice and in the pad columns exact; two
+    calls bitwise equal; one call each way on the counts; the entry
+    ``rnnt_loss_cuda`` gives the same dlogits; at the training shape the
+    planted faults rejected by the same check."""
+    from hnet_mamba_asr_torch.ops.rnnt_cuda import _backward, _forward, rnnt_loss_cuda
+    from hnet_mamba_asr_torch.tools.measure import (
+        RNNT_BLANK, RNNT_CLASSES, rnnt_check, rnnt_faults, rnnt_pair)
+    logits, targets, fl, tl = _rnnt_case(shape, dtype)
+    g = torch.randn(logits.shape[0], generator=torch.Generator().manual_seed(2)).to(cuda)
     before = (rnnt_loss_cuda.launches, rnnt_loss_cuda.bwd_launches)
-    loss = RNNTLattice.apply(b1, l1, fl, tl)
-    got = (loss.detach(), *torch.autograd.grad(loss, (b1, l1), g))
+    got = rnnt_pair(_forward, _backward, logits, targets, fl, tl, g, RNNT_CLASSES)
     assert (rnnt_loss_cuda.launches, rnnt_loss_cuda.bwd_launches) == (before[0] + 1,
                                                                       before[1] + 1)
-    refs = []
-    for dtype in (torch.float32, torch.float64):
-        b2, l2 = blank.to(dtype).clone().requires_grad_(), label.to(dtype).clone().requires_grad_()
-        ref = lattice_nll(b2, l2, fl, tl)
-        refs.append((ref.detach(), *torch.autograd.grad(ref, (b2, l2), g.to(dtype))))
+    again = rnnt_pair(_forward, _backward, logits, targets, fl, tl, g, RNNT_CLASSES)
+    x = logits.clone().requires_grad_()
+    loss = rnnt_loss_cuda(x, fl, targets, tl, blank_id=RNNT_BLANK, reduction="none",
+                          classes=RNNT_CLASSES)
+    (dx,) = torch.autograd.grad(loss, x, g)
+    refs = _rnnt_refs(logits, targets, fl, tl, g, RNNT_CLASSES)
     torch.cuda.synchronize()
-    c = rnnt_check(got, *refs, fl, tl, g)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.equal(loss, got[0]) and torch.equal(dx, got[3])
+    c = rnnt_check(got, *refs, fl, tl, g, RNNT_CLASSES)
     assert c["ok"], c
     if shape == 0:
-        for name, (db, dl) in rnnt_faults(got[1], got[2], fl, tl).items():
-            assert not rnnt_check((got[0], db, dl), *refs, fl, tl, g)["ok"], name
+        for name, fault in rnnt_faults(got, fl, tl, targets, RNNT_BLANK).items():
+            assert not rnnt_check(fault, *refs, fl, tl, g, RNNT_CLASSES)["ok"], name
 
 
-def test_rnnt_kernels_are_deterministic(cuda):
-    """No atomics: two calls give bitwise-equal losses and gradients."""
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rnnt_kernels_are_deterministic(cuda, dtype):
+    """No atomics: two calls give bitwise-equal losses, lse, shares, cb, cl
+    and dlogits at the training shape, over every cell of the lattices."""
     from hnet_mamba_asr_torch.ops.rnnt_cuda import _backward, _forward
-    from hnet_mamba_asr_torch.tools.measure import lattice_masks
-    blank, label, fl, tl = _rnnt_case(0)
-    fi, ti = fl.int(), tl.int()
-    g = torch.randn(blank.shape[0], generator=torch.Generator().manual_seed(3)).to(cuda)
-    (loss, share), (loss2, share2) = (_forward(blank, label, fi, ti),
-                                      _forward(blank, label, fi, ti))
-    inside = lattice_masks(fl, tl, blank.shape[1], label.shape[2])[0]
-    assert torch.equal(loss, loss2) and torch.equal(share[inside], share2[inside])
-    one = _backward(share, fi, ti, g)
-    two = _backward(share, fi, ti, g)
-    assert all(torch.equal(a, b) for a, b in zip(one, two))
+    from hnet_mamba_asr_torch.ops.rnnt_loss import unskew
+    from hnet_mamba_asr_torch.tools.measure import RNNT_BLANK, RNNT_CLASSES, lattice_masks
+    logits, targets, fl, tl = _rnnt_case(0, dtype)
+    args = (targets, fl, tl, RNNT_BLANK)
+    g = torch.randn(logits.shape[0], generator=torch.Generator().manual_seed(3)).to(cuda)
+    one, two = (_forward(logits, *args, RNNT_CLASSES) for _ in range(2))
+    T = logits.shape[1]
+    inside = lattice_masks(fl, tl, T, logits.shape[2] - 1)[0]
+    assert torch.equal(one[0], two[0])
+    assert all(torch.equal(unskew(a, T)[inside] if a.shape[1] != T else a[inside],
+                           unskew(b, T)[inside] if b.shape[1] != T else b[inside])
+               for a, b in zip(one[1:], two[1:]))
+    back = [_backward(logits, one[1], one[2], *args, g, RNNT_CLASSES) for _ in range(2)]
+    assert torch.equal(back[0][0], back[1][0])
+    assert all(torch.equal(unskew(a, T), unskew(b, T)) for a, b in zip(back[0][1:], back[1][1:]))
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "sliced view"])
+def test_rnnt_kernels_take_any_row_stride(cuda, layout):
+    """Logits whose rows 16 bytes do not divide (501 bf16 or fp32 columns,
+    element loads) and a sliced view of the padded GEMM output (rows 504
+    apart, 16-byte loads) against the plain pair: the same check."""
+    from hnet_mamba_asr_torch.ops.rnnt_cuda import _backward, _forward
+    from hnet_mamba_asr_torch.tools.measure import RNNT_CLASSES, rnnt_check, rnnt_pair
+    for dtype in (torch.bfloat16, torch.float32):
+        padded, targets, fl, tl = _rnnt_case("edge", dtype)
+        logits = padded[..., :RNNT_CLASSES]
+        if layout == "contiguous":
+            logits = logits.contiguous()
+        g = torch.randn(logits.shape[0], generator=torch.Generator().manual_seed(4)).to(cuda)
+        got = rnnt_pair(_forward, _backward, logits, targets, fl, tl, g, None)
+        assert got[3].shape == logits.shape and got[3].stride() == logits.stride()
+        c = rnnt_check(got, *_rnnt_refs(logits, targets, fl, tl, g, None), fl, tl, g,
+                       RNNT_CLASSES)
+        assert c["ok"], (dtype, c)
 
 
 def test_rnnt_loss_through_the_logits(cuda):
-    """``rnnt_loss_cuda`` on bf16 joint logits (log-softmax and gathers in
-    PyTorch, the lattice in the kernels) against the plain ``rnnt_loss`` on
-    the same logits: the losses to 1e-5 relative, the logits' gradient to
-    one bf16 ulp of its largest value; a feat_length 0 row finite."""
+    """``rnnt_loss_cuda`` on bf16 joint logits (the fused kernels) against
+    the plain ``rnnt_loss`` (JAX's frame scan under autograd) on the same
+    logits: the losses to 1e-5 relative, the logits' gradient to one bf16
+    ulp of its largest value; a feat_length 0 row finite."""
     from hnet_mamba_asr_torch.ops.rnnt_cuda import rnnt_loss_cuda
     from hnet_mamba_asr_torch.ops.rnnt_loss import rnnt_loss
     gen = torch.Generator().manual_seed(3)
@@ -457,16 +498,22 @@ def test_rnnt_loss_through_the_logits(cuda):
 
 
 def test_rnnt_kernels_refuse_what_they_do_not_take(cuda):
-    from hnet_mamba_asr_torch.ops.rnnt_cuda import lattice_nll_cuda
-    blank, label, fl, tl = _rnnt_case("edge")
+    from hnet_mamba_asr_torch.ops.rnnt_cuda import _forward, rnnt_loss_cuda
+    from hnet_mamba_asr_torch.tools.measure import RNNT_BLANK, RNNT_CLASSES
+    logits, targets, fl, tl = _rnnt_case("edge")
+    args = (fl, targets, tl)
     with pytest.raises(TypeError):
-        lattice_nll_cuda(blank.double(), label.double(), fl, tl)
+        rnnt_loss_cuda(logits.double(), *args, blank_id=RNNT_BLANK, classes=RNNT_CLASSES)
     with pytest.raises(ValueError):
-        lattice_nll_cuda(blank, label[..., :-1].contiguous(), fl, tl)
+        rnnt_loss_cuda(logits, fl, targets[:, :-1], tl, blank_id=RNNT_BLANK)
     with pytest.raises(ValueError):
-        lattice_nll_cuda(blank.cpu(), label.cpu(), fl, tl)
-    wide = torch.zeros(1, 2, 6200, device=cuda)
+        rnnt_loss_cuda(logits, *args, blank_id=RNNT_BLANK, classes=logits.shape[-1] + 1)
+    with pytest.raises(ValueError):
+        _forward(logits.cpu(), targets, fl, tl, RNNT_BLANK)
+    wide = torch.zeros(1, 2, 6145, 8, device=cuda)
     with pytest.raises(ValueError, match="U <="):
-        lattice_nll_cuda(wide, wide[..., 1:].contiguous(), fl[:1], tl[:1])
+        _forward(wide, torch.zeros(1, 6144, dtype=torch.int32, device=cuda), fl[:1], tl[:1], 0)
     with torch.no_grad():
-        assert lattice_nll_cuda(blank.requires_grad_(), label, fl, tl).grad_fn is None
+        y = rnnt_loss_cuda(logits.requires_grad_(), *args, blank_id=RNNT_BLANK,
+                           classes=RNNT_CLASSES)
+        assert y.grad_fn is None

@@ -165,34 +165,32 @@ def test_plain_rnnt_loss_matches_jax_and_the_oracle():
 
 
 def test_lattice_check_holds_the_mass_and_rejects_planted_faults():
-    """The check the card holds the lattice kernels to
-    (``measure.rnnt_check``), on the CPU with the plain version's fp64
-    gradients rounded to fp32 as the result under test (the plain version
-    matches JAX's gradients above): they conserve the alignment mass (each
-    frame's blank gradients and each label's label gradients sum to -g_b)
-    and pass the check, a feat_length 0 row and an empty target included;
-    each planted fault of ``measure.rnnt_faults`` is rejected."""
-    from hnet_mamba_asr_torch.ops.rnnt_loss import lattice_nll, lattice_scores
-    from hnet_mamba_asr_torch.tools.measure import rnnt_check, rnnt_faults
+    """The check the card holds the loss kernels to (``measure.rnnt_check``),
+    on the CPU with the plain pair's fp64 results rounded to fp32 as the
+    result under test (``tests/test_torch_rnnt_fused.py`` holds the plain
+    pair to JAX): they conserve the alignment mass (each frame's cb and
+    each label's cl sum to -g_b), each cell's dlogits sum to 0, and they
+    pass the check, a feat_length 0 row, an empty target and pad columns
+    included; each planted fault of ``measure.rnnt_faults`` is rejected."""
+    from hnet_mamba_asr_torch.ops.rnnt_loss import rnnt_bwd_plain, rnnt_fwd_plain
+    from hnet_mamba_asr_torch.tools.measure import rnnt_check, rnnt_faults, rnnt_pair
     rng = np.random.default_rng(4)
     B, T, U, Vc = 4, 30, 9, 11
-    logits = (rng.normal(size=(B, T, U + 1, Vc)) * 2).astype(np.float32)
+    logits = (rng.normal(size=(B, T, U + 1, Vc + 5)) * 2).astype(np.float32)
     targets = torch.from_numpy(rng.integers(0, Vc - 1, size=(B, U)).astype(np.int32))
     fl, tl = torch.tensor([T, 21, 0, 12]), torch.tensor([U, 5, 3, 0])
     g = torch.from_numpy((rng.normal(size=B) + 2.0).astype(np.float32))
-    blank, label = lattice_scores(torch.from_numpy(logits), targets, tl, Vc - 1)
-    refs = []
-    for dtype in (torch.float32, torch.float64):
-        b = blank.to(dtype).clone().requires_grad_()
-        lab = label.to(dtype).clone().requires_grad_()
-        y = lattice_nll(b, lab, fl, tl)
-        refs.append((y.detach(), *torch.autograd.grad(y, (b, lab), g.to(dtype))))
-    assert rnnt_check(refs[1], *refs, fl, tl, g)["mass"] <= 1e-12
-    got = (refs[0][0], refs[1][1].float(), refs[1][2].float())
-    c = rnnt_check(got, *refs, fl, tl, g)
+    refs = [rnnt_pair(rnnt_fwd_plain, rnnt_bwd_plain, torch.from_numpy(logits).to(dtype),
+                      targets, fl, tl, g.to(dtype), Vc, Vc - 1)
+            for dtype in (torch.float32, torch.float64)]
+    assert rnnt_check(refs[1], *refs, fl, tl, g, Vc)["mass"] <= 1e-12
+    got = (refs[0][0], *(r.float() for r in refs[1][1:]))
+    c = rnnt_check(got, *refs, fl, tl, g, Vc)
     assert c["ok"], c
-    for name, (db, dl) in rnnt_faults(got[1], got[2], fl, tl).items():
-        assert not rnnt_check((got[0], db, dl), *refs, fl, tl, g)["ok"], name
+    faults = rnnt_faults(got, fl, tl, targets, Vc - 1)
+    assert len(faults) == 4
+    for name, fault in faults.items():
+        assert not rnnt_check(fault, *refs, fl, tl, g, Vc)["ok"], name
 
 
 # ---- the head -----------------------------------------------------------------------
