@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU: serve, train and decode
 Type A Small at N=1, with H-Net dynamic chunking at N=2, with the RNN-T head
-and with an MoE AED decoder.
+and with an MoE AED decoder, and stream their causal siblings.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
@@ -111,8 +111,9 @@ calls, at the full width of ``configs/typeA_small_N1.yaml`` and
 12. n2      -- ``overfit_config(compression_n=2)`` for 120 epochs: finite,
                the ratio loss not rising, the kept fraction near 1/2, its
                trajectory;
-13. decode  -- the full-width gate config (seeded) and the full-width
-               ``lm_transformer_500`` LM (seeded): 8 utterances of 2-16 s
+13. decode  -- the full-width gate config (seeded; its AED decoder at 2
+               of 6 layers) and the full-width ``lm_transformer_500`` LM
+               (seeded; 4 of 16 layers): 8 utterances of 2-16 s
                through the 7 cells of the config's decode block, shared
                encoder, AED cap 64 (seeded weights never emit eos), once on
                the device searches (the default) and once on the host's
@@ -146,12 +147,24 @@ calls, at the full width of ``configs/typeA_small_N1.yaml`` and
                drops; the MoE gate config through Trainer (3 updates,
                moe/aux and moe/dropped finite); aed_beam at full width and
                the AED's dropped share; ctc_beam_lm with the MoE LM scored
-               dropless, the 2 shortest requests alone == batched.
+               dropless, the 2 shortest requests alone == batched;
+18. stream  -- the carried EMA kernel against ema_stream (B 8 M 16, B 64
+               M 256, D 384), the fp32 SSD kernel at L 16 from a carried
+               state (zero-dt rows exact no-ops); the causal gate config and
+               its N = 2 sibling streamed (CausalStreamingEncoder, blocks of
+               16) against offline in fp32 (features within 2e-4, CTC ids
+               and boundaries equal); the causal transducer's greedy and
+               beam ids streamed == offline, and the beam's whole carried
+               state (every hypothesis, its length and score) == one pass
+               over the same frames; 8 pooled sessions == each
+               alone; the windowed encoder's frame counts and a covering
+               window within 1e-4.
 
 The line before the last is a JSON summary of the kernels, with the
 launches of the full-width decode run on the device engine (ssd_fwd), of
 the RNN-T training run (rnnt_fwd, rnnt_bwd) and of the N = 2 training run
-(the others), and every path's counts; the last line is
+(the others), and every path's counts (the streaming paths' as stream_*);
+the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
@@ -1414,6 +1427,19 @@ def phase_n2_stability(tmp: Path) -> dict:
 # runs to its cap): the AED cap at 64 tokens (512 in the config)
 DECODE_CAP = 64
 DECODE_UTTS = 8
+# the depth of phase 13's full-width decode run, cut so that the smoke stays
+# well inside its time limit on a slow host (its time for the same work
+# varies by up to 1.4x from host to host): the widths are the configs', the
+# AED decoder keeps 2 of its 6 layers and the LM 4 of its 16 (phases 15 and
+# 17 run the LMs at full depth)
+DECODE_AED_LAYERS = 2
+DECODE_LM_LAYERS = 4
+DECODE_N_PARAMS = 67_815_593    # the gate config with the 2-layer AED decoder
+
+
+def cut_lm(config: dict) -> dict:
+    """An LM config at DECODE_LM_LAYERS layers."""
+    return {**config, "lm_conf": {**config["lm_conf"], "n_layers": DECODE_LM_LAYERS}}
 
 
 # engine labels and their decode blocks: the config's own (device_beam
@@ -1454,8 +1480,10 @@ def device_call_ms(fn, n: int = 10) -> float:
 
 
 def phase_decode_full(cmvn, tmp: Path) -> dict:
-    """typeA_small_N1 at full width (78,858,409 parameters, seeded, bf16 intra
-    bf16) and lm_transformer_500 at full width (seeded, fp32): 8 synthetic
+    """typeA_small_N1 at full width (seeded, bf16 intra bf16) with its AED
+    decoder cut to DECODE_AED_LAYERS layers (67,815,593 parameters) and
+    lm_transformer_500 at full width cut to DECODE_LM_LAYERS layers
+    (seeded, fp32): 8 synthetic
     utterances of 2-16 s in one batch through all 7 cells of the config's
     decode block with the shared encoder, once per engine: the device
     searches (the config's default) and the host's (``device_beam: false``).
@@ -1478,10 +1506,10 @@ def phase_decode_full(cmvn, tmp: Path) -> dict:
     from hnet_mamba_asr_torch.tasks.lm_task import build_lm
     from hnet_mamba_asr_torch.tools.gate import GATE_DECODE, LM_CONFIG, seeded_tokenizer
     cfg = copy.deepcopy(GATE_CONFIG)
-    cfg["aed_conf"]["max_decode_len"] = DECODE_CAP
+    cfg["aed_conf"].update(max_decode_len=DECODE_CAP, n_layers=DECODE_AED_LAYERS)
     model = build_model(cfg, VOCAB, cmvn=cmvn, seed=SEED)
     n_params = sum(p.numel() for p in model.parameters())
-    lm = build_lm(LM_CONFIG, VOCAB, seed=SEED)
+    lm = build_lm(cut_lm(LM_CONFIG), VOCAB, seed=SEED)
     tok = seeded_tokenizer(tmp / "tok500.model")
     scorer = CausalLMScorer(lm.lm, bos_id=tok.bos_id, eos_id=tok.eos_id, pad_id=tok.pad_id)
     items = decode_batch_items(np.random.default_rng(SEED + 50), DECODE_UTTS)
@@ -1661,8 +1689,9 @@ def phase_decode_full(cmvn, tmp: Path) -> dict:
         f"ssd_fwd launches per engine {[runs[e]['launches'] for e, _ in ENGINES]} (the "
         f"untimed warm-up pass and the one timed pass, {SSD_CALLS_PER_FORWARD} each); "
         f"{sum(r['wall'] for r in runs.values()):.1f} s of decode runs; cuts: AED cap "
-        f"{DECODE_CAP} tokens (seeded weights never emit eos)")
-    if n_params != 78_858_409:
+        f"{DECODE_CAP} tokens (seeded weights never emit eos), AED {DECODE_AED_LAYERS} and "
+        f"LM {DECODE_LM_LAYERS} layers")
+    if n_params != DECODE_N_PARAMS:
         raise AssertionError(f"full-width decode: {n_params} parameters")
     del model, lm, scorer, enc, logp, r_state, untied
     torch.cuda.empty_cache()
@@ -2407,6 +2436,358 @@ def phase_moe(cmvn, tmp: Path) -> dict:
     return {"train": train, "aed_dropped": aed_dropped, "ffn_dropped": dk,
             "rtf": {s["cell"]: s["rtf"] for s in summaries}}
 
+# streaming (phase 18): streamed against offline in fp32 (TF32 off), at
+# JAX's bar (tests/test_streaming.py), every block of 16 encoder frames
+# (640 ms); the carried EMA kernel against ema_stream, as max|d| / max|ref|
+# (the recurrence in fp32: EMA_SEQ_BOUND); the covering window at JAX's
+# 1e-4 (tests/test_streaming.py:98)
+STREAM_BOUND = 2e-4
+WINDOW_BOUND = 1e-4
+# a carried beam's scores against one pass over the same frames (fp32 sums)
+BEAM_CARRY_BOUND = 1e-5
+STREAM_BLOCK = 16
+STREAM_SESSIONS = 8
+# the transducer's utterance (4 labels a frame x 99 frames fit its 512-token
+# cap offline) and the exact-causal and windowed ones
+STREAM_SECONDS = (4.0, 6.0)
+
+
+def _stream_feed(feed, wave, rng) -> list:
+    """Ragged pushes of 0.05-0.3 s through ``feed``; its outputs, joined."""
+    out, i = [], 0
+    while i < len(wave):
+        n = int(rng.integers(800, 4800))
+        out += feed(wave[i:i + n])
+        i += n
+    return out
+
+
+def _tail(stream) -> list:
+    """A stream's ``finish()`` as a list of its segment (none at the end)."""
+    tail = stream.finish()
+    return [] if tail is None else [tail]
+
+
+def _close(got, want, bound) -> float:
+    """max |got - want| / (bound (1 + |want|)): <= 1 is assert_allclose's
+    pass at rtol = atol = bound."""
+    return ((got - want).abs() / (bound * (1 + want.abs()))).max().item()
+
+
+def _check_beam_carry(model, pool, wave, rng, K: int, L: int) -> None:
+    """The whole carried beam of a streamed transducer session: the streamed
+    encoder's blocks (each padded to the block, its real frames counted, as
+    the pool's step passes them) through beam_decode_nbest with the last
+    call's beam passed back as ``state`` == one pass over the same frames
+    (the same live hypotheses, each with its tokens and length, scores
+    within BEAM_CARRY_BOUND (1 + |s|)); and the session's last carried beam
+    (the pool's resident state after ``finish``) == that carried beam,
+    bitwise."""
+    from hnet_mamba_asr_torch.decoders.device_rnnt_beam import beam_decode_nbest
+    from hnet_mamba_asr_torch.models.streaming import CausalStreamingEncoder
+    stream = CausalStreamingEncoder(model, block_enc=STREAM_BLOCK)
+    blocks = _stream_feed(stream.accept, wave, rng) + _tail(stream)
+    state = None
+    with torch.inference_mode():
+        for f in blocks:
+            pad = torch.zeros(STREAM_BLOCK - len(f), f.shape[1], device=f.device)
+            state = beam_decode_nbest(model.rnnt, torch.cat([f, pad])[None],
+                                      torch.tensor([len(f)], device=f.device), K, state=state,
+                                      token_buf_len=L)
+        frames = torch.cat(blocks)[None]
+        one = beam_decode_nbest(model.rnnt, frames,
+                                torch.tensor([frames.shape[1]], device=frames.device), K,
+                                token_buf_len=L)
+
+    def hyps(beam):
+        toks, lens, score = (t[0].cpu() for t in beam[:3])
+        live = score > -1e29
+        return [toks[k, :lens[k]].tolist() for k in range(K) if live[k]], score[live]
+    got, got_s = hyps(state)
+    want, want_s = hyps(one)
+    same = got == want
+    ratio = _close(got_s, want_s, BEAM_CARRY_BOUND) if same else float("inf")
+    pool_same = all(torch.equal(a, b) for a, b in zip(pool._resident[0]["beam"], state))
+    log(f"  stream rnnt beam carry: {len(blocks)} blocks with the beam passed back == one pass "
+        f"over the same {frames.shape[1]} frames: {len(want)} live hypotheses of {K} "
+        f"(lengths {[len(h) for h in want]}) equal {same}, scores {want_s.tolist()} within "
+        f"{ratio:.3f} of {BEAM_CARRY_BOUND:g} (1 + |s|); the session's last carried beam == "
+        f"it bitwise {pool_same}")
+    if not (same and ratio <= 1.0 and pool_same):
+        raise AssertionError("the streamed transducer beam's carried state is not one pass's")
+
+
+def phase_stream(cmvn) -> dict:
+    """Streaming on the card, at full width from seed 1, TF32 off:
+    (1) the carried ema_fwd (ema_stream_cuda) against ema_stream at B 8
+    M 16 and B 64 M 256, D 384, fp32 (mixed has, real counts 0 .. M,
+    saturated P): within EMA_SEQ_BOUND, has exact, two calls bitwise equal;
+    the fp32 SSD kernel at L 16 from a carried state: a block of zero-dt
+    rows leaves the state bitwise as it was, and a block whose tail has
+    zero dt gives the state of its real rows; (2) the causal gate config and
+    its N = 2 sibling (routers from draw_routers) in fp32, intra off,
+    streamed (CausalStreamingEncoder, ragged pushes) against the same model
+    offline: boundaries equal (frames within 1e-4 of 0.5 named), features
+    at STREAM_BOUND, StreamingCTCGreedy's ids equal the offline collapse;
+    (3) the causal transducer (RNN-T alone) in fp32 through
+    StreamingServingModel, greedy and beam 8 wide: ids equal offline
+    greedy_decode and beam_decode_nbest at the same token buffer, and the
+    beam's whole carried state as _check_beam_carry holds it; (4) 8
+    sessions of the causal gate config in its own precision (bf16 head)
+    pooled in one StreamingSessionPool of 8 rows (feed_many rounds, then
+    ragged feeds) against each alone (StreamingServingModel): ids equal;
+    (5) the windowed StreamingEncoder over the gate config in fp32: frame
+    counts equal offline's, a covering window at WINDOW_BOUND. Each path's
+    ssd_fwd and ema_fwd launches, counted from 0 around it."""
+    from hnet_mamba_asr_torch.decoders.device_rnnt_beam import beam_decode_nbest
+    from hnet_mamba_asr_torch.models.ctc_head import greedy_decode as collapse_ctc
+    from hnet_mamba_asr_torch.models.streaming import (
+        CausalStreamingEncoder, StreamingCTCGreedy, StreamingEncoder)
+    from hnet_mamba_asr_torch.ops.ema import ema_stream
+    from hnet_mamba_asr_torch.ops.ema_cuda import ema_cuda, ema_stream_cuda
+    from hnet_mamba_asr_torch.ops.ssd import ssd_chunked
+    from hnet_mamba_asr_torch.ops.ssd_cuda import ssd_cuda
+    from hnet_mamba_asr_torch.serving.runtime import (
+        StreamingServingModel, StreamingSessionPool)
+    from hnet_mamba_asr_torch.tasks.asr_task import build_model
+    from hnet_mamba_asr_torch.tools.gate import (
+        GATE_CAUSAL_CONFIG, N2_CAUSAL_CONFIG, RNNT_CAUSAL_CONFIG)
+    from hnet_mamba_asr_torch.tools.measure import (
+        EMA_STREAM_SHAPES, cuda_ms, ema_stream_cost, ema_stream_inputs, kernel_ms, ssd_inputs)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"ema": [], "launches": {}}
+
+    def counted(path, fn, *args):
+        """Run a main path with the kernels' counts from 0; keep its launches."""
+        ssd_cuda.launches = ema_cuda.launches = 0
+        res = fn(*args)
+        torch.cuda.synchronize()
+        out["launches"][path] = {"ssd_fwd": ssd_cuda.launches, "ema_fwd": ema_cuda.launches}
+        if ssd_cuda.launches == 0:
+            raise AssertionError(f"{path}: ssd_fwd was not launched")
+        return res
+
+    # (1) the kernels at the stream's shapes
+    for Bsz, M, D in EMA_STREAM_SHAPES:
+        z, p, n_real, carry = ema_stream_inputs(Bsz, M, D, seed=SEED + 40)
+        got, st = ema_stream_cuda(z, p, n_real, carry)
+        got2, st2 = ema_stream_cuda(z, p, n_real, carry)
+        want, wst = ema_stream(z, p, n_real, carry)
+        torch.cuda.synchronize()
+        d = max((got - want).abs().max().item(), (st["ema"] - wst["ema"]).abs().max().item())
+        rel = d / max(want.abs().max().item(), wst["ema"].abs().max().item())
+        same = torch.equal(got, got2) and torch.equal(st["ema"], st2["ema"])
+        fn = lambda: ema_stream_cuda(z, p, n_real, carry)  # noqa: E731
+        ms, clock = kernel_ms(fn, "ema_fwd"), "the profiler's device time"
+        if ms is None:
+            ms, clock = cuda_ms(fn), "CUDA events around the call (no device time traced)"
+        plain_ms = cuda_ms(lambda: ema_stream(z, p, n_real, carry))
+        cost = ema_stream_cost(n_real, M, D, "float32")
+        log(f"  ema_fwd carried fp32 B{Bsz} M{M} D{D} (real counts {n_real.min().item()}.."
+            f"{n_real.max().item()}, {int(n_real.sum())} of {Bsz * M} rows): max|d|/max|ref| "
+            f"{rel:.2e} (bound {EMA_SEQ_BOUND['float32']:g}), max|d| {d:.2e}, has equal "
+            f"{torch.equal(st['has'], wst['has'])}, two calls bitwise equal {same}; kernel "
+            f"{ms:.4f} ms ({clock}) plain {plain_ms:.4f} ms bound "
+            f"{cost['bound_ms'] * 1e3:.2f} us ({cost['bound_by']}) share "
+            f"{cost['bound_ms'] / ms:.2%}")
+        if not (rel <= EMA_SEQ_BOUND["float32"] and same and torch.isfinite(got).all()
+                and torch.equal(st["has"], wst["has"])):
+            raise AssertionError(f"carried ema_fwd disagrees with ema_stream (B {Bsz} M {M})")
+        out["ema"].append(dict(B=Bsz, M=M, D=D, abs_err=d, ms=ms, clock=clock,
+                               plain_ms=plain_ms, **cost))
+    x, dt, A, Bm, C = ssd_inputs(8, STREAM_BLOCK, 12, torch.float32, seed=SEED + 41)
+    s0 = torch.randn(8, 12, 128, 64, device="cuda")
+    y, s1 = ssd_cuda(x, dt, A, Bm, C, initial_state=s0, return_final=True)
+    yr, sr = ssd_chunked(x, dt, A, Bm, C, chunk_size=STREAM_BLOCK, initial_state=s0,
+                         return_final=True)
+    _, s_idle = ssd_cuda(x, torch.zeros_like(dt), A, Bm, C, initial_state=s0,
+                         return_final=True)
+    tail = dt.clone()
+    tail[:, 9:] = 0.0
+    _, s_tail = ssd_cuda(x, tail, A, Bm, C, initial_state=s0, return_final=True)
+    _, s_head = ssd_cuda(*(t[:, :9].contiguous() for t in (x, dt)), A,
+                         *(t[:, :9].contiguous() for t in (Bm, C)), initial_state=s0,
+                         return_final=True)
+    rel_y = ((y - yr).abs().max() / yr.abs().max()).item()
+    rel_s = ((s1 - sr).abs().max() / sr.abs().max()).item()
+    log(f"  ssd fp32 L{STREAM_BLOCK} (< the kernel's chunk 64) from a carried state: y "
+        f"{rel_y:.2e}, state {rel_s:.2e} off ssd_chunked; zero-dt block leaves the state "
+        f"bitwise {torch.equal(s_idle, s0)}; zero dt on rows 9-15 == rows 0-8 alone: bitwise "
+        f"{torch.equal(s_tail, s_head)}, max|d| {(s_tail - s_head).abs().max().item():.2e}")
+    if not (rel_y <= SSD_BOUND["float32"] and rel_s <= STATE_BOUND["float32"]
+            and torch.equal(s_idle, s0)
+            and (s_tail - s_head).abs().max().item() <= STATE_BOUND["float32"] * sr.abs().max()):
+        raise AssertionError("the fp32 ssd kernel at the stream's block breaks the carry")
+
+    # (2) exact-causal streaming against offline, N = 1 and N = 2
+    rng = np.random.default_rng(SEED + 42)
+    for label, config in (("n1", GATE_CAUSAL_CONFIG), ("n2", N2_CAUSAL_CONFIG)):
+        cfg = copy.deepcopy(config)
+        cfg["train"]["precision"] = "fp32"
+        cfg["encoder_conf"]["ssd_intra_dtype"] = None
+        model = build_model(cfg, VOCAB, cmvn=cmvn, seed=SEED)
+        if label == "n2":
+            draw_routers(model, SEED + 43)
+        wave = synth_audio(rng, STREAM_SECONDS[1])
+        batch = {"wave": torch.from_numpy(wave[None]).cuda(),
+                 "wave_lens": torch.tensor([len(wave)], device="cuda")}
+        with torch.inference_mode():
+            enc = model.encode(batch)
+            ids = model.ctc.frame_argmax(enc.features)
+        n = int(enc.lengths[0])
+        want_ids = collapse_ctc(ids.cpu(), enc.lengths.cpu(), model.ctc.blank_id)[0]
+        seen = []
+        if label == "n2":           # the streamed boundaries, block by block
+            router = model.encoder.chunk.router
+            step = router.step
+
+            def spy(x, n_real, state):
+                p, b, st = step(x, n_real, state)
+                seen.append((p[0, :int(n_real[0])], b[0, :int(n_real[0])]))
+                return p, b, st
+            router.step = spy
+        stream = CausalStreamingEncoder(model, block_enc=STREAM_BLOCK)
+        sc = StreamingCTCGreedy(model, stream)
+        feats = []
+
+        def run():
+            toks = []
+            for f in _stream_feed(stream.accept, wave, rng) + _tail(stream):
+                feats.append(f)
+                toks += sc.ids(f)
+            return toks
+        toks = counted(f"stream_{label}", run)
+        got = torch.cat(feats)[:n]
+        if label == "n2":
+            router.step = step
+            p = torch.cat([s[0] for s in seen])[None, :n]
+            b = torch.cat([s[1] for s in seen])[None, :n]
+            check_boundaries(((p, b),), (enc.boundaries[0],),
+                             f"{label} streamed vs offline")
+        ratio = _close(got, enc.features[0, :n], STREAM_BOUND)
+        d = (got - enc.features[0, :n]).abs().max().item()
+        kept = f", kept {enc.kept_fractions[0].item():.4f}" if label == "n2" else ""
+        log(f"  stream {label} ({STREAM_SECONDS[1]:.1f} s, {n} frames, {len(feats)} blocks of "
+            f"{STREAM_BLOCK}{kept}): max|d feature| {d:.3e} ({ratio:.3f} of the bound "
+            f"{STREAM_BOUND:g} (1 + |f|)); ids equal offline {toks == want_ids} "
+            f"({len(toks)} tokens); launches {out['launches'][f'stream_{label}']}")
+        if label == "n2" and not 0.05 < enc.kept_fractions[0].item() < 0.95:
+            raise AssertionError(f"n2 routers keep {enc.kept_fractions[0].item():.4f}")
+        if label == "n2" and out["launches"]["stream_n2"]["ema_fwd"] == 0:
+            raise AssertionError("stream_n2: ema_fwd was not launched")
+        if not (ratio <= 1.0 and toks == want_ids and len(feats) > 1):
+            raise AssertionError(f"stream {label} disagrees with offline: {ratio:.3f}, ids "
+                                 f"{toks == want_ids}")
+        out[label] = {"max_abs": d, "frames": n}
+        del model, stream, sc
+        torch.cuda.empty_cache()
+
+    # (3) the streaming transducer, greedy and beam, against offline
+    cfg = copy.deepcopy(RNNT_CAUSAL_CONFIG)
+    cfg["train"]["precision"] = "fp32"
+    cfg["encoder_conf"]["ssd_intra_dtype"] = None
+    wave = synth_audio(rng, STREAM_SECONDS[0])
+    for decode in ("greedy", "beam"):
+        sm = StreamingServingModel(cfg, None, vocab_size=VOCAB, cmvn=cmvn, seed=SEED,
+                                   block_enc=STREAM_BLOCK, decode=decode)
+        model = sm.pool.model
+        K, L = sm.pool.beam_size, sm.pool.token_buf_len
+        batch = {"wave": torch.from_numpy(wave[None]).cuda(),
+                 "wave_lens": torch.tensor([len(wave)], device="cuda")}
+        with torch.inference_mode():
+            enc = model.encode(batch)
+            if decode == "greedy":
+                toks, lens = model.rnnt.greedy_decode(enc.features, enc.lengths)
+                want = toks[0, :int(lens[0])].tolist()
+            else:
+                ftoks, fplen, fscore = beam_decode_nbest(model.rnnt, enc.features, enc.lengths,
+                                                         K, token_buf_len=L)
+                k = int(torch.argmax(fscore[0]))
+                want = ftoks[0, k, :int(fplen[0, k])].tolist()
+        fed = counted(f"stream_rnnt_{decode}", lambda: _stream_feed(sm.feed, wave, rng))
+        got = sm.finish()
+        if decode == "greedy":
+            got = fed + got
+        log(f"  stream rnnt {decode} ({STREAM_SECONDS[0]:.1f} s, {int(enc.lengths[0])} frames): "
+            f"ids equal offline {got == want} ({len(got)} tokens; feeds returned {len(fed)}); "
+            f"launches {out['launches'][f'stream_rnnt_{decode}']}")
+        if got != want or (decode == "beam" and fed):
+            raise AssertionError(f"streamed transducer {decode} ids differ from offline")
+        if decode == "beam":
+            _check_beam_carry(model, sm.pool, wave, rng, K, L)
+        del sm, model
+        torch.cuda.empty_cache()
+
+    # (4) pooled sessions against each alone, in the config's own precision
+    kw = dict(vocab_size=VOCAB, cmvn=cmvn, seed=SEED, block_enc=STREAM_BLOCK)
+    pool = StreamingSessionPool(GATE_CAUSAL_CONFIG, None, batch=STREAM_SESSIONS, **kw)
+    waves = [synth_audio(rng, float(t)) for t in rng.uniform(2.0, 6.0, size=STREAM_SESSIONS)]
+
+    def pooled():
+        sids = [pool.open() for _ in waves]
+        got = {s: [] for s in sids}
+        start = -(-max(len(w) for w in waves) // 2 // 6400) * 6400
+        for pos in range(0, start, 6400):           # lockstep rounds, then ragged feeds
+            for sid, t in pool.feed_many([(s, w[pos:pos + 6400])
+                                          for s, w in zip(sids, waves)]).items():
+                got[sid] += t
+        sizes = rng.integers(900, 5000, size=len(waves))
+        pos = [min(start, len(w)) for w in waves]
+        while any(q < len(w) for q, w in zip(pos, waves)):
+            for k, sid in enumerate(sids):
+                if pos[k] < len(waves[k]):
+                    got[sid] += pool.feed(sid, waves[k][pos[k]:pos[k] + sizes[k]])
+                    pos[k] += int(sizes[k])
+        return [got[s] + pool.finish(s) for s in sids]
+    ticks0 = pool.n_ticks
+    t0 = time.perf_counter()
+    pooled_ids = counted("stream_pool", pooled)
+    pool_s = time.perf_counter() - t0
+    ticks = pool.n_ticks - ticks0
+    del pool
+    torch.cuda.empty_cache()
+    alone = StreamingServingModel(GATE_CAUSAL_CONFIG, None, **kw)
+    alone_ids = [_stream_feed(alone.feed, w, rng) + alone.finish() for w in waves]
+    differ = [k for k, (a, b) in enumerate(zip(pooled_ids, alone_ids)) if a != b]
+    log(f"  stream pool: {STREAM_SESSIONS} sessions of "
+        f"{sorted(round(len(w) / SR, 2) for w in waves)} s (bf16 head) in a pool of "
+        f"{STREAM_SESSIONS} rows, {ticks} ticks in {pool_s:.2f} s; pooled == alone "
+        f"{not differ} (tokens {[len(i) for i in pooled_ids]}); launches "
+        f"{out['launches']['stream_pool']}")
+    if differ:
+        raise AssertionError(f"pooled streaming sessions differ from alone: {differ}")
+    del alone
+    torch.cuda.empty_cache()
+
+    # (5) the windowed encoder over the bidirectional gate config
+    cfg = copy.deepcopy(GATE_CONFIG)
+    cfg["train"]["precision"] = "fp32"
+    cfg["encoder_conf"]["ssd_intra_dtype"] = None
+    model = build_model(cfg, VOCAB, cmvn=cmvn, seed=SEED)
+    wave = synth_audio(rng, STREAM_SECONDS[1])
+    with torch.inference_mode():
+        enc = model.encode({"wave": torch.from_numpy(wave[None]).cuda(),
+                            "wave_lens": torch.tensor([len(wave)], device="cuda")})
+    off = enc.features[0, :int(enc.lengths[0])]
+    se = StreamingEncoder(model, seg_frames=96, left_ctx=256, lookahead=32)
+    frames = len(torch.cat(_stream_feed(se.accept, wave, rng) + _tail(se)))
+    # a lookahead past the utterance's end: one window, at finish(), sees it all
+    se = StreamingEncoder(model, seg_frames=96, left_ctx=1024, lookahead=640)
+    cover = counted("stream_windowed",
+                    lambda: torch.cat(_stream_feed(se.accept, wave, rng) + _tail(se)))
+    ratio = _close(cover, off, WINDOW_BOUND) if cover.shape == off.shape else float("inf")
+    log(f"  stream windowed gate config fp32 ({STREAM_SECONDS[1]:.1f} s, {len(off)} frames): "
+        f"frames {frames} at left_ctx 256 / lookahead 32, {len(cover)} covering; covering "
+        f"max|d| {(cover - off).abs().max().item():.3e} ({ratio:.3f} of the bound "
+        f"{WINDOW_BOUND:g} (1 + |f|)); launches {out['launches']['stream_windowed']}")
+    if not (frames == len(off) and ratio <= 1.0):
+        raise AssertionError("the windowed stream disagrees with offline")
+    del model
+    torch.cuda.empty_cache()
+    log("phase 18 stream: ok")
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2456,6 +2837,7 @@ def main() -> int:
         rnnt_full = run(phase_rnnt_decode_full, cmvn, Path(tmp))
         moe = run(phase_moe, cmvn, Path(tmp))
         run(phase_decode_parity, cmvn, Path(tmp))
+    stream = run(phase_stream, cmvn)
     log(f"training summary: gate config {train['step_ms']:.1f} ms per update of 2 x 32 x 10 s, "
         f"{train['fps']:.0f} mel-frames/s, peak {train['peak'] / 1e9:.2f} GB; N=2 config "
         f"{train_n2['step_ms']:.1f} ms per update of 64 x 10 s, {train_n2['fps']:.0f} "
@@ -2471,7 +2853,7 @@ def main() -> int:
         f"tone matrix WER "
         + ", ".join(f"{k} {v['wer']:.2f}" for k, v in matrix.items())
         + f"; N=2 kept {n2['kept'][0]:.4f} -> {n2['kept'][-1]:.4f} over {n2['updates']} "
-        f"updates; full-width RTF device / lockstep "
+        f"updates; full-width (depth-cut) RTF device / lockstep "
         + ", ".join(f"{k} {v['rtf']:.4f} / {full['engines']['lockstep']['cells'][k]['rtf']:.4f}"
                     for k, v in full["engines"]["device"]["cells"].items())
         + f"; engines differ {sum(a['differ'] for a in full['agree'].values())} times "
@@ -2492,6 +2874,12 @@ def main() -> int:
         + f"; RNN-T tone gate dev WER {rnnt_gate['dev_wer']}, test-clean "
         f"{rnnt_gate['wer']:.3f}; MoE AED dropped {moe['aed_dropped']:.4f}, RTF "
         + ", ".join(f"{k} {v:.4f}" for k, v in moe["rtf"].items()))
+    log(f"stream summary: causal gate config streamed == offline (max|d feature| "
+        f"{stream['n1']['max_abs']:.3e}), N=2 {stream['n2']['max_abs']:.3e}; carried ema_fwd "
+        + ", ".join(f"B{r['B']} M{r['M']} D{r['D']} {r['ms']:.4f} ms ({r['clock']}; bound "
+                    f"{r['bound_ms'] * 1e3:.2f} us, share {r['bound_ms'] / r['ms']:.2%}, plain "
+                    f"{r['plain_ms']:.4f} ms)" for r in stream["ema"])
+        + "; launches " + json.dumps(stream["launches"]))
     main_shape = ("bfloat16", TRAIN_ROWS, 249, 16)
     fwd = next(r for r in fwd_rows if (r["dtype"], r["B"], r["L"], r["H"]) == main_shape)
     bwd = next(r for r in bwd_rows if (r["dtype"], r["B"], r["L"], r["H"]) == main_shape
@@ -2519,7 +2907,7 @@ def main() -> int:
                "train_gate": {"ssd_fwd": train["ssd_fwd"], "ssd_bwd": train["ssd_bwd"]},
                "train_rnnt": train_rnnt["launches"], "grads_rnnt": rnnt_grads,
                "gate_proof_rnnt_tone": rnnt_gate["launches"],
-               "train_moe": moe["train"]["launches"]}
+               "train_moe": moe["train"]["launches"], **stream["launches"]}
     launches = dict(train_n2["launches"], ssd_fwd=full["engines"]["device"]["launches"],
                     rnnt_fwd=train_rnnt["launches"]["rnnt_fwd"],
                     rnnt_bwd=train_rnnt["launches"]["rnnt_bwd"])

@@ -66,6 +66,16 @@
 //   partials in tile order and applies the clamp's mask and dP_0 = 0. No
 //   float atomics anywhere.
 // - The channel cap (D <= 1024): gone; any D.
+// The carried form (streaming; hnet_ema_fwd_carry) is the same forward
+// over a compacted block of a stream: per row b a carry (ema [B, D] fp32,
+// has [B]) and a count n_real[b] of real rows. The carry is the prefix of
+// chunk 0 (where the offline call has none); rows at or past n_real[b] are
+// exact no-ops (a_t = 1, weight 0: z is not read into the chain) that emit
+// the carry; a row whose has is false takes its first real row verbatim
+// (a_0 = 0, weight 1, as zbar_0 = z_0). The thread that holds the last slot
+// of the last chunk writes the new carry; the first tile of that chunk
+// writes has | (n_real > 0). It is a template instance of its own
+// (kCarry), so the offline kernel's code is what it was.
 // The flags carry the call's epoch (the wrapper counts calls), so they need
 // no reset; the ticket and the counters wrap to zero at the end of every
 // call (atomicInc). The wrapper allocates the scratch, per (device, stream),
@@ -218,6 +228,9 @@ template <typename S>
 struct Args {
   const S* z; const float* p;
   S* out;                               // forward
+  const int* n_real;                    // the carried forward
+  const float* carry_in; const unsigned char* has_in;
+  float* carry_out; unsigned char* has_out;
   const S* zbar; const S* g; S* dz;     // backward
   float* dp;
   int B, M, D, nC, nT;
@@ -377,7 +390,15 @@ __device__ __forceinline__ float2 fold(float A, float2 x, float2 v) {   // A x +
   return make_float2(fmaf(A, x.x, v.x), fmaf(A, x.y, v.y));
 }
 
-template <typename S, bool kVec>
+// w z_t into the chain: a padding row of the carried form (weight 0) does
+// not read z, which may hold anything
+template <bool kCarry>
+__device__ __forceinline__ float2 weigh(float w, float2 z) {
+  if (kCarry && w == 0.f) return make_float2(0.f, 0.f);
+  return make_float2(w * z.x, w * z.y);
+}
+
+template <typename S, bool kVec, bool kCarry>
 __global__ void __launch_bounds__(kThreads, blocks_per_sm<S>(1)) ema_fwd_kernel(Args<S> a) {
   using P2 = Pair<S>;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -398,8 +419,14 @@ __global__ void __launch_bounds__(kThreads, blocks_per_sm<S>(1)) ema_fwd_kernel(
   if (tid < n) {
     const int t = c0 + tid;
     const float P = clamp_p(a.p[(long long)w.row * a.M + t], a.lo, a.hi);
-    sa[tid] = t == 0 ? 0.f : 1.f - P;
-    sw[tid] = t == 0 ? 1.f : P;
+    if constexpr (kCarry) {
+      const bool pad = t >= a.n_real[w.row], first = t == 0 && !a.has_in[w.row];
+      sa[tid] = pad ? 1.f : first ? 0.f : 1.f - P;
+      sw[tid] = pad ? 0.f : first ? 1.f : P;
+    } else {
+      sa[tid] = t == 0 ? 0.f : 1.f - P;
+      sw[tid] = t == 0 ? 1.f : P;
+    }
   }
   if constexpr (kVec) {
     cp_async_commit();
@@ -415,8 +442,7 @@ __global__ void __launch_bounds__(kThreads, blocks_per_sm<S>(1)) ema_fwd_kernel(
   for (int u = 0; u < kSub; ++u) {
     const int t = t0 + u;
     if (t < n) {
-      const float2 zt = P2::get(sz2[t * kPairs + j]);
-      x = fold(sa[t], x, make_float2(sw[t] * zt.x, sw[t] * zt.y));
+      x = fold(sa[t], x, weigh<kCarry>(sw[t], P2::get(sz2[t * kPairs + j])));
       A *= sa[t];
     }
   }
@@ -439,15 +465,21 @@ __global__ void __launch_bounds__(kThreads, blocks_per_sm<S>(1)) ema_fwd_kernel(
     look_back(s_carry, a.flags + rec, a.decay + rec, a.agg + rec * kDT, a.inc + rec * kDT, w.c,
               -1, a.nC, a.epoch);
   } else if (tid < kPairs) {
-    s_carry[j] = make_float2(0.f, 0.f);
+    float2 c = make_float2(0.f, 0.f);
+    if constexpr (kCarry) {            // the stream's state: the prefix of chunk 0
+      const float* src = a.carry_in + (long long)w.row * a.D + d0 + 2 * j;
+      if (2 * j < nd) c.x = src[0];
+      if (2 * j + 1 < nd) c.y = src[1];
+    }
+    s_carry[j] = c;
   }
   PHASE(4);
   __syncthreads();
   const float2 carry = s_carry[j];
   PHASE(5);
   if (w.c + 1 < a.nC)
-    publish(a.inc + (rec + w.c) * kDT, w.c > 0 ? fold(Ac, carry, agg) : agg, nullptr, 0.f,
-            a.flags + rec + w.c, a.epoch << 2 | kInc);
+    publish(a.inc + (rec + w.c) * kDT, w.c > 0 || kCarry ? fold(Ac, carry, agg) : agg, nullptr,
+            0.f, a.flags + rec + w.c, a.epoch << 2 | kInc);
   PHASE(6);
 
   // pass 2: each sub-chunk's chains again from its carry (the chunk's folded
@@ -466,11 +498,20 @@ __global__ void __launch_bounds__(kThreads, blocks_per_sm<S>(1)) ema_fwd_kernel(
     for (int u = 0; u < kU; ++u) {
       const int t = t0 + b + u;
       if (t < n) {
-        const float2 zt = P2::get(zu[u]);
-        x = fold(sa[t], x, make_float2(sw[t] * zt.x, sw[t] * zt.y));
+        x = fold(sa[t], x, weigh<kCarry>(sw[t], P2::get(zu[u])));
         sz2[t * kPairs + j] = P2::put(x);
       }
     }
+  }
+  if constexpr (kCarry) {
+    // the new carry: the state after the row's last slot, in fp32
+    if (w.c + 1 == a.nC && sub == (n - 1) / kSub) {
+      float* dst = a.carry_out + (long long)w.row * a.D + d0 + 2 * j;
+      if (2 * j < nd) dst[0] = x.x;
+      if (2 * j + 1 < nd) dst[1] = x.y;
+    }
+    if (w.c + 1 == a.nC && w.tile == 0 && tid == 0)
+      a.has_out[w.row] = a.has_in[w.row] || a.n_real[w.row] > 0;
   }
   __syncthreads();
   PHASE(7);
@@ -655,7 +696,7 @@ int set_smem(Kernel kernel, int bytes, bool (&ready)[64], int dev) {
   return 0;
 }
 
-template <typename S, bool kVec>
+template <typename S, bool kVec, bool kCarry>
 int launch(bool backward, const Args<S>& a, cudaStream_t stream) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -670,8 +711,8 @@ int launch(bool backward, const Args<S>& a, cudaStream_t stream) {
     ema_bwd_kernel<S, kVec><<<(unsigned)grid, kThreads, bytes, stream>>>(a);
   } else {
     const int bytes = kC * kDT * (int)sizeof(S);
-    if (int e = set_smem(ema_fwd_kernel<S, kVec>, bytes, ready_fwd, dev)) return e;
-    ema_fwd_kernel<S, kVec><<<(unsigned)grid, kThreads, bytes, stream>>>(a);
+    if (int e = set_smem(ema_fwd_kernel<S, kVec, kCarry>, bytes, ready_fwd, dev)) return e;
+    ema_fwd_kernel<S, kVec, kCarry><<<(unsigned)grid, kThreads, bytes, stream>>>(a);
   }
   return (int)cudaGetLastError();
 }
@@ -681,7 +722,9 @@ int dispatch(bool backward, Args<S> a, std::initializer_list<const void*> ptrs, 
   bool vec = a.D % (16 / (int)sizeof(S)) == 0;
   for (const void* q : ptrs) vec = vec && aligned16(q);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return vec ? launch<S, true>(backward, a, s) : launch<S, false>(backward, a, s);
+  if (a.n_real != nullptr)                 // the carried forward
+    return vec ? launch<S, true, true>(false, a, s) : launch<S, false, true>(false, a, s);
+  return vec ? launch<S, true, false>(backward, a, s) : launch<S, false, false>(backward, a, s);
 }
 
 bool bad_shape(int batch, int M, int D, uint32_t epoch) {
@@ -718,6 +761,35 @@ int hnet_ema_fwd(int dtype, const void* z, const float* p, void* out, int batch,
   if (dtype == 1) {
     Args<uint16_t> a = args_for<uint16_t>(z, p, batch, M, D, lo, hi, counts, flags, floats, epoch);
     a.out = static_cast<uint16_t*>(out);
+    return dispatch(false, a, {z, out}, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The carried forward over a block of a stream: n_real int32 [batch]; the
+// carry in, carry_in fp32 [batch, D] and has_in bool [batch]; the carry out
+// to carry_out and has_out (other buffers than the carry in). The rest as
+// for hnet_ema_fwd.
+int hnet_ema_fwd_carry(int dtype, const void* z, const float* p, void* out, int batch, int M,
+                       int D, float lo, float hi, const int* n_real, const float* carry_in,
+                       const unsigned char* has_in, float* carry_out, unsigned char* has_out,
+                       void* counts, void* flags, void* floats, unsigned epoch, void* stream) {
+  if (bad_shape(batch, M, D, epoch) || n_real == nullptr) return (int)cudaErrorInvalidValue;
+  auto fill = [&](auto& a) {
+    a.n_real = n_real;
+    a.carry_in = carry_in; a.has_in = has_in;
+    a.carry_out = carry_out; a.has_out = has_out;
+  };
+  if (dtype == 0) {
+    Args<float> a = args_for<float>(z, p, batch, M, D, lo, hi, counts, flags, floats, epoch);
+    a.out = static_cast<float*>(out);
+    fill(a);
+    return dispatch(false, a, {z, out}, stream);
+  }
+  if (dtype == 1) {
+    Args<uint16_t> a = args_for<uint16_t>(z, p, batch, M, D, lo, hi, counts, flags, floats, epoch);
+    a.out = static_cast<uint16_t*>(out);
+    fill(a);
     return dispatch(false, a, {z, out}, stream);
   }
   return (int)cudaErrorInvalidValue;

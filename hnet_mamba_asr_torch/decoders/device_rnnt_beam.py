@@ -31,9 +31,14 @@ next-token log-probs exactly.
 Scores accumulate in float32, as in the JAX search. A row's result does not
 depend on the rest of the batch: the joint and LM GEMMs run in
 ``DECODE_ROWS`` blocks, the LM's attention reads a key count fixed by the
-frame index alone, and ``top_k`` breaks ties to the lower index. The
-streaming ``state`` / ``token_buf_len`` arguments of the JAX search are not
-ported; passing them raises.
+frame index alone, and ``top_k`` breaks ties to the lower index.
+
+Streaming: the returned beam (tokens, lengths, scores) is the whole state of
+the search (it is frame-synchronous with no lookahead), so feeding the frames
+block by block with the last call's beam passed back as ``state`` equals one
+pass (frames past ``memory_lengths`` leave the beam as it is). Pass
+``token_buf_len`` on the first call so that the token buffer's length does
+not depend on the block. As in JAX it does not combine with LM fusion.
 """
 from __future__ import annotations
 
@@ -60,16 +65,24 @@ def beam_decode_nbest(head, memory: torch.Tensor, memory_lengths: torch.Tensor,
                       lm_weight: float = 0.0, lm_cache_cap: int = LM_CACHE_CAP,
                       state=None, token_buf_len: int | None = None):
     """-> the final merged beam: tokens [B, K, L], lengths [B, K], acoustic
-    scores [B, K] (dead rows at NEG_INF), L = min(max_decode_len, T R); with
-    ``lm`` a 4th entry, each row's LM log-prob including the eos closure term
-    (comparable to ``CausalLMScorer.sequence_logprob``)."""
-    if state is not None or token_buf_len is not None:
-        raise NotImplementedError("streaming state of the device RNN-T beam is not ported")
+    scores [B, K] (dead rows at NEG_INF), L = min(max_decode_len, T R) unless
+    ``token_buf_len`` or ``state`` sets it; with ``lm`` a 4th entry, each
+    row's LM log-prob including the eos closure term (comparable to
+    ``CausalLMScorer.sequence_logprob``). ``state``: the beam a previous call
+    returned, to go on from (streaming; module docstring)."""
     K = int(beam_size)
     R = int(max_symbols if max_symbols is not None else head.max_symbols)
     B, T, _ = memory.shape
     dev = memory.device
-    L = min(head.max_decode_len, T * R if T * R > 0 else 1)
+    if state is not None and lm is not None:
+        raise ValueError("streaming state does not compose with LM fusion (the fused "
+                         "carry also holds KV caches)")
+    if state is not None:
+        L = int(state[0].shape[-1])
+    elif token_buf_len is not None:
+        L = int(token_buf_len)
+    else:
+        L = min(head.max_decode_len, T * R if T * R > 0 else 1)
     V, blank, C, bos = head.vocab_size, head.blank_id, head.context, head.bos_id
     Nb = K * (R + 2)                                   # bank capacity (loose bound)
     w = float(lm_weight)
@@ -79,10 +92,14 @@ def beam_decode_nbest(head, memory: torch.Tensor, memory_lengths: torch.Tensor,
     lens = torch.as_tensor(memory_lengths, device=dev)
     ar_b = torch.arange(B, device=dev)[:, None]
     pos_l = torch.arange(L, device=dev)
-    ftoks = torch.zeros((B, K, L), dtype=torch.long, device=dev)
-    fplen = torch.zeros((B, K), dtype=torch.long, device=dev)
-    fscore = torch.full((B, K), NEG_INF, device=dev)
-    fscore[:, 0] = 0.0
+    if state is not None:
+        ftoks, fplen, fscore = (state[0].to(dev, torch.long), state[1].to(dev, torch.long),
+                                state[2].to(dev, torch.float32))
+    else:
+        ftoks = torch.zeros((B, K, L), dtype=torch.long, device=dev)
+        fplen = torch.zeros((B, K), dtype=torch.long, device=dev)
+        fscore = torch.full((B, K), NEG_INF, device=dev)
+        fscore[:, 0] = 0.0
     if use_lm:
         rows = B * K
         cap = int(min(L + 1, lm_cache_cap))

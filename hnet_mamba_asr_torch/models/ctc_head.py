@@ -28,18 +28,19 @@ class CTCHead(nn.Module):
     def num_classes(self) -> int:
         return self.vocab_size + 1
 
-    def forward(self, features: torch.Tensor) -> torch.Tensor:
-        """[B, L, d_model] -> logits [B, L, V+1] in the compute dtype."""
+    def forward(self, features: torch.Tensor, row_block: int = 0) -> torch.Tensor:
+        """[B, L, d_model] -> logits [B, L, V+1] in the compute dtype
+        (``row_block``: the GEMM's, see dense())."""
         # V+1 is odd (501 for bpe_500): see dense()
-        return dense(features, self.proj, self.dtype, col_multiple=8)
+        return dense(features, self.proj, self.dtype, col_multiple=8, row_block=row_block)
 
     def log_probs(self, features: torch.Tensor) -> torch.Tensor:
         """fp32 log-softmax over classes."""
         return torch.log_softmax(self(features).float(), dim=-1)
 
-    def frame_argmax(self, features: torch.Tensor) -> torch.Tensor:
+    def frame_argmax(self, features: torch.Tensor, row_block: int = 0) -> torch.Tensor:
         """Per-frame top class incl. blank [B, L]: the raw CTC spikes."""
-        return torch.argmax(self(features), dim=-1)
+        return torch.argmax(self(features, row_block), dim=-1)
 
 
 def ctc_greedy_collapse(frame_ids, blank_id: int) -> list[int]:

@@ -93,15 +93,20 @@ class ConvSubsampling4(nn.Module):
                 layer.bias.uniform_(-bound, bound, generator=generator)
 
     def forward(self, feats: torch.Tensor, lengths: torch.Tensor):
-        cd = self.dtype
+        return self.frames(feats), subsampled_length(lengths)
+
+    def frames(self, feats: torch.Tensor, dtype: torch.dtype | None = None,
+               row_block: int = 0) -> torch.Tensor:
+        """[B, T, F] -> [B, T', d] in ``dtype`` (the module's by default);
+        ``row_block``: the projection's GEMM blocks (see dense())."""
+        cd = self.dtype if dtype is None else dtype
         x = feats.to(cd)[:, None]                                   # [B, 1, T, F]
         for conv in (self.conv1, self.conv2):
             x = F.relu(F.conv2d(x, conv.weight.to(cd), conv.bias.to(cd), stride=2))
         B, C, T, Fq = x.shape
         x = x.permute(0, 2, 3, 1).reshape(B, T, Fq * C)             # [B, T, F*C]
         # a long reduction (F*C = 7296 at full width): see dense()
-        x = dense(x, self.proj, cd, row_multiple=1024)
-        return x, subsampled_length(lengths)
+        return dense(x, self.proj, cd, row_multiple=1024, row_block=row_block)
 
 
 class DCASREncoder(nn.Module):
@@ -119,7 +124,8 @@ class DCASREncoder(nn.Module):
         if arch_type not in ("A", "B"):
             raise ValueError(f"arch_type must be 'A' or 'B', got {arch_type!r}")
         self.arch_type = arch_type
-        self.d_outer = d_outer
+        self.d_outer, self.d_main = d_outer, d_main
+        self.bidirectional = bidirectional
         self.dtype = dtype
         stack_kw = dict(bidirectional=bidirectional, d_state=d_state, headdim=headdim,
                         chunk_size=chunk_size, ssd_intra_dtype=ssd_intra_dtype,

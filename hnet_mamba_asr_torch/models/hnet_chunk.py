@@ -26,6 +26,16 @@ stacks are length-aware, and no frame gathers them), so valid slots and
 frames are unchanged; pad slots hold zeros and P = 0.
 
 N = 1 is the identity: no router parameters, no ratio loss.
+
+Streaming (``DynamicChunker.stream``, JAX's chunk stage of
+``models/streaming.py``): a block of E frames is routed from the carried key
+of the last real frame (``RoutingModule.step``), its kept frames go to the
+front of an E-slot block by the same index scatter (``compact_block``; JAX
+uses a one-hot matmul there), the inner stacks run on it with a count of
+real slots per row, the EMA runs from its carried state
+(``ops/ema_cuda.py::ema_stream_cuda``), and each frame gathers its slot, or
+the carried EMA before the block's first boundary (``upsample_block``). In
+fp32, as JAX streams.
 """
 from __future__ import annotations
 
@@ -35,8 +45,8 @@ import torch
 import torch.nn as nn
 from torch.nn.utils import skip_init
 
-from hnet_mamba_asr_torch.models.mamba2 import dense
-from hnet_mamba_asr_torch.ops.ema_cuda import ema_cuda
+from hnet_mamba_asr_torch.models.mamba2 import STREAM_ROWS, dense
+from hnet_mamba_asr_torch.ops.ema_cuda import ema_cuda, ema_stream_cuda
 
 SLOT_MULTIPLE = 64              # the SSD kernel's chunk length
 
@@ -88,6 +98,26 @@ def scatter_to_slots(values: torch.Tensor, membership: torch.Tensor, keep: torch
     return out[..., 0] if squeeze else out
 
 
+def compact_block(x: torch.Tensor, p: torch.Tensor, b: torch.Tensor):
+    """A block's kept rows of x [B, E, D] and their p to the front of E
+    slots (zeros after) -> (z [B, E, D], P [B, E], kept counts [B])."""
+    keep = b > 0.5
+    memb = (torch.cumsum(keep.to(torch.int32), dim=1) - 1).clamp(min=0)
+    E = x.shape[1]
+    return (scatter_to_slots(x, memb, keep, E), scatter_to_slots(p, memb, keep, E),
+            keep.sum(dim=1))
+
+
+def upsample_block(zbar: torch.Tensor, b: torch.Tensor, carry: dict) -> torch.Tensor:
+    """Each frame of a block takes the EMA output [B, E, D] of its latest
+    kept frame, or the carried EMA (zero before the stream's first) where
+    the block has had no boundary yet. The STE factor is 1 at inference."""
+    idx = torch.cumsum((b > 0.5).to(torch.int32), dim=1) - 1
+    gathered = gather_slots(zbar, idx.clamp(min=0))
+    prev = torch.where(carry["has"][:, None], carry["ema"], 0.0).to(zbar.dtype)
+    return torch.where((idx >= 0)[..., None], gathered, prev[:, None, :])
+
+
 def gather_slots(z: torch.Tensor, membership: torch.Tensor) -> torch.Tensor:
     """z [B, M, D] -> [B, L, D]: each frame takes its slot's vector."""
     idx = membership.to(torch.int64)[..., None].expand(-1, -1, z.shape[-1])
@@ -105,25 +135,50 @@ class RoutingModule(nn.Module):
         self.W_q = skip_init(nn.Linear, d_model, d_model, bias=False)
         self.W_k = skip_init(nn.Linear, d_model, d_model, bias=False)
         with torch.no_grad():
-            self.W_q.weight.copy_(torch.eye(d_model))
-            self.W_k.weight.copy_(torch.eye(d_model))
+            for w in (self.W_q.weight, self.W_k.weight):
+                w.copy_(torch.eye(d_model, device=w.device))
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None):
-        q = dense(x, self.W_q, self.dtype).float()
-        k_prev = torch.roll(dense(x, self.W_k, self.dtype), 1, dims=1).float()  # k_{t-1}
+    def _p(self, q: torch.Tensor, k_prev: torch.Tensor, first: torch.Tensor) -> torch.Tensor:
+        """Boundary probabilities 0.5 (1 - cos(q_t, k_{t-1})) in fp32,
+        clamped to [0, 1]; 1 at frame 0 of the rows where ``first`` [B] (a
+        stream's first frame, which has no k_{t-1})."""
         # the clamp sits inside the sqrt: the norm has an infinite gradient
         # at 0, and a zero frame (an empty slot feeding a Type B stage-2
         # router) would give 0 * inf = NaN in the backward
         sq = (q * q).sum(-1) * (k_prev * k_prev).sum(-1)
         cos = (q * k_prev).sum(-1) / torch.sqrt(sq.clamp(min=self.eps ** 2))
         p = 0.5 * (1.0 - cos)
-        p = torch.cat([torch.ones_like(p[:, :1]), p[:, 1:]], dim=1)   # first frame
-        p = p.clamp(0.0, 1.0)
+        p0 = torch.where(first, 1.0, p[:, 0])
+        return torch.cat([p0[:, None], p[:, 1:]], dim=1).clamp(0.0, 1.0)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None):
+        q = dense(x, self.W_q, self.dtype).float()
+        k_prev = torch.roll(dense(x, self.W_k, self.dtype), 1, dims=1).float()  # k_{t-1}
+        p = self._p(q, k_prev, torch.ones_like(q[:, 0, 0], dtype=torch.bool))
         b = (p >= 0.5).to(p.dtype)
         if mask is not None:
             m = mask.to(p.dtype)
             p, b = p * m, b * m
         return p, b
+
+    def step(self, x: torch.Tensor, n_real: torch.Tensor, state: dict):
+        """Route one block x [B, E, D] of a stream, rows [0, n_real) real, from
+        ``state`` = {"k_last": [B, D] W_k of the last real frame seen,
+        "started": [B] bool} -> (p, b, the new state). The stream's first
+        frame gets p = 1; a block's first frame reads the carried key."""
+        f32 = torch.float32
+        E = x.shape[1]
+        q = dense(x, self.W_q, f32, row_block=STREAM_ROWS)
+        k = dense(x, self.W_k, f32, row_block=STREAM_ROWS)
+        k_prev = torch.cat([state["k_last"][:, None], k[:, :-1]], dim=1)
+        real = (torch.arange(E, device=x.device)[None, :] < n_real[:, None]).to(f32)
+        p = self._p(q, k_prev, ~state["started"]) * real
+        b = (p >= 0.5).to(f32) * real
+        last = k.gather(1, (n_real.long() - 1).clamp(min=0)[:, None, None].expand(
+            -1, 1, k.shape[-1]))[:, 0]
+        seen = n_real > 0
+        return p, b, {"k_last": torch.where(seen[:, None], last, state["k_last"]),
+                      "started": state["started"] | seen}
 
 
 def ratio_loss(p: torch.Tensor, b: torch.Tensor, N: float,
@@ -185,6 +240,23 @@ class DynamicChunker(nn.Module):
         c = torch.where(keep, co.p, 1.0 - co.p)
         ste = (c + (1.0 - c).detach())[..., None]                           # Eq. 9
         return x_up * ste.to(x_up.dtype)
+
+    def stream(self, x: torch.Tensor, n_real: torch.Tensor, state: dict, inner):
+        """One block of a stream through this level: route, compact, ``inner(z,
+        kept counts)`` -> processed z, EMA from the carry, upsample. ``state``
+        = {"router": ..., "ema": {"ema": [B, D] fp32, "has": [B] bool}} ->
+        (x at the frame rate, the new state). At N > 1 with ``ema_smoothing``
+        (``models/streaming.py::CausalStreamingEncoder`` checks both)."""
+        p, b, router = self.router.step(x, n_real, state["router"])
+        z, P, kept = compact_block(x, p, b)
+        zbar, ema = ema_stream_cuda(inner(z, kept), P, kept, state["ema"])
+        return upsample_block(zbar, b, state["ema"]).to(x.dtype), {"router": router, "ema": ema}
+
+    def fresh_state(self, batch: int, d_model: int, device) -> dict:
+        return {"router": {"k_last": torch.zeros(batch, d_model, device=device),
+                           "started": torch.zeros(batch, dtype=torch.bool, device=device)},
+                "ema": {"ema": torch.zeros(batch, d_model, device=device),
+                        "has": torch.zeros(batch, dtype=torch.bool, device=device)}}
 
     def forward(self, x, mask=None):
         return self.chunk(x, mask)

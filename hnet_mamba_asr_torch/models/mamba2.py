@@ -8,6 +8,9 @@
     y = RMSNorm(y * SiLU(z)) * g             (gated RMSNorm, fp32 statistics)
     out = y @ out_proj
 
+``step`` streams the layer: one block of a stream from a carried state (the
+conv tail and the SSD state), as JAX's ``models/streaming.py::_mamba2_stream``.
+
 Parameters keep the JAX names and are stored in fp32; ``dtype`` is the
 compute dtype (bf16 for the gate config), to which weights are cast at use,
 as flax does with ``param_dtype=float32``. Initialization follows the same
@@ -24,6 +27,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from hnet_mamba_asr_torch.ops.ssd import ssd
+from hnet_mamba_asr_torch.ops.ssd_cuda import ssd_cuda
+
+# the row block of the streaming step's GEMMs (dense(row_block=)): a
+# session's rows give the same bits alone and pooled with others
+STREAM_ROWS = 64
 
 
 def lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator | None):
@@ -136,33 +144,82 @@ class Mamba2(nn.Module):
 
     def forward(self, u: torch.Tensor) -> torch.Tensor:
         cd = self.dtype
-        Bsz, L, _ = u.shape
-        H, P, N, G = self.n_heads, self.headdim, self.d_state, self.ngroups
-        d_bc = G * N
-        zxbcdt = dense(u, self.in_proj, cd)
-        z, xBC, dt_raw = torch.split(
-            zxbcdt, [self.d_inner, self.d_inner + 2 * d_bc, H], dim=-1)
+        L = u.shape[1]
+        z, xBC, dt_raw = self._project(u, cd)
 
         # causal depthwise conv over the concatenated x|B|C channels
         conv = F.conv1d(xBC.transpose(1, 2), self.conv_w.to(cd), self.conv_b.to(cd),
                         padding=self.d_conv - 1, groups=xBC.shape[-1])
-        xBC = F.silu(conv[..., :L].transpose(1, 2))
-
-        x, B_mat, C_mat = torch.split(xBC, [self.d_inner, d_bc, d_bc], dim=-1)
-        x = x.reshape(Bsz, L, H, P).contiguous()
-        B_mat = B_mat.reshape(Bsz, L, G, N).contiguous()
-        C_mat = C_mat.reshape(Bsz, L, G, N).contiguous()
+        x, B_mat, C_mat = self._heads(F.silu(conv[..., :L].transpose(1, 2)))
 
         dt = F.softplus(dt_raw.float() + self.dt_bias)               # [B,L,H] fp32
         A = -torch.exp(self.a_log)                                   # [H], < 0
         y = ssd(x, dt, A, B_mat, C_mat, chunk_size=self.chunk_size,
                 intra_dtype=self.ssd_intra_dtype)                    # [B,L,H,P]
-        y = y + self.d_skip[None, None, :, None].to(y.dtype) * x
-        y = y.reshape(Bsz, L, self.d_inner)
+        return self._output(y, x, z, cd)
 
-        # gated RMSNorm (norm after gating): statistics in fp32
-        gated = y * F.silu(z).to(y.dtype)
+    def _project(self, u: torch.Tensor, cd: torch.dtype, row_block: int = 0):
+        """in_proj, split -> (z, x|B|C, dt before its bias)."""
+        zxbcdt = dense(u, self.in_proj, cd, row_block=row_block)
+        d_bc = self.ngroups * self.d_state
+        return torch.split(zxbcdt, [self.d_inner, self.d_inner + 2 * d_bc, self.n_heads], dim=-1)
+
+    def _heads(self, xBC: torch.Tensor):
+        """The conv's output [B, L, x|B|C] -> x [B, L, H, P], B and C [B, L, G, N]."""
+        Bsz, L, _ = xBC.shape
+        G, N = self.ngroups, self.d_state
+        x, B_mat, C_mat = torch.split(xBC, [self.d_inner, G * N, G * N], dim=-1)
+        return (x.reshape(Bsz, L, self.n_heads, self.headdim).contiguous(),
+                B_mat.reshape(Bsz, L, G, N).contiguous(), C_mat.reshape(Bsz, L, G, N).contiguous())
+
+    def _output(self, y: torch.Tensor, x: torch.Tensor, z: torch.Tensor, cd: torch.dtype,
+                row_block: int = 0) -> torch.Tensor:
+        """The scan's y [B, L, H, P] -> the D skip, the gated RMSNorm (norm
+        after gating, fp32 statistics), out_proj in ``cd``."""
+        Bsz, L = y.shape[:2]
+        y = y + self.d_skip[None, None, :, None].to(y.dtype) * x
+        gated = y.reshape(Bsz, L, self.d_inner) * F.silu(z).to(y.dtype)
         g32 = gated.float()
         rms = torch.rsqrt(g32.square().mean(dim=-1, keepdim=True) + 1e-5)
         y = (g32 * rms * self.norm_scale).to(cd)
-        return dense(y, self.out_proj, cd)
+        return dense(y, self.out_proj, cd, row_block=row_block)
+
+    def step(self, u: torch.Tensor, state: dict, n_real: torch.Tensor | None = None):
+        """One block of a stream, u [B, E, d_model] -> (out [B, E, d_model],
+        the new state), from ``state`` = {"conv": [B, d_conv - 1, conv_dim]
+        (the last rows of x|B|C), "ssd": [B, H, N, P]}, both fp32.
+
+        In fp32 whatever the layer's dtype, as JAX's streaming runs it, and
+        the SSD at chunk max(8, E) from the carried state (the kernel on the
+        card). ``n_real`` [B] marks each row's first rows as real and the rest
+        as padding (a compacted block): dt is zeroed there, so the SSD state
+        does not move, and the conv tail is taken at the row's own offset;
+        a padding row's output is not defined."""
+        f32 = torch.float32
+        L = u.shape[1]
+        z, xBC, dt_raw = self._project(u, f32, STREAM_ROWS)
+        conv_in = torch.cat([state["conv"], xBC], dim=1)              # [B, d_conv-1+E, C]
+        C = conv_in.shape[-1]
+        conv = F.conv1d(conv_in.transpose(1, 2), self.conv_w, self.conv_b, groups=C)
+        x, B_mat, C_mat = self._heads(F.silu(conv.transpose(1, 2)))
+        if n_real is None:
+            conv_state = conv_in[:, L:]
+        else:
+            idx = n_real.long()[:, None] + torch.arange(self.d_conv - 1, device=u.device)
+            conv_state = conv_in.gather(1, idx[..., None].expand(-1, -1, C))
+        dt = F.softplus(dt_raw + self.dt_bias)
+        if n_real is not None:
+            real = torch.arange(L, device=u.device)[None, :] < n_real[:, None]
+            dt = torch.where(real[..., None], dt, 0.0)
+        A = -torch.exp(self.a_log)
+        y, S = ssd_cuda(x, dt.contiguous(), A, B_mat, C_mat, chunk_size=max(8, L),
+                        initial_state=state["ssd"].contiguous(), return_final=True)
+        return self._output(y, x, z, f32, STREAM_ROWS), {"conv": conv_state.contiguous(),
+                                                          "ssd": S}
+
+    def fresh_state(self, batch: int, device) -> dict:
+        """The state of a stream that has seen nothing: zeros."""
+        conv_dim = self.d_inner + 2 * self.ngroups * self.d_state
+        return {"conv": torch.zeros(batch, self.d_conv - 1, conv_dim, device=device),
+                "ssd": torch.zeros(batch, self.n_heads, self.d_state, self.headdim,
+                                   device=device)}

@@ -7,6 +7,9 @@ in place), so the causal scan never sees padding on valid outputs. A stack
 is N blocks and a final LayerNorm. LayerNorms use flax's eps of 1e-6 and
 fp32 statistics.
 
+``step`` streams a causal block or stack from carried states (in fp32, as
+JAX's ``models/streaming.py::_stack_stream``).
+
 ``remat_policy`` (``encoder_conf.remat_policy``, as in the JAX stack) sets
 what a block keeps for its backward while training: ``none`` keeps
 everything; ``full`` recomputes the block (``torch.utils.checkpoint``), so
@@ -76,6 +79,13 @@ class MambaBlock(nn.Module):
     def forward(self, x: torch.Tensor, lengths: torch.Tensor | None = None) -> torch.Tensor:
         return x + self.mixer(x, lengths)
 
+    def step(self, x: torch.Tensor, state: dict, n_real: torch.Tensor | None = None):
+        """One block of a stream, in fp32 (``Mamba2.step``): causal blocks only."""
+        if self.bwd is not None:
+            raise ValueError("a bidirectional block cannot stream: it reads the future")
+        y, state = self.fwd.step(layer_norm(x, self.norm, torch.float32), state, n_real)
+        return x + y, state
+
 
 REMAT_POLICIES = ("none", "full", "dots")
 
@@ -123,3 +133,15 @@ class MambaStack(nn.Module):
         for block in self.blocks:
             x = self._block_call(block, x, lengths)
         return layer_norm(x, self.norm, self.dtype)
+
+    def step(self, x: torch.Tensor, states: list, n_real: torch.Tensor | None = None):
+        """One block of a stream through the stack, in fp32, from the
+        blocks' carried states (JAX's ``_stack_stream``) -> (out, states)."""
+        new = []
+        for block, state in zip(self.blocks, states):
+            x, state = block.step(x, state, n_real)
+            new.append(state)
+        return layer_norm(x, self.norm, torch.float32), new
+
+    def fresh_states(self, batch: int, device) -> list:
+        return [block.fwd.fresh_state(batch, device) for block in self.blocks]

@@ -12,6 +12,9 @@ sequence, with per-slot probabilities P:
   plain version of the Hopper kernel in ``ops/ema_cuda.py``, which computes
   the recurrence instead.
 - ``ema_smooth_sequential``: the recurrence as a loop, the tests' oracle.
+- ``ema_stream``: the recurrence over one block of a stream, from a carried
+  state (JAX's ``models/streaming.py::_ema_stream``); the plain version of
+  the kernel's carried form (``ops/ema_cuda.py::ema_stream_cuda``).
 
 P is clamped to [p_clamp, 1 - p_clamp] by ``torch.clamp``, whose gradient is
 zero outside the range: a clamp that passed the gradient through would
@@ -48,3 +51,29 @@ def ema_smooth_sequential(z: torch.Tensor, p: torch.Tensor,
     for t in range(1, z.shape[1]):
         out.append(pc[:, t, None] * zf[:, t] + (1.0 - pc[:, t, None]) * out[-1])
     return torch.stack(out, dim=1).to(z.dtype)
+
+
+def ema_stream(z: torch.Tensor, p: torch.Tensor, n_real: torch.Tensor, carry: dict,
+               p_clamp: float = 1e-4):
+    """The recurrence over a compacted block z [B, E, D], p [B, E] fp32,
+    from ``carry`` = {"ema": [B, D] fp32, "has": [B] bool} -> (zbar [B, E, D]
+    in z's dtype, the new carry).
+
+    Rows at or past ``n_real[b]`` are padding: exact no-ops that emit the
+    carry. A row whose ``has`` is false takes its first real row verbatim
+    (zbar_0 = z_0, the stream's first chunk); ``has`` turns true at a real
+    row. P is clamped as in ``ema_smooth``; the state is fp32."""
+    pc = p.float().clamp(p_clamp, 1.0 - p_clamp)
+    zf = z.float()
+    ema, has = carry["ema"].float(), carry["has"].bool()
+    n_real = torch.as_tensor(n_real, device=z.device).reshape(-1).expand(z.shape[0])
+    outs = []
+    for t in range(z.shape[1]):
+        real = (t < n_real)[:, None]
+        upd = torch.where(has[:, None], pc[:, t, None] * zf[:, t]
+                          + (1.0 - pc[:, t, None]) * ema, zf[:, t])
+        ema = torch.where(real, upd, ema)
+        has = has | real[:, 0]
+        outs.append(ema)
+    out = torch.stack(outs, dim=1) if outs else zf
+    return out.to(z.dtype), {"ema": ema, "has": has}

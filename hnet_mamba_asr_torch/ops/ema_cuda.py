@@ -13,8 +13,13 @@ differentiates; a CUDA tensor launches the forward kernel or raises, and
 when grad mode is on and z or p requires grad the call goes through
 ``EMASmooth``, whose backward is the backward kernel. The backward reads the
 forward's output (kept by autograd, in z's dtype) for zbar_{t-1}.
+``ema_stream_cuda`` is the streaming form (``ops/ema.py::ema_stream``): the
+same forward kernel over one block of a stream, from a carried state, with a
+count of real rows per batch row; a tensor on the CPU goes to ``ema_stream``.
+Streaming is inference only: it has no backward.
 ``ema_cuda.launches`` and ``ema_cuda.bwd_launches`` count the kernels'
-launches (one kernel a call each way).
+launches (one kernel a call each way; the streaming form's count with the
+forward's).
 
 The kernels scan in chunks across CTAs and need scratch: a ticket and
 counters (int32, which every call leaves at zero), flags (int32) and the
@@ -32,7 +37,7 @@ import threading
 import torch
 
 from hnet_mamba_asr_torch.ops import cuda_build
-from hnet_mamba_asr_torch.ops.ema import ema_smooth
+from hnet_mamba_asr_torch.ops.ema import ema_smooth, ema_stream
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 EPOCHS = 1 << 30            # a flag word keeps the epoch above its 2 state bits
@@ -58,6 +63,9 @@ def build(defines: tuple[str, ...] = ()):
             lib.hnet_ema_fwd.argtypes = [c_int, ptr, ptr, ptr, c_int, c_int, c_int,
                                          c_float, c_float, ptr, ptr, ptr, c_uint, ptr]
             lib.hnet_ema_fwd.restype = c_int
+            lib.hnet_ema_fwd_carry.argtypes = ([c_int, ptr, ptr, ptr, c_int, c_int, c_int,
+                                                c_float, c_float] + [ptr] * 8 + [c_uint, ptr])
+            lib.hnet_ema_fwd_carry.restype = c_int
             lib.hnet_ema_bwd.argtypes = ([c_int] + [ptr] * 6 + [c_int] * 3
                                          + [c_float, c_float, ptr, ptr, ptr, c_uint, ptr])
             lib.hnet_ema_bwd.restype = c_int
@@ -123,19 +131,29 @@ def _scratch(lib, z: torch.Tensor) -> tuple[int, int, int, int]:
         return (*(s[k].data_ptr() for k in SCRATCH), s["epoch"])
 
 
-def _forward(z: torch.Tensor, p: torch.Tensor, p_clamp: float) -> torch.Tensor:
+def _forward(z: torch.Tensor, p: torch.Tensor, p_clamp: float, stream=None):
+    """Launch the forward kernel: zbar, or with ``stream`` = (n_real int32
+    [B], carry fp32 [B, D], has bool [B]) the carried form: (zbar, the new
+    carry, the new has)."""
     _check(z, p)
     Bsz, M, D = z.shape
     lib = build()
     out = torch.empty_like(z)
     with torch.cuda.device(z.device):
-        code = lib.hnet_ema_fwd(DTYPE_CODES[z.dtype], z.data_ptr(), p.data_ptr(),
-                                out.data_ptr(), Bsz, M, D, *_clamp_range(p_clamp),
-                                *_scratch(lib, z),
-                                torch.cuda.current_stream(z.device).cuda_stream)
+        head = (DTYPE_CODES[z.dtype], z.data_ptr(), p.data_ptr(), out.data_ptr(), Bsz, M, D,
+                *_clamp_range(p_clamp))
+        tail = (*_scratch(lib, z), torch.cuda.current_stream(z.device).cuda_stream)
+        if stream is None:
+            code = lib.hnet_ema_fwd(*head, *tail)
+        else:
+            n_real, carry, has = stream
+            carry_out, has_out = torch.empty_like(carry), torch.empty_like(has)
+            code = lib.hnet_ema_fwd_carry(*head, n_real.data_ptr(), carry.data_ptr(),
+                                          has.data_ptr(), carry_out.data_ptr(),
+                                          has_out.data_ptr(), *tail)
     _raise_on(lib, code, "forward")
     ema_cuda.launches += 1
-    return out
+    return out if stream is None else (out, carry_out, has_out)
 
 
 def _backward(z, p, zbar, g, p_clamp: float):
@@ -197,3 +215,28 @@ def ema_cuda(z: torch.Tensor, p: torch.Tensor, p_clamp: float = 1e-4) -> torch.T
 
 ema_cuda.launches = 0
 ema_cuda.bwd_launches = 0
+
+
+def ema_stream_cuda(z: torch.Tensor, p: torch.Tensor, n_real, carry: dict,
+                    p_clamp: float = 1e-4):
+    """``ema_stream``'s contract: a block z [B, E, D] (fp32 or bf16), p [B, E]
+    fp32, real rows per batch row ``n_real`` [B] (or one int), ``carry`` =
+    {"ema": [B, D] fp32, "has": [B] bool} -> (zbar [B, E, D] in z's dtype,
+    the new carry).
+
+    On CPU tensors it runs ``ema_stream``. On CUDA tensors it launches the
+    forward kernel's carried form (``csrc/ema.cu``, ``hnet_ema_fwd_carry``)."""
+    if z.device.type == "cpu":
+        return ema_stream(z, p, n_real, carry, p_clamp)
+    if z.device.type != "cuda":
+        raise ValueError(f"ema kernel runs on CUDA tensors, got {z.device}")
+    Bsz, _, D = z.shape
+    n_real = torch.as_tensor(n_real, device=z.device).to(torch.int32).reshape(-1)
+    n_real = n_real.expand(Bsz).contiguous()
+    ema = carry["ema"].to(torch.float32).contiguous()
+    has = carry["has"].to(torch.bool).contiguous()
+    if tuple(ema.shape) != (Bsz, D) or tuple(has.shape) != (Bsz,):
+        raise ValueError(f"ema carry must be ema [B, D] = {(Bsz, D)} and has [B], got "
+                         f"{tuple(ema.shape)} and {tuple(has.shape)}")
+    out, ema, has = _forward(z.contiguous(), p.contiguous(), p_clamp, (n_real, ema, has))
+    return out, {"ema": ema, "has": has}

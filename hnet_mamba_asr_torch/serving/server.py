@@ -1,8 +1,9 @@
 """Micro-batching ASR server over the port's ``ServingModel``.
 
-Counterpart of ``hnet_mamba_asr_tpu/serving/server.py`` (offline path): a
-background worker coalesces requests that arrive within a short window into
-one padded batch, runs the model once, and fans the results back out.
+Counterpart of ``hnet_mamba_asr_tpu/serving/server.py``: a background
+worker coalesces requests that arrive within a short window into one padded
+batch, runs the model once, and fans the results back out; and the
+streaming front over a ``StreamingSessionPool`` (``make_streaming_server``).
 
     python -m hnet_mamba_asr_torch.serving.server --config-json cfg.json \
         --params artifact/params.npz --device cuda --port 8000 [--emit beam_ids]
@@ -19,6 +20,14 @@ HTTP surface (JSON responses):
     GET  /v1/health       -> {"status": "ok", buckets, emit, pending}
     GET  /v1/stats        -> request/batch counters, mean batch occupancy,
                              p50/p95 end-to-end latency ms
+
+Streaming surface (``make_streaming_server``):
+    POST /v1/stream/open           -> {"sid": n}
+    POST /v1/stream/<sid>          body = audio chunk -> {"ids", "text"}
+    POST /v1/stream/<sid>/finish   -> the tail {"ids", "text"}; frees the session
+    GET  /v1/stream/<sid>/partial  -> a beam session's running best
+    GET  /v1/health                -> {"status", "kind": "streaming", batch, active}
+An unknown or closed sid is a 400.
 """
 from __future__ import annotations
 
@@ -33,7 +42,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
-from hnet_mamba_asr_torch.serving.runtime import ServingModel, detokenize, ids_per_row
+from hnet_mamba_asr_torch.serving.runtime import (
+    ServingModel, StreamingSessionPool, detokenize, ids_per_row)
 
 
 def decode_audio(body: bytes, content_type: str) -> np.ndarray:
@@ -179,6 +189,19 @@ class MicroBatcher:
         return rows
 
 
+class _JSONHandler(BaseHTTPRequestHandler):
+    def log_message(self, *a):                   # quiet; stats endpoint instead
+        pass
+
+    def _json(self, code: int, obj: dict):
+        body = json.dumps(obj).encode()
+        self.send_response(code)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+
 def make_server(model: ServingModel, host: str = "127.0.0.1", port: int = 0,
                 max_wait_ms: float = 20.0, max_batch: int | None = None):
     """Build (ThreadingHTTPServer, MicroBatcher); the caller runs
@@ -186,18 +209,7 @@ def make_server(model: ServingModel, host: str = "127.0.0.1", port: int = 0,
     (``server.server_address[1]``)."""
     batcher = MicroBatcher(model, max_batch=max_batch, max_wait_ms=max_wait_ms)
 
-    class Handler(BaseHTTPRequestHandler):
-        def log_message(self, *a):               # quiet; stats endpoint instead
-            pass
-
-        def _json(self, code: int, obj: dict):
-            body = json.dumps(obj).encode()
-            self.send_response(code)
-            self.send_header("Content-Type", "application/json")
-            self.send_header("Content-Length", str(len(body)))
-            self.end_headers()
-            self.wfile.write(body)
-
+    class Handler(_JSONHandler):
         def do_GET(self):
             if self.path == "/v1/health":
                 self._json(200, {"status": "ok", "buckets": model.buckets,
@@ -226,6 +238,56 @@ def make_server(model: ServingModel, host: str = "127.0.0.1", port: int = 0,
     httpd = ThreadingHTTPServer((host, port), Handler)
     httpd.batcher = batcher
     return httpd, batcher
+
+
+def make_streaming_server(pool: StreamingSessionPool, host: str = "127.0.0.1", port: int = 0):
+    """The HTTP front of a session pool (module docstring): up to
+    ``pool.B`` concurrent sessions advance in one step a tick. A beam
+    session's feeds return no ids (the beam may rewrite them): poll
+    ``/partial``; ``finish`` returns the transcript. -> (server, pool)."""
+    tok = pool.tokenizer
+
+    def result(ids):
+        res = {"ids": ids}
+        if tok is not None:
+            res["text"] = detokenize(tok, ids)
+        return res
+
+    class Handler(_JSONHandler):
+        def do_GET(self):
+            parts = self.path.strip("/").split("/")
+            try:
+                if self.path == "/v1/health":
+                    self._json(200, {"status": "ok", "kind": "streaming", "batch": pool.B,
+                                     "active": pool.active})
+                elif len(parts) == 4 and parts[:2] == ["v1", "stream"] and parts[3] == "partial":
+                    self._json(200, result(pool.partial(int(parts[2]))))
+                else:
+                    self._json(404, {"error": f"unknown path {self.path}"})
+            except ValueError as e:
+                self._json(400, {"error": str(e)})
+
+        def do_POST(self):
+            parts = self.path.strip("/").split("/")
+            try:
+                if parts == ["v1", "stream", "open"]:
+                    self._json(200, {"sid": pool.open()})
+                elif len(parts) == 4 and parts[:2] == ["v1", "stream"] and parts[3] == "finish":
+                    self._json(200, result(pool.finish(int(parts[2]))))
+                elif len(parts) == 3 and parts[:2] == ["v1", "stream"]:
+                    n = int(self.headers.get("Content-Length", 0))
+                    wave = decode_audio(self.rfile.read(n), self.headers.get("Content-Type", ""))
+                    self._json(200, result(pool.feed(int(parts[2]), wave)))
+                else:
+                    self._json(404, {"error": f"unknown path {self.path}"})
+            except ValueError as e:
+                self._json(400, {"error": str(e)})
+            except Exception as e:  # noqa: BLE001 — surface, don't crash
+                self._json(500, {"error": f"{type(e).__name__}: {e}"})
+
+    httpd = ThreadingHTTPServer((host, port), Handler)
+    httpd.pool = pool
+    return httpd, pool
 
 
 def main(argv=None, config: dict | None = None):

@@ -1,8 +1,9 @@
 """The gate config (``configs/typeA_small_N1.yaml``, Type A Small N=1), its
 dynamic-chunking sibling (``configs/typeA_small_N2.yaml``), the gate
 config's decode block, the fusion LM (``configs/lm_transformer_500.yaml``),
-and the gate config with an RNN-T head or an MoE AED decoder (and the LM with
-MoE blocks), as the port's checks and measurements run them: the configs' keys as dicts
+the gate config with an RNN-T head or an MoE AED decoder (and the LM with
+MoE blocks), and the causal siblings that stream, as the port's checks and
+measurements run them: the configs' keys as dicts
 (the card's machine has no PyYAML; ``tests/test_torch_slice.py``,
 ``tests/test_torch_hnet_train.py``, ``tests/test_torch_decode.py`` and
 ``tests/test_torch_lm.py`` hold the dicts equal to the YAML), seeded test
@@ -91,6 +92,19 @@ RNNT_CONFIG = {**GATE_CONFIG,
 MOE = {"n_experts": 8, "top_k": 2, "capacity_factor": 1.25, "aux_weight": 0.01}
 MOE_CONFIG = {**GATE_CONFIG, "aed_conf": {**GATE_CONFIG["aed_conf"], "moe": MOE}}
 LM_MOE_CONFIG = {"lm_conf": {**LM_CONFIG["lm_conf"], "moe": MOE}}
+# the causal siblings that stream exactly (encoder_conf.bidirectional false,
+# every width and depth as in their configs): the gate config, the N=2
+# config, and the gate config's causal widths with the transducer head alone
+# (the model a streaming transducer serves: no CTC head, so the transducer
+# is the one that streams)
+GATE_CAUSAL_CONFIG = {**GATE_CONFIG,
+                      "encoder_conf": {**GATE_CONFIG["encoder_conf"], "bidirectional": False}}
+N2_CAUSAL_CONFIG = {**N2_CONFIG,
+                    "encoder_conf": {**N2_CONFIG["encoder_conf"], "bidirectional": False}}
+RNNT_CAUSAL_CONFIG = {**GATE_CAUSAL_CONFIG,
+                      "model_conf": {**GATE_CONFIG["model_conf"], "ctc_weight": 0.0,
+                                     "aed_weight": 0.0, "rnnt_weight": 1.0},
+                      "rnnt_conf": RNNT_CONFIG["rnnt_conf"]}
 VOCAB = 500                     # bpe_500: 501 CTC classes
 SEED = 1                        # experiment.seed
 SR = 16000

@@ -11,6 +11,7 @@
     python3 hnet_mamba_asr_torch/tools/measure.py train [--config n2|rnnt|moe]
     python3 hnet_mamba_asr_torch/tools/measure.py aed_step
     python3 hnet_mamba_asr_torch/tools/measure.py rnnt  [--repo DIR]
+    python3 hnet_mamba_asr_torch/tools/measure.py stream
 
 Run as a file, from the root of a checkout. ``--repo`` names the checkout
 whose ``hnet_mamba_asr_torch`` is measured, this one
@@ -44,7 +45,9 @@ call, in turns (old, new, new, old).
   (``chip_smoke.py``'s), bf16 and fp32: the forward's and the backward's
   device time per call and device kernels per call, the plain version's
   time (``ema_smooth`` and autograd of it, CUDA events) and the bounds of
-  ``ema_cost`` / ``ema_bwd_cost``; one JSON line per shape. It calls
+  ``ema_cost`` / ``ema_bwd_cost``, and a digest of zbar, dz and dP (two
+  versions on the same inputs agree bitwise when their digests do); one
+  JSON line per shape. It calls
   ``_forward`` / ``_backward``, whose arguments are the same in every
   version, so ``--repo`` times the parent too (old, new, new, old).
 - ``ema_phases``: where an EMA CTA spends its time, from a build with
@@ -85,11 +88,23 @@ call, in turns (old, new, new, old).
   head passed them), so ``--repo`` times the parent too (old, new, new,
   old). ``train --config rnnt`` adds one micro-step's device time by
   kernel class on the joint's lattice (``rnnt_step_profile``).
+- ``stream``: streaming ticks (``measure_stream``): the causal gate config
+  and its N = 2 sibling (routers drawn at random) through a
+  ``StreamingSessionPool`` at B 1 and 8 sessions, ``block_enc`` 16 (640 ms
+  of audio a tick), each session fed one block a round (``feed_many``):
+  a tick's host time (the round, synced), its device time and the
+  device's idle share (a ``torch.profiler`` window of 5 ticks), the
+  launches of ``ssd_fwd`` and ``ema_fwd`` a tick, and the real-time factor
+  of a session (tick time / 640 ms); then the carried ``ema_fwd``
+  (``ema_stream_cuda``) at ``EMA_STREAM_SHAPES``: device time, the plain
+  ``ema_stream``'s, the bound of ``ema_stream_cost`` (which counts z and P
+  on the real rows only).
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import json
 import re
 import shutil
@@ -159,6 +174,19 @@ def ema_bwd_cost(Bsz: int, M: int, D: int, dtype: str) -> dict:
     return _bound(4 * Bsz * M * D * es + 2 * Bsz * M * 4, 6 * Bsz * M * D, "float32")
 
 
+def ema_stream_cost(n_real, M: int, D: int, dtype: str) -> dict:
+    """Least time of one carried EMA forward over a block of M slots whose
+    row b is real up to ``n_real[b]``: z and P read on the real rows only (a
+    padding row emits the carry and needs neither), zbar written on every
+    row, the counts read, the carry (fp32) and ``has`` read once and
+    written once; 3 FLOPs per real element as ``ema_cost``."""
+    es = 2 if dtype == "bfloat16" else 4
+    counts = torch.as_tensor(n_real).tolist()
+    Bsz, real = len(counts), int(sum(counts))
+    return _bound(real * (D * es + 4) + Bsz * M * D * es + Bsz * 4 + 2 * Bsz * (4 * D + 1),
+                  3 * real * D, "float32")
+
+
 def _lattice_cells(feat_lens, tgt_lens, T: int, U: int) -> tuple[int, int]:
     """(cells, label cells) of the rows' lattices: T_b (U_b + 1) and T_b U_b,
     T_b = clamp(feat_length, 1, T), U_b = clamp(target_length, 0, U)."""
@@ -226,6 +254,15 @@ def cuda_ms(fn, n: int = 20, flush: torch.Tensor | None = None) -> float:
         pairs.append((start, end))
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in pairs) / n
+
+
+def digest(*tensors) -> str:
+    """A short hash of the tensors' bytes: two versions' results on the same
+    inputs are bitwise equal when their digests are."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def device_us(event) -> float:
@@ -347,6 +384,25 @@ EMA_SHAPES = ((64, 128, 384), (64, 256, 384), (8, 880, 384), (32, 128, 512), (1,
               (1, 880, 384))
 
 
+# the carried EMA: the streaming shape (B 8 sessions, a block of 16 rows,
+# d_outer 384) and the dechunk's training shape
+EMA_STREAM_SHAPES = ((8, 16, 384), (64, 256, 384))
+
+
+def ema_stream_inputs(Bsz, M, D, seed=0):
+    """(z, P, n_real, carry) of a block on the card, fp32: P saturated at
+    every 5th slot, real counts from 0 to M, a mix of ``has``."""
+    gen = torch.Generator().manual_seed(seed)
+    z = torch.randn(Bsz, M, D, generator=gen)
+    p = torch.rand(Bsz, M, generator=gen)
+    p[:, ::5] = 1.0
+    n_real = torch.randint(0, M + 1, (Bsz,), generator=gen)
+    n_real[0], n_real[-1] = 0, M
+    carry = {"ema": torch.randn(Bsz, D, generator=gen),
+             "has": torch.rand(Bsz, generator=gen) < 0.7}
+    return (z.cuda(), p.cuda(), n_real.cuda(), {k: v.cuda() for k, v in carry.items()})
+
+
 def ema_inputs(Bsz, M, D, dtype, seed=0, saturate=False):
     """z [B, M, D] and P [B, M] on the card: P in (0.1, 0.9), or with
     saturate every 10th slot at 1 (a hard boundary) and the next 5th at 0
@@ -370,12 +426,13 @@ def measure_ema(tag: str) -> None:
             z, p = ema_inputs(Bsz, M, D, dtype)
             g = torch.randn(z.shape, generator=torch.Generator().manual_seed(1)).to("cuda", dtype)
             zbar = mod._forward(z, p, 1e-4)
+            dz, dp = mod._backward(z, p, zbar, g, 1e-4)
             fwd = lambda: mod._forward(z, p, 1e-4)
             bwd = lambda: mod._backward(z, p, zbar, g, 1e-4)
             zl, pl = z.clone().requires_grad_(), p.clone().requires_grad_()
             y_plain = ema_smooth(zl, pl)
             row = {"version": tag, "dtype": name, "B": Bsz, "M": M, "D": D,
-                   "fwd_ms": kernel_ms(fwd, "ema_fwd"), "fwd_call_ms": cuda_ms(fwd),
+                   "digest": digest(zbar, dz, dp), "fwd_ms": kernel_ms(fwd, "ema_fwd"), "fwd_call_ms": cuda_ms(fwd),
                    "bwd_ms": kernel_ms(bwd, "ema_bwd"), "bwd_call_ms": cuda_ms(bwd),
                    "fwd_launches": kernel_launches(fwd, "ema_fwd"),
                    "bwd_launches": kernel_launches(bwd, "ema_bwd"),
@@ -952,6 +1009,77 @@ def measure_serve(tag: str, profile: bool, config: str) -> None:
                               for d, k, c in rows[:12]]}), flush=True)
 
 
+def open_sessions(pool, n: int, rng) -> list[int]:
+    """``n`` sessions of ``pool``, each given the samples of a window less
+    one block (so that every later block makes one tick)."""
+    sids = [pool.open() for _ in range(n)]
+    first = pool.S_win - 4 * pool.E * pool.hop
+    pool.feed_many([(sid, rng.normal(size=first).astype(np.float32) * 0.05) for sid in sids])
+    return sids
+
+
+def stream_rounds(pool, sids, rounds: int, rng) -> float:
+    """``rounds`` rounds of ``feed_many``, each session one block of samples
+    a round (one tick a round) -> the host ms of a round, synced."""
+    block = 4 * pool.E * pool.hop
+    t0 = time.perf_counter()
+    for _ in range(rounds):
+        pool.feed_many([(sid, rng.normal(size=block).astype(np.float32) * 0.05)
+                        for sid in sids])
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / rounds
+
+
+def measure_stream(tag: str) -> None:
+    """Streaming ticks and the carried EMA kernel (the module docstring)."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    from hnet_mamba_asr_torch.ops.ema import ema_stream
+    from hnet_mamba_asr_torch.ops.ema_cuda import ema_cuda, ema_stream_cuda
+    from hnet_mamba_asr_torch.ops.ssd_cuda import ssd_cuda
+    from hnet_mamba_asr_torch.serving.runtime import StreamingSessionPool
+    from hnet_mamba_asr_torch.tools import gate
+    cmvn = gate.make_cmvn("cuda")
+    rng = np.random.default_rng(11)
+    for config, name in ((gate.GATE_CAUSAL_CONFIG, "n1"), (gate.N2_CAUSAL_CONFIG, "n2")):
+        for B in (1, 8):
+            pool = StreamingSessionPool(config, None, "cuda", block_enc=16, batch=B, cmvn=cmvn,
+                                        seed=gate.SEED, vocab_size=gate.VOCAB)
+            if name == "n2":
+                gate.draw_routers(pool.model, gate.SEED + 22)
+            sids = open_sessions(pool, B, rng)
+            stream_rounds(pool, sids, 3, rng)                  # warm-up
+            ssd0, ema0, ticks0 = ssd_cuda.launches, ema_cuda.launches, pool.n_ticks
+            host_ms = stream_rounds(pool, sids, 10, rng)
+            ticks = pool.n_ticks - ticks0
+            launches = {"ssd_fwd": (ssd_cuda.launches - ssd0) / ticks,
+                        "ema_fwd": (ema_cuda.launches - ema0) / ticks}
+            with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                stream_rounds(pool, sids, 5, rng)
+                window_us = (time.perf_counter() - t0) * 1e6
+            rows = device_rows(prof)
+            busy = sum(r[0] for r in rows)
+            kernels = sum(r[2] for r in rows) / 5
+            print(json.dumps({
+                "version": tag, "stream": name, "sessions": B, "block_enc": pool.E,
+                "ticks": ticks, "tick_host_ms": host_ms, "tick_device_ms": busy / 5e3,
+                "idle_share": 1 - busy / window_us, "device_ops_per_tick": kernels,
+                "launches_per_tick": launches, "rtf_per_session": host_ms / (4 * pool.E * 10),
+                "top": [{"name": k[:80], "ms": d / 5e3, "count": c / 5}
+                        for d, k, c in rows[:8]]}), flush=True)
+            del pool
+            torch.cuda.empty_cache()
+    for Bsz, M, D in EMA_STREAM_SHAPES:
+        z, p, n_real, carry = ema_stream_inputs(Bsz, M, D, seed=41)
+        fn = lambda: ema_stream_cuda(z, p, n_real, carry)  # noqa: E731
+        ms = kernel_ms(fn, "ema_fwd")
+        print(json.dumps({"version": tag, "ema_stream": [Bsz, M, D], "kernel_ms": ms,
+                          "call_ms": cuda_ms(fn),
+                          "plain_ms": cuda_ms(lambda: ema_stream(z, p, n_real, carry)),
+                          "real_rows": int(n_real.sum()),
+                          **ema_stream_cost(n_real, M, D, "float32")}), flush=True)
+
+
 def measure_train(tag: str, config: str, routers: str = "init") -> None:
     """One update of a config's training step as chip_smoke.py runs it
     (hybrid, bf16, SpecAugment; the gate config: 2 micro-batches of 32 x
@@ -1091,7 +1219,8 @@ def measure_aed_step(tag: str) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("what", choices=("ssd", "ssd_bwd", "bwd_phases", "ema", "ema_phases",
-                                     "serve", "phases", "train", "aed_step", "rnnt"))
+                                     "serve", "phases", "train", "aed_step", "rnnt",
+                                     "stream"))
     ap.add_argument("--config", choices=("gate", "n2", "rnnt", "moe"), default="gate",
                     help="serve / train: the gate config (N = 1), configs/typeA_small_N2, "
                          "or the gate config with the RNN-T head or the MoE AED decoder")
@@ -1124,6 +1253,8 @@ def main() -> int:
         measure_aed_step(tag)
     elif args.what == "rnnt":
         measure_rnnt(tag)
+    elif args.what == "stream":
+        measure_stream(tag)
     elif args.what == "train":
         for routers in ("init", "random") if args.config == "n2" else ("init",):
             measure_train(tag, args.config, routers)

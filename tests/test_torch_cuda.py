@@ -330,6 +330,37 @@ def test_ema_backward_is_deterministic(cuda, shape):
         assert all(torch.equal(a, b) for a, b in zip(one, two))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 16, 384), (4, 1, 384), (3, 130, 1030)])
+def test_ema_carried_kernel_matches_plain(cuda, dtype, shape):
+    """The forward's carried form (streaming) against ema_stream on the same
+    values over two blocks, the carry threaded through: real counts 0 to M
+    (0 leaves the carry as it was), a mix of has, saturated P; three chunks
+    of the scan and element loads at D 1030; two calls bitwise equal."""
+    from hnet_mamba_asr_torch.ops.ema import ema_stream
+    from hnet_mamba_asr_torch.ops.ema_cuda import ema_stream_cuda
+    Bsz, M, D = shape
+    gen = torch.Generator().manual_seed(4)
+    carry = {"ema": torch.randn(Bsz, D, generator=gen).to(cuda),
+             "has": (torch.arange(Bsz) % 2 == 0).to(cuda)}
+    for block in range(2):
+        z, p = _ema_inputs(cuda, Bsz, M, D, dtype, seed=5 + block)
+        n_real = torch.randint(0, M + 1, (Bsz,), generator=gen).to(cuda)
+        n_real[0] = 0
+        before = ema_cuda.launches
+        got, st = ema_stream_cuda(z, p, n_real, carry)
+        again, _ = ema_stream_cuda(z, p, n_real, carry)
+        want, wst = ema_stream(z.float(), p, n_real, carry)
+        torch.cuda.synchronize()
+        assert ema_cuda.launches == before + 2 and got.dtype == dtype and torch.equal(got, again)
+        for a, b in ((got, want), (st["ema"], wst["ema"])):
+            err = ((a.float() - b).abs().max() / b.abs().max()).item()
+            assert torch.isfinite(a).all() and err <= SEQ_BOUND[dtype], err
+        assert torch.equal(st["has"], wst["has"])
+        assert torch.equal(st["ema"][0], carry["ema"][0])
+        carry = st
+
+
 def test_ema_kernel_refuses_what_it_does_not_take(cuda):
     from hnet_mamba_asr_torch.ops.ema_cuda import _forward
     z, p = _ema_inputs(cuda, 1, 8, 16, torch.float32)

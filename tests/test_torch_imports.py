@@ -3,8 +3,8 @@ training slices (N = 1 and the H-Net models: Type A N = 2 with the EMA
 dechunk, Type B, the fixed-pool chunker), every module of the decode slice
 with a tiny decode of all 10 cells (the beams on the device searches) by a
 model with the RNN-T head and an MoE AED decoder and an MoE LM, the
-aed_ids, beam_ids, rnnt_ids and rnnt_beam_ids serving modes, and
-chip_smoke.py run in a fresh interpreter with jax, flax and
+aed_ids, beam_ids, rnnt_ids and rnnt_beam_ids serving modes, a streaming
+session pool at N = 2, and chip_smoke.py run in a fresh interpreter with jax, flax and
 hnet_mamba_asr_tpu absent from sys.modules."""
 import json
 import subprocess
@@ -91,7 +91,15 @@ with tempfile.TemporaryDirectory() as tmp:
     smodel = ServingModel(rcfg, None, "cpu", vocab_size=30,
                           emit=("aed_ids", "beam_ids", "rnnt_ids", "rnnt_beam_ids"))
     served = smodel(np.stack([it["wave"] for it in items]), np.array([6000, 6000]))
-print(json.dumps({"enc_frames": res["enc_frames"], "steps": trainer.global_step,
+from hnet_mamba_asr_torch.serving.runtime import StreamingSessionPool
+from hnet_mamba_asr_torch.serving.server import make_streaming_server
+scfg = dict(cfg, model_conf={"ctc_weight": 1.0, "aed_weight": 0.0},
+            encoder_conf=dict(cfg["encoder_conf"], bidirectional=False,
+                              hnet={"compression_N": 2}))
+pool = StreamingSessionPool(scfg, None, "cpu", block_enc=4, batch=2, vocab_size=30)
+sid = pool.open()
+streamed = pool.feed(sid, items[0]["wave"]) + pool.finish(sid)
+print(json.dumps({"stream_ticks": pool.n_ticks, "enc_frames": res["enc_frames"], "steps": trainer.global_step,
                   "kept": kept, "cells": cells,
                   "engines": sorted({r["engine"] for c in decode_task.expand_cells(dc)
                                      for r in decode_task.decode_batch(
@@ -109,6 +117,7 @@ def test_port_runs_without_jax():
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["jax_modules"] == []
+    assert out["stream_ticks"] == 2          # 8 encoder frames in blocks of 4
     assert out["enc_frames"] == 8            # 6000 samples: 36 mel frames
     assert out["steps"] == 1
     assert len(out["kept"]) == 3 and all(0 < k <= 1 for k in out["kept"])

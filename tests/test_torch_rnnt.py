@@ -344,9 +344,10 @@ def test_device_beam_matches_host_beam(heads, lms, fused):
                                                        torch.from_numpy(lens[1:2]), 4)
             assert [alone[0][0, k, :alone[1][0, k]].tolist() for k in range(4)
                     if alone[2][0, k] > -5.0e8] == [h.tokens for h in host[1]]
-    with pytest.raises(NotImplementedError, match="streaming"):
+    # the streaming state, as in JAX, does not combine with LM fusion
+    with pytest.raises(ValueError, match="streaming state"):
         device_rnnt_beam.beam_decode_nbest(head, torch.from_numpy(mem), torch.from_numpy(lens),
-                                           4, token_buf_len=8)
+                                           4, lm=lm.lm, state=res[:3])
 
 
 # ---- the decode cells and the serving modes -------------------------------------------
