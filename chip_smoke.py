@@ -123,7 +123,8 @@ calls, at the full width of ``configs/typeA_small_N1.yaml`` and
                reads of its active mask; the engines' disagreements and
                ties; the psi and r-scan shares of a joint step; every
                utterance alone == inside the batch in every beam cell of
-               both engines, in bf16;
+               the device engine, the 4 shortest on the lockstep engine's
+               (a cut for the time limit), in bf16;
 14. parity  -- depth 1 + 2 + 1, a 2-layer AED and a 2-layer LM, fp32, TF32
                off: decode_step log-probs card vs CPU to 1e-5, the 7 cells'
                transcripts card == CPU for both engines and device ==
@@ -158,12 +159,30 @@ calls, at the full width of ``configs/typeA_small_N1.yaml`` and
                state (every hypothesis, its length and score) == one pass
                over the same frames; 8 pooled sessions == each
                alone; the windowed encoder's frame counts and a covering
-               window within 1e-4.
+               window within 1e-4;
+19. artifacts -- the gate config at full width exported (frame_ids,
+               log_probs, beam_ids, aed_ids) in fp32 and int8 and served from
+               the artifact (``load_serving_artifact``): phase 4's 8 requests
+               bitwise equal to the direct ``ServingModel`` (int8: to a
+               direct model holding the dequantized int8 tree); sizes, load
+               time, call times, the int8 log-prob gap and id agreement;
+               ``serving/server.py::main`` from the artifact answers an HTTP
+               request with the direct call's ids; an N = 2 causal streaming
+               artifact at batch 8 gives its source pool's ids; then
+               ``configs/typeA_small_N1.yaml`` read by the port's YAML reader
+               == GATE_CONFIG, and every CLI (export_serving fp32 / int8,
+               serve, transcribe, decode with the LM cells, score_wer) once
+               on the card at narrow width; then that YAML file itself at
+               full width (bf16, 80 mels, the seeded 500-piece tokenizer)
+               through export_serving, serve, transcribe --cell ctc_greedy
+               and a greedy-only decode, each launching ssd_fwd.
 
 The line before the last is a JSON summary of the kernels, with the
 launches of the full-width decode run on the device engine (ssd_fwd), of
 the RNN-T training run (rnnt_fwd, rnnt_bwd) and of the N = 2 training run
-(the others), and every path's counts (the streaming paths' as stream_*);
+(the others), and every path's counts (the streaming paths' as stream_*,
+the artifacts' as artifacts_*; a streaming path's ema_fwd is the carried
+form);
 the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -702,8 +721,7 @@ def phase_serve(cmvn, config=GATE_CONFIG, label="gate", ema_per_call=0):
     from hnet_mamba_asr_torch.ops.ssd_cuda import ssd_cuda
     from hnet_mamba_asr_torch.serving.runtime import ServingModel, collapse_ctc
     from hnet_mamba_asr_torch.serving.server import make_server
-    model = ServingModel(config, None, "cuda", vocab_size=VOCAB, cmvn=cmvn,
-                         seed=SEED, max_batch=8, max_samples=40 * SR)
+    model = ServingModel(config, None, "cuda", vocab_size=VOCAB, cmvn=cmvn, seed=SEED)
     if ema_per_call:
         draw_routers(model.model, SEED + 22)
     rng = np.random.default_rng(SEED + 2)
@@ -792,7 +810,7 @@ def phase_serve_modes(cmvn) -> dict:
     cfg = copy.deepcopy(GATE_CONFIG)
     cfg["aed_conf"]["max_decode_len"] = DECODE_CAP
     model = ServingModel(cfg, None, "cuda", vocab_size=VOCAB, cmvn=cmvn, seed=SEED,
-                         max_batch=8, max_samples=40 * SR, emit=("beam_ids", "aed_ids"))
+                         emit=("beam_ids", "aed_ids"))
     rng = np.random.default_rng(SEED + 3)
     waves = [synth_audio(rng, float(s)) for s in rng.uniform(2.0, 16.0, size=8)]
     lens = np.array([len(w) for w in waves])
@@ -1449,6 +1467,7 @@ ENGINES = (("device", {}), ("lockstep", {"device_beam": False}))
 # within this share of their magnitude (float32 against float64 scoring)
 TIE_SHARE = 1e-4
 STEP_PROBE = 16                 # search steps profiled for the launches per step
+LOCKSTEP_ALONE = 4              # the lockstep engine checks its shortest utterances alone
 
 
 def profile_cell(fn) -> tuple[float, int, float]:
@@ -1495,7 +1514,9 @@ def phase_decode_full(cmvn, tmp: Path) -> dict:
     8, the device searches' kernel launches per step (their first
     STEP_PROBE steps) and the psi and r-scan shares of a joint step; the SSD
     launches of each run; then every utterance alone against its transcript
-    in the batch, in each beam cell of both engines."""
+    in the batch, in each beam cell, on the device engine, and the
+    LOCKSTEP_ALONE shortest on the lockstep engine (a cut that keeps the
+    smoke inside its limit)."""
     from hnet_mamba_asr_torch.data.dataset import ItemLoader, collate_batch
     from hnet_mamba_asr_torch.decoders import device_beam, device_ctc_beam
     from hnet_mamba_asr_torch.decoders.ctc_decode import ctc_prefix_beam_search
@@ -1516,7 +1537,8 @@ def phase_decode_full(cmvn, tmp: Path) -> dict:
     audio_s = {it["id"]: it["n_samples"] / SR for it in items}
     total_audio = sum(audio_s.values())
     loader = ItemLoader(items, 10 ** 7, shuffle=False)
-    short = sorted(items, key=lambda it: it["n_samples"])[:2]
+    by_length = sorted(items, key=lambda it: it["n_samples"])
+    short = by_length[:2]
     short_batch = next(iter(ItemLoader(short, 10 ** 7, shuffle=False)))
     runs = {}
     for engine, change in ENGINES:
@@ -1547,13 +1569,16 @@ def phase_decode_full(cmvn, tmp: Path) -> dict:
                                    search_s=s["search_s"], engine=s["engine"])
         profiled = time.perf_counter() - t1
         t1 = time.perf_counter()
+        checked = items if engine == "device" else by_length[:LOCKSTEP_ALONE]
         alone = [(c["name"], it["id"], decode_task.decode_batch(
             model, tok, collate_batch([it], pad_id=3, seed=0, epoch=0), c, dc,
-            lm=scorer)[0]["hyp"]) for it in items for c in cells if c["search"] == "beam"]
+            lm=scorer)[0]["hyp"]) for it in checked for c in cells if c["search"] == "beam"]
         differ = sorted({(name, uid) for name, uid, hyp in alone
                          if hyp != records[name][uid]["hyp"]})
-        log(f"  {engine}: bf16, each of the {DECODE_UTTS} utterances alone vs inside the "
-            f"batch, 6 beam cells: {len(alone) - len(differ)}/{len(alone)} transcripts equal "
+        log(f"  {engine}: bf16, each of the {len(checked)} "
+            f"{'utterances' if len(checked) == DECODE_UTTS else 'shortest utterances'} alone "
+            f"vs inside the batch, 6 beam cells: {len(alone) - len(differ)}/{len(alone)} "
+            f"transcripts equal "
             f"({time.perf_counter() - t1:.1f} s; decode run {wall:.1f} s, profiled cells "
             f"{profiled:.1f} s)")
         if differ:
@@ -2011,7 +2036,7 @@ def phase_rnnt_serve(cmvn) -> dict:
     from hnet_mamba_asr_torch.serving.server import MicroBatcher
     from hnet_mamba_asr_torch.tools.gate import RNNT_CONFIG
     model = ServingModel(RNNT_CONFIG, None, "cuda", vocab_size=VOCAB, cmvn=cmvn, seed=SEED,
-                         max_batch=8, max_samples=40 * SR, emit=("rnnt_ids", "rnnt_beam_ids"))
+                         emit=("rnnt_ids", "rnnt_beam_ids"))
     waves, lens, padded = _requests(SEED + 4)
     model(padded[:1, :lens[0]], lens[:1])
 
@@ -2517,6 +2542,27 @@ def _check_beam_carry(model, pool, wave, rng, K: int, L: int) -> None:
         raise AssertionError("the streamed transducer beam's carried state is not one pass's")
 
 
+def drive_pool(pool, waves, rng) -> list:
+    """One session a wave in ``pool``: lockstep rounds of 6400 samples
+    (``feed_many``) over the first half, then ragged feeds of 900-5000
+    samples (sizes from ``rng``), then ``finish``: -> each session's ids."""
+    sids = [pool.open() for _ in waves]
+    got = {s: [] for s in sids}
+    start = -(-max(len(w) for w in waves) // 2 // 6400) * 6400
+    for pos in range(0, start, 6400):               # lockstep rounds, then ragged feeds
+        for sid, t in pool.feed_many([(s, w[pos:pos + 6400])
+                                      for s, w in zip(sids, waves)]).items():
+            got[sid] += t
+    sizes = rng.integers(900, 5000, size=len(waves))
+    pos = [min(start, len(w)) for w in waves]
+    while any(q < len(w) for q, w in zip(pos, waves)):
+        for k, sid in enumerate(sids):
+            if pos[k] < len(waves[k]):
+                got[sid] += pool.feed(sid, waves[k][pos[k]:pos[k] + sizes[k]])
+                pos[k] += int(sizes[k])
+    return [got[s] + pool.finish(s) for s in sids]
+
+
 def phase_stream(cmvn) -> dict:
     """Streaming on the card, at full width from seed 1, TF32 off:
     (1) the carried ema_fwd (ema_stream_cuda) against ema_stream at B 8
@@ -2723,26 +2769,9 @@ def phase_stream(cmvn) -> dict:
     kw = dict(vocab_size=VOCAB, cmvn=cmvn, seed=SEED, block_enc=STREAM_BLOCK)
     pool = StreamingSessionPool(GATE_CAUSAL_CONFIG, None, batch=STREAM_SESSIONS, **kw)
     waves = [synth_audio(rng, float(t)) for t in rng.uniform(2.0, 6.0, size=STREAM_SESSIONS)]
-
-    def pooled():
-        sids = [pool.open() for _ in waves]
-        got = {s: [] for s in sids}
-        start = -(-max(len(w) for w in waves) // 2 // 6400) * 6400
-        for pos in range(0, start, 6400):           # lockstep rounds, then ragged feeds
-            for sid, t in pool.feed_many([(s, w[pos:pos + 6400])
-                                          for s, w in zip(sids, waves)]).items():
-                got[sid] += t
-        sizes = rng.integers(900, 5000, size=len(waves))
-        pos = [min(start, len(w)) for w in waves]
-        while any(q < len(w) for q, w in zip(pos, waves)):
-            for k, sid in enumerate(sids):
-                if pos[k] < len(waves[k]):
-                    got[sid] += pool.feed(sid, waves[k][pos[k]:pos[k] + sizes[k]])
-                    pos[k] += int(sizes[k])
-        return [got[s] + pool.finish(s) for s in sids]
     ticks0 = pool.n_ticks
     t0 = time.perf_counter()
-    pooled_ids = counted("stream_pool", pooled)
+    pooled_ids = counted("stream_pool", drive_pool, pool, waves, rng)
     pool_s = time.perf_counter() - t0
     ticks = pool.n_ticks - ticks0
     del pool
@@ -2786,6 +2815,422 @@ def phase_stream(cmvn) -> dict:
     del model
     torch.cuda.empty_cache()
     log("phase 18 stream: ok")
+    return out
+
+
+ARTIFACT_EMIT = ("frame_ids", "log_probs", "beam_ids", "aed_ids")
+ARTIFACT_BUDGET_S = 60.0        # the artifacts phase's own time budget
+# the narrow model the CLIs run on the card: the tone runs' widths (the
+# (16, 16) fp32 SSD build), hybrid heads, a 1-layer LM, the 7 decode cells
+CLI_CONFIG = """
+experiment: {{name: cli_card, seed: 0}}
+data:
+  manifests_dir: {root}/manifests
+  eval_splits: [test-clean]
+  wire_dtype: int16
+bpemodel: {root}/tok/bpe.model
+frontend_conf: {{sample_rate: 16000, n_mels: 20, win_length: 400, hop_length: 160,
+                 cmvn: {root}/cmvn.npz}}
+encoder: dcasr
+encoder_conf: {{arch_type: A, d_outer: 32, d_main: 32, n_enc: 1, n_main: 1, n_dec: 1,
+                d_state: 16, headdim: 16, ssd_chunk_size: 32, hnet: {{compression_N: 1}}}}
+aed_conf: {{n_layers: 1, n_heads: 2, d_ff: 256, dropout: 0.0, max_decode_len: 8}}
+model_conf: {{ctc_weight: 0.5, aed_weight: 0.5}}
+lm_conf: {{d_model: 32, n_layers: 1, n_heads: 2, d_ff: 64, dropout: 0.0}}
+batch_bins: 8000
+train: {{precision: fp32}}
+decode:
+  read_outs: [ctc, aed, joint]
+  search: [greedy, beam]
+  beam_size: 2
+  pre_beam: 4
+  ctc_weight: 0.3
+  share_encoder: true
+  lm: enabled
+  lm_config: {root}/cfg.yaml
+  lm_checkpoint: {root}/lm.ckpt
+  lm_weight: 0.2
+  rescore_weight: 0.3
+  batch_bins: 8000
+score: {{gate_cell: ctc_greedy}}
+goal: {{sane_test_clean_wer_below: 12.0}}
+"""
+
+
+def serve_http(argv, wave) -> dict:
+    """``serving/server.py::main(argv)`` in a thread: one raw-PCM request to
+    /v1/transcribe, then the server is shut down. -> the JSON answer."""
+    from hnet_mamba_asr_torch.serving import server
+    ready, box = threading.Event(), {}
+
+    def on_ready(httpd, ctl):
+        box["httpd"] = httpd
+        ready.set()
+
+    thread = threading.Thread(target=server.main, kwargs=dict(argv=argv, on_ready=on_ready),
+                              daemon=True)
+    thread.start()
+    if not ready.wait(300):
+        raise AssertionError(f"the server did not start: {argv}")
+    try:
+        url = f"http://127.0.0.1:{box['httpd'].server_address[1]}/v1/transcribe"
+        req = urllib.request.Request(url, data=np.asarray(wave, np.float32).tobytes(),
+                                     headers={"Content-Type": "application/octet-stream"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return json.loads(r.read())
+    finally:
+        box["httpd"].shutdown()
+        thread.join(timeout=60)
+        if thread.is_alive():
+            raise AssertionError("the server thread did not stop")
+
+
+def artifact_cli_workspace(root: Path) -> Path:
+    """The tone corpus with test-clean's odd utterances as FLAC, its
+    tokenizer and CMVN, the narrow YAML config, and seeded checkpoints of
+    the model and the LM written by ``training/checkpoint.py``. -> the
+    config's path."""
+    from hnet_mamba_asr_torch.convert import state_dict_to_jax_tree
+    from hnet_mamba_asr_torch.data.audio import load_manifest, read_audio, write_manifest
+    from hnet_mamba_asr_torch.data.flac import write_flac
+    from hnet_mamba_asr_torch.tasks.asr_task import build_model
+    from hnet_mamba_asr_torch.tasks.lm_task import build_lm
+    from hnet_mamba_asr_torch.training.checkpoint import save_checkpoint
+    from hnet_mamba_asr_torch.utils.config import load_config
+    tok, cmvn = tone_setup(root)
+    test = root / "manifests" / "test-clean.jsonl"
+    entries = load_manifest(test)
+    for i, e in enumerate(entries):
+        if i % 2:
+            wave, sr = read_audio(e["audio"])
+            e["audio"] = str(Path(e["audio"]).with_suffix(".flac"))
+            write_flac(e["audio"], wave, sr)
+    write_manifest(entries, test)
+    cfg_path = root / "cfg.yaml"
+    cfg_path.write_text(CLI_CONFIG.format(root=root))
+    cfg = load_config(cfg_path)
+    model = build_model(cfg, tok.vocab_size, cmvn=cmvn, seed=SEED)
+    save_checkpoint(root / "asr.ckpt", {"params": state_dict_to_jax_tree(model.state_dict()),
+                                        "epoch": 1})
+    lm = build_lm(cfg, tok.vocab_size)
+    save_checkpoint(root / "lm.ckpt", {"params": state_dict_to_jax_tree(lm.state_dict())})
+    return cfg_path
+
+
+FULL_CLI_UTTS = 4               # test-clean utterances of the full-width CLI pass
+
+
+def full_width_clis(root: Path, cmvn, counted) -> dict:
+    """``configs/typeA_small_N1.yaml`` itself (full width, bf16, 80 mels)
+    through export_serving, serve (the exported artifact, one HTTP request),
+    transcribe --cell ctc_greedy (the 1 s length grid) and a greedy-only
+    decode with provenance: overrides point its tokenizer
+    (``seeded_tokenizer``'s 500 pieces), CMVN (``cmvn``, saved) and
+    manifests at ``root``; the weights are a seeded full-width checkpoint
+    written by ``training/checkpoint.py``; test-clean holds FULL_CLI_UTTS
+    synthetic utterances of 2-12 s, the odd ones FLAC. The tools run on
+    their default device, the card. ``counted(path, fn, *args)`` runs each
+    tool and counts its launches. -> the tools' results."""
+    from hnet_mamba_asr_torch.convert import state_dict_to_jax_tree
+    from hnet_mamba_asr_torch.data.audio import write_manifest, write_wav
+    from hnet_mamba_asr_torch.data.flac import write_flac
+    from hnet_mamba_asr_torch.scripts import decode, export_serving, transcribe
+    from hnet_mamba_asr_torch.tasks.asr_task import build_model
+    from hnet_mamba_asr_torch.tools.gate import seeded_tokenizer
+    from hnet_mamba_asr_torch.training.checkpoint import save_checkpoint
+    from hnet_mamba_asr_torch.utils.config import load_config
+    (root / "manifests").mkdir(parents=True)
+    tok = seeded_tokenizer(root / "bpe_500.model")
+    cmvn.save(root / "cmvn.npz")
+    rng = np.random.default_rng(SEED + 60)
+    entries = []
+    for i, sec in enumerate(rng.uniform(2.0, 12.0, size=FULL_CLI_UTTS)):
+        wave = synth_audio(rng, float(sec))
+        path = root / (f"f{i}.flac" if i % 2 else f"f{i}.wav")
+        (write_flac if i % 2 else write_wav)(path, wave, SR)
+        entries.append({"id": f"f{i}", "audio": str(path), "frames": len(wave),
+                        "text": " ".join(f"t{j}" for j in rng.integers(4, VOCAB, size=8))})
+    write_manifest(entries, root / "manifests" / "test-clean.jsonl")
+    yaml_path = Path(__file__).resolve().parent / "configs" / "typeA_small_N1.yaml"
+    overrides = [f"bpemodel={root / 'bpe_500.model'}", f"frontend_conf.cmvn={root / 'cmvn.npz'}",
+                 f"data.manifests_dir={root / 'manifests'}"]
+    cfg = load_config(yaml_path, overrides)
+    model = build_model(cfg, tok.vocab_size, cmvn=cmvn, seed=SEED)
+    save_checkpoint(root / "asr.ckpt", {"params": state_dict_to_jax_tree(model.state_dict()),
+                                        "epoch": 1})
+    n_params = sum(p.numel() for p in model.parameters())
+    del model
+    base = ["--config", str(yaml_path), "--checkpoint", str(root / "asr.ckpt")]
+    paths = [e["audio"] for e in entries]
+    res = {"n_params": n_params, "precision": cfg["train"]["precision"],
+           "d_outer": cfg["encoder_conf"]["d_outer"]}
+
+    def export_and_serve():
+        export_serving.run(export_serving.parse_args(
+            base + ["--buckets", "8x192000", "--out", str(root / "art")] + overrides))
+        return serve_http([str(root / "art"), "--port", "0", "--max-wait-ms", "1"],
+                          synth_audio(np.random.default_rng(SEED + 61), 5.0))
+    res["http"] = counted("artifacts_cli_full_serve", export_and_serve)
+    res["transcribe"] = counted("artifacts_cli_full_transcribe", transcribe.main,
+                                base + ["--cell", "ctc_greedy"] + paths + overrides)
+    res["decode"] = counted("artifacts_cli_full_decode", decode.run, decode.parse_args(
+        base + ["--splits", "test-clean", "--out-dir", str(root / "decode")] + overrides
+        + ["decode.read_outs=[ctc]", "decode.search=[greedy]", "decode.lm=none"]))
+    res["manifest"] = json.loads((root / "art" / "manifest.json").read_text())
+    res["config"] = cfg
+    res["paths"] = paths
+    with open(root / "decode" / "ctc_greedy" / "test-clean.jsonl") as f:
+        res["decoded"] = {r["id"]: r["hyp"] for r in map(json.loads, f)}
+    res["ids"] = [e["id"] for e in entries]
+    return res
+
+
+def phase_artifacts(cmvn) -> dict:
+    """Serving artifacts and the command-line tools on the card.
+
+    Full width, through the API: the gate config (seeded, AED cap
+    DECODE_CAP) exported with frame_ids, log_probs, beam_ids and aed_ids in
+    fp32 and int8; ``load_serving_artifact`` on the card serves phase 4's 8
+    requests: the fp32 artifact's outputs bitwise equal to the direct
+    ``ServingModel``'s, the int8 artifact's to a direct model holding
+    ``dequantize_tree`` of the same int8 tree; sizes, load time, the served
+    call's time from the artifact and directly, the int8-vs-fp32 log-prob gap
+    and id agreement (reported, not gated); ``serving/server.py::main`` from
+    the artifact answers one HTTP request with the direct call's ids; an N = 2
+    causal streaming artifact at batch 8 gives the ids of the pool it was
+    exported from on the same audio. Narrow width, through the CLIs:
+    ``configs/typeA_small_N1.yaml`` by the port's YAML reader == GATE_CONFIG
+    on the model's keys; export_serving (fp32, int8), serve, transcribe
+    (ctc_greedy, joint_beam), decode (shared encoder, the LM cells) and
+    score_wer, each once on the card; full width, through the CLIs:
+    ``full_width_clis`` on the YAML file itself. Each path's ssd_fwd /
+    ema_fwd launches."""
+    import os
+    from hnet_mamba_asr_torch.convert import load_jax_params, state_dict_to_jax_tree
+    from hnet_mamba_asr_torch.data.audio import load_manifest, read_audio
+    from hnet_mamba_asr_torch.ops.ema_cuda import ema_cuda
+    from hnet_mamba_asr_torch.ops.ssd_cuda import ssd_cuda
+    from hnet_mamba_asr_torch.scripts import decode, export_serving, score_wer, transcribe
+    from hnet_mamba_asr_torch.serving.export import (save_serving_artifact,
+                                                     save_streaming_artifact)
+    from hnet_mamba_asr_torch.serving.quant import dequantize_tree, quantize_tree
+    from hnet_mamba_asr_torch.serving.runtime import (
+        ServingModel, StreamingSessionPool, ids_per_row, load_serving_artifact,
+        load_streaming_pool)
+    from hnet_mamba_asr_torch.tools.gate import N2_CAUSAL_CONFIG
+    from hnet_mamba_asr_torch.utils.config import load_config
+    t_phase = time.perf_counter()
+    out = {"launches": {}}
+
+    def counted(path, fn, *args, ema=False):
+        ssd_cuda.launches = ema_cuda.launches = 0
+        res = fn(*args)
+        torch.cuda.synchronize()
+        out["launches"][path] = {"ssd_fwd": ssd_cuda.launches, "ema_fwd": ema_cuda.launches}
+        if ssd_cuda.launches == 0 or (ema and ema_cuda.launches == 0):
+            raise AssertionError(f"{path}: a kernel of the path was not launched: "
+                                 f"{out['launches'][path]}")
+        return res
+
+    def same(a: dict, b: dict) -> bool:
+        return set(a) == set(b) and all(np.array_equal(a[k], b[k]) for k in a)
+
+    def timed(fn):
+        """-> (fn's result, its ms on the host clock, synchronized)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_artifacts_") as tmp:
+        tmp = Path(tmp)
+        # phase 4's 8 requests (the same draws), at full width
+        cfg = copy.deepcopy(GATE_CONFIG)
+        cfg["aed_conf"]["max_decode_len"] = DECODE_CAP
+        rng = np.random.default_rng(SEED + 2)
+        waves = [synth_audio(rng, float(s)) for s in rng.uniform(2.0, 16.0, size=8)]
+        lens = np.array([len(w) for w in waves])
+        padded = np.zeros((8, lens.max()), np.float32)
+        for i, w in enumerate(waves):
+            padded[i, :len(w)] = w
+        direct = ServingModel(cfg, None, "cuda", vocab_size=VOCAB, cmvn=cmvn, seed=SEED,
+                              emit=ARTIFACT_EMIT)
+        direct(padded[:1, :lens[0]], lens[:1])               # cuBLAS / cuDNN set-up
+        want, direct_ms = timed(lambda: direct(padded, lens))
+        alone0 = direct.transcribe_ids(waves[0][None], lens[:1])[0]
+        sizes, export_s = {}, {}
+        for q in (None, "int8"):
+            t0 = time.perf_counter()
+            save_serving_artifact(tmp / f"art_{q}", direct.model, buckets=[(8, 40 * SR)],
+                                  emit=ARTIFACT_EMIT, quantize=q, config=cfg)
+            export_s[q] = time.perf_counter() - t0
+            sizes[q] = os.path.getsize(tmp / f"art_{q}" / "params.npz")
+        t0 = time.perf_counter()
+        art = load_serving_artifact(tmp / "art_None")
+        load_s = time.perf_counter() - t0
+        got, art_ms = timed(lambda: counted("artifacts_serve", art, padded, lens))
+        fp32_same = same(got, want)
+        del art
+        torch.cuda.empty_cache()
+        # int8: a direct model holding the dequantized int8 tree
+        deq = dequantize_tree(quantize_tree(state_dict_to_jax_tree(direct.model.state_dict())))
+        load_jax_params(direct.model, deq)
+        want8 = direct(padded, lens)
+        t0 = time.perf_counter()
+        art8 = load_serving_artifact(tmp / "art_int8")
+        load8_s = time.perf_counter() - t0
+        got8, art8_ms = timed(lambda: counted("artifacts_serve_int8", art8, padded, lens))
+        int8_same = same(got8, want8)
+        gap = max(float(np.abs(got8["log_probs"][b, :n] - want["log_probs"][b, :n]).max())
+                  for b, n in enumerate(want["enc_lengths"]))
+        frames = int(want["enc_lengths"].sum())
+        agree = sum(int((got8["frame_ids"][b, :n] == want["frame_ids"][b, :n]).sum())
+                    for b, n in enumerate(want["enc_lengths"]))
+        beam8 = ids_per_row({k: got8[k] for k in ("beam_ids", "beam_lens", "enc_lengths")},
+                            None, None)
+        beam = ids_per_row({k: want[k] for k in ("beam_ids", "beam_lens", "enc_lengths")},
+                           None, None)
+        aed_agree = sum(np.array_equal(a, b) for a, b in zip(got8["aed_ids"], want["aed_ids"]))
+        del art8, direct
+        torch.cuda.empty_cache()
+        log(f"  artifacts, gate config at full width ({len(waves)} requests of "
+            f"{sorted(round(len(w) / SR, 2) for w in waves)} s, emit {', '.join(ARTIFACT_EMIT)}, "
+            f"AED cap {DECODE_CAP}): params.npz fp32 {sizes[None]:,} B, int8 {sizes['int8']:,} B "
+            f"({sizes[None] / sizes['int8']:.2f}x); export {export_s[None]:.2f} / "
+            f"{export_s['int8']:.2f} s; load {load_s:.2f} s (fp32), {load8_s:.2f} s (int8, "
+            f"dequantized once); served call (host clock, synchronized; direct, then the "
+            f"artifact) {art_ms:.1f} ms from the fp32 artifact, {direct_ms:.1f} ms direct; "
+            f"the int8 artifact's first "
+            f"call {art8_ms:.1f} ms; fp32 artifact == direct bitwise {fp32_same}, int8 "
+            f"artifact == direct(dequantize_tree(q8)) bitwise {int8_same}; int8 vs fp32: "
+            f"log-prob max|d| {gap:.4e}, frame ids equal {agree}/{frames} "
+            f"({agree / frames:.4%}), beam ids equal {sum(a == b for a, b in zip(beam8, beam))}"
+            f"/8, aed ids equal {aed_agree}/8; launches {out['launches']}")
+        if not (fp32_same and int8_same):
+            raise AssertionError("artifact outputs differ from the direct model's")
+
+        # the HTTP server from the artifact: one request, the direct call's ids
+        http = counted("artifacts_http", serve_http,
+                       [str(tmp / "art_None"), "--port", "0", "--max-wait-ms", "1"], waves[0])
+        log(f"  server main from the artifact: {len(http['ids'])} ids, == the direct call's "
+            f"{http['ids'] == alone0}; launches {out['launches']['artifacts_http']}")
+        if http["ids"] != alone0:
+            raise AssertionError("the served HTTP answer differs from the direct call")
+        torch.cuda.empty_cache()
+
+        # an N = 2 causal streaming artifact at batch 8 against its own pool
+        kw = dict(vocab_size=VOCAB, cmvn=cmvn, seed=SEED, block_enc=STREAM_BLOCK)
+        pool = StreamingSessionPool(N2_CAUSAL_CONFIG, None, batch=STREAM_SESSIONS, **kw)
+        draw_routers(pool.model, SEED + 44)
+        srng = np.random.default_rng(SEED + 45)
+        swaves = [synth_audio(srng, float(t)) for t in srng.uniform(2.0, 6.0,
+                                                                   size=STREAM_SESSIONS)]
+        want_ids = drive_pool(pool, swaves, np.random.default_rng(SEED + 46))
+        save_streaming_artifact(tmp / "stream", pool.model, batch=STREAM_SESSIONS,
+                                block_enc=STREAM_BLOCK, config=N2_CAUSAL_CONFIG)
+        del pool
+        torch.cuda.empty_cache()
+        apool = load_streaming_pool(tmp / "stream")
+        got_ids = counted("artifacts_stream_n2", drive_pool, apool, swaves,
+                          np.random.default_rng(SEED + 46), ema=True)
+        log(f"  N=2 causal streaming artifact, {STREAM_SESSIONS} sessions of "
+            f"{sorted(round(len(w) / SR, 2) for w in swaves)} s in a pool of "
+            f"{apool.B}: ids == its source pool's {got_ids == want_ids} (tokens "
+            f"{[len(i) for i in got_ids]}); launches {out['launches']['artifacts_stream_n2']}")
+        if got_ids != want_ids:
+            raise AssertionError("the streaming artifact's ids differ from its pool's")
+        del apool
+        torch.cuda.empty_cache()
+        full_s = time.perf_counter() - t_phase
+
+        # narrow width, through the CLIs, on the card (their default device)
+        yaml_cfg = load_config(Path(__file__).resolve().parent / "configs" /
+                               "typeA_small_N1.yaml")
+        differ = [k for k in GATE_CONFIG if (yaml_cfg[k] if k != "train" else
+                                            {"precision": yaml_cfg[k]["precision"]})
+                  != GATE_CONFIG[k]]
+        if differ:
+            raise AssertionError(f"the YAML reader's typeA_small_N1.yaml differs from "
+                                 f"GATE_CONFIG at {differ}")
+        root = tmp / "cli"
+        cfg_path = artifact_cli_workspace(root)
+        base = ["--config", str(cfg_path), "--checkpoint", str(root / "asr.ckpt")]
+        wavs = [e["audio"] for e in load_manifest(root / "manifests" / "test-clean.jsonl")][:4]
+
+        def clis() -> dict:
+            res = {}
+            for q in (None, "int8"):
+                export_serving.run(export_serving.parse_args(
+                    base + ["--out", str(root / f"art_{q}"), "--buckets", "8x160000",
+                            "--emit", "frame_ids", "beam_ids", "aed_ids",
+                            *(["--quantize", q] if q else [])]))
+            w0, _ = read_audio(wavs[0])
+            res["http"] = serve_http([str(root / "art_int8"), "--port", "0",
+                                      "--max-wait-ms", "1"], w0.astype(np.float32))
+            res["transcribe"] = {cell: transcribe.main(base + ["--cell", cell] + wavs)
+                                 for cell in ("ctc_greedy", "joint_beam")}
+            res["decode"] = decode.run(decode.parse_args(
+                base + ["--out-dir", str(root / "decode")]))
+            try:
+                score_wer.run(score_wer.parse_args(
+                    ["--decode-dir", str(root / "decode"), "--config", str(cfg_path),
+                     "--n-bootstrap", "50"]))
+                res["score_exit"] = 0
+            except SystemExit as e:
+                res["score_exit"] = e.code
+            return res
+        t0 = time.perf_counter()
+        res = counted("artifacts_cli", clis)
+        cli_s = time.perf_counter() - t0
+        cells = sorted(p.name for p in (root / "decode").iterdir()
+                       if p.is_dir() and p.name not in ("logs", "score"))
+        scores = json.loads((root / "decode" / "score" / "scores.json").read_text())
+        card = res["decode"]["provenance"]["env"].get("card")
+        log(f"  CLIs on the card (narrow: d 32, 1 + 1 + 1 blocks, fp32; {len(wavs)} files, "
+            f"test-clean {len(cells)} cells with FLAC and WAV): export fp32 + int8, serve "
+            f"({len(res['http']['ids'])} ids over HTTP), transcribe "
+            + ", ".join(f"{c} {[r['hyp'] for r in rs]}" for c, rs in res["transcribe"].items())
+            + f", decode {cells} (shared encoder; provenance card {card!r}), score_wer exit "
+            f"{res['score_exit']} (gate {'passed' if scores['gate'].get('passed') else 'failed'}"
+            f", seeded weights) in {cli_s:.1f} s; launches {out['launches']['artifacts_cli']}")
+        want_cells = ["aed_beam", "aed_beam_lm", "ctc_beam", "ctc_beam_lm", "ctc_greedy",
+                      "joint_beam", "joint_beam_lm"]
+        if not (cells == want_cells and (root / "decode" / "summary.json").exists()
+                and res["score_exit"] in (0, 2) and card
+                and all([r["id"] for r in rs] == wavs for rs in res["transcribe"].values())):
+            raise AssertionError("a command-line tool did not complete on the card")
+
+        # configs/typeA_small_N1.yaml itself at full width through the CLIs
+        t0 = time.perf_counter()
+        full = full_width_clis(tmp / "cli_full", cmvn, counted)
+        full_cli_s = time.perf_counter() - t0
+        same_hyps = sum(r["hyp"] == full["decoded"][i]
+                        for r, i in zip(full["transcribe"], full["ids"]))
+        log(f"  CLIs on the card at full width (configs/typeA_small_N1.yaml, "
+            f"{full['precision']}, d_outer {full['d_outer']}, {full['n_params']:,} parameters, "
+            f"vocabulary {VOCAB}; {FULL_CLI_UTTS} files, WAV and FLAC): export_serving + serve "
+            f"({len(full['http']['ids'])} ids over HTTP), transcribe ctc_greedy, decode "
+            f"ctc_greedy (transcribe == decode on {same_hyps}/{FULL_CLI_UTTS} utterances, "
+            f"reported) in {full_cli_s:.1f} s; launches "
+            + ", ".join(f"{k[len('artifacts_cli_full_'):]} {out['launches'][k]}"
+                        for k in out["launches"] if k.startswith("artifacts_cli_full_")))
+        cells = sorted(p.name for p in (tmp / "cli_full" / "decode").iterdir()
+                       if p.is_dir() and p.name != "logs")
+        if not (full["manifest"]["config"] == json.loads(json.dumps(full["config"]))
+                and isinstance(full["http"].get("text"), str)
+                and [r["id"] for r in full["transcribe"]] == full["paths"]
+                and sorted(full["decoded"]) == sorted(full["ids"]) and cells == ["ctc_greedy"]
+                and (tmp / "cli_full" / "decode" / "summary.json").exists()):
+            raise AssertionError("a command-line tool did not complete at full width")
+    phase_s = time.perf_counter() - t_phase
+    log(f"  artifacts phase: {phase_s:.1f} s (full width {full_s:.1f} s, CLIs {cli_s:.1f} s "
+        f"narrow, {full_cli_s:.1f} s full width; budget {ARTIFACT_BUDGET_S:.0f} s)")
+    log("phase 19 artifacts: ok")
+    out.update(sizes=sizes, load_s={"fp32": load_s, "int8": load8_s},
+               call_ms={"fp32_artifact": art_ms, "fp32_direct": direct_ms,
+                        "int8_artifact_first_call": art8_ms},
+               gap=gap, frame_agree=agree / frames, seconds=phase_s)
     return out
 
 
@@ -2838,6 +3283,7 @@ def main() -> int:
         moe = run(phase_moe, cmvn, Path(tmp))
         run(phase_decode_parity, cmvn, Path(tmp))
     stream = run(phase_stream, cmvn)
+    artifacts = run(phase_artifacts, cmvn)
     log(f"training summary: gate config {train['step_ms']:.1f} ms per update of 2 x 32 x 10 s, "
         f"{train['fps']:.0f} mel-frames/s, peak {train['peak'] / 1e9:.2f} GB; N=2 config "
         f"{train_n2['step_ms']:.1f} ms per update of 64 x 10 s, {train_n2['fps']:.0f} "
@@ -2880,6 +3326,13 @@ def main() -> int:
                     f"{r['bound_ms'] * 1e3:.2f} us, share {r['bound_ms'] / r['ms']:.2%}, plain "
                     f"{r['plain_ms']:.4f} ms)" for r in stream["ema"])
         + "; launches " + json.dumps(stream["launches"]))
+    log(f"artifacts summary: params.npz fp32 {artifacts['sizes'][None]:,} B, int8 "
+        f"{artifacts['sizes']['int8']:,} B; load {artifacts['load_s']['fp32']:.2f} / "
+        f"{artifacts['load_s']['int8']:.2f} s; served call (8 requests, 4 emit modes) "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in artifacts["call_ms"].items())
+        + f"; int8 vs fp32 log-prob max|d| {artifacts['gap']:.4e}, frame ids equal "
+        f"{artifacts['frame_agree']:.4%}; phase {artifacts['seconds']:.1f} s; "
+        f"{time.perf_counter() - t_start:.1f} s in all")
     main_shape = ("bfloat16", TRAIN_ROWS, 249, 16)
     fwd = next(r for r in fwd_rows if (r["dtype"], r["B"], r["L"], r["H"]) == main_shape)
     bwd = next(r for r in bwd_rows if (r["dtype"], r["B"], r["L"], r["H"]) == main_shape
@@ -2907,7 +3360,8 @@ def main() -> int:
                "train_gate": {"ssd_fwd": train["ssd_fwd"], "ssd_bwd": train["ssd_bwd"]},
                "train_rnnt": train_rnnt["launches"], "grads_rnnt": rnnt_grads,
                "gate_proof_rnnt_tone": rnnt_gate["launches"],
-               "train_moe": moe["train"]["launches"], **stream["launches"]}
+               "train_moe": moe["train"]["launches"], **stream["launches"],
+               **artifacts["launches"]}
     launches = dict(train_n2["launches"], ssd_fwd=full["engines"]["device"]["launches"],
                     rnnt_fwd=train_rnnt["launches"]["rnnt_fwd"],
                     rnnt_bwd=train_rnnt["launches"]["rnnt_bwd"])

@@ -1,7 +1,9 @@
-"""WAV files and JSONL manifests, counterpart of ``read_wav`` / ``write_wav``
-in ``hnet_mamba_asr_tpu/data/audio.py`` and ``load_manifest`` /
+"""Audio files and JSONL manifests, counterpart of ``read_wav`` /
+``write_wav`` / ``read_audio`` / ``audio_info`` in
+``hnet_mamba_asr_tpu/data/audio.py`` and ``load_manifest`` /
 ``write_manifest`` in ``hnet_mamba_asr_tpu/data/manifests.py`` (the port
-keeps its own copies; FLAC and speed perturbation are not ported).
+keeps its own copies). WAV and FLAC (``data/flac.py``) decode in-repo;
+speed perturbation is not ported.
 
 A manifest line is ``{"id", "audio", "text", "frames"}`` with ``frames`` the
 sample count.
@@ -50,6 +52,33 @@ def write_wav(path: str | Path, wave_f: np.ndarray, sample_rate: int) -> None:
         w.setsampwidth(2)
         w.setframerate(sample_rate)
         w.writeframes(pcm.tobytes())
+
+
+def audio_info(path: str | Path) -> dict:
+    """{frames, sample_rate, duration_s} without decoding the payload."""
+    p = Path(path)
+    if p.suffix.lower() == ".flac":
+        from hnet_mamba_asr_torch.data.flac import flac_info
+        si = flac_info(p)
+        frames, sr = si["total_samples"], si["sample_rate"]
+    else:
+        with wave.open(str(p), "rb") as w:
+            frames, sr = w.getnframes(), w.getframerate()
+    return {"frames": frames, "sample_rate": sr, "duration_s": frames / sr}
+
+
+def read_audio(path: str | Path) -> tuple[np.ndarray, int]:
+    """Dispatch on extension: WAV and FLAC both decode in-repo."""
+    p = Path(path)
+    suffix = p.suffix.lower()
+    if suffix in (".wav", ".wave"):
+        return read_wav(p)
+    if suffix == ".flac":
+        from hnet_mamba_asr_torch.data.flac import read_flac
+        return read_flac(p)
+    raise ValueError(
+        f"{path}: unsupported audio container {suffix!r} (WAV and FLAC "
+        "supported natively)")
 
 
 def load_manifest(path) -> list[dict]:

@@ -11,9 +11,9 @@ feature frames, tokens to a multiple of 8, rows to a multiple of
 ``wire_dtype="int16"`` the waves travel as PCM16 and the frontend
 (``ops/melspec.py``) rescales them by 1/32768 on the device.
 ``BucketBatchSampler`` makes length-bucketed batches under a ``max_frames``
-budget, shuffled by (seed + epoch). ``manifest_items`` reads a WAV manifest
-into items (the JAX ``ASRDataset`` without augmentation); speed
-perturbation is not ported.
+budget, shuffled by (seed + epoch). ``manifest_items`` reads a manifest of
+WAV and FLAC files into items (the JAX ``ASRDataset`` without
+augmentation); speed perturbation is not ported.
 """
 from __future__ import annotations
 
@@ -176,13 +176,13 @@ class ItemLoader:
 
 
 def manifest_items(manifest, tokenizer, *, sample_rate: int = 16000) -> list[dict]:
-    """A WAV manifest -> items: each entry's audio as float32 and its text
-    encoded by ``tokenizer`` (``data/tokenizer.py``), ids and indices in
-    manifest order."""
-    from hnet_mamba_asr_torch.data.audio import load_manifest, read_wav
+    """A manifest -> items: each entry's audio (WAV or FLAC, ``read_audio``)
+    as float32 and its text encoded by ``tokenizer`` (``data/tokenizer.py``),
+    ids and indices in manifest order."""
+    from hnet_mamba_asr_torch.data.audio import load_manifest, read_audio
     items = []
     for i, e in enumerate(load_manifest(manifest)):
-        wave, sr = read_wav(e["audio"])
+        wave, sr = read_audio(e["audio"])
         if sr != sample_rate:
             raise ValueError(f"{e['audio']}: sample rate {sr} != {sample_rate}")
         items.append({"wave": wave.astype(np.float32), "n_samples": len(wave),

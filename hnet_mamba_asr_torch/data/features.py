@@ -68,15 +68,15 @@ class CMVNAccumulator:
 
 def compute_cmvn(manifest, *, n_mels: int = 80, device="cuda",
                  out: str | Path | None = None) -> GlobalCMVN:
-    """Global CMVN over every utterance of a WAV manifest, one utterance at a
+    """Global CMVN over every utterance of a manifest (WAV or FLAC), one utterance at a
     time through the log-mel frontend on ``device`` (the card by default;
     ``scripts/compute_cmvn.py``); ``out`` also saves the statistics as
     ``.npz``."""
-    from hnet_mamba_asr_torch.data.audio import load_manifest, read_wav
+    from hnet_mamba_asr_torch.data.audio import load_manifest, read_audio
     from hnet_mamba_asr_torch.ops.melspec import log_mel_spectrogram
     acc = CMVNAccumulator(n_mels=n_mels)
     for e in load_manifest(manifest):
-        wave, _ = read_wav(e["audio"])
+        wave, _ = read_audio(e["audio"])
         feats, flens = log_mel_spectrogram(
             torch.from_numpy(wave[None].astype(np.float32)).to(device), n_mels=n_mels)
         acc.update(feats[0].cpu().numpy(), [int(flens[0])])

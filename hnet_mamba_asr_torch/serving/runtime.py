@@ -9,9 +9,9 @@ first eos), the device CTC prefix beam (``beam_ids`` / ``beam_lens``,
 ``decoders/device_ctc_beam.py::beam_scan``), the RNN-T head's greedy search
 (``rnnt_ids`` / ``rnnt_lens``) or its device beam (``rnnt_beam_ids`` /
 ``rnnt_beam_lens``, ``decoders/device_rnnt_beam.py::beam_decode``), as JAX's
-``serving/export.py`` defines them. PyTorch runs eagerly, so there
-are no shape buckets; the ``max_batch`` and ``max_samples`` limits take
-their place and fail with the JAX runtime's words.
+``serving/export.py`` defines them. PyTorch runs eagerly, so a call runs at
+its own shape: the (batch, samples) buckets only bound what a call may
+hold, and fail with the JAX runtime's words.
 
 Streaming (JAX's ``StreamingServingModel`` and ``StreamingSessionPool``):
 ``StreamingSessionPool`` advances up to ``batch`` concurrent sessions a tick
@@ -26,9 +26,18 @@ is one session of a pool of one.
 
 Weights come from a JAX param tree or ``params.npz`` (``convert.py``), or are
 drawn from a seed.
+
+Artifacts (``serving/export.py``): ``load_serving_artifact``,
+``load_streaming_artifact`` and ``load_streaming_pool`` read an artifact
+directory, the port's or one that JAX's ``save_serving_artifact`` /
+``save_streaming_artifact`` wrote, check its ``format_version``, dequantize
+an int8 ``params.npz`` once (``serving/quant.py``), and rebuild the model
+from the manifest's config (a JAX artifact carries none: pass ``config=``;
+its traced ``.shlo`` programs are not read).
 """
 from __future__ import annotations
 
+import json
 import threading
 from pathlib import Path
 
@@ -45,10 +54,14 @@ from hnet_mamba_asr_torch.models.ctc_head import greedy_decode as collapse_ctc
 from hnet_mamba_asr_torch.models.mamba2 import STREAM_ROWS
 from hnet_mamba_asr_torch.models.streaming import (
     CausalStreamingEncoder, SampleBuffer, collapse, subsampled_count)
+from hnet_mamba_asr_torch.serving.quant import dequantize_tree
 from hnet_mamba_asr_torch.tasks.asr_task import build_model
+from hnet_mamba_asr_torch.tasks.build import REPO_ROOT, build_cmvn
 
 EMIT_MODES = ("frame_ids", "log_probs", "aed_ids", "beam_ids", "rnnt_ids", "rnnt_beam_ids")
 BEAM_SIZE, PRE_BEAM = 10, 30    # the beams' width: the JAX export's defaults
+DEFAULT_BUCKETS = ((8, 40 * 16000),)    # (batch, samples): 8 calls of up to 40 s
+FORMAT_VERSION = 1              # the artifact format, as JAX's runtime reads it
 
 
 def detokenize(tok_meta: dict, ids) -> str:
@@ -80,11 +93,23 @@ def ids_per_row(out: dict, blank_id: int | None, eos_id: int | None) -> list[lis
                      "rnnt_beam_ids or aed_ids")
 
 
+def require_device(device) -> torch.device:
+    """``device`` as a torch device; a CUDA device without a card raises
+    (there is no quiet fall-back to the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r}: no CUDA device is available "
+                           "(torch.cuda.is_available() is false); pass device 'cpu' "
+                           "(--device cpu) to run on the CPU")
+    return dev
+
+
 def load_model(config: dict, params, device, vocab_size: int | None = None,
                cmvn: GlobalCMVN | str | Path | None = None, seed: int = 0):
     """-> (the model of ``config`` on ``device`` with the weights of
     ``params`` (a JAX param tree or the path of a ``params.npz``), or drawn
     from ``seed`` when it is None, and its vocabulary size)."""
+    device = require_device(device)
     if isinstance(params, (str, Path)):
         params = load_params_npz(params)
     if vocab_size is None:
@@ -108,6 +133,9 @@ class ServingModel:
     ``params``: a JAX param tree, the path of a JAX ``params.npz``, or None
     for weights drawn from ``seed`` (then ``vocab_size`` is required).
     ``tokenizer``: an optional table as in a JAX manifest, for text output.
+    ``buckets``: the (batch, samples) shapes a call must fit in one of.
+    ``beam_size`` /
+    ``pre_beam``: the ``beam_ids`` and ``rnnt_beam_ids`` beams.
     ``device``: the card by default; pass "cpu" for the plain path.
     """
 
@@ -115,8 +143,9 @@ class ServingModel:
                  vocab_size: int | None = None,
                  cmvn: GlobalCMVN | str | Path | None = None,
                  tokenizer: dict | None = None, seed: int = 0,
-                 max_batch: int = 8, max_samples: int = 40 * 16000,
-                 emit: tuple[str, ...] = ("frame_ids",)):
+                 buckets: list[tuple[int, int]] = DEFAULT_BUCKETS,
+                 emit: tuple[str, ...] = ("frame_ids",),
+                 beam_size: int = BEAM_SIZE, pre_beam: int = PRE_BEAM):
         emit = tuple(emit)
         for e in emit:
             if e not in EMIT_MODES:
@@ -133,20 +162,30 @@ class ServingModel:
         self.eos_id = model.aed.eos_id if model.aed is not None else None
         self.emit = emit
         self.tokenizer = tokenizer
-        self.max_batch, self.max_samples = int(max_batch), int(max_samples)
+        self._buckets = sorted({(int(b), int(n)) for b, n in buckets})
+        if not self._buckets:
+            raise ValueError("artifact has no shape buckets")
+        self.max_batch = max(b for b, _ in self._buckets)
+        self.max_samples = max(n for _, n in self._buckets)
+        self.beam_size, self.pre_beam = int(beam_size), int(pre_beam)
+        self.manifest: dict | None = None    # an artifact's, when loaded from one
         self.calls = 0                       # model forwards run
 
     @property
     def buckets(self) -> list[tuple[int, int]]:
-        """The one (batch, samples) limit, in the JAX runtime's terms."""
-        return [(self.max_batch, self.max_samples)]
+        """The (batch, samples) limits, in the JAX runtime's terms."""
+        return list(self._buckets)
+
+    def fits(self, batch: int, samples: int) -> bool:
+        """Whether a call of ``batch`` rows of ``samples`` fits a bucket."""
+        return any(b >= batch and n >= samples for b, n in self._buckets)
 
     @torch.inference_mode()
     def __call__(self, wave, wave_lens) -> dict:
         wave = np.asarray(wave, np.float32)
         wave_lens = np.asarray(wave_lens, np.int64)
         B, S = wave.shape
-        if B > self.max_batch or S > self.max_samples:
+        if not self.fits(B, S):
             raise ValueError(
                 f"no bucket fits batch={B} samples={S}; available: "
                 f"{self.buckets} (longer audio must be chunked upstream)")
@@ -163,7 +202,7 @@ class ServingModel:
                 out["log_probs"] = logp
             if "beam_ids" in self.emit:
                 out["beam_ids"], out["beam_lens"] = beam_scan(
-                    logp, enc.lengths, beam_size=BEAM_SIZE, pre_beam=PRE_BEAM,
+                    logp, enc.lengths, beam_size=self.beam_size, pre_beam=self.pre_beam,
                     blank_id=self.blank_id)
         if "aed_ids" in self.emit:
             out["aed_ids"] = self.model.aed.greedy_decode(enc.features, enc.lengths)
@@ -172,7 +211,7 @@ class ServingModel:
                 enc.features, enc.lengths)
         if "rnnt_beam_ids" in self.emit:
             out["rnnt_beam_ids"], out["rnnt_beam_lens"] = beam_decode(
-                self.model.rnnt, enc.features, enc.lengths, BEAM_SIZE)
+                self.model.rnnt, enc.features, enc.lengths, self.beam_size)
         return {k: v.cpu().numpy() for k, v in out.items()}
 
     def transcribe_ids(self, wave, wave_lens) -> list[list[int]]:
@@ -497,3 +536,92 @@ class StreamingServingModel:
         out = self.pool.finish(self._sid)
         self._sid = self.pool.open()
         return out
+
+
+# ---- artifacts ------------------------------------------------------------------
+def _cmvn_from(mean, istd) -> GlobalCMVN:
+    """A GlobalCMVN holding exactly these statistics (no 1 / (1 / istd))."""
+    cmvn = GlobalCMVN(mean, np.ones_like(mean))
+    cmvn.istd = np.asarray(istd, dtype=np.float32)
+    return cmvn
+
+
+def read_artifact(artifact_dir: str | Path, config: dict | None = None, cmvn=None):
+    """An artifact directory -> (manifest, config, fp32 param tree, CMVN).
+
+    The config is the caller's, else the manifest's (the port's artifacts
+    carry it; a JAX artifact does not, and then ``config`` is required). The
+    CMVN is the caller's, else the artifact's ``cmvn.npz``, else (a JAX
+    artifact, whose programs hold it) the file the config names
+    (``tasks/build.py::build_cmvn``; a relative path resolves against the
+    repository root, as the command-line tools resolve the config's paths)."""
+    d = Path(artifact_dir)
+    manifest = json.loads((d / "manifest.json").read_text())
+    if manifest.get("format_version") != FORMAT_VERSION:
+        raise ValueError(
+            f"artifact format {manifest.get('format_version')!r} != "
+            f"supported {FORMAT_VERSION} — re-export with this runtime")
+    port = manifest.get("runtime") == "torch"
+    if config is None and port and isinstance(manifest.get("config"), dict):
+        config = manifest["config"]
+    if config is None:
+        raise ValueError(f"{d}: the artifact carries no config (a JAX export): pass "
+                         "config=, the model config it was exported from")
+    params = dequantize_tree(load_params_npz(d / "params.npz"))   # int8 -> fp32, once
+    if cmvn is None:
+        if port and manifest.get("cmvn"):
+            with np.load(d / manifest["cmvn"]) as z:
+                cmvn = _cmvn_from(z["mean"], z["istd"])
+        elif not port:
+            cmvn = build_cmvn(config, REPO_ROOT)
+    return manifest, config, params, cmvn
+
+
+def load_serving_artifact(artifact_dir: str | Path, device="cuda", config: dict | None = None,
+                          cmvn=None) -> ServingModel:
+    """An offline artifact -> its ``ServingModel`` on ``device`` (the card by
+    default): the manifest's emit modes, buckets, beam, tokenizer table and
+    vocabulary."""
+    manifest, config, params, cmvn = read_artifact(artifact_dir, config, cmvn)
+    if manifest.get("kind") == "streaming":
+        raise ValueError("a streaming artifact — use load_streaming_artifact or "
+                         "load_streaming_pool")
+    beam = manifest.get("beam") or {}
+    model = ServingModel(config, params, device, vocab_size=int(manifest["vocab_size"]),
+                         cmvn=cmvn, tokenizer=manifest.get("tokenizer"),
+                         buckets=[(b["batch"], b["samples"]) for b in manifest["buckets"]],
+                         emit=tuple(manifest["emit"]),
+                         beam_size=beam.get("beam_size", BEAM_SIZE),
+                         pre_beam=beam.get("pre_beam", PRE_BEAM))
+    model.manifest = manifest
+    return model
+
+
+def _stream_kw(artifact_dir, device, config, cmvn) -> dict:
+    manifest, config, params, cmvn = read_artifact(artifact_dir, config, cmvn)
+    if manifest.get("kind") != "streaming":
+        raise ValueError("not a streaming artifact — use load_serving_artifact for "
+                         "offline kinds")
+    s = manifest["streaming"]
+    return dict(config=config, params=params, device=device,
+                block_enc=int(s["block_enc"]), batch=int(s.get("batch", 1)),
+                decode=s.get("decode", "greedy"), beam_size=int(s.get("beam_size", 8)),
+                token_buf_len=int(s.get("token_buf_len", 256)), cmvn=cmvn,
+                tokenizer=manifest.get("tokenizer"), vocab_size=int(manifest["vocab_size"]))
+
+
+def load_streaming_pool(artifact_dir: str | Path, device="cuda", config: dict | None = None,
+                        cmvn=None) -> StreamingSessionPool:
+    """A streaming artifact -> its ``StreamingSessionPool`` (the manifest's
+    batch, block, decode, beam and token buffer) on ``device``."""
+    return StreamingSessionPool(**_stream_kw(artifact_dir, device, config, cmvn))
+
+
+def load_streaming_artifact(artifact_dir: str | Path, device="cuda",
+                            config: dict | None = None, cmvn=None) -> StreamingServingModel:
+    """A streaming artifact exported at batch 1 -> one ``StreamingServingModel``."""
+    kw = _stream_kw(artifact_dir, device, config, cmvn)
+    if kw["batch"] != 1:
+        raise ValueError(f"artifact exported at batch {kw['batch']} — use "
+                         "StreamingSessionPool for multi-session artifacts")
+    return StreamingServingModel(**kw)

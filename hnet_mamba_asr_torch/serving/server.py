@@ -5,8 +5,14 @@ worker coalesces requests that arrive within a short window into one padded
 batch, runs the model once, and fans the results back out; and the
 streaming front over a ``StreamingSessionPool`` (``make_streaming_server``).
 
+    python -m hnet_mamba_asr_torch.serving.server <artifact_dir> [--device cuda] \
+        [--port 8000] [--max-wait-ms 20] [--max-batch 8]
     python -m hnet_mamba_asr_torch.serving.server --config-json cfg.json \
-        --params artifact/params.npz --device cuda --port 8000 [--emit beam_ids]
+        [--params params.npz | --seed 0 --vocab-size 500] [--emit beam_ids]
+
+An artifact directory (``serving/export.py``) serves offline through the
+micro-batcher, or, when its manifest's ``kind`` is ``streaming``, through a
+session pool.
 
 A row's ids come from the CTC prefix beam (``beam_ids``), else CTC greedy
 (``frame_ids``), else the AED greedy decode cut at its first eos
@@ -39,11 +45,13 @@ import wave as wave_mod
 from collections import deque
 from concurrent.futures import Future
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from pathlib import Path
 
 import numpy as np
 
 from hnet_mamba_asr_torch.serving.runtime import (
-    ServingModel, StreamingSessionPool, detokenize, ids_per_row)
+    ServingModel, StreamingSessionPool, detokenize, ids_per_row, load_serving_artifact,
+    load_streaming_pool)
 
 
 def decode_audio(body: bytes, content_type: str) -> np.ndarray:
@@ -71,8 +79,12 @@ class MicroBatcher:
     """Coalesce concurrent requests into padded batches for the model.
 
     Requests that arrive within ``max_wait_ms`` of the first pending one (or
-    until ``max_batch`` is reached) run as ONE model call. Each submit
-    returns a Future resolving to the per-utterance result dict.
+    until ``max_batch`` is reached) run as ONE model call. A batch takes the
+    pending requests in order while they fit one of the model's buckets
+    together (a long request that fits only a one-row bucket runs alone;
+    JAX's batcher pads them into one call that fits no bucket, and every
+    request of it fails). Each submit returns a Future resolving to the
+    per-utterance result dict.
     """
 
     def __init__(self, model: ServingModel, max_batch: int | None = None,
@@ -145,7 +157,12 @@ class MicroBatcher:
                 left = deadline - time.perf_counter()
                 if left <= 0 or not self._cv.wait(timeout=left):
                     break
-            n = min(len(self._q), self.max_batch)
+            n, longest = 1, len(self._q[0][0])
+            while n < min(len(self._q), self.max_batch):
+                widest = max(longest, len(self._q[n][0]))
+                if not self.model.fits(n + 1, widest):
+                    break
+                n, longest = n + 1, widest
             return [self._q.popleft() for _ in range(n)]
 
     def _run(self):
@@ -290,12 +307,16 @@ def make_streaming_server(pool: StreamingSessionPool, host: str = "127.0.0.1", p
     return httpd, pool
 
 
-def main(argv=None, config: dict | None = None):
-    """Serve over HTTP. The model config comes from ``--config-json`` or the
-    ``config`` argument; weights from ``--params`` (a JAX ``params.npz``) or,
-    without it, from ``--seed`` (then ``--vocab-size`` is required)."""
+def main(argv=None, config: dict | None = None, on_ready=None):
+    """Serve over HTTP until the server is shut down. The model comes from
+    an artifact directory (positional), or from a config (``--config-json``, or the
+    ``config`` argument) with weights from ``--params`` (a JAX
+    ``params.npz``) or drawn from ``--seed`` (then ``--vocab-size`` is
+    required). ``on_ready(server, controller)``, when given, is called once
+    the server is bound (e.g. to read its port or to shut it down)."""
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("artifact_dir", nargs="?", default=None)
     ap.add_argument("--config-json", default=None)
     ap.add_argument("--params", default=None)
     ap.add_argument("--vocab-size", type=int, default=None)
@@ -305,26 +326,45 @@ def main(argv=None, config: dict | None = None):
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--max-wait-ms", type=float, default=20.0)
-    ap.add_argument("--max-batch", type=int, default=8)
+    ap.add_argument("--max-batch", type=int, default=None)
     ap.add_argument("--emit", default="frame_ids",
-                    help="comma-separated emit modes: frame_ids, log_probs, aed_ids, beam_ids")
+                    help="without an artifact: comma-separated emit modes (frame_ids, "
+                         "log_probs, aed_ids, beam_ids, rnnt_ids, rnnt_beam_ids)")
     args = ap.parse_args(argv)
-    if config is None:
-        if args.config_json is None:
-            ap.error("--config-json is required")
-        with open(args.config_json) as f:
-            config = json.load(f)
-    model = ServingModel(config, args.params, args.device, vocab_size=args.vocab_size,
-                         cmvn=args.cmvn, seed=args.seed, max_batch=args.max_batch,
-                         emit=tuple(args.emit.split(",")))
-    httpd, batcher = make_server(model, args.host, args.port, args.max_wait_ms,
+    if args.artifact_dir is not None:
+        manifest = json.loads((Path(args.artifact_dir) / "manifest.json").read_text())
+        if manifest.get("kind") == "streaming":
+            pool = load_streaming_pool(args.artifact_dir, args.device, config, args.cmvn)
+            httpd, ctl = make_streaming_server(pool, args.host, args.port)
+            print(f"serving STREAMING {args.artifact_dir} on {httpd.server_address} "
+                  f"(pool batch {pool.B}, device {pool.device})", flush=True)
+        else:
+            model = load_serving_artifact(args.artifact_dir, args.device, config, args.cmvn)
+            httpd, ctl = make_server(model, args.host, args.port, args.max_wait_ms,
+                                     args.max_batch)
+            print(f"serving {args.artifact_dir} on {httpd.server_address} (buckets "
+                  f"{model.buckets}, emit {model.emit}, device {model.device})", flush=True)
+    else:
+        if config is None:
+            if args.config_json is None:
+                ap.error("an artifact directory or --config-json is required")
+            with open(args.config_json) as f:
+                config = json.load(f)
+        model = ServingModel(config, args.params, args.device, vocab_size=args.vocab_size,
+                             cmvn=args.cmvn, seed=args.seed,
+                             buckets=[(args.max_batch or 8, 40 * 16000)],
+                             emit=tuple(args.emit.split(",")))
+        httpd, ctl = make_server(model, args.host, args.port, args.max_wait_ms,
                                  args.max_batch)
-    print(f"serving on {httpd.server_address} (device {model.device}, "
-          f"max_batch {model.max_batch}, max_samples {model.max_samples})", flush=True)
+        print(f"serving on {httpd.server_address} (device {model.device}, "
+              f"max_batch {model.max_batch}, max_samples {model.max_samples})", flush=True)
+    if on_ready is not None:
+        on_ready(httpd, ctl)
     try:
         httpd.serve_forever()
     finally:
-        batcher.close()
+        if isinstance(ctl, MicroBatcher):
+            ctl.close()
         httpd.server_close()
 
 

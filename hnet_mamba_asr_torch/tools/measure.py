@@ -965,7 +965,7 @@ def measure_serve(tag: str, profile: bool, config: str) -> None:
     from hnet_mamba_asr_torch.tools import gate
     cmvn = gate.make_cmvn("cuda")
     model = ServingModel(_configs()[config][0], None, "cuda", vocab_size=gate.VOCAB,
-                         cmvn=cmvn, seed=gate.SEED, max_batch=8, max_samples=40 * gate.SR)
+                         cmvn=cmvn, seed=gate.SEED)
     if config == "n2":                 # a router that keeps ~1/2, as a trained one
         gate.draw_routers(model.model, gate.SEED + 22)
     rng = np.random.default_rng(7)

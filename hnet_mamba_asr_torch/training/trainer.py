@@ -47,38 +47,12 @@ from hnet_mamba_asr_torch.data.dataset import feat_frames
 from hnet_mamba_asr_torch.eval.metrics import word_errors
 from hnet_mamba_asr_torch.training import checkpoint as ckpt
 from hnet_mamba_asr_torch.training.optim import build_optimizer, clip_by_global_norm, set_lr
+from hnet_mamba_asr_torch.utils.config import flatten_config  # noqa: F401 (re-export)
 
 logger = logging.getLogger(__name__)
 
 DEVICE_KEYS = ("wave", "wave_lens", "tokens", "token_lens", "row_mask")
 NOT_PORTED = ("scan_steps", "fsdp", "tp", "pp", "sp", "ep")
-
-
-def flatten_config(cfg: dict) -> dict:
-    """A nested config dict -> the flat keys the trainer reads (``train.*``
-    and ``eval.*`` hoisted), counterpart of the JAX package's
-    ``utils/config.py::flatten_config``."""
-    train = cfg.get("train", {}) or {}
-    ev = cfg.get("eval", {}) or {}
-    clash = set(train) & set(ev)
-    if clash:
-        raise ValueError(f"config keys appear in both train: and eval: blocks: {sorted(clash)}")
-    out = {"max_epoch": train.get("max_epoch", 120), "grad_clip": train.get("grad_clip", 5.0),
-           "grad_clip_type": train.get("grad_clip_type", 2.0),
-           "precision": train.get("precision", "bf16"),
-           "log_interval": train.get("log_interval", 50), "max_steps": train.get("max_steps"),
-           "scan_steps": train.get("scan_steps", 1), "tp": train.get("tp", 1),
-           "ckpt_backend": train.get("ckpt_backend", "pickle"),
-           "accum_grad": cfg.get("accum_grad", 1),
-           "valid_interval_epoch": ev.get("valid_interval_epoch", 10),
-           "early_stopping": cfg.get("early_stopping", {}) or {},
-           "optim": cfg.get("optim", "adamw"), "optim_conf": cfg.get("optim_conf", {}) or {},
-           "scheduler": cfg.get("scheduler"),
-           "scheduler_conf": cfg.get("scheduler_conf", {}) or {}}
-    for block in (train, ev):
-        for k, v in block.items():
-            out.setdefault(k, v)
-    return out
 
 
 class Trainer:

@@ -5,7 +5,9 @@ with a tiny decode of all 10 cells (the beams on the device searches) by a
 model with the RNN-T head and an MoE AED decoder and an MoE LM, the
 aed_ids, beam_ids, rnnt_ids and rnnt_beam_ids serving modes, a streaming
 session pool at N = 2, and chip_smoke.py run in a fresh interpreter with jax, flax and
-hnet_mamba_asr_tpu absent from sys.modules."""
+hnet_mamba_asr_tpu absent from sys.modules; and the deployment slice (the YAML
+reader, FLAC, the artifacts and every CLI of hnet_mamba_asr_torch.scripts) with
+PyYAML blocked as well, as the card's machine has none."""
 import json
 import subprocess
 import sys
@@ -128,3 +130,47 @@ def test_port_runs_without_jax():
     assert out["served"] == {"enc_lengths": [2], "aed_ids": [2, 3], "beam_ids": [2, 8],
                              "beam_lens": [2], "rnnt_ids": [2, 6], "rnnt_lens": [2],
                              "rnnt_beam_ids": [2, 6], "rnnt_beam_lens": [2]}
+
+
+NO_YAML_SCRIPT = """
+import importlib, json, pkgutil, sys, tempfile
+sys.modules["yaml"] = None              # the card's machine has no PyYAML
+import numpy as np, torch
+torch.set_num_threads(1)
+import chip_smoke
+import hnet_mamba_asr_torch.scripts as scripts
+names = ["hnet_mamba_asr_torch.utils.config", "hnet_mamba_asr_torch.utils.logging_utils",
+         "hnet_mamba_asr_torch.utils.provenance", "hnet_mamba_asr_torch.tasks.build",
+         "hnet_mamba_asr_torch.data.flac", "hnet_mamba_asr_torch.data.audio",
+         "hnet_mamba_asr_torch.serving.quant", "hnet_mamba_asr_torch.serving.export",
+         "hnet_mamba_asr_torch.serving.runtime", "hnet_mamba_asr_torch.serving.server"]
+names += [f"hnet_mamba_asr_torch.scripts.{m.name}" for m in pkgutil.iter_modules(scripts.__path__)]
+for name in names:
+    importlib.import_module(name)
+from hnet_mamba_asr_torch.utils.config import load_config
+from hnet_mamba_asr_torch.serving.export import save_serving_artifact
+from hnet_mamba_asr_torch.serving.runtime import load_serving_artifact
+from hnet_mamba_asr_torch.tasks.asr_task import build_model
+cfg = load_config("configs/typeA_small_N1.yaml", ["encoder_conf.d_outer=16", "encoder_conf.d_main=24",
+    "encoder_conf.n_enc=1", "encoder_conf.n_main=1", "encoder_conf.n_dec=1",
+    "encoder_conf.d_state=8", "encoder_conf.headdim=8", "frontend_conf.n_mels=20",
+    "frontend_conf.cmvn=null", "model_conf.aed_weight=0", "train.precision=fp32"])
+with tempfile.TemporaryDirectory() as tmp:
+    save_serving_artifact(tmp, build_model(cfg, 12, device="cpu"), buckets=[(1, 8000)],
+                          quantize="int8", quantize_min_size=64, config=cfg)
+    out = load_serving_artifact(tmp, "cpu")(np.zeros((1, 6000), np.float32), [6000])
+print(json.dumps({"modules": len(names), "enc_lengths": out["enc_lengths"].tolist(),
+                  "absent": sorted(m for m in sys.modules if m.split(".")[0] in
+                                   ("jax", "jaxlib", "flax", "hnet_mamba_asr_tpu")
+                                   or (m == "yaml" and sys.modules[m] is not None))}))
+"""
+
+
+def test_deployment_slice_runs_without_jax_or_pyyaml():
+    proc = subprocess.run([sys.executable, "-c", NO_YAML_SCRIPT], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["absent"] == []
+    assert out["modules"] == 15                       # 10 modules and the 5 CLIs
+    assert out["enc_lengths"] == [8]                  # 6000 samples: 36 mel frames

@@ -115,7 +115,7 @@ def test_converter_refuses_mismatches(jax_slice):
 
 def test_serving_limits_and_modes():
     sm = ServingModel(NARROW_CONFIG, None, "cpu", vocab_size=NARROW_VOCAB,
-                      max_batch=2, max_samples=8000)
+                      buckets=[(2, 8000)])
     with pytest.raises(ValueError, match="no bucket fits batch=3 samples=800"):
         sm(np.zeros((3, 800), np.float32), [800] * 3)
     with pytest.raises(ValueError, match="no bucket fits batch=1 samples=8001"):
