@@ -121,10 +121,9 @@ calls, at the full width of ``configs/typeA_small_N1.yaml`` and
                cell, the SSD launches, the device's idle share per cell; the
                device engine's kernel launches per search step and host
                reads of its active mask; the engines' disagreements and
-               ties; the psi and r-scan shares of a joint step; every
-               utterance alone == inside the batch in every beam cell of
-               the device engine, the 4 shortest on the lockstep engine's
-               (a cut for the time limit), in bf16;
+               ties; the psi and r-scan shares of a joint step; the 4
+               shortest utterances alone == inside the batch in every beam
+               cell of both engines (a cut for the time limit), in bf16;
 14. parity  -- depth 1 + 2 + 1, a 2-layer AED and a 2-layer LM, fp32, TF32
                off: decode_step log-probs card vs CPU to 1e-5, the 7 cells'
                transcripts card == CPU for both engines and device ==
@@ -175,14 +174,38 @@ calls, at the full width of ``configs/typeA_small_N1.yaml`` and
                on the card at narrow width; then that YAML file itself at
                full width (bf16, 80 mels, the seeded 500-piece tokenizer)
                through export_serving, serve, transcribe --cell ctc_greedy
-               and a greedy-only decode, each launching ssd_fwd.
+               and a greedy-only decode, each launching ssd_fwd;
+20. train CLIs -- a synthetic LibriSpeech tree (train-clean-100: 48
+               utterances of 2-16 s, three in four FLAC; dev-clean: 4)
+               through build_manifests, build_tokenizer (500 pieces, its
+               round trip) and compute_cmvn on the card; then
+               ``configs/typeA_small_N1.yaml`` itself through the train CLI
+               (78,858,409 parameters, bf16, speed perturbation 0.9 / 1.0 /
+               1.1 through a perturb cache, accum_grad 2; overrides: paths,
+               max_epoch 2, validation every epoch, keep_nbest_models 1 and
+               no kept-all): items 3x the entries with #sp ids, the cache
+               written in epoch 0 and read in epoch 1, per update CUDA-event
+               ms, mel-frames/s, peak memory and the loader's wait; a
+               ``--resume auto`` run to max_epoch 4 whose first update is
+               step k + 1 at the schedule's rate for k and whose early
+               stopping (patience 0, an unbeatable min_delta) ends it after
+               epoch 2; the best symlinks, pruning, the .ave files,
+               metrics.jsonl and summary.json with provenance;
+               ``configs/typeA_large_N1.yaml`` through the train CLI for one
+               update (4 micro-steps of 16k frames, remat dots;
+               210,967,945 parameters); ``configs/lm_transformer_500.yaml``
+               through train_lm over a synthetic corpus file (one epoch, its
+               valid.loss.ave.ckpt); the decode CLI's ctc_greedy,
+               ctc_beam and ctc_beam_lm over dev-clean from the ASR's
+               valid.loss.ave.ckpt with that LM; the host library's FLAC
+               decode == the numpy twin on one file, and its ms per item.
 
 The line before the last is a JSON summary of the kernels, with the
 launches of the full-width decode run on the device engine (ssd_fwd), of
 the RNN-T training run (rnnt_fwd, rnnt_bwd) and of the N = 2 training run
 (the others), and every path's counts (the streaming paths' as stream_*,
-the artifacts' as artifacts_*; a streaming path's ema_fwd is the carried
-form);
+the artifacts' as artifacts_*, the training CLIs' as train_cli_*; a
+streaming path's ema_fwd is the carried form);
 the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -192,6 +215,7 @@ from __future__ import annotations
 import copy
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -1466,8 +1490,15 @@ ENGINES = (("device", {}), ("lockstep", {"device_beam": False}))
 # a disagreement between the engines is a tie when their best scores agree
 # within this share of their magnitude (float32 against float64 scoring)
 TIE_SHARE = 1e-4
-STEP_PROBE = 16                 # search steps profiled for the launches per step
-LOCKSTEP_ALONE = 4              # the lockstep engine checks its shortest utterances alone
+# search steps profiled for the launches per step (phases 13 and 15; cut
+# from 16 to make room for phase 20)
+STEP_PROBE = 8
+# cuts that make room for phase 20 inside the time limit: each engine checks
+# its ALONE_UTTS shortest utterances alone (the device engine checked all 8
+# before) and a cell's idle share is profiled on the PROFILE_UTTS shortest
+# (the 2 shortest before)
+ALONE_UTTS = 4
+PROFILE_UTTS = 1
 
 
 def profile_cell(fn) -> tuple[float, int, float]:
@@ -1507,16 +1538,15 @@ def phase_decode_full(cmvn, tmp: Path) -> dict:
     decode block with the shared encoder, once per engine: the device
     searches (the config's default) and the host's (``device_beam: false``).
     Per cell and engine the real-time factor, encoder and search seconds and
-    the device's idle share (each cell alone under torch.profiler on the two
-    shortest utterances); the device engine's steps and host reads of its
+    the device's idle share (each cell alone under torch.profiler on the
+    PROFILE_UTTS shortest utterances); the device engine's steps and host reads of its
     active mask; the engines' disagreements (ties: best scores within
     TIE_SHARE) and, in the CTC cells, what they come from; at the batch of
     8, the device searches' kernel launches per step (their first
     STEP_PROBE steps) and the psi and r-scan shares of a joint step; the SSD
-    launches of each run; then every utterance alone against its transcript
-    in the batch, in each beam cell, on the device engine, and the
-    LOCKSTEP_ALONE shortest on the lockstep engine (a cut that keeps the
-    smoke inside its limit)."""
+    launches of each run; then the ALONE_UTTS shortest utterances alone
+    against their transcripts in the batch, in each beam cell, on each
+    engine (a cut that keeps the smoke inside its limit)."""
     from hnet_mamba_asr_torch.data.dataset import ItemLoader, collate_batch
     from hnet_mamba_asr_torch.decoders import device_beam, device_ctc_beam
     from hnet_mamba_asr_torch.decoders.ctc_decode import ctc_prefix_beam_search
@@ -1538,7 +1568,7 @@ def phase_decode_full(cmvn, tmp: Path) -> dict:
     total_audio = sum(audio_s.values())
     loader = ItemLoader(items, 10 ** 7, shuffle=False)
     by_length = sorted(items, key=lambda it: it["n_samples"])
-    short = by_length[:2]
+    short = by_length[:PROFILE_UTTS]
     short_batch = next(iter(ItemLoader(short, 10 ** 7, shuffle=False)))
     runs = {}
     for engine, change in ENGINES:
@@ -1569,7 +1599,7 @@ def phase_decode_full(cmvn, tmp: Path) -> dict:
                                    search_s=s["search_s"], engine=s["engine"])
         profiled = time.perf_counter() - t1
         t1 = time.perf_counter()
-        checked = items if engine == "device" else by_length[:LOCKSTEP_ALONE]
+        checked = by_length[:ALONE_UTTS]
         alone = [(c["name"], it["id"], decode_task.decode_batch(
             model, tok, collate_batch([it], pad_id=3, seed=0, epoch=0), c, dc,
             lm=scorer)[0]["hyp"]) for it in checked for c in cells if c["search"] == "beam"]
@@ -1695,8 +1725,8 @@ def phase_decode_full(cmvn, tmp: Path) -> dict:
                 extra += f", {c['launches_per_step']:.1f} device ops a step at B {B}"
             log(f"  {s_name:<14} {engine:<8} RTF {c['rtf']:.5f}: encoder {c['encoder_s']:.4f} s, "
                 f"search {c['search_s']:.4f} s over {DECODE_UTTS} utterances "
-                f"({total_audio:.2f} s of audio); device idle {c['idle_short']:.2%} (the 2 "
-                f"shortest){extra}")
+                f"({total_audio:.2f} s of audio); device idle {c['idle_short']:.2%} (the "
+                f"{PROFILE_UTTS} shortest){extra}")
         a = agree[s_name]
         log(f"  {s_name:<14} engines differ on {a['differ']}/{DECODE_UTTS} utterances, "
             f"{a['ties']} of them ties"
@@ -3234,6 +3264,248 @@ def phase_artifacts(cmvn) -> dict:
     return out
 
 
+# phase 20: the training entry points on a synthetic LibriSpeech tree
+TRAIN_CLI_SPLITS = {"train-clean-100": 48, "dev-clean": 4}
+TRAIN_CLI_BUDGET_S = 90.0       # the phase's own time budget
+LM_CORPUS_LINES = 3000
+GATE_N_PARAMS = 78_858_409
+LARGE_N_PARAMS = 210_967_945    # tests/test_torch_train_configs.py holds it to JAX's
+LARGE_SSD_CALLS = 60            # 6 + 18 + 6 bidirectional blocks
+
+
+def phase_train_clis() -> dict:
+    """The data-preparation and training CLIs on the card (phase 20 of the
+    module's docstring), in a temporary directory. -> the runs' numbers."""
+    from hnet_mamba_asr_torch.data import flac, host_audio, lm_text
+    from hnet_mamba_asr_torch.data.audio import apply_speed_perturb, load_manifest
+    from hnet_mamba_asr_torch.ops.ssd_cuda import ssd_cuda
+    from hnet_mamba_asr_torch.scripts import (build_manifests, build_tokenizer, compute_cmvn,
+                                              decode, train, train_lm)
+    from hnet_mamba_asr_torch.tools.gate import lexicon, librispeech_tree
+    from hnet_mamba_asr_torch.training.checkpoint import load_checkpoint
+    configs = Path(__file__).resolve().parent / "configs"
+    out, launches, secs = {}, {}, {}
+    t_phase = time.perf_counter()
+
+    def counted(path, fn, *args):
+        ssd_cuda.launches = ssd_cuda.bwd_launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = fn(*args)
+        torch.cuda.synchronize()
+        secs[path] = time.perf_counter() - t0
+        launches[path] = {"ssd_fwd": ssd_cuda.launches, "ssd_bwd": ssd_cuda.bwd_launches}
+        out[f"{path}_peak"] = torch.cuda.max_memory_allocated()
+        return res
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_cli_") as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        librispeech_tree(root / "LibriSpeech", TRAIN_CLI_SPLITS, seed=SEED + 70, workers=8)
+        tree_s = time.perf_counter() - t0
+        mdir = root / "manifests"
+        build_manifests.run(["--root", str(root / "LibriSpeech"), "--out-dir", str(mdir),
+                             "--splits", *TRAIN_CLI_SPLITS])
+        tok = build_tokenizer.run(["--manifests", str(mdir / "train-clean-100.jsonl"),
+                                   "--out", str(root / "bpe_500"), "--vocab-size", "500"])
+        counted("train_cli_cmvn", compute_cmvn.run,
+                ["--manifest", str(mdir / "train-clean-100.jsonl"), "--out",
+                 str(root / "cmvn.npz")])
+        secs["prep"] = time.perf_counter() - t0
+        entries = load_manifest(mdir / "train-clean-100.jsonl")
+        if tok.vocab_size != 500 or len(entries) != TRAIN_CLI_SPLITS["train-clean-100"]:
+            raise AssertionError(f"data preparation: vocabulary {tok.vocab_size}, "
+                                 f"{len(entries)} entries")
+
+        # the host library on this machine: one FLAC equal to the numpy twin,
+        # then the longest FLAC and its 0.9 resample timed
+        flacs = sorted((e for e in entries if e["audio"].endswith(".flac")),
+                       key=lambda e: e["frames"])
+        short, longest = flacs[0], flacs[-1]
+        data = Path(short["audio"]).read_bytes()
+        if not np.array_equal(host_audio.flac_decode(data)[0], flac.decode_flac_bytes(data)[0]):
+            raise AssertionError("the host library's FLAC decode differs from the numpy twin")
+        t0 = time.perf_counter()
+        wave, _ = flac.read_flac(longest["audio"])
+        flac_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        apply_speed_perturb(wave, SR, 0.9)
+        resample_ms = (time.perf_counter() - t0) * 1e3
+        host = {"seconds": longest["frames"] / SR, "flac_ms": flac_ms,
+                "resample_ms": resample_ms}
+
+        yaml_gate = configs / "typeA_small_N1.yaml"
+        paths = [f"bpemodel={root / 'bpe_500.model'}", f"frontend_conf.cmvn={root / 'cmvn.npz'}",
+                 f"data.manifests_dir={mdir}", "data.train_manifest=train-clean-100",
+                 "data.dev_splits=[dev-clean]", f"data.perturb_cache_dir={root / 'perturb'}"]
+        exp = root / "exp_gate"
+
+        def gate_args(*extra):
+            return train.parse_args(["--config", str(yaml_gate), "--exp-dir", str(exp),
+                                     *extra, *paths])
+        first = counted("train_cli_gate", train.run, gate_args(
+            "train.max_epoch=2", "eval.valid_interval_epoch=1", "keep_all_checkpoints=false",
+            "keep_nbest_models=1"))
+        ds = first.train_loader.dataset
+        n_params = sum(p.numel() for p in first.model.parameters())
+        k = first.global_step
+        gate_hist = first.history
+        gate_sched = first.lr_schedule
+        precision = first.cfg["precision"]
+        n_batches, n_dev = len(first.train_loader), len(first.dev_loaders["dev-clean"])
+        cache = (ds.cache_misses, ds.cache_hits)
+        ids = [ds[i]["id"] for i in range(3)] if len(ds) == 3 * len(entries) else []
+        del first, ds
+        torch.cuda.empty_cache()
+        es = ("early_stopping={enable: true, require_all: true, criteria: [{phase: valid, "
+              "metric: loss, mode: min, patience: 0, min_delta: 1.0e9}]}")
+        resumed = counted("train_cli_gate_resume", train.run, gate_args(
+            "--resume", "auto", "train.max_epoch=4", "eval.valid_interval_epoch=1",
+            "keep_all_checkpoints=false", "keep_nbest_models=1", es))
+        res_hist, res_epoch, res_step = resumed.history, resumed.epoch, resumed.global_step
+        best = {m: resumed._best_epoch("valid", m, "min") for m in ("wer", "loss")}
+        metric_history = resumed.metric_history
+        del resumed
+        torch.cuda.empty_cache()
+        files = sorted(os.listdir(exp / "checkpoints"))
+        want_files = sorted({f"epoch{e:04d}.ckpt" for e in (2, *best.values())}
+                            | {"latest.ckpt", "valid.wer.best.ckpt", "valid.loss.best.ckpt",
+                               "valid.wer.ave.ckpt", "valid.loss.ave.ckpt"})
+        links = {m: os.readlink(exp / "checkpoints" / f"valid.{m}.best.ckpt") for m in best}
+        lines = [json.loads(ln) for ln in open(exp / "metrics.jsonl")]
+        summary = json.loads((exp / "summary.json").read_text())
+        checks = {
+            "parameters": n_params == GATE_N_PARAMS,
+            "items 3x with #sp ids": ids == [f"{entries[0]['id']}#sp0.9", entries[0]["id"],
+                                            f"{entries[0]['id']}#sp1.1"],
+            "cache written in epoch 0, read in epoch 1": cache == (96, 96),
+            "resumed at step k + 1 with lr(k)": (res_hist[0]["step"] == k + 1
+                                                 and res_hist[0]["lr"] == gate_sched(k)),
+            "early stop after epoch 2": res_epoch == 2 and summary["epochs"] == 3,
+            "pruned to the best": files == want_files,
+            "best symlinks": links == {m: f"epoch{e:04d}.ckpt" for m, e in best.items()},
+            "metrics.jsonl": (sum(ln.get("event") == "resume" for ln in lines) == 1
+                              and {"valid/loss", "valid/wer", "valid/cer",
+                                   "dev_dev-clean/loss"} <= set().union(*lines)),
+            "summary.json": (len(summary["provenance"]) == 2
+                             and summary["final_step"] == res_step
+                             and summary["provenance"][0]["env"]["card"] is not None
+                             and summary["best_valid_loss_epoch"] == best["loss"]),
+            "history": set(metric_history) == {("train", "loss"), ("valid", "loss"),
+                                               ("valid", "wer"), ("valid", "cer")},
+        }
+        hist = gate_hist + res_hist
+        for r in hist:
+            if not (math.isfinite(r["loss/total"]) and math.isfinite(r["grad_norm"])):
+                raise AssertionError(f"train CLI step {r['step']}: not finite: {r}")
+        # every batch is a micro-step (an epoch's partial update group runs and
+        # is dropped), each validation encodes every dev batch twice (loss and
+        # greedy decode)
+        for path, epochs in (("train_cli_gate", 2), ("train_cli_gate_resume", 1)):
+            want = {"ssd_bwd": SSD_CALLS_PER_FORWARD * epochs * n_batches,
+                    "ssd_fwd": SSD_CALLS_PER_FORWARD * epochs * (n_batches + 2 * n_dev)}
+            if launches[path] != want:
+                raise AssertionError(f"{path}: ssd launches {launches[path]}, want {want} "
+                                     f"({epochs} epochs of {n_batches} batches, {n_dev} dev)")
+        ave_params = load_checkpoint(exp / "checkpoints" / "valid.loss.ave.ckpt")["averaged"]
+        out["gate"] = dict(history=hist, k=k, cache=cache, best=best, files=files,
+                           averaged=ave_params, checks=checks, n_params=n_params,
+                           precision=precision)
+
+        # the large config: one update of 4 micro-steps of 16k frames, remat dots
+        large = counted("train_cli_large", train.run, train.parse_args(
+            ["--config", str(configs / "typeA_large_N1.yaml"), "--exp-dir",
+             str(root / "exp_large"), "train.max_steps=1", *paths]))
+        n_large = sum(p.numel() for p in large.model.parameters())
+        out["large"] = dict(history=large.history, n_params=n_large,
+                            remat=large.model.encoder.main.remat_policy)
+        del large
+        torch.cuda.empty_cache()
+        lf, lb = launches["train_cli_large"]["ssd_fwd"], launches["train_cli_large"]["ssd_bwd"]
+        checks["large: 1 update, 4 micro-steps, remat dots"] = (
+            len(out["large"]["history"]) == 1 and n_large == LARGE_N_PARAMS
+            and out["large"]["remat"] == "dots" and lf == 2 * LARGE_SSD_CALLS * 4
+            and lb == LARGE_SSD_CALLS * 4)
+
+        # the LM through train_lm over a corpus file, one epoch
+        rng = np.random.default_rng(SEED + 71)
+        words = [w.upper() for w in lexicon(np.random.default_rng(SEED + 70), 400)]
+        (root / "lm_corpus.txt").write_text("\n".join(
+            " ".join(rng.choice(words, size=int(rng.integers(3, 25))))
+            for _ in range(LM_CORPUS_LINES)) + "\n")
+        # the token counts of the corpus, single-process (the CLI reuses the sidecar)
+        t0 = time.perf_counter()
+        n_lines = len(lm_text.LMTextDataset(tok, corpus_path=root / "lm_corpus.txt"))
+        count_s = time.perf_counter() - t0
+        lm_exp = root / "exp_lm"
+        lm = counted("train_cli_lm", train_lm.run, train_lm.parse_args(
+            ["--config", str(configs / "lm_transformer_500.yaml"), "--exp-dir", str(lm_exp),
+             "train.max_epoch=1", f"bpemodel={root / 'bpe_500.model'}",
+             f"data.lm_corpus={root / 'lm_corpus.txt'}", f"data.manifests_dir={mdir}",
+             "data.dev_splits=[dev-clean]"]))
+        out["lm"] = dict(history=lm.history, n_params=sum(p.numel() for p in lm.model.parameters()),
+                         valid=lm.metric_history[("valid", "loss")][0],
+                         lines_per_s=n_lines / count_s)
+        del lm
+        lm_ave = lm_exp / "checkpoints" / "valid.loss.ave.ckpt"
+        checks["train_lm wrote valid.loss.ave.ckpt"] = lm_ave.exists()
+
+        # the decode CLI from the files the trainers wrote
+        dec = counted("train_cli_decode", decode.run, decode.parse_args(
+            ["--config", str(yaml_gate), "--checkpoint",
+             str(exp / "checkpoints" / "valid.loss.ave.ckpt"), "--splits", "dev-clean",
+             "--out-dir", str(root / "decode"), *paths, "decode.read_outs=[ctc]",
+             "decode.search=[greedy, beam]", f"decode.lm_checkpoint={lm_ave}",
+             f"decode.lm_config={configs / 'lm_transformer_500.yaml'}"]))
+        cells = sorted(c["cell"] for c in dec["cells"])
+        n_recs = {c: len((root / "decode" / c / "dev-clean.jsonl").read_text().splitlines())
+                  for c in cells}
+        out["decode"] = {c["cell"]: c for c in dec["cells"]}
+        checks["decode from the .ave files"] = (
+            cells == ["ctc_beam", "ctc_beam_lm", "ctc_greedy"]
+            and set(n_recs.values()) == {TRAIN_CLI_SPLITS["dev-clean"]}
+            and launches["train_cli_decode"]["ssd_fwd"] > 0)
+    phase_s = time.perf_counter() - t_phase
+    cold = [r for r in gate_hist if r["epoch"] == 0]
+    warm = [r for r in hist if r["epoch"] > 0]
+    fmt = lambda rs, key: ", ".join(f"{r[key]:.1f}" for r in rs)      # noqa: E731
+    log(f"  data: {sum(TRAIN_CLI_SPLITS.values())} utterances written in {tree_s:.1f} s, "
+        f"manifests + tokenizer ({tok.vocab_size} pieces) + CMVN on the card "
+        f"{secs['prep']:.1f} s; host library: FLAC {host['flac_ms']:.2f} ms and resample "
+        f"(0.9) {host['resample_ms']:.2f} ms for {host['seconds']:.2f} s of audio")
+    log(f"  gate config through the train CLI ({n_params:,} parameters, "
+        f"{out['gate']['precision']}, 3 x "
+        f"{len(entries)} items): updates (ms, CUDA events) epoch 0 [{fmt(cold, 'ms')}], later "
+        f"[{fmt(warm, 'ms')}]; mel-frames/s "
+        + ", ".join(f"{r['frames'] / r['ms'] * 1e3:.0f}" for r in hist)
+        + f"; loader wait (ms) cold [{fmt(cold, 'wait_ms')}], warm [{fmt(warm, 'wait_ms')}]; "
+        f"peak {out['train_cli_gate_peak'] / 1e9:.2f} / {out['train_cli_gate_resume_peak'] / 1e9:.2f}"
+        f" GB; cache misses / hits {cache}; valid {dict(metric_history[('valid', 'loss')])} "
+        f"(loss), {dict(metric_history[('valid', 'wer')])} (WER); runs "
+        f"{secs['train_cli_gate']:.1f} + {secs['train_cli_gate_resume']:.1f} s; files {files}")
+    lr = out["large"]["history"][0]
+    log(f"  typeA_large_N1 ({n_large:,} parameters, remat {out['large']['remat']}): one update "
+        f"of 4 micro-steps {lr['ms']:.1f} ms, {lr['frames'] / lr['ms'] * 1e3:.0f} "
+        f"mel-frames/s, peak {out['train_cli_large_peak'] / 1e9:.2f} GB, run "
+        f"{secs['train_cli_large']:.1f} s; LM ({out['lm']['n_params']:,}) "
+        f"{len(out['lm']['history'])} updates, "
+        f"[{fmt(out['lm']['history'], 'ms')}] ms, valid loss {out['lm']['valid']:.4f}, corpus "
+        f"index + token counts {out['lm']['lines_per_s']:.0f} lines/s (one process), run "
+        f"{secs['train_cli_lm']:.1f} s; decode "
+        + ", ".join(f"{c} RTF {v['rtf']:.4f}" for c, v in sorted(out["decode"].items()))
+        + f" in {secs['train_cli_decode']:.1f} s; launches {launches}")
+    log(f"  train CLIs phase: {phase_s:.1f} s (budget {TRAIN_CLI_BUDGET_S:.0f} s); checks "
+        + ", ".join(f"{k} {v}" for k, v in checks.items()))
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"train CLIs: {failed}")
+    log("phase 20 train CLIs: ok")
+    # the paths that run the SSD kernels (CMVN and the LM run none)
+    out.update(launches={k: v for k, v in launches.items() if any(v.values())},
+               seconds=phase_s, host=host, secs=secs)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3284,6 +3556,7 @@ def main() -> int:
         run(phase_decode_parity, cmvn, Path(tmp))
     stream = run(phase_stream, cmvn)
     artifacts = run(phase_artifacts, cmvn)
+    train_cli = run(phase_train_clis)
     log(f"training summary: gate config {train['step_ms']:.1f} ms per update of 2 x 32 x 10 s, "
         f"{train['fps']:.0f} mel-frames/s, peak {train['peak'] / 1e9:.2f} GB; N=2 config "
         f"{train_n2['step_ms']:.1f} ms per update of 64 x 10 s, {train_n2['fps']:.0f} "
@@ -3361,7 +3634,7 @@ def main() -> int:
                "train_rnnt": train_rnnt["launches"], "grads_rnnt": rnnt_grads,
                "gate_proof_rnnt_tone": rnnt_gate["launches"],
                "train_moe": moe["train"]["launches"], **stream["launches"],
-               **artifacts["launches"]}
+               **artifacts["launches"], **train_cli["launches"]}
     launches = dict(train_n2["launches"], ssd_fwd=full["engines"]["device"]["launches"],
                     rnnt_fwd=train_rnnt["launches"]["rnnt_fwd"],
                     rnnt_bwd=train_rnnt["launches"]["rnnt_bwd"])

@@ -1,34 +1,49 @@
-"""The host batch contract, counterpart of the collate and sampler part of
-``hnet_mamba_asr_tpu/data/dataset.py`` (numpy only; the port keeps its own
-copy rather than import the JAX package).
+"""The host data pipeline, counterpart of ``hnet_mamba_asr_tpu/data/dataset.py``
+(numpy only; the port keeps its own copy rather than import the JAX package).
 
-An item is ``{"wave" float32 [n], "n_samples", "tokens" int32 [U], "id",
-"index"}``. ``collate_batch`` pads items into a batch dict ``{wave,
-wave_lens, tokens, token_lens, row_mask, aug_ref = [seed, epoch],
-item_index, ids}``: waves to a length snapped to a geometric grid of
-feature frames, tokens to a multiple of 8, rows to a multiple of
-``batch_multiple`` (padding rows have ``row_mask`` False). With
-``wire_dtype="int16"`` the waves travel as PCM16 and the frontend
-(``ops/melspec.py``) rescales them by 1/32768 on the device.
-``BucketBatchSampler`` makes length-bucketed batches under a ``max_frames``
-budget, shuffled by (seed + epoch). ``manifest_items`` reads a manifest of
-WAV and FLAC files into items (the JAX ``ASRDataset`` without
-augmentation); speed perturbation is not ported.
+The host reads audio (WAV, or FLAC through the host library), speed-perturbs
+it, tokenizes and pads; waveforms go to the device raw and the frontend
+(log-mel, CMVN, SpecAugment) runs in the model's step. SpecAugment is a
+function of (seed, epoch, item index), shipped in the batch.
+
+- ``ASRDataset``: manifest entries x speed factors (each utterance once per
+  factor, ids ``<id>#sp<f>``); ``perturbed_samples`` gives each item's exact
+  sample count from the manifest alone; with ``perturb_cache_dir`` each
+  (utterance, factor) is resampled once into a float32 ``.npy`` (tmp, then
+  ``os.replace``) and read back bitwise, a file of the wrong length or dtype
+  (a crashed write, a stale manifest) recomputed and replaced.
+- ``collate_batch`` pads items into a batch dict ``{wave, wave_lens, tokens,
+  token_lens, row_mask, aug_ref = [seed, epoch], item_index, ids}``: waves to
+  a length snapped to a geometric grid of feature frames, tokens to a
+  multiple of 8, rows to a multiple of ``batch_multiple`` (padding rows have
+  ``row_mask`` False). With ``wire_dtype="int16"`` the waves travel as PCM16
+  and the frontend (``ops/melspec.py``) rescales them by 1/32768 on the
+  device.
+- ``BucketBatchSampler`` makes length-bucketed batches under a
+  ``max_frames`` budget, shuffled by (seed + epoch).
+- ``DataLoader`` fetches and collates the sampler's batches, in a
+  background thread with a bounded queue when ``prefetch`` > 0 (order kept,
+  a worker's exception raised in the consumer). The JAX loader's
+  multi-process row sharding is not ported and raises.
+- ``ItemLoader`` / ``manifest_items`` batch items held in memory.
 """
 from __future__ import annotations
 
+import logging
 import math
-from typing import Sequence
+import os
+import queue
+import threading
+from fractions import Fraction
+from pathlib import Path
+from typing import Iterator, Sequence
 
 import numpy as np
 
-WIN_LENGTH = 400
-HOP_LENGTH = 160
+from hnet_mamba_asr_torch.data.audio import apply_speed_perturb, load_manifest, read_audio
+from hnet_mamba_asr_torch.data.manifests import HOP_LENGTH, SAMPLE_RATE, WIN_LENGTH, feat_frames
 
-
-def feat_frames(n_samples: int) -> int:
-    """Feature-frame count for an n-sample waveform (frontend contract)."""
-    return max(0, 1 + (n_samples - WIN_LENGTH) // HOP_LENGTH)
+logger = logging.getLogger(__name__)
 
 
 def length_grid(value: int, *, base: int = 256, ratio: float = 1.25) -> int:
@@ -37,6 +52,97 @@ def length_grid(value: int, *, base: int = 256, ratio: float = 1.25) -> int:
         return base
     steps = math.ceil(math.log(value / base) / math.log(ratio))
     return int(math.ceil(base * ratio ** steps))
+
+
+def perturbed_samples(n_samples: int, sample_rate: int, factor: float) -> int:
+    """The exact sample count ``apply_speed_perturb`` returns, from metadata:
+    ``resample``'s arithmetic term for term (the same Fraction, the same
+    float ceil)."""
+    if factor == 1.0:
+        return int(n_samples)
+    virtual_sr = int(round(sample_rate / float(factor)))
+    if virtual_sr == sample_rate:
+        return int(n_samples)
+    frac = Fraction(virtual_sr, sample_rate).limit_denominator(1000)
+    return int(np.ceil(n_samples * frac.numerator / frac.denominator))
+
+
+class ASRDataset:
+    """Items ``{wave, n_samples, tokens, id, index}``; lengths known up front.
+    ``cache_hits`` / ``cache_misses`` count the perturb cache's reads and
+    writes."""
+
+    def __init__(self, manifest, tokenizer, *, augment: bool = False, seed: int = 0,
+                 speed_perturb: Sequence[float] | None = None,
+                 sample_rate: int = SAMPLE_RATE,
+                 perturb_cache_dir: str | Path | None = None):
+        self.entries = (load_manifest(manifest)
+                        if isinstance(manifest, (str, Path)) else list(manifest))
+        self.tokenizer = tokenizer
+        self.augment = augment
+        self.seed = seed
+        self.sample_rate = sample_rate
+        self.epoch = 0
+        self.factors = ([float(f) for f in speed_perturb]
+                        if (augment and speed_perturb) else [1.0])
+        self.items = [(i, f) for i in range(len(self.entries)) for f in self.factors]
+        self.samples = [perturbed_samples(self.entries[i]["frames"], sample_rate, f)
+                        for i, f in self.items]
+        self.lengths = [feat_frames(s) for s in self.samples]
+        self.pad_id = tokenizer.pad_id
+        self.perturb_cache_dir = Path(perturb_cache_dir) if perturb_cache_dir else None
+        if self.perturb_cache_dir is not None:
+            self.perturb_cache_dir.mkdir(parents=True, exist_ok=True)
+        self.cache_hits = self.cache_misses = 0
+
+    def __len__(self) -> int:
+        return len(self.items)
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+
+    def _read(self, e: dict) -> np.ndarray:
+        wave, sr = read_audio(e["audio"])
+        if sr != self.sample_rate:
+            raise ValueError(f"{e['audio']}: sample rate {sr} != {self.sample_rate}")
+        return wave
+
+    def _cached_perturb(self, e: dict, factor: float) -> np.ndarray:
+        """The perturbed wave from the cache, or computed and cached."""
+        cache = self.perturb_cache_dir / f"{e['id']}#sp{factor}.npy"
+        expect = perturbed_samples(e["frames"], self.sample_rate, factor)
+        if cache.exists():
+            try:
+                w = np.load(cache)
+                if len(w) == expect and w.dtype == np.float32:
+                    self.cache_hits += 1
+                    return w
+            except (OSError, ValueError, EOFError):     # a torn or corrupt file is recomputed
+                pass
+        self.cache_misses += 1
+        wave = apply_speed_perturb(self._read(e), self.sample_rate, factor).astype(np.float32)
+        tmp = cache.with_suffix(f".tmp{os.getpid()}.npy")
+        try:
+            np.save(tmp, wave)
+            os.replace(tmp, cache)
+        except OSError as err:                 # a read-only or full disk: train on
+            tmp.unlink(missing_ok=True)
+            logger.warning("perturb cache %s not written: %s", cache, err)
+        return wave
+
+    def __getitem__(self, i: int) -> dict:
+        idx, factor = self.items[i]
+        e = self.entries[idx]
+        if factor != 1.0 and self.perturb_cache_dir is not None:
+            wave = self._cached_perturb(e, factor)
+        else:
+            wave = self._read(e)
+            if factor != 1.0:
+                wave = apply_speed_perturb(wave, self.sample_rate, factor)
+        uid = e["id"] if factor == 1.0 else f"{e['id']}#sp{factor}"
+        tokens = np.asarray(self.tokenizer.encode(e["text"]), dtype=np.int32)
+        return {"wave": wave.astype(np.float32), "n_samples": len(wave),
+                "tokens": tokens, "id": uid, "index": i}
 
 
 def pad_targets(n_samples_list: Sequence[int], token_lens_list: Sequence[int], *,
@@ -151,6 +257,83 @@ class BucketBatchSampler:
         return len(self._batches)
 
 
+class DataLoader:
+    """Sampler -> fetch -> collate, deterministic; ``set_epoch`` reshuffles
+    and stamps the epoch for augmentation. ``prefetch`` > 0 builds batches in
+    a background thread ahead of the consumer through a queue of that size
+    (order kept; a worker exception is raised in the consumer)."""
+
+    def __init__(self, dataset: ASRDataset, sampler: BucketBatchSampler, *,
+                 batch_multiple: int = 1, snap_lengths: bool = True,
+                 prefetch: int = 0, row_shard: tuple[int, int] | None = None,
+                 wire_dtype: str = "float32"):
+        if row_shard:
+            raise NotImplementedError("row_shard (multi-process loading) is not ported")
+        if wire_dtype not in ("float32", "int16"):
+            raise ValueError(f"wire_dtype must be float32|int16, got {wire_dtype!r}")
+        self.dataset = dataset
+        self.sampler = sampler
+        self.batch_multiple = batch_multiple
+        self.snap_lengths = snap_lengths
+        self.prefetch = int(prefetch)
+        self.wire_dtype = wire_dtype
+
+    def set_epoch(self, epoch: int) -> None:
+        self.dataset.set_epoch(epoch)
+        self.sampler.set_epoch(epoch)
+
+    def __len__(self) -> int:
+        return len(self.sampler)
+
+    def _make(self, batch_idx) -> dict:
+        return collate_batch([self.dataset[i] for i in batch_idx], pad_id=self.dataset.pad_id,
+                             seed=self.dataset.seed, epoch=self.dataset.epoch,
+                             batch_multiple=self.batch_multiple,
+                             snap_lengths=self.snap_lengths, wire_dtype=self.wire_dtype)
+
+    def __iter__(self) -> Iterator[dict]:
+        if self.prefetch <= 0:
+            for batch_idx in self.sampler:
+                yield self._make(batch_idx)
+            return
+        q: queue.Queue = queue.Queue(maxsize=self.prefetch)
+        done = object()
+
+        def worker(indices):
+            try:
+                for batch_idx in indices:
+                    q.put(("ok", self._make(batch_idx)))
+            except BaseException as e:  # noqa: BLE001 - raised in the consumer
+                q.put(("err", e))
+            finally:
+                q.put(("ok", done))
+
+        threading.Thread(target=worker, args=(list(self.sampler),), daemon=True).start()
+        while True:
+            kind, item = q.get()
+            if kind == "err":
+                raise item
+            if item is done:
+                break
+            yield item
+
+
+def make_dataloader(dataset: ASRDataset, max_frames: int, *, shuffle: bool = False,
+                    seed: int = 0, num_replicas: int = 1, rank: int = 0,
+                    batch_multiple: int = 1, snap_lengths: bool = True,
+                    prefetch: int = 0, row_shard: bool = False,
+                    wire_dtype: str = "float32"):
+    """-> (DataLoader, BucketBatchSampler); ranks take disjoint batches.
+    ``row_shard`` (multi-process rows of one global batch) raises."""
+    if row_shard:
+        raise NotImplementedError("row_shard (multi-process loading) is not ported")
+    sampler = BucketBatchSampler(dataset.lengths, max_frames, num_replicas, rank,
+                                 shuffle=shuffle, seed=seed)
+    loader = DataLoader(dataset, sampler, batch_multiple=batch_multiple,
+                        snap_lengths=snap_lengths, prefetch=prefetch, wire_dtype=wire_dtype)
+    return loader, sampler
+
+
 class ItemLoader:
     """Items (in memory) -> batches: ``BucketBatchSampler`` over their
     feature lengths, then ``collate_batch``. ``set_epoch`` reshuffles and
@@ -179,7 +362,6 @@ def manifest_items(manifest, tokenizer, *, sample_rate: int = 16000) -> list[dic
     """A manifest -> items: each entry's audio (WAV or FLAC, ``read_audio``)
     as float32 and its text encoded by ``tokenizer`` (``data/tokenizer.py``),
     ids and indices in manifest order."""
-    from hnet_mamba_asr_torch.data.audio import load_manifest, read_audio
     items = []
     for i, e in enumerate(load_manifest(manifest)):
         wave, sr = read_audio(e["audio"])

@@ -1,11 +1,13 @@
 """Dependency-free FLAC codec: spec-based decoder + lossless encoder.
 
-The port's copy of ``hnet_mamba_asr_tpu/data/flac.py``, numpy path only
-(the JAX package's ``read_flac`` tries its native C++ decoder first; this
-one does not). LibriSpeech ships as FLAC. Written from the FLAC format
-specification (RFC 9639):
+The port's copy of ``hnet_mamba_asr_tpu/data/flac.py``. LibriSpeech ships
+as FLAC. ``read_flac`` decodes through the port's host library
+(``data/host_audio.py``, C++, every frame's CRCs checked), as the JAX
+package's ``read_flac`` goes through its native decoder; the numpy decoder
+here is its plain twin. Written from the FLAC format specification (RFC
+9639):
 
-- ``decode_flac_bytes`` / ``read_flac``: full subset decoder — constant /
+- ``decode_flac_bytes``: full subset decoder — constant /
   verbatim / fixed(0-4) / LPC subframes, rice + rice2 residuals with escape
   partitions, all four channel assignments (independent, left/side,
   right/side, mid/side), wasted bits, fixed and variable blocking, CRC-8 and
@@ -371,8 +373,10 @@ def decode_flac_bytes(data: bytes, *, verify_crc: bool = True
 
 
 def read_flac(path: str | Path) -> tuple[np.ndarray, int]:
-    """FLAC file -> (float64 mono waveform in [-1, 1], sample_rate)."""
-    samples, sr, bps = decode_flac_bytes(Path(path).read_bytes())
+    """FLAC file -> (float64 mono waveform in [-1, 1], sample_rate), decoded by
+    the host library."""
+    from hnet_mamba_asr_torch.data.host_audio import flac_decode
+    samples, sr, bps = flac_decode(Path(path).read_bytes())
     x = samples.astype(np.float64) / float(1 << (bps - 1))
     return (x[:, 0] if x.shape[1] == 1 else x.mean(axis=1)), sr
 

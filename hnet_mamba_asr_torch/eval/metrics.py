@@ -180,3 +180,10 @@ def word_errors(hyp: str, ref: str) -> tuple[int, int]:
     """(word edits, #ref words) — the trainer's inline WER accumulator unit."""
     rw = ref.split()
     return edit_distance(ref.split(), hyp.split()), len(rw)
+
+
+def char_errors(hyp: str, ref: str) -> tuple[int, int]:
+    """(char edits, #ref chars) with spaces stripped — the trainer's inline
+    CER accumulator unit."""
+    h, r = hyp.replace(" ", ""), ref.replace(" ", "")
+    return edit_distance(list(r), list(h)), len(r)

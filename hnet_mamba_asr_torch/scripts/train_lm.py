@@ -1,0 +1,72 @@
+"""Train the external Transformer LM on the LM corpus (the ASR model's BPE
+vocabulary).
+
+    python -m hnet_mamba_asr_torch.scripts.train_lm --config configs/lm_transformer_500.yaml \
+        [--resume auto|<ckpt>] [--exp-dir DIR] [--device cuda] [key.path=value ...]
+
+The JAX package's ``scripts/train_lm.py`` on one card: the train loader reads
+``data.lm_corpus`` (``data/lm_text.py``: a byte-offset line index and the
+token counts cached beside the file), the dev loaders the transcripts of
+``data.dev_splits``' manifests; the same ``Trainer`` as ASR, whose LM emits
+``batch_weight`` = scored tokens, so exp(valid/loss) is the token-weighted
+perplexity. ``valid.loss.ave.ckpt`` under ``checkpoints/`` is the file
+``decode.lm_checkpoint`` names. Expert parallelism (``train.ep`` > 1) is not
+ported and raises.
+"""
+from __future__ import annotations
+
+import argparse
+from pathlib import Path
+
+from hnet_mamba_asr_torch.scripts import REPO_ROOT
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--config", required=True)
+    ap.add_argument("--resume", default=None)
+    ap.add_argument("--exp-dir", default=None)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("overrides", nargs="*")
+    return ap.parse_args(argv)
+
+
+def run(args):
+    from hnet_mamba_asr_torch.serving.runtime import require_device
+    from hnet_mamba_asr_torch.tasks.build import build_tokenizer
+    from hnet_mamba_asr_torch.tasks.lm_task import build_lm, build_lm_dataloaders
+    from hnet_mamba_asr_torch.training.trainer import Trainer
+    from hnet_mamba_asr_torch.utils.config import flatten_config, load_config
+    from hnet_mamba_asr_torch.utils.logging_utils import get_logger, setup_logging
+    from hnet_mamba_asr_torch.utils.metrics_logger import MetricsLogger
+    from hnet_mamba_asr_torch.utils.provenance import collect_provenance
+
+    device = require_device(args.device)
+    cfg = load_config(args.config, args.overrides)
+    name = (cfg.get("experiment", {}) or {}).get("name", Path(args.config).stem)
+    exp_dir = Path(args.exp_dir) if args.exp_dir else REPO_ROOT / "experiments" / name
+    setup_logging("train_lm", exp_dir / "logs")
+    logger = get_logger("train_lm")
+    seed = int((cfg.get("experiment", {}) or {}).get("seed", 0))
+    flat = flatten_config(cfg)
+    if int(flat.get("ep", 1) or 1) > 1:
+        raise NotImplementedError(f"train.ep={flat['ep']!r} is not ported")
+
+    tokenizer = build_tokenizer(cfg, REPO_ROOT)
+    train_loader, _, dev_loaders = build_lm_dataloaders(cfg, REPO_ROOT, tokenizer, seed=seed)
+    model = build_lm(cfg, tokenizer.vocab_size, seed=seed, device=device)
+    metrics = MetricsLogger(exp_dir, resume=args.resume is not None)
+    prov = collect_provenance(cfg, repo_root=REPO_ROOT, seed=seed)
+    trainer = Trainer(model, train_loader, flat, dev_loaders=dev_loaders, tokenizer=None,
+                      metrics=metrics, ckpt_dir=exp_dir / "checkpoints", seed=seed,
+                      provenance=prov, device=device)
+    logger.info("training LM %s -> %s", name, exp_dir)
+    try:
+        trainer.train(resume=args.resume)
+    finally:
+        metrics.close()
+    return trainer
+
+
+if __name__ == "__main__":
+    run(parse_args())

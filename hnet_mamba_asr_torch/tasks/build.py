@@ -1,21 +1,24 @@
-"""Run assembly: resolved config -> tokenizer, CMVN and manifest paths.
+"""Run assembly: resolved config -> tokenizer, CMVN, manifest paths and the
+training dataloaders.
 
-Counterpart of ``hnet_mamba_asr_tpu/tasks/build.py`` (``_resolve``,
-``build_tokenizer``, ``build_cmvn``, ``resolve_manifests``) over the port's
-``data/tokenizer.py`` and ``data/features.py``. Relative paths resolve
-against ``repo_root``, for the command-line tools and the artifact loaders
-``REPO_ROOT``, as the JAX scripts resolve them. The training dataloaders are
-not ported here.
+Counterpart of ``hnet_mamba_asr_tpu/tasks/build.py`` over the port's
+``data/`` modules, for one card: rows are not padded to a device count
+(``batch_multiple`` 1) and no loader is sharded across processes. Relative
+paths resolve against ``repo_root``, for the command-line tools and the
+artifact loaders ``REPO_ROOT``, as the JAX scripts resolve them.
 """
 from __future__ import annotations
 
+import logging
 from pathlib import Path
 from typing import Any, Mapping
 
+from hnet_mamba_asr_torch.data.dataset import ASRDataset, make_dataloader
 from hnet_mamba_asr_torch.data.features import GlobalCMVN
 from hnet_mamba_asr_torch.data.tokenizer import Tokenizer
 
 REPO_ROOT = Path(__file__).resolve().parents[2]
+logger = logging.getLogger(__name__)
 
 
 def _resolve(path: str | Path, repo_root: Path) -> Path:
@@ -44,3 +47,31 @@ def resolve_manifests(cfg: Mapping[str, Any], repo_root: str | Path):
     train = mdir / f"{data.get('train_manifest', 'train-960')}.jsonl"
     dev = {name: mdir / f"{name}.jsonl" for name in data.get("dev_splits", [])}
     return train, dev
+
+
+def build_dataloaders(cfg, repo_root, tokenizer, *, seed: int = 0):
+    """-> (train loader, its sampler, {dev split: loader}). The train loader
+    speed-perturbs (``train.speed_perturb``) through ``data.perturb_cache_dir``,
+    prefetches ``train.prefetch`` batches (default 2) and ships waves as
+    ``data.wire_dtype``; every dev split is scored whole, unperturbed and
+    unshuffled."""
+    batch_bins = int(cfg["batch_bins"])
+    train_cfg = cfg.get("train", {}) or {}
+    data = cfg.get("data", {}) or {}
+    prefetch = int(train_cfg.get("prefetch", 2))
+    wire = str(data.get("wire_dtype", "float32"))
+    train_manifest, dev_manifests = resolve_manifests(cfg, repo_root)
+    pcache = data.get("perturb_cache_dir")
+    train_ds = ASRDataset(train_manifest, tokenizer, augment=True, seed=seed,
+                          speed_perturb=train_cfg.get("speed_perturb"),
+                          perturb_cache_dir=_resolve(pcache, Path(repo_root)) if pcache else None)
+    train_loader, train_sampler = make_dataloader(train_ds, batch_bins, shuffle=True, seed=seed,
+                                                  prefetch=prefetch, wire_dtype=wire)
+    dev_loaders = {}
+    for name, mpath in dev_manifests.items():
+        ds = ASRDataset(mpath, tokenizer, augment=False, seed=seed)
+        dev_loaders[name], _ = make_dataloader(ds, batch_bins, shuffle=False, seed=seed,
+                                               wire_dtype=wire)
+    logger.info("dataloaders: train=%d batches (%s), dev=%s", len(train_sampler),
+                train_manifest.name, {k: len(v) for k, v in dev_loaders.items()})
+    return train_loader, train_sampler, dev_loaders

@@ -6,23 +6,29 @@ line), so that the trainer's weighted loss makes ``exp(loss)`` a token-
 weighted perplexity. Dropout draws from (23, step), as in the JAX task. An
 MoE LM (``lm_conf.moe``) adds its load-balance aux loss at ``aux_weight``.
 ``build_lm`` reads ``lm_conf`` (the LM computes in fp32, as the JAX
-``build_lm`` builds it). ``TokenLineLoader`` batches tokenized text lines
-under a token budget; reading the LM corpus files (``data/lm_text.py``) is
-not ported.
+``build_lm`` builds it). ``build_lm_dataloaders`` reads the corpus file
+``data.lm_corpus`` and the dev manifests' transcripts (``data/lm_text.py``);
+``TokenLineLoader`` batches tokenized lines held in memory under a token
+budget.
 """
 from __future__ import annotations
 
+import logging
+from pathlib import Path
 from typing import Any, Mapping, Sequence
 
 import numpy as np
 import torch
 import torch.nn as nn
 
+from hnet_mamba_asr_torch.data.lm_text import LMTextDataset, make_lm_dataloader
 from hnet_mamba_asr_torch.models.lm import TransformerLM
 from hnet_mamba_asr_torch.models.moe import moe_aux
 from hnet_mamba_asr_torch.ops.specaug import seed_from
+from hnet_mamba_asr_torch.tasks.build import _resolve, resolve_manifests
 
 DROPOUT_SEED = 23
+logger = logging.getLogger(__name__)
 
 
 class LMModel(nn.Module):
@@ -70,6 +76,28 @@ def build_lm(config: Mapping[str, Any], vocab_size: int, max_tokens: int | None 
     model = LMModel(lm, max_tokens=int(max_tokens or lc.get("max_line_tokens", 512)),
                     moe_aux_weight=float(mc.get("aux_weight", 0.01)))
     return model.to(torch.device(device)).eval()
+
+
+def build_lm_dataloaders(cfg, repo_root, tokenizer, *, seed: int = 0):
+    """-> (train loader over ``data.lm_corpus``, its sampler, {dev split:
+    loader over the split manifest's transcripts}); batches of at most
+    ``batch_tokens`` (rows x longest line), lines cut at
+    ``lm_conf.max_line_tokens``. Dev loaders are unshuffled."""
+    data = cfg.get("data", {}) or {}
+    batch_tokens = int(cfg["batch_tokens"])
+    max_tokens = int((cfg.get("lm_conf", {}) or {}).get("max_line_tokens", 512))
+    corpus = _resolve(data["lm_corpus"], Path(repo_root))
+    train_ds = LMTextDataset(tokenizer, corpus_path=corpus, max_tokens=max_tokens)
+    train_loader, train_sampler = make_lm_dataloader(train_ds, batch_tokens, shuffle=True,
+                                                     seed=seed)
+    _, dev_manifests = resolve_manifests(cfg, repo_root)
+    dev_loaders = {}
+    for name, mpath in dev_manifests.items():
+        ds = LMTextDataset.from_manifest(mpath, tokenizer, max_tokens=max_tokens)
+        dev_loaders[name], _ = make_lm_dataloader(ds, batch_tokens, shuffle=False, seed=seed)
+    logger.info("lm dataloaders: train=%d batches (%s), dev=%s", len(train_sampler),
+                corpus.name, {k: len(v) for k, v in dev_loaders.items()})
+    return train_loader, train_sampler, dev_loaders
 
 
 class TokenLineLoader:

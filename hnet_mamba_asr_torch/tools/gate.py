@@ -202,3 +202,59 @@ def decode_batch_items(rng, n: int, seconds=(2.0, 16.0)) -> list[dict]:
                       "tokens": rng.integers(4, VOCAB, size=int(rng.integers(10, 40))).astype(
                           np.int32)})
     return items
+
+
+def lexicon(rng, n_words: int = 400) -> list[str]:
+    """``n_words`` distinct seeded lower-case words of 2-9 letters: enough
+    distinct letter pairs that a BPE of 500 pieces trains on their text."""
+    words: set[str] = set()
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    while len(words) < n_words:
+        words.add("".join(rng.choice(letters, size=int(rng.integers(2, 10)))))
+    return sorted(words)
+
+
+def _write_utterance(job) -> None:
+    from hnet_mamba_asr_torch.data.audio import write_wav
+    from hnet_mamba_asr_torch.data.flac import write_flac
+    path, seed, samples = job
+    wave = synth_audio(np.random.default_rng(seed), 0.0, samples=samples)
+    (write_flac if path.endswith(".flac") else write_wav)(path, wave, SR)
+
+
+def librispeech_tree(root, splits: dict, seed: int, seconds=(2.0, 16.0), wav_every: int = 4,
+                     n_words: int = 400, workers: int = 1) -> dict:
+    """A seeded synthetic corpus in LibriSpeech's layout under ``root``:
+    ``<split>/<speaker>/<chapter>/<speaker>-<chapter>-<nnnn>.{flac,wav}``
+    beside ``<speaker>-<chapter>.trans.txt``, ``splits[split]`` utterances of
+    ``seconds`` each (every ``wav_every``-th a WAV, the rest FLAC), two
+    speakers a split, transcripts of 2.5 words a second from ``lexicon``.
+    ``workers`` > 1 encodes in that many spawned processes. -> {split: [(id, text,
+    samples)]}."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from pathlib import Path
+    rng = np.random.default_rng(seed)
+    words = lexicon(rng, n_words)
+    jobs, out = [], {}
+    for s_i, (split, n) in enumerate(splits.items()):
+        out[split] = []
+        for i in range(n):
+            spk, chap = 100 + 10 * s_i + i % 2, 7
+            uid = f"{spk}-{chap}-{i:04d}"
+            d = Path(root) / split / str(spk) / str(chap)
+            d.mkdir(parents=True, exist_ok=True)
+            samples = int(rng.uniform(*seconds) * SR)
+            text = " ".join(rng.choice(words, size=max(1, int(2.5 * samples / SR))))
+            with open(d / f"{spk}-{chap}.trans.txt", "a") as f:
+                f.write(f"{uid} {text.upper()}\n")
+            ext = ".wav" if i % wav_every == 0 else ".flac"
+            jobs.append((str(d / f"{uid}{ext}"), seed * 1000 + s_i * 100 + i, samples))
+            out[split].append((uid, text.upper(), samples))
+    if workers > 1:
+        with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+            list(pool.map(_write_utterance, jobs))
+    else:
+        for job in jobs:
+            _write_utterance(job)
+    return out

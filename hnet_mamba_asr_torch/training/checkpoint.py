@@ -1,6 +1,11 @@
 """Checkpoints, counterpart of ``hnet_mamba_asr_tpu/training/checkpoint.py``
 (its pickle backend): one atomic pickle per file (tmp, fsync,
-``os.replace``), ``epoch%04d.ckpt`` and ``latest.ckpt``.
+``os.replace``), ``epoch%04d.ckpt`` and ``latest.ckpt``; the N-best tools
+``remove_checkpoint``, ``average_checkpoints`` (the fp32 mean of
+``params``, saved as ``{"params", "averaged"}``, which JAX's
+``load_checkpoint`` and the port's ``tasks/decode_task.py::load_model_params``
+read) and ``update_best_symlink`` (``<phase>.<metric>.best.ckpt`` ->
+``epoch%04d.ckpt``).
 
 The file holds the JAX package's layout, so that its ``load_checkpoint``
 reads what the port writes: ``params`` is the flax param tree as numpy
@@ -15,6 +20,7 @@ from __future__ import annotations
 
 import os
 import pickle
+import shutil
 from pathlib import Path
 
 import numpy as np
@@ -66,6 +72,42 @@ def load_checkpoint(path: str | Path) -> dict:
     """Unpickle a checkpoint (only files this program wrote)."""
     with open(path, "rb") as f:
         return pickle.load(f)
+
+
+def remove_checkpoint(path: str | Path) -> None:
+    """Delete a checkpoint file (a directory only if it is no symlink)."""
+    path = Path(path)
+    if path.is_dir() and not path.is_symlink():
+        shutil.rmtree(path, ignore_errors=True)
+    else:
+        path.unlink(missing_ok=True)
+
+
+def average_checkpoints(paths) -> dict:
+    """fp32 mean of several checkpoints' ``params`` -> {"params", "averaged"}."""
+    if not paths:
+        raise ValueError("no checkpoints to average")
+    acc = None
+    for p in paths:
+        params = load_checkpoint(p)["params"]
+        as32 = _tree_map(lambda x: np.asarray(x, np.float32), params)
+        acc = as32 if acc is None else _tree_map(np.add, acc, as32)
+    return {"params": _tree_map(lambda x: x / len(paths), acc),
+            "averaged": [str(p) for p in paths]}
+
+
+def _tree_map(fn, *trees):
+    """``fn`` over the leaves of nested dicts of the same keys."""
+    if isinstance(trees[0], dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def update_best_symlink(ckpt_dir: Path, phase: str, metric: str, epoch: int) -> None:
+    link = Path(ckpt_dir) / f"{phase}.{metric}.best.ckpt"
+    if link.exists() or link.is_symlink():
+        link.unlink()
+    link.symlink_to(f"epoch{epoch:04d}.ckpt")
 
 
 def resolve_resume(ckpt_dir: Path, resume) -> Path | None:

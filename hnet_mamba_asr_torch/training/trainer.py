@@ -4,7 +4,7 @@ for one card.
 Model contract (the JAX one, built by ``tasks/asr_task.py`` and
 ``tasks/lm_task.py``): ``loss_fn(batch, step, train) -> (loss, stats)`` with
 "loss/total" and "batch_weight" in the stats, and, for an ASR model,
-``greedy_decode(batch) -> list[list[int]]`` for the inline dev WER.
+``greedy_decode(batch) -> list[list[int]]`` for the inline dev WER / CER.
 ``train_loader`` yields host batches (numpy dicts, ``data/dataset.py``) and
 may have ``set_epoch``.
 
@@ -12,25 +12,47 @@ may have ``set_epoch``.
   before its backward, so that the fp32 ``.grad`` of the parameters sums to
   the mean gradient (the JAX ``micro_step``); every ``accum_grad`` micro-steps
   one update: the global-norm clip (L2 only), the learning rate of the
-  update's count, AdamW. A partial group at the end of an epoch is dropped,
-  as in the JAX loop. The compute dtype is the model's (bf16 for the gate
-  config) from fp32 master weights.
+  update's count, the optimizer (``training/optim.py``). A partial group at
+  the end of an epoch is dropped, as in the JAX loop. The compute dtype is
+  the model's (bf16 for the gate config) from fp32 master weights.
 - Determinism: SpecAugment is a function of (seed, epoch, item index),
   dropout of (17, step), the sampler's order of (seed + epoch); a checkpoint
   holds integers, not RNG state, so ``train(resume=...)`` continues exactly.
-- Checkpoints: ``epoch%04d.ckpt`` and ``latest.ckpt`` every
-  ``valid_interval_epoch`` epochs, at the last epoch and at ``max_steps``
-  (``training/checkpoint.py``), in the JAX package's layout.
-- ``history`` keeps one record per update: step, loss, grad norm, lr, mel
-  frames of the real rows and the update's time (CUDA events on the card,
-  from its first micro-step to the end of the optimizer step). The host
-  waits for the device once per update, when it reads the stats and the
-  gradient norm, so that it queues the next micro-step while the device
-  runs the last.
+- Validation (every ``valid_interval_epoch`` epochs and at the last): each
+  dev split's weighted loss and, with a tokenizer and a model that has
+  ``greedy_decode``, WER and CER of the decoded text, logged as
+  ``dev_<split>/<metric>``; their means over the splits are
+  ``metric_history[("valid", metric)]``.
+- Selection, as JAX's: ``best_model_criterion`` ([phase, metric, mode]
+  triples) picks the best epoch per criterion (``<phase>.<metric>.best.ckpt``
+  symlinks), pruning keeps the union of each criterion's
+  ``keep_nbest_models`` best epochs and the current one (unless
+  ``keep_all_checkpoints``), early stopping fires when the epochs since the
+  last best that beat the running best by more than ``min_delta`` exceed
+  ``patience`` (all criteria with ``require_all``, else any), and at the end
+  the N best of each criterion are averaged in fp32 into
+  ``<phase>.<metric>.ave.ckpt``.
+- Checkpoints: ``epoch%04d.ckpt`` and ``latest.ckpt`` at each validation
+  epoch and at ``max_steps`` (``training/checkpoint.py``), in the JAX
+  package's layout. With ``async_ckpt`` (default) the state is copied to the
+  host on the main thread and pickled and written by ``AsyncWriter``'s
+  thread, which also runs the symlink and pruning jobs in order; a load or
+  an average waits for it.
+- Metrics: with a ``MetricsLogger`` every ``_record`` is a JSONL line, every
+  ``log_interval`` updates a ``train/*`` window (the update's mean stats,
+  ``train/lr``, ``train/grad_norm``, ``train/samples_per_s``), the
+  provenance goes under ``summary.json``'s "provenance" and the closing
+  summary holds ``final_step``, ``epochs``, ``n_devices``, ``config`` and
+  ``best_<phase>_<metric>[_epoch]``.
+- ``history`` keeps one record per update: step, epoch, loss, grad norm, lr,
+  mel frames of the real rows, the update's time (CUDA events on the card,
+  from its first micro-step to the end of the optimizer step) and
+  ``wait_ms``, the host time the loop waited on the loader in the update.
+  The host waits for the device once per update, when it reads the stats
+  and the gradient norm, so that it queues the next micro-step while the
+  device runs the last.
 
-N-best selection, early stopping, best symlinks, checkpoint averaging,
-``scan_steps``, meshes and FSDP are not ported; their keys raise where they
-would change what a run does.
+``scan_steps``, meshes (fsdp, tp, pp, sp, ep) and orbax raise.
 """
 from __future__ import annotations
 
@@ -43,9 +65,10 @@ import numpy as np
 import torch
 
 from hnet_mamba_asr_torch.convert import jax_to_state_dict, state_dict_to_jax_tree
-from hnet_mamba_asr_torch.data.dataset import feat_frames
-from hnet_mamba_asr_torch.eval.metrics import word_errors
+from hnet_mamba_asr_torch.data.manifests import feat_frames
+from hnet_mamba_asr_torch.eval.metrics import char_errors, word_errors
 from hnet_mamba_asr_torch.training import checkpoint as ckpt
+from hnet_mamba_asr_torch.training.async_ckpt import AsyncWriter
 from hnet_mamba_asr_torch.training.optim import build_optimizer, clip_by_global_norm, set_lr
 from hnet_mamba_asr_torch.utils.config import flatten_config  # noqa: F401 (re-export)
 
@@ -55,27 +78,40 @@ DEVICE_KEYS = ("wave", "wave_lens", "tokens", "token_lens", "row_mask")
 NOT_PORTED = ("scan_steps", "fsdp", "tp", "pp", "sp", "ep")
 
 
+def _owned(obj):
+    """A copy of every numpy array in a nested state (no view of a live tensor)."""
+    if isinstance(obj, np.ndarray):
+        return obj.copy()
+    if isinstance(obj, dict):
+        return {k: _owned(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_owned(v) for v in obj)
+    return obj
+
+
 class Trainer:
     """Single-card training loop over host batches."""
 
     def __init__(self, model, train_loader, cfg, *, dev_loaders=None, tokenizer=None,
-                 ckpt_dir="checkpoints", seed: int = 0, device="cuda"):
+                 metrics=None, ckpt_dir="checkpoints", seed: int = 0, provenance=None,
+                 device="cuda"):
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.train_loader = train_loader
         self.dev_loaders = dict(dev_loaders or {})
         self.tokenizer = tokenizer
+        self.metrics = metrics
+        self.provenance = provenance
         self.cfg = dict(cfg)
         self.seed = int(seed)
         self.ckpt_dir = Path(ckpt_dir)
+        self.ckpt_dir.mkdir(parents=True, exist_ok=True)
         g = self.cfg.get
         for key in NOT_PORTED:
             if g(key) not in (None, False, 0, 1):
                 raise NotImplementedError(f"train.{key}={g(key)!r} is not ported")
         if str(g("ckpt_backend", "pickle")) != "pickle":
             raise NotImplementedError("only the pickle checkpoint backend is ported")
-        if (g("early_stopping") or {}).get("enable", False):
-            logger.warning("Trainer: early stopping is not ported; the run goes to max_epoch")
         self.max_epoch = int(g("max_epoch", 120))
         self.grad_clip = float(g("grad_clip", 5.0))
         if float(g("grad_clip_type", 2.0)) != 2.0:
@@ -83,7 +119,12 @@ class Trainer:
         self.accum_grad = max(1, int(g("accum_grad", 1)))
         self.log_interval = int(g("log_interval", 50))
         self.valid_interval = int(g("valid_interval_epoch", 10))
+        self.keep_nbest = int(g("keep_nbest_models", 5))
+        self.keep_all = bool(g("keep_all_checkpoints", False))
         self.max_steps = g("max_steps")
+        self.best_model_criterion = [tuple(c) for c in
+                                     g("best_model_criterion", [["valid", "loss", "min"]])]
+        self.early_stopping = dict(g("early_stopping", {}) or {})
         self.params = [p for p in self.model.parameters() if p.requires_grad]
         self.opt, self.lr_schedule = build_optimizer(
             g("optim", "adamw"), dict(g("optim_conf", {}) or {}), g("scheduler"),
@@ -91,8 +132,11 @@ class Trainer:
         self.epoch, self.global_step = 0, 0
         self.metric_history: dict[tuple[str, str], dict[int, float]] = {}
         self.history: list[dict] = []
-        logger.info("Trainer: device=%s params=%.1fM accum_grad=%d", self.device,
-                    sum(p.numel() for p in self.params) / 1e6, self.accum_grad)
+        self._ckpt_writer = AsyncWriter() if bool(g("async_ckpt", True)) else None
+        logger.info("Trainer: device=%s params=%.1fM accum_grad=%d optim=%s sched=%s "
+                    "dev_splits=%s", self.device, sum(p.numel() for p in self.params) / 1e6,
+                    self.accum_grad, g("optim", "adamw"), g("scheduler"),
+                    list(self.dev_loaders))
 
     # ---- one update ------------------------------------------------------
     def _to_device(self, batch: dict) -> dict:
@@ -130,43 +174,84 @@ class Trainer:
             return start.elapsed_time(end)
         return (end - start) * 1e3
 
+    # ---- bookkeeping ----------------------------------------------------------
+    def _record(self, phase: str, metric: str, value: float) -> None:
+        self.metric_history.setdefault((phase, metric), {})[self.epoch] = float(value)
+        if self.metrics is not None:
+            self.metrics.log_scalar(f"{phase}/{metric}", float(value), self.global_step,
+                                    split=phase, epoch=self.epoch)
+
+    def _best_epoch(self, phase, metric, mode):
+        hist = self.metric_history.get((phase, metric))
+        if not hist:
+            return None
+        pick = min if mode == "min" else max
+        return pick(hist, key=lambda e: hist[e])
+
+    def _finish_step(self, record: dict, rows: int) -> None:
+        """The JAX ``_finish_step``'s log window: every ``log_interval``
+        updates, this update's mean stats with the rate applied, the gradient
+        norm and the rows a second since the last window."""
+        self.history.append(record)
+        win = self._window
+        win["rows"] += rows
+        if self.global_step % self.log_interval:
+            return
+        dt = time.time() - win["t0"]
+        logger.info("step %d: %s", self.global_step, record)
+        if self.metrics is not None:
+            payload = {k: record[k] for k in self._stat_keys}
+            payload.update({"train/lr": record["lr"], "train/grad_norm": record["grad_norm"],
+                            "train/samples_per_s": win["rows"] / dt if dt > 0 else 0.0})
+            self.metrics.log_scalars(payload, self.global_step, split="train",
+                                     epoch=self.epoch)
+        win["rows"], win["t0"] = 0, time.time()
+
     # ---- one epoch --------------------------------------------------------
     def _train_epoch(self) -> None:
         if hasattr(self.train_loader, "set_epoch"):
             self.train_loader.set_epoch(self.epoch)
+        self._window = {"rows": 0, "t0": time.time()}
         sums = np.zeros(2)                         # epoch's sum of loss x weight, weight
-        micro, step_stats, frames, start, keys = 0, [], 0, None, []
+        micro, step_stats, frames, rows, wait, start = 0, [], 0, 0, 0.0, None
+        self._stat_keys = []
 
         def fold() -> dict:
             # the micro-steps' stats to the host, one copy per update
-            cols = dict(zip(keys, torch.stack(step_stats).cpu().numpy().T))
+            cols = dict(zip(self._stat_keys, torch.stack(step_stats).cpu().numpy().T))
             sums[:] += ((cols["loss/total"] * cols["batch_weight"]).sum(),
                         cols["batch_weight"].sum())
             return cols
 
-        for batch in self.train_loader:
+        batches = iter(self.train_loader)
+        while True:
+            t_wait = time.perf_counter()
+            batch = next(batches, None)
+            wait += time.perf_counter() - t_wait
+            if batch is None:
+                break
             batch = dict(batch)
             batch.pop("ids", None)
             if start is None:
                 start = self._timer()
             stats = self._micro_step(batch)
-            keys = list(stats)
-            step_stats.append(torch.stack([stats[k].float() for k in keys]))
-            rows = np.asarray(batch["row_mask"], bool)
+            self._stat_keys = list(stats)
+            step_stats.append(torch.stack([stats[k].float() for k in self._stat_keys]))
+            real = np.asarray(batch["row_mask"], bool)
+            rows += int(real.sum())
             if "wave_lens" in batch:
-                frames += sum(feat_frames(int(n)) for n in np.asarray(batch["wave_lens"])[rows])
+                frames += sum(feat_frames(int(n)) for n in np.asarray(batch["wave_lens"])[real])
             micro += 1
             if micro % self.accum_grad:
                 continue
             gnorm, lr = self._apply_step()
             end = self._timer()
             record = {"step": self.global_step, "epoch": self.epoch, "grad_norm": gnorm,
-                      "lr": lr, "frames": frames, "ms": self._elapsed_ms(start, end)}
+                      "lr": lr, "frames": frames, "ms": self._elapsed_ms(start, end),
+                      "wait_ms": wait * 1e3}
             record.update({k: float(v.mean()) for k, v in fold().items()})
-            self.history.append(record)
-            if self.global_step % self.log_interval == 0:
-                logger.info("step %d: %s", self.global_step, record)
-            step_stats, frames, start = [], 0, None
+            self._finish_step(record, rows)
+            step_stats, frames, rows, wait, start = [], 0, 0, 0.0, None
             if self.max_steps and self.global_step >= self.max_steps:
                 break
         if step_stats:
@@ -174,62 +259,157 @@ class Trainer:
         self.opt.zero_grad(set_to_none=True)      # a partial group is dropped
         self._record("train", "loss", sums[0] / max(1.0, sums[1]))
 
-    def _record(self, phase: str, metric: str, value: float) -> None:
-        self.metric_history.setdefault((phase, metric), {})[self.epoch] = float(value)
-
     # ---- validation ------------------------------------------------------------
     def validate(self) -> dict:
-        """Loss and greedy WER (CTC, or AED without a CTC head) on every dev
-        split (token ids as words when there is no tokenizer)."""
-        per_split, agg = {}, {"loss": [], "wer": []}
-        decode = (self.tokenizer.decode if self.tokenizer is not None
-                  else lambda ids: " ".join(str(int(i)) for i in ids))
+        """Per dev split: the weighted loss and, with a tokenizer and a model
+        that has ``greedy_decode``, WER and CER (%) of the decoded text;
+        ``valid/<metric>`` records the mean over the splits."""
+        per_split, agg = {}, {"loss": [], "wer": [], "cer": []}
+        score = self.tokenizer is not None and hasattr(self.model, "greedy_decode")
         for name, loader in self.dev_loaders.items():
             ls = ws = 0.0
-            werr = wtot = 0
+            werr = wtot = cerr = ctot = 0
             for batch in loader:
                 batch = dict(batch)
                 batch.pop("ids", None)
+                b_real = int(np.asarray(batch["row_mask"]).sum())
                 dev_batch = self._to_device(batch)
                 with torch.no_grad():
                     _, stats = self.model.loss_fn(dev_batch, 0, False)
-                w = float(stats["batch_weight"])
+                w = float(stats["batch_weight"]) if "batch_weight" in stats else float(b_real)
                 ls += float(stats["loss/total"]) * w
                 ws += w
-                if hasattr(self.model, "greedy_decode"):
+                if score:
                     hyps = self.model.greedy_decode(dev_batch)
                     tokens, tlens = np.asarray(batch["tokens"]), np.asarray(batch["token_lens"])
-                    for j in np.flatnonzero(np.asarray(batch["row_mask"], bool)):
-                        we, wc = word_errors(decode(hyps[j]), decode(tokens[j, :tlens[j]]))
+                    for j in range(b_real):
+                        ref = self.tokenizer.decode(tokens[j, :tlens[j]].tolist())
+                        hyp = self.tokenizer.decode(hyps[j])
+                        we, wc = word_errors(hyp, ref)
+                        ce, cc = char_errors(hyp, ref)
                         werr += we
                         wtot += wc
+                        cerr += ce
+                        ctot += cc
             if ws <= 0:
                 raise RuntimeError(f"validation split {name}: no batches scored")
             m = {"loss": ls / ws}
             if wtot > 0:
                 m["wer"] = 100.0 * werr / wtot
+            if ctot > 0:
+                m["cer"] = 100.0 * cerr / ctot
             per_split[name] = m
             for k in agg:
                 if k in m:
                     agg[k].append(m[k])
+            if self.metrics is not None:
+                self.metrics.log_scalars({f"dev_{name}/{k}": v for k, v in m.items()},
+                                         self.global_step, split=name, epoch=self.epoch)
         for k, values in agg.items():
             if values:
                 self._record("valid", k, sum(values) / len(values))
         return per_split
 
+    # ---- selection / early stop --------------------------------------------------
+    def _submit(self, fn) -> None:
+        """Run a checkpoint-directory job on the writer's queue (or now)."""
+        self._ckpt_writer.submit(fn) if self._ckpt_writer else fn()
+
+    def _update_best_symlinks(self) -> None:
+        # which criteria this epoch is best for is decided now, on the live
+        # history; the link is made after the epoch file it points to
+        updates = [(phase, metric) for phase, metric, mode in self.best_model_criterion
+                   if self._best_epoch(phase, metric, mode) == self.epoch]
+        epoch = self.epoch
+        self._submit(lambda: [ckpt.update_best_symlink(self.ckpt_dir, phase, metric, epoch)
+                              for phase, metric in updates])
+
+    def _nbest(self, phase, metric, mode) -> list[int]:
+        hist = self.metric_history.get((phase, metric), {})
+        return sorted(hist, key=lambda e: hist[e], reverse=(mode == "max"))[:self.keep_nbest]
+
+    def _prune_checkpoints(self) -> None:
+        if self.keep_nbest <= 0 or self.keep_all:
+            return
+        keep = {self.epoch}
+        for criterion in self.best_model_criterion:
+            keep.update(self._nbest(*criterion))
+
+        def prune() -> None:
+            for p in self.ckpt_dir.glob("epoch*.ckpt"):
+                if int(p.stem[5:]) not in keep:
+                    ckpt.remove_checkpoint(p)
+        self._submit(prune)
+
+    def _last_significant_best(self, phase, metric, mode, min_delta):
+        """The last epoch that beat the running best by more than
+        ``min_delta``: improvements below it neither reset the patience nor
+        move the reference (``_best_epoch``, which selection uses, takes no
+        threshold)."""
+        hist = self.metric_history.get((phase, metric))
+        if not hist:
+            return None
+        best_ep = best_val = None
+        for e in sorted(hist):
+            v = hist[e]
+            if (best_val is None or (v < best_val - min_delta if mode == "min"
+                                     else v > best_val + min_delta)):
+                best_ep, best_val = e, v
+        return best_ep
+
+    def _should_early_stop(self) -> bool:
+        es = self.early_stopping
+        if not es.get("enable", False):
+            return False
+        results = []
+        for c in es.get("criteria", []):
+            be = self._last_significant_best(c["phase"], c["metric"], c.get("mode", "min"),
+                                             float(c.get("min_delta", 0.0)))
+            results.append(be is not None and (self.epoch - be) > int(c["patience"]))
+        if not results:
+            return False
+        stop = all(results) if es.get("require_all", True) else any(results)
+        if stop:
+            logger.info("early stop at epoch %d (criteria stalled: %s)", self.epoch, results)
+        return stop
+
+    def _average_nbest(self) -> None:
+        if self.keep_nbest <= 0:
+            return
+        self.flush_checkpoints()                   # averaging reads the epoch files
+        for phase, metric, mode in self.best_model_criterion:
+            paths = [self.ckpt_dir / f"epoch{e:04d}.ckpt"
+                     for e in self._nbest(phase, metric, mode)]
+            paths = [p for p in paths if p.exists()]
+            if not paths:
+                continue
+            ckpt.save_checkpoint(self.ckpt_dir / f"{phase}.{metric}.ave.ckpt",
+                                 ckpt.average_checkpoints(paths))
+            logger.info("averaged %d ckpts -> %s.%s.ave.ckpt", len(paths), phase, metric)
+
     # ---- checkpoints ----------------------------------------------------------
     def save_checkpoint(self) -> None:
+        """``epoch%04d.ckpt`` and ``latest.ckpt``: the state is copied to the
+        host here, so that later steps (which update it in place) cannot
+        reach into a save the writer thread still pickles."""
         state = {"params": state_dict_to_jax_tree(self.model.state_dict()),
                  "opt_state_format": "torch",
                  "torch_opt_state": ckpt.optimizer_state(self.opt),
                  "epoch": self.epoch, "global_step": self.global_step,
                  "metric_history": copy.deepcopy(self.metric_history),
                  "config": self.cfg, "seed": self.seed}
-        for p in (self.ckpt_dir / f"epoch{self.epoch:04d}.ckpt",
-                  self.ckpt_dir / "latest.ckpt"):
-            ckpt.save_checkpoint(p, state)
+        if self.device.type == "cpu":
+            state = _owned(state)                 # CPU tensors' numpy views share memory
+        paths = [self.ckpt_dir / f"epoch{self.epoch:04d}.ckpt", self.ckpt_dir / "latest.ckpt"]
+        self._submit(lambda: [ckpt.save_checkpoint(p, state) for p in paths])
+
+    def flush_checkpoints(self) -> None:
+        """Wait for pending saves; raise a writer failure."""
+        if self._ckpt_writer is not None:
+            self._ckpt_writer.flush()
 
     def load_checkpoint(self, path) -> None:
+        self.flush_checkpoints()
         state = ckpt.load_checkpoint(path)
         if state.get("opt_state_format") != "torch":
             raise ValueError(f"{path}: not a checkpoint of the port (its optimizer state "
@@ -243,21 +423,42 @@ class Trainer:
 
     # ---- the training loop -----------------------------------------------------
     def train(self, resume=None) -> None:
+        if self.metrics is not None and self.provenance is not None:
+            self.metrics.append_summary("provenance", self.provenance)
         path = ckpt.resolve_resume(self.ckpt_dir, resume)
         if path is not None and Path(path).exists():
             self.load_checkpoint(path)
         self.model.train()
         for epoch in range(self.epoch, self.max_epoch):
             if self.max_steps and self.global_step >= self.max_steps:
-                break
+                break                                 # a resumed run already at budget
             self.epoch = epoch
             self._train_epoch()
             save_now = (epoch + 1) % self.valid_interval == 0 or epoch + 1 == self.max_epoch
             if save_now and self.dev_loaders:
                 logger.info("epoch %d valid: %s", epoch, self.validate())
-            at_budget = bool(self.max_steps) and self.global_step >= self.max_steps
-            if save_now or at_budget:
+            if save_now:
                 self.save_checkpoint()
-            if at_budget:
+                if self.dev_loaders:
+                    self._update_best_symlinks()
+                self._prune_checkpoints()
+                if self.dev_loaders and self._should_early_stop():
+                    break
+            if self.max_steps and self.global_step >= self.max_steps:
+                if not save_now:
+                    self.save_checkpoint()
                 break
+        self._average_nbest()
+        if self._ckpt_writer is not None:
+            self._ckpt_writer.close()
+            self._ckpt_writer = None                  # later saves run synchronously
         self.model.eval()
+        if self.metrics is not None:
+            summary = {"final_step": self.global_step, "epochs": self.epoch + 1,
+                       "n_devices": 1, "config": self.cfg}
+            for phase, metric, mode in self.best_model_criterion:
+                be = self._best_epoch(phase, metric, mode)
+                if be is not None:
+                    summary[f"best_{phase}_{metric}"] = self.metric_history[(phase, metric)][be]
+                    summary[f"best_{phase}_{metric}_epoch"] = be
+            self.metrics.update_summary(**summary)

@@ -5,9 +5,12 @@ with a tiny decode of all 10 cells (the beams on the device searches) by a
 model with the RNN-T head and an MoE AED decoder and an MoE LM, the
 aed_ids, beam_ids, rnnt_ids and rnnt_beam_ids serving modes, a streaming
 session pool at N = 2, and chip_smoke.py run in a fresh interpreter with jax, flax and
-hnet_mamba_asr_tpu absent from sys.modules; and the deployment slice (the YAML
-reader, FLAC, the artifacts and every CLI of hnet_mamba_asr_torch.scripts) with
-PyYAML blocked as well, as the card's machine has none."""
+hnet_mamba_asr_tpu absent from sys.modules; the deployment slice (the YAML
+reader, FLAC, the artifacts and every CLI of hnet_mamba_asr_torch.scripts) and the
+training slice (the host audio library's binding, manifests, the speed-perturbed
+loader, the LM corpus reader, the optimizer registry, checkpoints, the async
+writer, the trainer, the metrics sink) with PyYAML blocked as well, as the card's
+machine has none."""
 import json
 import subprocess
 import sys
@@ -143,7 +146,12 @@ names = ["hnet_mamba_asr_torch.utils.config", "hnet_mamba_asr_torch.utils.loggin
          "hnet_mamba_asr_torch.utils.provenance", "hnet_mamba_asr_torch.tasks.build",
          "hnet_mamba_asr_torch.data.flac", "hnet_mamba_asr_torch.data.audio",
          "hnet_mamba_asr_torch.serving.quant", "hnet_mamba_asr_torch.serving.export",
-         "hnet_mamba_asr_torch.serving.runtime", "hnet_mamba_asr_torch.serving.server"]
+         "hnet_mamba_asr_torch.serving.runtime", "hnet_mamba_asr_torch.serving.server",
+         "hnet_mamba_asr_torch.data.host_audio", "hnet_mamba_asr_torch.data.manifests",
+         "hnet_mamba_asr_torch.data.dataset", "hnet_mamba_asr_torch.data.lm_text",
+         "hnet_mamba_asr_torch.tasks.lm_task", "hnet_mamba_asr_torch.training.optim",
+         "hnet_mamba_asr_torch.training.checkpoint", "hnet_mamba_asr_torch.training.async_ckpt",
+         "hnet_mamba_asr_torch.training.trainer", "hnet_mamba_asr_torch.utils.metrics_logger"]
 names += [f"hnet_mamba_asr_torch.scripts.{m.name}" for m in pkgutil.iter_modules(scripts.__path__)]
 for name in names:
     importlib.import_module(name)
@@ -172,5 +180,5 @@ def test_deployment_slice_runs_without_jax_or_pyyaml():
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["absent"] == []
-    assert out["modules"] == 15                       # 10 modules and the 5 CLIs
+    assert out["modules"] == 30                       # 20 modules and the 10 CLIs
     assert out["enc_lengths"] == [8]                  # 6000 samples: 36 mel frames

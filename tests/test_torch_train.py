@@ -322,8 +322,8 @@ def test_optimizer_matches_optax(hybrid, rng):
     got = _tree_leaves(convert.state_dict_to_jax_tree(model.state_dict()))
     for k, w in _tree_leaves(p).items():
         np.testing.assert_allclose(got[k], w, rtol=0, atol=1e-6, err_msg=k)
-    with pytest.raises(NotImplementedError):
-        optim.build_optimizer("sgd", dict(conf), None, None, model)
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        optim.build_optimizer("lamb", dict(conf), None, None, model)
 
 
 # ---- host batches ----------------------------------------------------------------
@@ -363,9 +363,12 @@ def _loader(seed=3, **kw):
 
 
 def _trainer(tmp_path, config, max_epoch, **cfg):
+    from hnet_mamba_asr_torch.tools.gate import seeded_tokenizer
     model = _port_model(config, seed=4)
+    tmp_path.mkdir(parents=True, exist_ok=True)
     return Trainer(model, _loader(), dict(TRAIN_CFG, max_epoch=max_epoch, **cfg),
                    dev_loaders={"dev": _loader(seed=8, shuffle=False)},
+                   tokenizer=seeded_tokenizer(tmp_path / "tok.model", V),
                    ckpt_dir=tmp_path, seed=3, device="cpu")
 
 
