@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU: serve, train and decode
 Type A Small at N=1, with H-Net dynamic chunking at N=2, with the RNN-T head
-and with an MoE AED decoder, and stream their causal siblings.
+and with an MoE AED decoder, stream their causal siblings, and run the
+interpretability suite.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
@@ -129,7 +130,8 @@ calls, at the full width of ``configs/typeA_small_N1.yaml`` and
                transcripts card == CPU for both engines and device ==
                lockstep on both sides, a request alone == inside a batch for
                ctc_beam_lm and joint_beam on both engines;
-15. rnnt    -- the RNN-T config at full width and the full-width LM: the
+15. rnnt    -- the RNN-T config at full width and the full-width LM (4 of
+               its 16 layers, a cut for the time limit, as phase 13's): the
                8 utterances of phase 13 through rnnt_greedy, rnnt_beam and
                rnnt_beam_lm on the device engine and the host's (its
                rnnt_beam_lm on the 2 shortest): RTF, encoder and search
@@ -146,8 +148,9 @@ calls, at the full width of ``configs/typeA_small_N1.yaml`` and
 17. moe     -- MoEFFN (8 experts, top 2) card vs CPU in fp32 with capacity
                drops; the MoE gate config through Trainer (3 updates,
                moe/aux and moe/dropped finite); aed_beam at full width and
-               the AED's dropped share; ctc_beam_lm with the MoE LM scored
-               dropless, the 2 shortest requests alone == batched;
+               the AED's dropped share; ctc_beam_lm with the MoE LM (4 of
+               its 16 layers, a cut for the time limit) scored dropless,
+               the 2 shortest requests alone == batched;
 18. stream  -- the carried EMA kernel against ema_stream (B 8 M 16, B 64
                M 256, D 384), the fp32 SSD kernel at L 16 from a carried
                state (zero-dt rows exact no-ops); the causal gate config and
@@ -198,14 +201,36 @@ calls, at the full width of ``configs/typeA_small_N1.yaml`` and
                valid.loss.ave.ckpt); the decode CLI's ctc_greedy,
                ctc_beam and ctc_beam_lm over dev-clean from the ASR's
                valid.loss.ave.ckpt with that LM; the host library's FLAC
-               decode == the numpy twin on one file, and its ms per item.
+               decode == the numpy twin on one file, and its ms per item;
+21. interp  -- (a) the tone-corpus interpretability gate
+               (``tools/interp_e2e.py``): analytic alignments checked, an N=2
+               model trained 12 epochs through the train CLI (validation and
+               a kept checkpoint every epoch), the four run_interp modes
+               through the CLI with the 'torch' probe backend: the word-id
+               probe on frames >= 0.8, the phone-class probe above its
+               majority, every aligned utterance's boundaries scored with
+               finite P/R/F1 and a random floor, every perturbation scored
+               with its consistency block, one emergence row per epoch; (b)
+               that final checkpoint's boundary report on the card in fp32
+               (TF32 off) and on the CPU: the hard boundaries equal, then the
+               reports; (c) ``configs/typeA_small_N2.yaml`` at full width
+               (seeded, random routers, a trainer-layout checkpoint) through
+               run_interp boundaries and probes on the tone audio: seconds
+               per mode (encoder and all), 40 ssd_fwd and 1 ema_fwd per
+               encoder pass; (d) the 'torch' probe fit on the card against
+               scipy's float64 optimum on the host at n 20,000, d 384, k 50
+               and k 2 (probabilities within 2e-5 and decisions equal where
+               scipy is confident; at k 50 scipy starts from the card's
+               weights; its final gradient below 1e-5), and a timed fit at n 200,000, d 384, k 500
+               with the time reckoned at the configs' train_cap of 1,000,000.
 
 The line before the last is a JSON summary of the kernels, with the
 launches of the full-width decode run on the device engine (ssd_fwd), of
 the RNN-T training run (rnnt_fwd, rnnt_bwd) and of the N = 2 training run
 (the others), and every path's counts (the streaming paths' as stream_*,
-the artifacts' as artifacts_*, the training CLIs' as train_cli_*; a
-streaming path's ema_fwd is the carried form);
+the artifacts' as artifacts_*, the training CLIs' as train_cli_*, the
+interpretability runs' as interp_*; a streaming path's ema_fwd is the
+carried form);
 the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -1473,7 +1498,7 @@ DECODE_UTTS = 8
 # well inside its time limit on a slow host (its time for the same work
 # varies by up to 1.4x from host to host): the widths are the configs', the
 # AED decoder keeps 2 of its 6 layers and the LM 4 of its 16 (phases 15 and
-# 17 run the LMs at full depth)
+# 17 cut their LMs the same way)
 DECODE_AED_LAYERS = 2
 DECODE_LM_LAYERS = 4
 DECODE_N_PARAMS = 67_815_593    # the gate config with the 2-layer AED decoder
@@ -2126,8 +2151,9 @@ RNNT_ALONE = 1
 
 def phase_rnnt_decode_full(cmvn, tmp: Path) -> dict:
     """The RNN-T config at full width (seeded, bf16) and the full-width LM
-    (seeded, fp32): phase 13's 8 utterances through rnnt_greedy, rnnt_beam
-    and rnnt_beam_lm with the shared encoder on the device engine and the
+    (seeded, fp32) cut to DECODE_LM_LAYERS layers, as phase 13's: phase 13's
+    8 utterances through rnnt_greedy, rnnt_beam and rnnt_beam_lm with the
+    shared encoder on the device engine and the
     host's (its rnnt_beam_lm over the RNNT_HOST_LM_UTTS shortest): per cell
     and engine the RTF, encoder and search seconds, and on the device engine
     the device's idle share (the cell alone on the first STEP_PROBE frames
@@ -2146,7 +2172,7 @@ def phase_rnnt_decode_full(cmvn, tmp: Path) -> dict:
     from hnet_mamba_asr_torch.tasks.lm_task import build_lm
     from hnet_mamba_asr_torch.tools.gate import LM_CONFIG, RNNT_CONFIG, seeded_tokenizer
     model = build_model(RNNT_CONFIG, VOCAB, cmvn=cmvn, seed=SEED)
-    lm = build_lm(LM_CONFIG, VOCAB, seed=SEED)
+    lm = build_lm(cut_lm(LM_CONFIG), VOCAB, seed=SEED)
     tok = seeded_tokenizer(tmp / "tok500_rnnt.model")
     scorer = CausalLMScorer(lm.lm, bos_id=tok.bos_id, eos_id=tok.eos_id, pad_id=tok.pad_id)
     items = decode_batch_items(np.random.default_rng(SEED + 50), DECODE_UTTS)
@@ -2408,8 +2434,9 @@ def phase_moe(cmvn, tmp: Path) -> dict:
     token mask, capacity drops present; the MoE gate config through Trainer (3
     updates); aed_beam at full width on the MoE model (AED cap DECODE_CAP),
     and the dropped share of its teacher-forced decoder on the batch's
-    references; ctc_beam_lm at full width with the MoE fusion LM scored
-    dropless, the MOE_ALONE shortest requests alone == inside the batch."""
+    references; ctc_beam_lm at full width with the MoE fusion LM (cut to
+    DECODE_LM_LAYERS layers, as phase 13's) scored dropless, the MOE_ALONE
+    shortest requests alone == inside the batch."""
     from hnet_mamba_asr_torch.data.dataset import ItemLoader, collate_batch
     from hnet_mamba_asr_torch.decoders.lm_scorer import CausalLMScorer
     from hnet_mamba_asr_torch.models.moe import MoEFFN
@@ -2448,7 +2475,7 @@ def phase_moe(cmvn, tmp: Path) -> dict:
     cfg = copy.deepcopy(MOE_CONFIG)
     cfg["aed_conf"]["max_decode_len"] = DECODE_CAP
     model = build_model(cfg, VOCAB, cmvn=cmvn, seed=SEED)
-    lm = build_lm(decode_task.dropless(LM_MOE_CONFIG), VOCAB, seed=SEED)
+    lm = build_lm(decode_task.dropless(cut_lm(LM_MOE_CONFIG)), VOCAB, seed=SEED)
     tok = seeded_tokenizer(tmp / "tok500_moe.model")
     scorer = CausalLMScorer(lm.lm, bos_id=tok.bos_id, eos_id=tok.eos_id, pad_id=tok.pad_id)
     items = decode_batch_items(np.random.default_rng(SEED + 50), DECODE_UTTS)
@@ -3506,6 +3533,225 @@ def phase_train_clis() -> dict:
     return out
 
 
+INTERP_EPOCHS = 12              # tests/test_interp_e2e.py's length and word-probe bar
+INTERP_WORD_BAR = 0.8
+INTERP_BUDGET_S = 90.0          # the phase's own time budget
+INTERP_FULL_MODES = ("boundaries", "probes")
+PROBE_TOL = 2e-5                # predicted probabilities where scipy is confident
+PROBE_CONFIDENT = 0.6
+PROBE_CHECK = (20_000, 384, 50)         # n, d (the full width's d_outer), k
+PROBE_TIMED = (200_000, 384, 500)       # k: the configs' interp.probe.top_k_words
+PROBE_TRAIN_CAP = 1_000_000             # the configs' interp.probe.train_cap
+PROBE_MAX_ITER = 1000                   # and max_iter
+PROBE_SEP = 0.15                # the clusters' mean spread (unit noise): half confident
+
+
+def probe_clusters(rng, n: int, d: int, k: int, n_test: int = 0):
+    """Seeded Gaussian clusters: class means N(0, PROBE_SEP^2 I) in d
+    dimensions, unit noise, labels uniform over k -> (X, y, X_test, y_test)."""
+    means = rng.normal(size=(k, d)) * PROBE_SEP
+    y = rng.integers(0, k, size=n + n_test)
+    X = (means[y] + rng.normal(size=(n + n_test, d))).astype(np.float32)
+    return X[:n], y[:n], X[n:], y[n:]
+
+
+def probe_against_scipy(rng, n: int, d: int, k: int) -> dict:
+    """The 'torch' fit on the card against scipy's float64 optimum on the
+    host, on k seeded clusters: predicted probabilities within PROBE_TOL and
+    decisions equal where scipy's top probability exceeds PROBE_CONFIDENT.
+    scipy (gtol 1e-8, no stop on the decrease alone) starts from zeros at k 2
+    and from the card's weights at k 50, where a start from zeros took 281
+    iterations (78 s on the host) and this ~1/3 of them: the objective is
+    convex and its optimum's probabilities unique, so the start does not
+    move the optimum (tests/test_torch_interp.py holds the two starts within
+    1e-6 of each other). Its float64 line search stalls near |grad| 1e-6
+    (a step's decrease falls below f's rounding); its final |grad| must be
+    below the device fit's own stop, 1e-5."""
+    from hnet_mamba_asr_torch.interp import probes
+    X, y, X_test, _ = probe_clusters(rng, n, d, k, n_test=5000)
+    t0 = time.perf_counter()
+    W, b, n_iter, grad = probes.torch_lbfgs_weights(X, y, k, max_iter=PROBE_MAX_ITER, C=1.0)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    W64, b64, n_iter64, grad64 = probes.lbfgs_weights(
+        X, y, k, max_iter=5000, C=1.0, gtol=1e-8, ftol=0.0, init=(W, b) if k > 2 else None)
+    host_s = time.perf_counter() - t0
+    got, want = probes.predict_proba(W, b, X_test), probes.predict_proba(W64, b64, X_test)
+    confident = want.max(axis=1) > PROBE_CONFIDENT
+    out = dict(n=n, d=d, k=k, n_iter=n_iter, grad=grad, scipy_n_iter=n_iter64,
+               scipy_grad=grad64, card_s=card_s, scipy_s=host_s,
+               confident=float(confident.mean()),
+               max_abs=float(np.abs(got - want)[confident].max()),
+               decisions=bool((got.argmax(1) == want.argmax(1))[confident].all()))
+    log(f"  probe fit k {k}, n {n}, d {d}: card {card_s:.2f} s, {n_iter} iterations, "
+        f"|grad| {grad:.2e}; scipy float64 from {'it' if k > 2 else 'zeros'} {host_s:.2f} s, "
+        f"{n_iter64} iterations, "
+        f"|grad| {grad64:.2e}; where scipy is confident ({out['confident']:.1%} of 5000): "
+        f"max|d p| {out['max_abs']:.3e} (bound {PROBE_TOL:g}), decisions equal "
+        f"{out['decisions']}")
+    if not (out["max_abs"] <= PROBE_TOL and out["decisions"] and confident.any()
+            and grad64 < probes.TORCH_GTOL):
+        raise AssertionError(f"the device probe is not scipy's optimum: {out}")
+    return out
+
+
+def phase_interp(cmvn) -> dict:
+    """The interpretability suite on the card (phase 21 of the module's
+    docstring), in a temporary directory. -> the runs' numbers."""
+    from hnet_mamba_asr_torch.convert import load_jax_params, state_dict_to_jax_tree
+    from hnet_mamba_asr_torch.data.audio import load_manifest
+    from hnet_mamba_asr_torch.data.dataset import ASRDataset, make_dataloader
+    from hnet_mamba_asr_torch.data.features import GlobalCMVN
+    from hnet_mamba_asr_torch.data.tokenizer import Tokenizer
+    from hnet_mamba_asr_torch.interp import driver
+    from hnet_mamba_asr_torch.interp.alignments import load_alignments
+    from hnet_mamba_asr_torch.interp.probes import torch_lbfgs_weights
+    from hnet_mamba_asr_torch.ops.ema_cuda import ema_cuda
+    from hnet_mamba_asr_torch.ops.ssd_cuda import ssd_cuda
+    from hnet_mamba_asr_torch.scripts import run_interp
+    from hnet_mamba_asr_torch.tasks.asr_task import build_model
+    from hnet_mamba_asr_torch.tasks.decode_task import encode_batch, load_model_params
+    from hnet_mamba_asr_torch.tools import interp_e2e
+    from hnet_mamba_asr_torch.tools.gate import seeded_tokenizer
+    from hnet_mamba_asr_torch.training.checkpoint import save_checkpoint
+    from hnet_mamba_asr_torch.utils.config import load_config
+    out, launches, secs = {}, {}, {}
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def counted(path, fn, *args):
+        ssd_cuda.launches = ssd_cuda.bwd_launches = ema_cuda.launches = ema_cuda.bwd_launches = 0
+        t0 = time.perf_counter()
+        res = fn(*args)
+        torch.cuda.synchronize()
+        secs[path] = time.perf_counter() - t0
+        launches[path] = {"ssd_fwd": ssd_cuda.launches, "ssd_bwd": ssd_cuda.bwd_launches,
+                          "ema_fwd": ema_cuda.launches, "ema_bwd": ema_cuda.bwd_launches}
+        return res
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_interp_") as tmp:
+        root = Path(tmp) / "tone"
+        # (a) the tone gate: train at N=2 through the train CLI, then the four
+        # run_interp modes through the CLI, gated as the JAX script gates
+        gate = counted("interp_tone_gate", interp_e2e.run, interp_e2e.parse_args(
+            ["--root", str(root), "--epochs", str(INTERP_EPOCHS), "--word-probe-bar",
+             str(INTERP_WORD_BAR), "--probe-backend", "torch"]))
+        out["gate"] = gate
+        log(f"  (a) tone gate, N=2, {INTERP_EPOCHS} epochs: train {gate['train_s']:.1f} s, "
+            "modes " + ", ".join(f"{m} {v:.1f} s" for m, v in gate["mode_s"].items())
+            + f"; word-id probe (frames) {gate['probe_frames']['word_id_accuracy']:.4f} "
+            f"(bar {INTERP_WORD_BAR}), phone class "
+            f"{gate['probe_frames']['phone_class_accuracy']:.4f} vs majority "
+            f"{gate['probe_frames']['phone_class_majority']:.4f}; boundary words "
+            f"{gate['boundary_words']} (random F1 {gate['boundary_random_f1']:.4f}); probe "
+            f"iterations {gate['probe_n_iter']}; perturbations "
+            f"{gate['robustness_perturbations']}; emergence epochs {gate['emergence_epochs']}, "
+            f"words F1 {[round(v, 4) for v in gate['emergence_words_f1']]}; checks "
+            f"{gate['checks']}; launches {launches['interp_tone_gate']}")
+        if not gate["gate"] or len(gate["emergence_epochs"]) != INTERP_EPOCHS:
+            raise AssertionError(f"interp tone gate failed: {gate['checks']}")
+
+        # (b) the final checkpoint's boundary report, card (fp32, TF32 off)
+        # against the plain path on the CPU: hard boundaries equal, then P/R/F1
+        cfg = load_config(gate["config"])
+        tok = Tokenizer(root / "tok" / "bpe.model")
+        tone_cmvn = GlobalCMVN.load(root / "cmvn.npz")
+        params = load_model_params(gate["checkpoint"])[0]
+        aligns = {r["id"]: r for r in load_alignments(root / "alignments" / "dev-clean.jsonl")}
+        entries = [e for e in load_manifest(root / "manifests" / "dev-clean.jsonl")
+                   if e["id"] in aligns]
+        durations = driver.durations_from_entries(entries)
+        reports, encs = {}, {}
+        for device in ("cuda", "cpu"):
+            model = build_model(cfg, tok.vocab_size, cmvn=tone_cmvn, device=device)
+            load_jax_params(model, params)
+            encs[device] = []
+
+            def encode(batch, model=model, seen=encs[device]):
+                seen.append(encode_batch(model, batch)[0])
+                return seen[-1]
+            loader = make_dataloader(ASRDataset(entries, tok), 8000)[0]
+            reports[device] = counted(f"interp_tone_{device}", lambda: driver.boundary_report(
+                encode, loader, aligns, durations, tol=0.06)[0])
+        for i, (got, want) in enumerate(zip(encs["cuda"], encs["cpu"])):
+            check_boundaries(got.boundaries, want.boundaries, f"interp tone batch {i}")
+        if reports["cuda"] != reports["cpu"]:
+            raise AssertionError(f"interp: the card's boundary report differs from the CPU's: "
+                                 f"{reports['cuda']} vs {reports['cpu']}")
+        words = reports["cuda"]["stage0"]["words"]
+        log(f"  (b) tone checkpoint card vs CPU (fp32, TF32 off): boundaries equal in "
+            f"{len(encs['cuda'])} batch(es), reports equal (words P/R/F1 "
+            f"{words['precision']:.4f} / {words['recall']:.4f} / {words['f1']:.4f})")
+
+        # (c) configs/typeA_small_N2.yaml at full width (seeded, random
+        # routers, a checkpoint as the trainer writes it) through run_interp
+        # boundaries and probes on the tone audio and its alignments
+        full = Path(tmp) / "full"
+        full.mkdir()
+        seeded_tokenizer(full / "bpe_500.model")
+        cmvn.save(full / "cmvn.npz")
+        yaml_path = Path(__file__).resolve().parent / "configs" / "typeA_small_N2.yaml"
+        overrides = [f"bpemodel={full / 'bpe_500.model'}",
+                     f"frontend_conf.cmvn={full / 'cmvn.npz'}",
+                     f"data.manifests_dir={root / 'manifests'}",
+                     f"interp.alignments_dir={root / 'alignments'}",
+                     f"interp.probe_train_manifest={root / 'manifests' / 'probe-train.jsonl'}",
+                     f"interp.probe_train_alignments={root / 'alignments' / 'probe-train.jsonl'}"]
+        full_cfg = load_config(yaml_path, overrides)
+        model = build_model(full_cfg, VOCAB, cmvn=cmvn, seed=SEED)
+        draw_routers(model, SEED + 80)
+        save_checkpoint(full / "asr.ckpt", {"params": state_dict_to_jax_tree(model.state_dict()),
+                                            "epoch": 1})
+        n_params = sum(p.numel() for p in model.parameters())
+        del model
+        torch.cuda.empty_cache()
+        out["full"] = {}
+        for mode in INTERP_FULL_MODES:
+            path = f"interp_full_{mode}"
+            res = counted(path, run_interp.run, run_interp.parse_args(
+                ["--config", str(yaml_path), "--checkpoint", str(full / "asr.ckpt"), "--mode",
+                 mode, "--out-dir", str(full / "out")] + overrides))
+            passes, n = res["encoder_passes"], launches[path]
+            out["full"][mode] = dict(seconds=res["seconds"], passes=passes, launches=n)
+            log(f"  (c) {yaml_path.name} at full width ({n_params:,} parameters, "
+                f"{full_cfg['train']['precision']}) run_interp --mode {mode}: "
+                f"{res['seconds']['total']:.2f} s ({res['seconds']['encoder']:.2f} s in "
+                f"{passes} encoder passes); launches {n}")
+            if n["ssd_fwd"] != SSD_CALLS_PER_FORWARD * passes or n["ema_fwd"] != passes \
+                    or passes == 0:
+                raise AssertionError(f"{path}: launches {n} for {passes} encoder passes")
+        block = res["probes"]
+        if set(block) != {"frames", "chunks_s0"}:
+            raise AssertionError(f"interp full width: probe levels {sorted(block)}")
+        out["full"]["probes"]["accuracy"] = {f"{lvl}/{task}": r["accuracy"]
+                                             for lvl, b in block.items() for task, r in b.items()}
+
+    # (d) the device probe fit against scipy, a timed word-id-sized fit, and
+    # the 2-class model
+    rng = np.random.default_rng(SEED + 81)
+    out["probe_check"] = probe_against_scipy(rng, *PROBE_CHECK)
+    out["probe_binary"] = probe_against_scipy(rng, PROBE_CHECK[0], PROBE_CHECK[1], 2)
+    n, d, k = PROBE_TIMED
+    X, y, _, _ = probe_clusters(rng, n, d, k)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, n_iter, grad = torch_lbfgs_weights(X, y, k, max_iter=PROBE_MAX_ITER, C=1.0)
+    fit_s = time.perf_counter() - t0
+    out["probe_timed"] = dict(n=n, d=d, k=k, seconds=fit_s, n_iter=n_iter, grad=grad,
+                              reckoned_train_cap_s=fit_s * PROBE_TRAIN_CAP / n)
+    log(f"  (d) word-id-sized fit n {n}, d {d}, k {k} on the card: {fit_s:.2f} s, {n_iter} "
+        f"iterations (max {PROBE_MAX_ITER}), final |grad| {grad:.2e}; at the configs' "
+        f"train_cap of {PROBE_TRAIN_CAP:,} "
+        f"reckoned {out['probe_timed']['reckoned_train_cap_s']:.1f} s (linear in n)")
+    phase_s = time.perf_counter() - t_phase
+    log(f"  interp phase: {phase_s:.1f} s (budget {INTERP_BUDGET_S:.0f} s); seconds {secs}")
+    log("phase 21 interp: ok")
+    out.update(launches={k: v for k, v in launches.items() if any(v.values())},
+               seconds=phase_s)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3557,6 +3803,7 @@ def main() -> int:
     stream = run(phase_stream, cmvn)
     artifacts = run(phase_artifacts, cmvn)
     train_cli = run(phase_train_clis)
+    interp = run(phase_interp, cmvn)
     log(f"training summary: gate config {train['step_ms']:.1f} ms per update of 2 x 32 x 10 s, "
         f"{train['fps']:.0f} mel-frames/s, peak {train['peak'] / 1e9:.2f} GB; N=2 config "
         f"{train_n2['step_ms']:.1f} ms per update of 64 x 10 s, {train_n2['fps']:.0f} "
@@ -3606,6 +3853,15 @@ def main() -> int:
         + f"; int8 vs fp32 log-prob max|d| {artifacts['gap']:.4e}, frame ids equal "
         f"{artifacts['frame_agree']:.4%}; phase {artifacts['seconds']:.1f} s; "
         f"{time.perf_counter() - t_start:.1f} s in all")
+    log(f"interp summary: tone gate word-id probe "
+        f"{interp['gate']['probe_frames']['word_id_accuracy']:.4f}, run_interp at full width "
+        + ", ".join(f"{m} {v['seconds']['total']:.2f} s ({v['passes']} passes)"
+                    for m, v in interp["full"].items())
+        + f"; probe fit vs scipy max|d p| {interp['probe_check']['max_abs']:.3e} (k 50), "
+        f"{interp['probe_binary']['max_abs']:.3e} (k 2); n {PROBE_TIMED[0]:,} k "
+        f"{PROBE_TIMED[2]} fit {interp['probe_timed']['seconds']:.2f} s, "
+        f"{interp['probe_timed']['n_iter']} iterations; phase {interp['seconds']:.1f} s; "
+        f"{time.perf_counter() - t_start:.1f} s in all")
     main_shape = ("bfloat16", TRAIN_ROWS, 249, 16)
     fwd = next(r for r in fwd_rows if (r["dtype"], r["B"], r["L"], r["H"]) == main_shape)
     bwd = next(r for r in bwd_rows if (r["dtype"], r["B"], r["L"], r["H"]) == main_shape
@@ -3634,7 +3890,7 @@ def main() -> int:
                "train_rnnt": train_rnnt["launches"], "grads_rnnt": rnnt_grads,
                "gate_proof_rnnt_tone": rnnt_gate["launches"],
                "train_moe": moe["train"]["launches"], **stream["launches"],
-               **artifacts["launches"], **train_cli["launches"]}
+               **artifacts["launches"], **train_cli["launches"], **interp["launches"]}
     launches = dict(train_n2["launches"], ssd_fwd=full["engines"]["device"]["launches"],
                     rnnt_fwd=train_rnnt["launches"]["rnnt_fwd"],
                     rnnt_bwd=train_rnnt["launches"]["rnnt_bwd"])

@@ -4,6 +4,8 @@
 short sequence of them, so a correctly wired train -> decode -> score
 pipeline drives CTC-greedy WER to ~0 (the overfit gate of
 ``tests/test_overfit_gate.py`` and ``scripts/analysis/overfit_gate.py``).
+The corpus layout is deterministic, so its forced alignments are known
+analytically (``tone_alignment_records``, the interpretability gate's truth).
 
 ``overfit_config`` returns the gate's config as a dict, where the JAX
 package returns YAML text: the port takes config dicts (the card's machine
@@ -196,3 +198,26 @@ def overfit_config(root: str | Path, *, compression_n: int = 1,
         "score": {"gate_cell": "ctc_greedy"},
         "goal": {"sane_test_clean_wer_below": 12.0},
     }
+
+
+# Tone word -> a stand-in ARPA phone with a real manner class (vowel /
+# fricative / nasal: interp/probes.py ``_MANNER``), so the phone-class probe
+# has more than one class to separate on the synthetic corpus.
+TONE_PHONES = {"a": "AA", "b": "IY", "c": "S", "d": "M"}
+
+
+def tone_alignment_records(entries: list[dict]) -> list[dict]:
+    """Exact forced alignments for a ``build_tone_corpus`` corpus: the layout
+    is gap, word, gap, word, ..., so every word's interval is known, the
+    synthetic analogue of the aligner's TextGrids. Each word doubles as a
+    single phone (``TONE_PHONES``) so both probe tiers are populated."""
+    records = []
+    for e in entries:
+        words, phones = [], []
+        for i, w in enumerate(e["text"].split()):
+            start = GAP_S + i * (WORD_S + GAP_S)
+            end = start + WORD_S
+            words.append([w, round(start, 6), round(end, 6)])
+            phones.append([TONE_PHONES[w], round(start, 6), round(end, 6)])
+        records.append({"id": e["id"], "words": words, "phones": phones})
+    return records

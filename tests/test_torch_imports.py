@@ -10,7 +10,9 @@ reader, FLAC, the artifacts and every CLI of hnet_mamba_asr_torch.scripts) and t
 training slice (the host audio library's binding, manifests, the speed-perturbed
 loader, the LM corpus reader, the optimizer registry, checkpoints, the async
 writer, the trainer, the metrics sink) with PyYAML blocked as well, as the card's
-machine has none."""
+machine has none; the interpretability slice (interp/, eval/efficiency.py, the
+run_interp / efficiency / run_mfa CLIs, tools/interp_e2e.py) with jax, flax,
+hnet_mamba_asr_tpu, PyYAML and scikit-learn blocked."""
 import json
 import subprocess
 import sys
@@ -180,5 +182,61 @@ def test_deployment_slice_runs_without_jax_or_pyyaml():
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["absent"] == []
-    assert out["modules"] == 30                       # 20 modules and the 10 CLIs
+    assert out["modules"] == 33                       # 20 modules and the 13 CLIs
     assert out["enc_lengths"] == [8]                  # 6000 samples: 36 mel frames
+
+
+INTERP_SCRIPT = """
+import contextlib, io, json, sys
+for name in ("jax", "jaxlib", "flax", "optax", "hnet_mamba_asr_tpu", "yaml", "sklearn"):
+    sys.modules[name] = None            # none of them on the card's machine
+import numpy as np, torch
+torch.set_num_threads(1)
+import hnet_mamba_asr_torch.interp.alignments, hnet_mamba_asr_torch.interp.driver
+import hnet_mamba_asr_torch.tools.interp_e2e
+from hnet_mamba_asr_torch.interp.probes import train_probe
+from hnet_mamba_asr_torch.scripts import efficiency, run_interp, run_mfa
+helps = []
+for mod in (run_interp, run_mfa, efficiency):
+    with contextlib.redirect_stdout(io.StringIO()):
+        try:
+            mod.parse_args(["--help"])
+        except SystemExit as e:
+            helps.append(e.code)
+with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+    report = efficiency.run(efficiency.parse_args(["--config", "configs/typeA_small_N2.yaml"]))
+rng = np.random.default_rng(0)
+X = rng.normal(size=(60, 4)) + np.repeat(np.eye(4)[:3] * 3, 20, axis=0)
+y = ["a"] * 20 + ["b"] * 20 + ["c"] * 20
+errors = {}
+for backend, device in (("sklearn", "cpu"), ("torch", "cuda")):
+    try:
+        train_probe(list(X), y, list(X), y, backend=backend, device=device)
+    except RuntimeError as e:
+        errors[backend] = str(e)
+try:
+    run_interp.run(run_interp.parse_args(["--config", "x", "--checkpoint", "y"]))
+except RuntimeError as e:
+    errors["run_interp"] = str(e)
+fit = train_probe(list(X), y, list(X), y, backend="jax", device="cpu")
+print(json.dumps({"helps": helps, "params": report["params"]["total"], "errors": errors,
+                  "fit": [fit["backend"], fit["accuracy"]],
+                  "loaded": sorted(m for m in sys.modules if sys.modules[m] is not None and
+                                   m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                                       "hnet_mamba_asr_tpu", "yaml",
+                                                       "sklearn"))}))
+"""
+
+
+def test_interp_slice_runs_without_jax_pyyaml_or_sklearn():
+    proc = subprocess.run([sys.executable, "-c", INTERP_SCRIPT], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["loaded"] == []
+    assert out["helps"] == [0, 0, 0]
+    assert out["params"] == 79_153_321                 # configs/typeA_small_N2.yaml at 500
+    assert "'sklearn'" in out["errors"]["sklearn"]
+    assert "no CUDA device" in out["errors"]["torch"]  # the card by default, no fall-back
+    assert "no CUDA device" in out["errors"]["run_interp"]
+    assert out["fit"] == ["torch", 1.0]
