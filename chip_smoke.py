@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU: serve, train and decode
 Type A Small at N=1, with H-Net dynamic chunking at N=2, with the RNN-T head
-and with an MoE AED decoder, stream their causal siblings, and run the
-interpretability suite.
+and with an MoE AED decoder, stream their causal siblings, run the
+interpretability suite, and run the multi-rank planes (DDP, FSDP, sequence
+parallelism, decoding over ranks) on processes sharing the card.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
@@ -68,7 +69,8 @@ calls, at the full width of ``configs/typeA_small_N1.yaml`` and
                beam_ids (the device CTC prefix beam) and aed_ids (AED cap
                64): 8 requests in one call, each alone and through the
                micro-batcher, ids equal; then the RNN-T config serving
-               rnnt_ids and rnnt_beam_ids the same way;
+               rnnt_ids and rnnt_beam_ids the same way (the 4 shortest
+               alone, a cut for the time limit);
 5. train    -- the gate config (hybrid 0.3 CTC + 0.7 AED, bf16, SpecAugment,
                AED dropout, remat none, accum_grad 2) through ``Trainer``,
                3 updates of 2 micro-batches of 32 x 10 s: finite losses and
@@ -119,10 +121,11 @@ calls, at the full width of ``configs/typeA_small_N1.yaml`` and
                encoder, AED cap 64 (seeded weights never emit eos), once on
                the device searches (the default) and once on the host's
                (``device_beam: false``): RTF, encoder and search seconds per
-               cell, the SSD launches, the device's idle share per cell; the
+               cell, the SSD launches, the device's idle share of 4 cells
+               on the device engine; the
                device engine's kernel launches per search step and host
                reads of its active mask; the engines' disagreements and
-               ties; the psi and r-scan shares of a joint step; the 4
+               ties; the psi and r-scan shares of a joint step; the 2
                shortest utterances alone == inside the batch in every beam
                cell of both engines (a cut for the time limit), in bf16;
 14. parity  -- depth 1 + 2 + 1, a 2-layer AED and a 2-layer LM, fp32, TF32
@@ -221,16 +224,40 @@ calls, at the full width of ``configs/typeA_small_N1.yaml`` and
                scipy's float64 optimum on the host at n 20,000, d 384, k 50
                and k 2 (probabilities within 2e-5 and decisions equal where
                scipy is confident; at k 50 scipy starts from the card's
-               weights; its final gradient below 1e-5), and a timed fit at n 200,000, d 384, k 500
-               with the time reckoned at the configs' train_cap of 1,000,000.
+               weights; its final gradient below 1e-5), and a timed fit at n
+               200,000, d 384, k 500 with the time reckoned at the configs'
+               train_cap of 1,000,000;
+22. ranks   -- the multi-rank planes, every process at once on the card
+               while the one-process references run here: a pair probing
+               which collectives gloo takes on CUDA tensors (``chip_smoke.py
+               --gloo-probe``); two ranks sharing the card under gloo
+               (``--ranks-worker``): DDP's gradients of one micro-step of
+               the gate config (8 rows: 7 x 10 s and a pad, SpecAugment and
+               AED dropout on) against one process's in fp32 (TF32 off;
+               bf16's gap recorded) and against one process's witness of
+               the same row split (``split_grads``: 1e-5 of each leaf's max
+               in fp32, phase 7's bounds in bf16), 2 updates under DDP
+               (FSDP where gloo takes its collectives), sp = 2 on
+               ``configs/typeA_small_N2.yaml`` (fp32, routers drawn, 2 x 35
+               s): features, ratio loss, kept fraction, loss and every
+               gradient against the offline update's, each rank's ssd_fwd
+               (return_final) / ssd_bwd (ds_final) / ema_fwd / ema_bwd
+               launches, the bf16 gap recorded; the gate config's ctc_greedy
+               and aed_beam decoded over 2 ranks == one process (transcripts
+               and beam scores); one rank under NCCL: the fp32 gradients,
+               DDP and FSDP updates (no checkpoint written), FSDP's
+               parameters against DDP's; params + moments and peak memory
+               per rank, update ms (one shared card); ``tools/smoke_2proc.py``
+               (train, resume, decode through the CLIs at d 32 on the tone
+               corpus, two processes) passing all its checks.
 
 The line before the last is a JSON summary of the kernels, with the
 launches of the full-width decode run on the device engine (ssd_fwd), of
 the RNN-T training run (rnnt_fwd, rnnt_bwd) and of the N = 2 training run
 (the others), and every path's counts (the streaming paths' as stream_*,
 the artifacts' as artifacts_*, the training CLIs' as train_cli_*, the
-interpretability runs' as interp_*; a streaming path's ema_fwd is the
-carried form);
+interpretability runs' as interp_*, a rank's sp update as
+sp_update_rank0; a streaming path's ema_fwd is the carried form);
 the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -336,8 +363,14 @@ HNET_VARIANTS = (
      0, 4))
 
 
+LOG_FILE = []                   # main() opens $CHIP_SMOKE_LOG here, when set
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+    for f in LOG_FILE:              # the whole log, which the end of stdout is not
+        f.write(msg + "\n")
+        f.flush()
 
 
 def kernel_name(key: str) -> str:
@@ -1518,12 +1551,18 @@ TIE_SHARE = 1e-4
 # search steps profiled for the launches per step (phases 13 and 15; cut
 # from 16 to make room for phase 20)
 STEP_PROBE = 8
-# cuts that make room for phase 20 inside the time limit: each engine checks
-# its ALONE_UTTS shortest utterances alone (the device engine checked all 8
-# before) and a cell's idle share is profiled on the PROFILE_UTTS shortest
-# (the 2 shortest before)
-ALONE_UTTS = 4
+# cuts that make room for phases 20 and 22 inside the time limit: each
+# engine checks its ALONE_UTTS shortest utterances alone (of 8), and a cell's
+# idle share is profiled on the PROFILE_UTTS shortest, on the device engine
+# only and for PROFILE_CELLS only (every cell of both engines took ~87 s of
+# profiling on the slowest host seen)
+ALONE_UTTS = 2
 PROFILE_UTTS = 1
+# and the host engine (lockstep) decodes its LM cells over the
+# LOCKSTEP_LM_UTTS shortest (the device engine all 8 in every cell), as
+# phase 15's host engine does
+LOCKSTEP_LM_UTTS = 4
+PROFILE_CELLS = ("ctc_greedy", "ctc_beam", "aed_beam", "joint_beam")
 
 
 def profile_cell(fn) -> tuple[float, int, float]:
@@ -1561,10 +1600,12 @@ def phase_decode_full(cmvn, tmp: Path) -> dict:
     (seeded, fp32): 8 synthetic
     utterances of 2-16 s in one batch through all 7 cells of the config's
     decode block with the shared encoder, once per engine: the device
-    searches (the config's default) and the host's (``device_beam: false``).
-    Per cell and engine the real-time factor, encoder and search seconds and
-    the device's idle share (each cell alone under torch.profiler on the
-    PROFILE_UTTS shortest utterances); the device engine's steps and host reads of its
+    searches (the config's default) and the host's (``device_beam: false``;
+    its LM cells over the LOCKSTEP_LM_UTTS shortest, a second run).
+    Per cell and engine the real-time factor, encoder and search seconds; the
+    device's idle share of PROFILE_CELLS on the device engine (each cell alone
+    under torch.profiler on the PROFILE_UTTS shortest utterances); the device
+    engine's steps and host reads of its
     active mask; the engines' disagreements (ties: best scores within
     TIE_SHARE) and, in the CTC cells, what they come from; at the batch of
     8, the device searches' kernel launches per step (their first
@@ -1590,7 +1631,6 @@ def phase_decode_full(cmvn, tmp: Path) -> dict:
     scorer = CausalLMScorer(lm.lm, bos_id=tok.bos_id, eos_id=tok.eos_id, pad_id=tok.pad_id)
     items = decode_batch_items(np.random.default_rng(SEED + 50), DECODE_UTTS)
     audio_s = {it["id"]: it["n_samples"] / SR for it in items}
-    total_audio = sum(audio_s.values())
     loader = ItemLoader(items, 10 ** 7, shuffle=False)
     by_length = sorted(items, key=lambda it: it["n_samples"])
     short = by_length[:PROFILE_UTTS]
@@ -1599,12 +1639,20 @@ def phase_decode_full(cmvn, tmp: Path) -> dict:
     for engine, change in ENGINES:
         dc = dict(GATE_DECODE, **change)
         cells = decode_task.expand_cells(dc)
+        # (cells, utterances) of each decode run of this engine
+        plan = [(cells, items)]
+        if engine == "lockstep":
+            plan = [([c for c in cells if not c["lm"]], items),
+                    ([c for c in cells if c["lm"]], by_length[:LOCKSTEP_LM_UTTS])]
+        utts = {c["name"]: len(run_items) for run_cells, run_items in plan for c in run_cells}
         torch.cuda.synchronize()
         ssd_cuda.launches = 0
         t0 = time.perf_counter()
-        summaries = decode_task.decode_split_shared(
-            model, tok, loader, cells, dc, audio_seconds=audio_s,
-            out_dir=tmp / f"full_{engine}", split="synthetic", lm=scorer)
+        summaries = [s for run_cells, run_items in plan
+                     for s in decode_task.decode_split_shared(
+                         model, tok, ItemLoader(run_items, 10 ** 7, shuffle=False), run_cells,
+                         dc, audio_seconds={it["id"]: audio_s[it["id"]] for it in run_items},
+                         out_dir=tmp / f"full_{engine}", split="synthetic", lm=scorer)]
         wall = time.perf_counter() - t0
         launches = ssd_cuda.launches
         records = {c["name"]: {r["id"]: r for r in map(json.loads, (
@@ -1614,14 +1662,17 @@ def phase_decode_full(cmvn, tmp: Path) -> dict:
         t1 = time.perf_counter()
         enc, _ = decode_task.encode_batch(model, short_batch)
         for cell in cells:
-            idle, _, _ = profile_cell(lambda: decode_task.decode_batch(
-                model, tok, short_batch, cell, dc, lm=scorer, enc=enc, enc_s=0.0))
+            idle = None
+            if engine == "device" and cell["name"] in PROFILE_CELLS:
+                idle, _, _ = profile_cell(lambda: decode_task.decode_batch(
+                    model, tok, short_batch, cell, dc, lm=scorer, enc=enc, enc_s=0.0))
             rec = next(iter(records[cell["name"]].values()))
             rows[cell["name"]] = dict(idle_short=idle, steps=rec.get("search_steps"),
                                       host_reads=rec.get("host_reads"))
         for s in summaries:
             rows[s["cell"]].update(rtf=s["rtf"], encoder_s=s["encoder_s"],
-                                   search_s=s["search_s"], engine=s["engine"])
+                                   search_s=s["search_s"], engine=s["engine"],
+                                   n=s["n_utts"], audio_s=s["audio_s"])
         profiled = time.perf_counter() - t1
         t1 = time.perf_counter()
         checked = by_length[:ALONE_UTTS]
@@ -1638,9 +1689,9 @@ def phase_decode_full(cmvn, tmp: Path) -> dict:
             f"{profiled:.1f} s)")
         if differ:
             raise AssertionError(f"{engine}: alone and batched transcripts differ: {differ}")
-        if launches != 2 * SSD_CALLS_PER_FORWARD:
-            raise AssertionError(f"{engine}: {launches} ssd_fwd launches in the decode run")
-        bad = [s["cell"] for s in summaries if s["n_utts"] != DECODE_UTTS]
+        if launches != 2 * len(plan) * SSD_CALLS_PER_FORWARD:
+            raise AssertionError(f"{engine}: {launches} ssd_fwd launches in the decode runs")
+        bad = [s["cell"] for s in summaries if s["n_utts"] != utts[s["cell"]]]
         if bad:
             raise AssertionError(f"{engine}: cells without a record for every utterance: {bad}")
         runs[engine] = dict(cells=rows, records=records, launches=launches, wall=wall)
@@ -1649,8 +1700,10 @@ def phase_decode_full(cmvn, tmp: Path) -> dict:
     agree = {}
     for name, dev_recs in runs["device"]["records"].items():
         n_diff, n_tie = 0, 0
-        for uid, d in dev_recs.items():
-            h = runs["lockstep"]["records"][name][uid]
+        both = [(d, runs["lockstep"]["records"][name][uid]) for uid, d in dev_recs.items()
+                if uid in runs["lockstep"]["records"][name]]
+        for d, h in both:
+            uid = d["id"]
             if d["hyp"] == h["hyp"]:
                 continue
             n_diff += 1
@@ -1659,7 +1712,7 @@ def phase_decode_full(cmvn, tmp: Path) -> dict:
                    and abs(a - b) <= TIE_SHARE * max(abs(a), abs(b)))
             n_tie += tie
             log(f"    {name} {uid}: device {a} vs lockstep {b}: {'tie' if tie else 'no tie'}")
-        agree[name] = {"differ": n_diff, "ties": n_tie}
+        agree[name] = {"differ": n_diff, "ties": n_tie, "compared": len(both)}
 
     t1 = time.perf_counter()
     full_batch = next(iter(loader))
@@ -1684,7 +1737,9 @@ def phase_decode_full(cmvn, tmp: Path) -> dict:
         untied = logp.double() + 1e-5 * torch.rand(logp.shape, generator=gen, device="cuda",
                                                    dtype=torch.float64)
         row_of = {u: i for i, u in enumerate(full_batch["ids"])}
-        for name, w in (("ctc_beam", 0.0), ("ctc_beam_lm", lm_w)):
+        # ctc_beam only (ctc_beam_lm's would take ~25 s on the slowest host,
+        # its host search with the LM in Python twice: cut for the limit)
+        for name, w in (("ctc_beam", 0.0),):
             host = runs["lockstep"]["records"][name]
             uids = [u for u, d in runs["device"]["records"][name].items()
                     if d["hyp"] != host[u]["hyp"]]
@@ -1748,12 +1803,13 @@ def phase_decode_full(cmvn, tmp: Path) -> dict:
                          f"active mask")
             if engine == "device" and "launches_per_step" in c:
                 extra += f", {c['launches_per_step']:.1f} device ops a step at B {B}"
+            idle = ("not measured" if c["idle_short"] is None else
+                    f"{c['idle_short']:.2%} (the {PROFILE_UTTS} shortest)")
             log(f"  {s_name:<14} {engine:<8} RTF {c['rtf']:.5f}: encoder {c['encoder_s']:.4f} s, "
-                f"search {c['search_s']:.4f} s over {DECODE_UTTS} utterances "
-                f"({total_audio:.2f} s of audio); device idle {c['idle_short']:.2%} (the "
-                f"{PROFILE_UTTS} shortest){extra}")
+                f"search {c['search_s']:.4f} s over {c['n']} utterances "
+                f"({c['audio_s']:.2f} s of audio); device idle {idle}{extra}")
         a = agree[s_name]
-        log(f"  {s_name:<14} engines differ on {a['differ']}/{DECODE_UTTS} utterances, "
+        log(f"  {s_name:<14} engines differ on {a['differ']}/{a['compared']} utterances, "
             f"{a['ties']} of them ties"
             + (f"; with float64 scores the device search gives the lockstep transcript on "
                f"{a['f64_equal']} of them; with the exact ties broken, float64 device == "
@@ -1766,11 +1822,13 @@ def phase_decode_full(cmvn, tmp: Path) -> dict:
     log(f"  full width: {n_params:,} ASR parameters, LM "
         f"{sum(p.numel() for p in lm.parameters()):,}; {DECODE_UTTS} utterances of "
         f"{sorted(round(a, 2) for a in audio_s.values())} s in one batch, shared encoder: "
-        f"ssd_fwd launches per engine {[runs[e]['launches'] for e, _ in ENGINES]} (the "
-        f"untimed warm-up pass and the one timed pass, {SSD_CALLS_PER_FORWARD} each); "
+        f"ssd_fwd launches per engine {[runs[e]['launches'] for e, _ in ENGINES]} (per "
+        f"decode run the untimed warm-up pass and the one timed pass, "
+        f"{SSD_CALLS_PER_FORWARD} each); "
         f"{sum(r['wall'] for r in runs.values()):.1f} s of decode runs; cuts: AED cap "
         f"{DECODE_CAP} tokens (seeded weights never emit eos), AED {DECODE_AED_LAYERS} and "
-        f"LM {DECODE_LM_LAYERS} layers")
+        f"LM {DECODE_LM_LAYERS} layers, the lockstep engine's LM cells over the "
+        f"{LOCKSTEP_LM_UTTS} shortest")
     if n_params != DECODE_N_PARAMS:
         raise AssertionError(f"full-width decode: {n_params} parameters")
     del model, lm, scorer, enc, logp, r_state, untied
@@ -2083,10 +2141,16 @@ def _requests(seed: int, n: int = 8):
     return waves, lens, padded
 
 
+# requests of phase 4's RNN-T serving decoded alone: the shortest 4 of 8 (a
+# cut for the time limit; the micro-batcher still serves all 8)
+RNNT_SERVE_ALONE = 4
+
+
 def phase_rnnt_serve(cmvn) -> dict:
     """The RNN-T config serving rnnt_ids (greedy) and rnnt_beam_ids (the
-    device beam, 10 wide) in bf16: 8 requests of 2-16 s in one call, each
-    alone and through the micro-batcher: ids equal; ms per call."""
+    device beam, 10 wide) in bf16: 8 requests of 2-16 s in one call, the
+    RNNT_SERVE_ALONE shortest alone and all 8 through the micro-batcher: ids
+    equal; ms per call."""
     from hnet_mamba_asr_torch.serving.runtime import ServingModel
     from hnet_mamba_asr_torch.serving.server import MicroBatcher
     from hnet_mamba_asr_torch.tools.gate import RNNT_CONFIG
@@ -2104,9 +2168,10 @@ def phase_rnnt_serve(cmvn) -> dict:
     t0 = time.perf_counter()
     batched = rows(model(padded, lens))
     batch_ms = (time.perf_counter() - t0) * 1e3
+    short = sorted(range(len(waves)), key=lambda i: len(waves[i]))[:RNNT_SERVE_ALONE]
     t0 = time.perf_counter()
-    alone = [model(w[None], [len(w)]) for w in waves]
-    alone_ms = (time.perf_counter() - t0) * 1e3 / len(waves)
+    alone = [model(waves[i][None], [len(waves[i])]) for i in short]
+    alone_ms = (time.perf_counter() - t0) * 1e3 / len(short)
     greedy_alone = [o["rnnt_ids"][0, :o["rnnt_lens"][0]].tolist() for o in alone]
     beam_alone = [o["rnnt_beam_ids"][0, :o["rnnt_beam_lens"][0]].tolist() for o in alone]
     batcher = MicroBatcher(model, max_wait_ms=50.0)
@@ -2117,13 +2182,14 @@ def phase_rnnt_serve(cmvn) -> dict:
         batcher.close()
     log(f"  rnnt_ids + rnnt_beam_ids, 8 requests of "
         f"{sorted(round(len(w) / SR, 2) for w in waves)} s: one call {batch_ms:.1f} ms, alone "
-        f"{alone_ms:.1f} ms a call; greedy alone == batched {greedy_alone == batched[0]}, beam "
-        f"alone == batched {beam_alone == batched[1]}, micro-batcher rows == beam ids "
+        f"{alone_ms:.1f} ms a call (the {len(short)} shortest); greedy alone == batched "
+        f"{greedy_alone == [batched[0][i] for i in short]}, beam alone == batched "
+        f"{beam_alone == [batched[1][i] for i in short]}, micro-batcher rows == beam ids "
         f"{served == batched[1]} ({stats['batches']} batches); greedy lengths "
         f"{[len(b) for b in batched[0]]}, beam lengths {[len(b) for b in batched[1]]}")
     differ = {name: [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
-              for name, got, want in (("greedy", greedy_alone, batched[0]),
-                                      ("beam", beam_alone, batched[1]),
+              for name, got, want in (("greedy", greedy_alone, [batched[0][i] for i in short]),
+                                      ("beam", beam_alone, [batched[1][i] for i in short]),
                                       ("batcher", served, batched[1]))}
     if any(differ.values()):
         raise AssertionError(f"served RNN-T ids differ alone and batched: {differ}")
@@ -2143,9 +2209,11 @@ RNNT_DECODE = {"read_outs": ["rnnt"], "search": ["greedy", "beam"], "beam_size":
                "rescore_length_bonus": 2.0}
 # what the run spends on the slowest searches, to stay within its time
 # limit: the host's rnnt_beam_lm, one utterance at a time in Python, decodes
-# the RNNT_HOST_LM_UTTS shortest of the 8 (the device engine all 8), and the
-# device engine's rnnt_beam_lm decodes the RNNT_ALONE shortest alone
+# the RNNT_HOST_LM_UTTS shortest of the 8 and its rnnt_beam the
+# RNNT_HOST_BEAM_UTTS shortest (the device engine all 8 in every cell), and
+# the device engine's rnnt_beam_lm decodes the RNNT_ALONE shortest alone
 RNNT_HOST_LM_UTTS = 2
+RNNT_HOST_BEAM_UTTS = 4
 RNNT_ALONE = 1
 
 
@@ -2154,7 +2222,8 @@ def phase_rnnt_decode_full(cmvn, tmp: Path) -> dict:
     (seeded, fp32) cut to DECODE_LM_LAYERS layers, as phase 13's: phase 13's
     8 utterances through rnnt_greedy, rnnt_beam and rnnt_beam_lm with the
     shared encoder on the device engine and the
-    host's (its rnnt_beam_lm over the RNNT_HOST_LM_UTTS shortest): per cell
+    host's (its rnnt_beam over the RNNT_HOST_BEAM_UTTS shortest, its
+    rnnt_beam_lm over the RNNT_HOST_LM_UTTS shortest): per cell
     and engine the RTF, encoder and search seconds, and on the device engine
     the device's idle share (the cell alone on the first STEP_PROBE frames
     of the shortest utterance under torch.profiler); the engines'
@@ -2186,9 +2255,10 @@ def phase_rnnt_decode_full(cmvn, tmp: Path) -> dict:
         # (cells, utterances) of each decode run of this engine
         plan = [(cells, items)]
         if engine == "lockstep":
-            plan = [([c for c in cells if c["name"] != "rnnt_beam_lm"], items),
-                    ([c for c in cells if c["name"] == "rnnt_beam_lm"],
-                     by_length[:RNNT_HOST_LM_UTTS])]
+            plan = [([c for c in cells if c["name"] == name], run_items)
+                    for name, run_items in (("rnnt_greedy", items),
+                                            ("rnnt_beam", by_length[:RNNT_HOST_BEAM_UTTS]),
+                                            ("rnnt_beam_lm", by_length[:RNNT_HOST_LM_UTTS]))]
         torch.cuda.synchronize()
         ssd_cuda.launches = 0
         t0 = time.perf_counter()
@@ -3752,6 +3822,658 @@ def phase_interp(cmvn) -> dict:
     return out
 
 
+# ── phase 22: the multi-rank planes ──────────────────────────────────────────
+RANKS_BUDGET_S = 75.0           # the phase's own time budget
+RANKS_ROWS = 8                  # 7 real utterances of 10 s and a padding row
+SP_SECONDS = 35.0               # 2 x 35 s, one shard of 17.5 s per rank
+# fp32, TF32 off, one card: DDP's mean of two half-batch gradients against
+# one process's gradient of the whole batch, per leaf as max|d| / max|g|.
+# Half a batch takes other cuDNN / cuBLAS kernels and other SSD-backward
+# reduction groups than the whole; the leaves that sum one number per head
+# or channel over every position of every row (a_log, dt_bias, the first
+# conv's) cancel heavily and keep more of that rounding, as in phase 7 (on
+# an H100: worst 1.21e-3, an a_log; one rank under NCCL against one process
+# <= 2.8e-7). bf16's gap to the whole batch is recorded, not
+# bounded: half a batch rounds its activations at other kernels' boundaries
+# (3.87e-2 then). split_grads is the witness: one process, the same row
+# slices, the global sums; its gap to the whole batch is the split's
+# rounding, and DDP is held to it per leaf within RANKS_SPLIT_BOUND of the
+# leaf's max in fp32 (only the collectives' sums and the CTC backward's
+# atomics part them) and within phase 7's bounds in bf16.
+RANKS_GRAD_BOUND = PARAM_GRAD_BOUND
+RANKS_SUM_LEAVES = (".a_log", ".dt_bias", *CONV1_LEAVES)
+RANKS_SPLIT_BOUND = 1e-5
+FSDP_RTOL, FSDP_ATOL = 2e-4, 2e-5         # tests/test_fsdp.py:92
+# sp = 2 against the offline encoder, fp32 with intra_dtype off
+# (tests/test_seq_parallel.py's bounds): features on valid frames, the ratio
+# loss and kept fraction, the loss (relative) and every gradient leaf (of
+# its max)
+SP_FEATURE_BOUND, SP_SCALAR_BOUND, SP_LOSS_RTOL, SP_GRAD_RTOL = 2e-4, 1e-6, 2e-4, 5e-3
+RANKS_CELLS = ("ctc_greedy", "aed_beam")
+
+
+def decode_model(model):
+    """The gate model (bf16) for decoding, its AED capped at DECODE_CAP
+    (seeded weights never emit eos)."""
+    model.aed.max_decode_len = DECODE_CAP
+    return model.eval()
+GLOO_CUDA_OPS = ("all_reduce", "broadcast", "all_gather", "all_gather_into_tensor",
+                 "reduce_scatter_tensor")
+
+
+def ranks_batch(rng, seconds: float, rows: int, real: int, base: int = 0) -> dict:
+    """A host batch of ``real`` seeded utterances of ``seconds`` padded with
+    ``rows - real`` padding rows (PCM16 wire, as the gate loader ships)."""
+    from hnet_mamba_asr_torch.data.dataset import collate_batch
+    n = int(seconds * SR)
+    items = [{"wave": synth_audio(rng, 0.0, n), "n_samples": n,
+              "tokens": rng.integers(4, VOCAB, size=int(rng.integers(10, 40))).astype(np.int32),
+              "id": f"utt{base + i}", "index": base + i} for i in range(real)]
+    return collate_batch(items, pad_id=3, seed=SEED, epoch=0, batch_multiple=rows,
+                         snap_lengths=False, wire_dtype="int16")
+
+
+def ranks_configs() -> dict:
+    """The phase's configs: the gate config in fp32 (intra off, TF32 off)
+    and as it is (bf16), and configs/typeA_small_N2.yaml in fp32 for sp, all
+    at full width and depth, remat full (three processes share the card)."""
+    def cut(config, precision):
+        cfg = copy.deepcopy(config)
+        cfg["encoder_conf"]["remat_policy"] = "full"
+        if precision == "fp32":
+            cfg["encoder_conf"]["ssd_intra_dtype"] = None
+            cfg["train"]["precision"] = "fp32"
+        return cfg
+    return {"fp32": cut(GATE_CONFIG, "fp32"), "bf16": cut(GATE_CONFIG, "bf16"),
+            "sp": cut(N2_CONFIG, "fp32"), "sp_bf16": cut(N2_CONFIG, "bf16")}
+
+
+# the updates of DDP against FSDP: Adam's eps 0.1 makes an update near-linear
+# in its gradient (at 1e-8 an element whose gradient is rounding noise moves
+# by the rate's size, and FSDP's per-tensor step rounds otherwise than the
+# fused one), as in tests/test_torch_fsdp.py
+RANKS_TRAIN = dict(GATE_TRAIN, accum_grad=1, max_epoch=1, max_steps=2, scheduler=None,
+                   log_interval=1, async_ckpt=False, valid_interval_epoch=1,
+                   optim_conf=dict(GATE_TRAIN["optim_conf"], eps=0.1))
+
+
+def unsaved_trainer(*args, **kw):
+    """A ``Trainer`` that writes no checkpoint: phase 22 reads its model and
+    history, and each save would gather and pickle ~1 GB while every other
+    process of the phase runs (a multi-rank run's checkpoints and resume on
+    the card are tools/smoke_2proc.py's)."""
+    from hnet_mamba_asr_torch.training.trainer import Trainer
+
+    class Unsaved(Trainer):
+        def save_checkpoint(self) -> None:
+            pass
+    return Unsaved(*args, **kw)
+
+
+def _grad_gap(got: dict, ref: dict) -> list:
+    """[(max|d| / max|g|, leaf, mean|d| / mean|g|)] worst first."""
+    rows = []
+    for name, g in ref.items():
+        d = (got[name].float() - g.float()).abs()
+        rows.append(((d.max() / g.float().abs().max().clamp(min=1e-30)).item(), name,
+                     (d.mean() / g.float().abs().mean().clamp(min=1e-30)).item()))
+    return sorted(rows, reverse=True)
+
+
+def split_grads(model, batch: dict, world: int, on_card) -> dict:
+    """One process's witness of what DDP over ``world`` ranks computes: each
+    rank's rows (``rank_rows``) through ``loss_fn`` with every ``batch_sum``
+    made global and the AED dropout's draw taken for the global batch, the
+    gradients summed over the slices (DDP's mean of the ranks' gradients of
+    the global loss). Two passes: the first records each slice's
+    ``batch_sum`` operands in call order, the second adds the other slices'
+    to each, as the all-reduce would. -> {leaf: gradient on the host}."""
+    from hnet_mamba_asr_torch.models import aed, moe
+    from hnet_mamba_asr_torch.parallel import collectives as col
+    from hnet_mamba_asr_torch.parallel.mesh import rank_rows
+    saved = (col._ROWS_GROUP, col.all_reduce_sum, col.row_slice, aed.row_slice, moe.row_slice)
+    seen = [[] for _ in range(world)]
+    at = {"slice": 0, "call": 0, "record": True}
+
+    def global_sum(x, group=None):
+        r, i = at["slice"], at["call"]
+        at["call"] += 1
+        if at["record"]:
+            seen[r].append(x.detach().clone())
+            return x
+        return x + sum(seen[o][i] for o in range(world) if o != r)
+
+    def part():
+        return at["slice"], world
+
+    col._ROWS_GROUP, col.all_reduce_sum = "witness", global_sum
+    col.row_slice = aed.row_slice = moe.row_slice = part
+    model.zero_grad(set_to_none=True)
+    try:
+        for record in (True, False):
+            for r in range(world):
+                at.update(slice=r, call=0, record=record)
+                loss, _ = model.loss_fn(on_card(rank_rows(batch, r, world)), 0, True)
+                if not record:
+                    loss.backward()
+                del loss
+    finally:
+        (col._ROWS_GROUP, col.all_reduce_sum, col.row_slice, aed.row_slice,
+         moe.row_slice) = saved
+    grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return grads
+
+
+def _wait_for(path: Path, timeout: float = 600.0) -> Path:
+    """``path`` once another process has written it (atomically)."""
+    t0 = time.perf_counter()
+    while not path.exists():
+        if time.perf_counter() - t0 > timeout:
+            raise TimeoutError(f"{path} never appeared")
+        time.sleep(0.1)
+    return path
+
+
+def _save_atomic(obj, path: Path) -> None:
+    torch.save(obj, path.with_suffix(".tmp"))
+    os.replace(path.with_suffix(".tmp"), path)
+
+
+def ranks_worker(tmp: Path) -> None:
+    """One rank of phase 22 (``chip_smoke.py --ranks-worker DIR``): two
+    ranks share the card under gloo, one rank alone runs NCCL."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from hnet_mamba_asr_torch.data.dataset import ItemLoader
+    from hnet_mamba_asr_torch.ops.ema_cuda import ema_cuda
+    from hnet_mamba_asr_torch.ops.ssd_cuda import ssd_cuda
+    from hnet_mamba_asr_torch.parallel import mesh as pmesh
+    from hnet_mamba_asr_torch.parallel.seq_parallel import SPModel, sp_encode
+    from hnet_mamba_asr_torch.tasks.decode_task import decode_split
+    from hnet_mamba_asr_torch.tools.gate import seeded_tokenizer
+    world = int(os.environ["WORLD_SIZE"])
+    pmesh.init_distributed("cuda", "gloo" if world > 1 else "nccl")
+    rank = dist.get_rank()
+    dev = pmesh.rank_device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    job = pickle.loads((tmp / "job.pkl").read_bytes())
+    out = {"rank": rank, "world": world, "backend": dist.get_backend(),
+           "stages": [("joined", time.time())]}
+
+    def stage(name):
+        out["stages"].append((name, time.time()))
+        print(f"[rank {rank} of {world}] {name}", flush=True)
+
+    def model_of(key):
+        """The parent's build of ``key``'s config (routers drawn at N=2),
+        loaded from its file: a full-width build draws ~80 M weights on the
+        host, which every process at once would contend for."""
+        return torch.load(_wait_for(tmp / f"base_{key}.pt"), map_location=dev,
+                          weights_only=False).train()
+
+    # each use of a base takes a copy on the card of the untouched one. The
+    # updates go first: they wait only for the gloo probe and the parent's
+    # first build, while the parent makes the references that sp and the
+    # gradient stages wait for (its whole-batch gradients and split
+    # witnesses first, so that its offline sp update runs warm).
+    bases = {}
+
+    def fresh(label):
+        if label not in bases:
+            bases[label] = model_of(label)
+        return copy.deepcopy(bases[label])
+
+    # 2 updates under DDP, then FSDP, on each rank's rows of 2 global batches;
+    # FSDP2 needs all_gather_into_tensor and reduce_scatter_tensor, which gloo
+    # may refuse on CUDA tensors: then FSDP runs at world size 1 under NCCL only
+    rows = [pmesh.rank_rows(b, rank, world) for b in job["updates"]]
+    trees = {}
+    gloo = json.loads(_wait_for(tmp / "gloo.json").read_text()) if world > 1 else {}
+    fsdp_ok = world == 1 or all(gloo[op] == "ok" for op in
+                                ("all_gather_into_tensor", "reduce_scatter_tensor"))
+    out["fsdp_ran"] = fsdp_ok
+    for label, extra in (("ddp", {}), ("fsdp", {"fsdp": True}))[:2 if fsdp_ok else 1]:
+        stage(f"updates {label}")
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        tr = unsaved_trainer(fresh("fp32"), rows, dict(RANKS_TRAIN, **extra),
+                     ckpt_dir=tmp / f"u{world}{rank}{label}", seed=SEED, device=dev)
+        tr.train()
+        state = [p for p in tr.model.parameters()] + [
+            t for st in tr.opt.state.values() for k, t in st.items()
+            if torch.is_tensor(t) and k != "step"]
+        local = sum((t.to_local() if pmesh.is_dtensor(t) else t).numel() * 4 for t in state)
+        trees[label] = pmesh.full_state(tr.model.state_dict(), keep=True)
+        out[label] = {"ms": [h["ms"] for h in tr.history], "loss": [h["loss/total"]
+                                                                   for h in tr.history],
+                      "state_bytes": local, "peak": torch.cuda.max_memory_allocated(dev),
+                      "sharded": sum(pmesh.is_dtensor(p) for p in tr.model.parameters())}
+        del tr
+        torch.cuda.empty_cache()
+    out["fsdp_vs_ddp"] = max(
+        ((trees["fsdp"][k] - v).abs() - FSDP_RTOL * v.abs()).max().item() for k, v in
+        trees["ddp"].items()) if fsdp_ok else None
+    out["ddp_tree_digest"] = float(sum(v.double().sum() for v in trees["ddp"].values()))
+    del trees
+    if world > 1:
+        # sp = 2 on configs/typeA_small_N2.yaml: encoder, loss, gradients
+        stage("sp")
+        model = model_of("sp")
+        sp = SPModel(model, pmesh.make_mesh(2, dev))
+        ref = torch.load(_wait_for(tmp / "ref_sp.pt"), map_location=dev)
+        batch = {k: torch.as_tensor(v).to(dev) if isinstance(v, np.ndarray) else v
+                 for k, v in job["sp_batch"].items() if k != "ids"}
+        with torch.no_grad():
+            feats, flens = model.features(batch, False)
+            enc = sp_encode(model.encoder, feats, flens, sp.shards)
+        n = ref["lengths"]
+        f = enc.features[:, :ref["features"].shape[1]]
+        gap = max(((f[i, :n[i]] - ref["features"][i, :n[i]]).abs().max()
+                   / ref["features"][i, :n[i]].abs().max()).item() for i in range(len(n)))
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        ssd_cuda.launches = ssd_cuda.bwd_launches = ema_cuda.launches = ema_cuda.bwd_launches = 0
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        loss, stats = sp.loss_fn(batch, 0, False)
+        loss.backward()
+        t1.record()
+        t1.synchronize()
+        launches = {"ssd_fwd": ssd_cuda.launches, "ssd_bwd": ssd_cuda.bwd_launches,
+                    "ema_fwd": ema_cuda.launches, "ema_bwd": ema_cuda.bwd_launches}
+        grads = {}
+        for name, p in model.named_parameters():
+            g = p.grad.detach().clone()
+            dist.all_reduce(g)
+            grads[name] = g / world
+        out["sp"] = {"feature_gap": gap, "ratio": float(enc.ratio_loss),
+                     "ref_ratio": ref["ratio"], "kept": float(enc.kept_fractions[0]),
+                     "ref_kept": ref["kept"], "loss": loss.item(), "ref_loss": ref["loss"],
+                     "grad_gap": _grad_gap(grads, ref["grads"]), "launches": launches,
+                     "ms": t0.elapsed_time(t1),
+                     "peak": torch.cuda.max_memory_allocated(dev) - before}
+        shards = sp.shards
+        del model, sp, ref, grads, loss
+        # the config's own bf16: the gap to offline is recorded, not bounded
+        model = model_of("sp_bf16").eval()
+        ref = torch.load(_wait_for(tmp / "ref_sp16.pt"), map_location=dev)
+        with torch.no_grad():
+            feats, flens = model.features(batch, False)
+            enc = sp_encode(model.encoder, feats, flens, shards)
+        f = enc.features[:, :ref["features"].shape[1]].float()
+        n = ref["lengths"]
+        out["sp_bf16"] = {
+            "feature_gap": max(((f[i, :n[i]] - ref["features"][i, :n[i]]).abs().max()
+                                / ref["features"][i, :n[i]].abs().max()).item()
+                               for i in range(len(n))),
+            "kept": float(enc.kept_fractions[0]), "ref_kept": ref["kept"]}
+        del model, ref, enc
+        torch.cuda.empty_cache()
+    # DDP gradients of one micro-step against one rank's (train mode: the
+    # row-keyed SpecAugment and AED dropout); bf16's gap on the gloo pair only
+    for label in ("fp32", "bf16")[:2 if world > 1 else 1]:
+        stage(f"grad {label}")
+        tr = unsaved_trainer(fresh(label), [], RANKS_TRAIN,
+                             ckpt_dir=tmp / f"g{world}{rank}{label}", seed=SEED, device=dev)
+        stats = tr._micro_step(pmesh.rank_rows(job["batch"], rank, world))
+        ref = torch.load(_wait_for(tmp / f"ref_{label}.pt"), map_location=dev)
+        grads = {n: p.grad for n, p in tr.model.named_parameters()}
+        out[f"grad_{label}"] = {"gap": _grad_gap(grads, ref["grads"]),
+                                "split_gap": _grad_gap(grads, ref["split"]) if world > 1 else None,
+                                "loss": float(stats["loss/total"]), "ref_loss": ref["loss"]}
+        del grads, tr, ref
+        torch.cuda.empty_cache()
+    if world > 1:
+        # decoding over the two ranks
+        stage("decode")
+        tok = seeded_tokenizer(tmp / f"tok{rank}.json")
+        model = decode_model(fresh("bf16"))
+        out["decode"] = {}
+        for cell in job["cells"]:
+            where = tmp / f"ranks{rank}_{cell['name']}.jsonl"
+            loader = ItemLoader(job["decode_items"], 32000, pad_id=tok.pad_id, shuffle=False,
+                                batch_multiple=world)
+            decode_split(model, tok, loader, cell, job["decode_cfg"], audio_seconds={},
+                         out_path=where, ranks=(rank, world))
+            out["decode"][cell["name"]] = where.read_text() if where.exists() else None
+    stage("done")
+    (tmp / f"out{world}_{rank}.pkl").write_bytes(pickle.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def gloo_probe() -> None:
+    """One rank of the probe (``chip_smoke.py --gloo-probe``): each of
+    GLOO_CUDA_OPS in turn under gloo on CUDA tensors, its result checked,
+    "<op> ok" printed; the first that raises ends the process (a group that
+    has refused a collective may crash on the next one)."""
+    import torch.distributed as dist
+
+    from hnet_mamba_asr_torch.parallel import mesh as pmesh
+    pmesh.init_distributed("cuda", "gloo", timeout_s=60)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    dev = pmesh.rank_device("cuda")
+    x = torch.arange(4, dtype=torch.float32, device=dev) + 10 * rank
+    full = torch.cat([torch.arange(4, dtype=torch.float32, device=dev) + 10 * r
+                      for r in range(world)])
+
+    def run(op):
+        if op == "all_reduce":
+            y = x.clone()
+            dist.all_reduce(y)
+            return y, full.reshape(world, 4).sum(0)
+        if op == "broadcast":
+            y = x.clone()
+            dist.broadcast(y, 0)
+            return y, full[:4]
+        if op == "all_gather":
+            parts = [torch.empty_like(x) for _ in range(world)]
+            dist.all_gather(parts, x)
+            return torch.cat(parts), full
+        if op == "all_gather_into_tensor":
+            y = x.new_empty(4 * world)
+            dist.all_gather_into_tensor(y, x)
+            return y, full
+        y = x.new_empty(4 // world)                # reduce_scatter_tensor
+        dist.reduce_scatter_tensor(y, full.clone())
+        return y, world * full[rank * 4 // world:(rank + 1) * 4 // world]
+
+    for op in GLOO_CUDA_OPS:
+        try:
+            got, want = run(op)
+            torch.cuda.synchronize(dev)
+            if not torch.equal(got, want):
+                raise AssertionError(f"{got.tolist()} != {want.tolist()}")
+        except Exception as e:  # noqa: BLE001 - the probe's finding
+            print(f"{op} refused: {type(e).__name__}: {str(e).splitlines()[-1][:100]}",
+                  flush=True)
+            os._exit(1)
+        print(f"{op} ok", flush=True)
+    dist.destroy_process_group()
+
+
+def _spawn_ranks(tmp: Path, world: int, port: int, log_name: str,
+                 mode=("--ranks-worker",)) -> list:
+    procs = []
+    for r in range(world):
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   WORLD_SIZE=str(world), RANK=str(r), LOCAL_RANK=str(r),
+                   LOCAL_WORLD_SIZE=str(world), HMASR_LOG_DIR=str(tmp / "logs"),
+                   PYTHONFAULTHANDLER="1")
+        args = [sys.executable, str(Path(__file__).resolve()), *mode]
+        if mode == ("--ranks-worker",):
+            args.append(str(tmp))
+        procs.append(subprocess.Popen(args, env=env, stdout=open(tmp / f"{log_name}{r}.log", "w"),
+                                      stderr=subprocess.STDOUT))
+    return procs
+
+
+def phase_ranks(cmvn) -> dict:
+    """Phase 22, the multi-rank planes (module docstring). Every process
+    starts at once on the one card: a pair of processes per gloo probe, two
+    ranks under gloo (DDP, FSDP where gloo takes its collectives, sp = 2,
+    decoding over ranks), one rank under NCCL (DDP and FSDP at world size 1)
+    and tools/smoke_2proc.py (two processes, gloo, the tone corpus at d 32);
+    the one-process references run here meanwhile, and the ranks wait for
+    their files."""
+    import pickle
+    import shutil
+    import socket
+
+    from hnet_mamba_asr_torch.data.dataset import ItemLoader
+    from hnet_mamba_asr_torch.parallel.mesh import fsdp_plan
+    from hnet_mamba_asr_torch.tasks.asr_task import build_model
+    from hnet_mamba_asr_torch.tasks.decode_task import decode_split, expand_cells
+    from hnet_mamba_asr_torch.tools.gate import seeded_tokenizer
+    from hnet_mamba_asr_torch.training.trainer import DEVICE_KEYS
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ranks_"))
+    rng = np.random.default_rng(SEED + 22)
+    cfgs = ranks_configs()
+    job = {"batch": ranks_batch(rng, 10.0, RANKS_ROWS, RANKS_ROWS - 1),
+           "updates": [ranks_batch(rng, 10.0, RANKS_ROWS, RANKS_ROWS - 1, RANKS_ROWS * k)
+                       for k in (1, 2)],
+           "sp_batch": ranks_batch(rng, SP_SECONDS, 2, 2),
+           "decode_items": decode_batch_items(np.random.default_rng(SEED + 13), 8),
+           "decode_cfg": {"beam_size": 4},
+           "cells": [c for c in expand_cells({"read_outs": ["ctc", "aed"],
+                                              "search": ["greedy", "beam"], "lm": "none"})
+                     if c["name"] in RANKS_CELLS]}
+    (tmp / "job.pkl").write_bytes(pickle.dumps(job))
+    secs, out = {}, {}
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    t_spawn = time.time()
+    probe = _spawn_ranks(tmp, 2, free_port(), "probe", ("--gloo-probe",))
+    pair = _spawn_ranks(tmp, 2, free_port(), "pair")
+    single = _spawn_ranks(tmp, 1, free_port(), "single")
+    smoke = subprocess.Popen(
+        [sys.executable, "-m", "hnet_mamba_asr_torch.tools.smoke_2proc", "--device", "cuda",
+         "--backend", "gloo", "--root", str(tmp / "smoke2p"), "--timeout", "300"],
+        cwd=Path(__file__).resolve().parent, stdout=open(tmp / "smoke2p.log", "w"),
+        stderr=subprocess.STDOUT)
+    everyone = probe + pair + single + [smoke]
+    gloo = {}
+
+    def publish_probe():
+        """gloo.json for the ranks as soon as the probe ends: each op's
+        verdict from its log ("not probed" after a refusal)."""
+        [p.wait(120) for p in probe]
+        lines = (tmp / "probe0.log").read_text().splitlines()
+        gloo.update({op: next((ln.split(" ", 1)[1] for ln in lines if ln.startswith(op + " ")),
+                              "not probed") for op in GLOO_CUDA_OPS})
+        (tmp / "gloo.json.tmp").write_text(json.dumps(gloo))
+        os.replace(tmp / "gloo.json.tmp", tmp / "gloo.json")
+        secs["gloo_probes"] = time.perf_counter() - t0
+
+    try:
+        def on_card(batch):
+            return dict(batch, **{k: torch.as_tensor(batch[k]).cuda() for k in DEVICE_KEYS})
+
+        t0 = time.perf_counter()
+        waiter = threading.Thread(target=publish_probe, daemon=True)
+        waiter.start()
+        bases = {}
+        for label in ("fp32", "bf16"):
+            model = bases[label] = build_model(cfgs[label], VOCAB, cmvn=cmvn, seed=SEED).train()
+            _save_atomic(model, tmp / f"base_{label}.pt")        # the ranks' copy
+            loss, _ = model.loss_fn(on_card(job["batch"]), 0, True)
+            loss.backward()
+            whole = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+            split = split_grads(model, job["batch"], 2, on_card)   # zeroes the gradients
+            out[f"witness_{label}"] = _grad_gap(split, whole)
+            _save_atomic({"loss": loss.item(), "grads": whole, "split": split},
+                         tmp / f"ref_{label}.pt")
+            del whole, split                       # the weights are untouched: a base
+            if label == "fp32":               # FSDP over 2 ranks, by its plan
+                plan = fsdp_plan(model, 2)
+                out["fsdp2_bytes"] = 12 * sum(p.numel() // (2 if plan[n] is not None else 1)
+                                              for n, p in model.named_parameters())
+            del loss
+        model = build_model(cfgs["sp"], VOCAB, cmvn=cmvn, seed=SEED).train()
+        draw_routers(model, SEED + 23)
+        _save_atomic(model, tmp / "base_sp.pt")
+        b = on_card(job["sp_batch"])
+        with torch.no_grad():
+            enc = model.encode(b)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        loss, stats = model.loss_fn(b, 0, False)
+        loss.backward()
+        ev[1].record()
+        ev[1].synchronize()
+        out["sp_offline"] = {"ms": ev[0].elapsed_time(ev[1]),
+                             "peak": torch.cuda.max_memory_allocated() - before}
+        _save_atomic({"features": enc.features.cpu(), "lengths": enc.lengths.cpu(),
+                      "ratio": float(enc.ratio_loss), "kept": float(enc.kept_fractions[0]),
+                      "loss": loss.item(), "grads": {n: p.grad.detach().cpu()
+                                                     for n, p in model.named_parameters()}},
+                     tmp / "ref_sp.pt")
+        del model, enc, loss
+        model = build_model(cfgs["sp_bf16"], VOCAB, cmvn=cmvn, seed=SEED).eval()
+        draw_routers(model, SEED + 23)
+        _save_atomic(model, tmp / "base_sp_bf16.pt")
+        with torch.no_grad():
+            enc = model.encode(b)
+        _save_atomic({"features": enc.features.float().cpu(), "lengths": enc.lengths.cpu(),
+                      "kept": float(enc.kept_fractions[0])}, tmp / "ref_sp16.pt")
+        del model, enc
+        secs["references"] = time.perf_counter() - t0
+        waiter.join()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        solo = unsaved_trainer(bases.pop("fp32"), job["updates"], RANKS_TRAIN,
+                               ckpt_dir=tmp / "solo", seed=SEED)
+        solo.train()
+        out["solo"] = {"ms": [h["ms"] for h in solo.history],
+                       "peak": torch.cuda.max_memory_allocated()}
+        del solo
+        tok = seeded_tokenizer(tmp / "tok.json")
+        model = decode_model(bases.pop("bf16"))
+        solo_dec = {}
+        for cell in job["cells"]:
+            loader = ItemLoader(job["decode_items"], 32000, pad_id=tok.pad_id, shuffle=False)
+            where = tmp / f"solo_{cell['name']}.jsonl"
+            decode_split(model, tok, loader, cell, job["decode_cfg"], audio_seconds={},
+                         out_path=where)
+            solo_dec[cell["name"]] = where.read_text()
+        del model
+        torch.cuda.empty_cache()
+        secs["one_process"] = time.perf_counter() - t0
+        codes = {}
+        for name, procs in (("pair", pair), ("single", single), ("smoke_2proc", [smoke])):
+            codes[name] = [p.wait(600) for p in procs]
+            secs[name] = time.perf_counter() - t0
+    finally:
+        for p in everyone:                      # stop every process it started
+            if p.poll() is None:
+                p.kill()
+    if any(c != [0] * len(c) for c in codes.values()):
+        for f in sorted(tmp.glob("*.log")):
+            log(f"  ----- {f.name} -----\n" + f.read_text()[-3000:])
+        raise AssertionError(f"phase 22 processes exited {codes}")
+    res = {k: pickle.loads((tmp / f"out{k}.pkl").read_bytes())
+           for k in ("2_0", "2_1", "1_0")}
+    smoke_line = [ln for ln in (tmp / "smoke2p.log").read_text().splitlines()
+                  if "ALL CHECKS PASSED" in ln]
+    shutil.rmtree(tmp, ignore_errors=True)
+    log(f"  gloo on CUDA tensors (torch {torch.__version__}): " + ", ".join(
+        f"{k} {v}" for k, v in gloo.items()))
+    checks = []
+    for key, who in (("2_0", "DDP 2 ranks gloo"), ("1_0", "DDP 1 rank NCCL")):
+        r = res[key]
+        for label in ("fp32", "bf16")[:2 if key == "2_0" else 1]:
+            g = r[f"grad_{label}"]
+            gap = g["gap"]
+            over = [(v, n) for v, n, _ in gap if v > (CONV1_GRAD_BOUND if n.endswith(
+                RANKS_SUM_LEAVES) else RANKS_GRAD_BOUND)]
+            log(f"  {who} vs one process, gate config {label}, one micro-step of {RANKS_ROWS} "
+                f"rows (7 x 10 s + a pad, SpecAugment and dropout on): loss {g['loss']:.7f} vs "
+                f"{g['ref_loss']:.7f}; {len(gap)} leaves, max|d|/max|g| worst "
+                + ", ".join(f"{v:.2e} ({n})" for v, n, _ in gap[:3])
+                + f"; mean|d|/mean|g| worst {max(m for _, _, m in gap):.2e}"
+                + ("" if label == "bf16" else f"; over the bounds: {over}"))
+            ok = abs(g["loss"] - g["ref_loss"]) <= 1e-6 * abs(g["ref_loss"]) and all(
+                math.isfinite(v) for v, _, _ in gap)
+            checks.append((f"{who} {label} gradients", ok and (label == "bf16" or not over)))
+            if g["split_gap"] is not None:
+                wit, sg = out[f"witness_{label}"], g["split_gap"]
+                split_over = [(v, n) for v, n, _ in sg if v > (
+                    RANKS_SPLIT_BOUND if label == "fp32" else
+                    CONV1_GRAD_BOUND if n in CONV1_LEAVES else PARAM_GRAD_BOUND)]
+                log(f"    witness (one process, the same 2 row slices, global sums) vs the "
+                    f"whole batch, {label}: max|d|/max|g| worst "
+                    + ", ".join(f"{v:.2e} ({n})" for v, n, _ in wit[:3])
+                    + f"; {who} vs the witness: worst "
+                    + ", ".join(f"{v:.2e} ({n})" for v, n, _ in sg[:3])
+                    + f"; over the bounds: {split_over}")
+                checks.append((f"{who} {label} gradients vs the split witness", not split_over))
+        log(f"  {who}: params + moments per rank {r['ddp']['state_bytes'] / 1e9:.3f} GB, "
+            f"max_memory_allocated {r['ddp']['peak'] / 1e9:.2f} GB, update ms "
+            f"{[round(m, 1) for m in r['ddp']['ms']]} (one shared card; one process "
+            f"{[round(m, 1) for m in out['solo']['ms']]}, {out['solo']['peak'] / 1e9:.2f} GB)")
+        if not r["fsdp_ran"]:
+            log(f"  {who}: FSDP not run (gloo refuses reduce_scatter_tensor on CUDA tensors; "
+                f"over 2 ranks its plan would hold {out['fsdp2_bytes'] / 1e9:.3f} GB of params "
+                f"+ moments per rank)")
+            continue
+        log(f"  {who}: FSDP vs DDP after 2 updates, max(|d| - rtol|p|) {r['fsdp_vs_ddp']:.3e} "
+            f"(atol {FSDP_ATOL:g}); params + moments per rank {r['fsdp']['state_bytes'] / 1e9:.3f}"
+            f" GB ({r['fsdp']['sharded']} sharded leaves), max_memory_allocated "
+            f"{r['fsdp']['peak'] / 1e9:.2f} GB, update ms "
+            f"{[round(m, 1) for m in r['fsdp']['ms']]} (one shared card)")
+        checks.append((f"{who} FSDP vs DDP", r["fsdp_vs_ddp"] <= FSDP_ATOL))
+    checks.append(("ranks bitwise equal", res["2_0"]["ddp_tree_digest"]
+                   == res["2_1"]["ddp_tree_digest"]))
+    for key in ("2_0", "2_1"):
+        s = res[key]["sp"]
+        gap = s["grad_gap"]
+        log(f"  sp=2 rank {key[-1]} vs offline, configs/typeA_small_N2.yaml fp32, 2 x "
+            f"{SP_SECONDS:g} s: features {s['feature_gap']:.2e} of max, ratio "
+            f"{s['ratio']:.7f} vs {s['ref_ratio']:.7f}, kept {s['kept']:.7f} vs "
+            f"{s['ref_kept']:.7f}, loss {s['loss']:.6f} vs {s['ref_loss']:.6f}, gradients worst "
+            + ", ".join(f"{v:.2e} ({n})" for v, n, _ in gap[:3])
+            + f"; launches {s['launches']}; update {s['ms']:.1f} ms, peak above the "
+            f"update's start {s['peak'] / 1e9:.3f} GB (offline {out['sp_offline']['ms']:.1f} ms, "
+            f"{out['sp_offline']['peak'] / 1e9:.3f} GB)")
+        checks += [
+            (f"sp rank {key} features", s["feature_gap"] <= SP_FEATURE_BOUND),
+            (f"sp rank {key} ratio and kept", abs(s["ratio"] - s["ref_ratio"]) <= SP_SCALAR_BOUND
+             and abs(s["kept"] - s["ref_kept"]) <= SP_SCALAR_BOUND),
+            (f"sp rank {key} loss", abs(s["loss"] - s["ref_loss"])
+             <= SP_LOSS_RTOL * abs(s["ref_loss"])),
+            (f"sp rank {key} gradients", gap[0][0] <= SP_GRAD_RTOL),
+            (f"sp rank {key} launches", s["launches"] == {
+                "ssd_fwd": 2 * N2_SSD_CALLS, "ssd_bwd": N2_SSD_CALLS, "ema_fwd": 1,
+                "ema_bwd": 1})]
+    s16 = res["2_0"]["sp_bf16"]
+    log(f"  sp=2 vs offline in the config's bf16 (encoder only, recorded): features "
+        f"{s16['feature_gap']:.3e} of max on valid frames, kept {s16['kept']:.7f} vs "
+        f"{s16['ref_kept']:.7f}")
+    checks.append(("sp bf16 finite", math.isfinite(s16["feature_gap"])))
+    for cell in job["cells"]:
+        name = cell["name"]
+        got = [json.loads(x) for x in res["2_0"]["decode"][name].splitlines()]
+        want = [json.loads(x) for x in solo_dec[name].splitlines()]
+        # the records' transcripts and the beam's scores, equal: the token ids
+        # are not in the records, and a transcript may spell two id sequences
+        same = ([(r["id"], r["hyp"], r["score"]) for r in got]
+                == [(r["id"], r["hyp"], r["score"]) for r in want])
+        log(f"  decode over 2 ranks, {name}: {len(got)} utterances, transcripts and scores "
+            f"({'none: greedy' if got and got[0]['score'] is None else 'the beam'}'s) equal "
+            f"to one process: {same}")
+        checks.append((f"decode {name}", same and res["2_1"]["decode"][name] is None))
+    checks.append(("smoke_2proc", bool(smoke_line)))
+    log("  " + (smoke_line[0] if smoke_line else "smoke_2proc printed no result"))
+    for key, r in res.items():
+        log(f"  rank {key[-1]} of {key[0]}, seconds after the spawn: " + ", ".join(
+            f"{name} {t - t_spawn:.1f}" for name, t in r["stages"]))
+    phase_s = time.perf_counter() - t_phase
+    log(f"  ranks phase: {phase_s:.1f} s (budget {RANKS_BUDGET_S:.0f} s); seconds "
+        + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+    failed = [name for name, ok in checks if not ok]
+    if failed:
+        raise AssertionError(f"phase 22 checks failed: {failed}")
+    log("phase 22 ranks: ok")
+    return {"seconds": phase_s, "launches": {"sp_update_rank0": res["2_0"]["sp"]["launches"]},
+            "results": res, "solo": out, "gloo_cuda": gloo}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3759,6 +4481,10 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
+    if os.environ.get("CHIP_SMOKE_LOG"):         # the whole log, as well as stdout
+        path = Path(os.environ["CHIP_SMOKE_LOG"])
+        path.parent.mkdir(parents=True, exist_ok=True)
+        LOG_FILE.append(open(path, "w"))
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
         f"device {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
@@ -3804,6 +4530,7 @@ def main() -> int:
     artifacts = run(phase_artifacts, cmvn)
     train_cli = run(phase_train_clis)
     interp = run(phase_interp, cmvn)
+    ranks = run(phase_ranks, cmvn)
     log(f"training summary: gate config {train['step_ms']:.1f} ms per update of 2 x 32 x 10 s, "
         f"{train['fps']:.0f} mel-frames/s, peak {train['peak'] / 1e9:.2f} GB; N=2 config "
         f"{train_n2['step_ms']:.1f} ms per update of 64 x 10 s, {train_n2['fps']:.0f} "
@@ -3862,6 +4589,14 @@ def main() -> int:
         f"{PROBE_TIMED[2]} fit {interp['probe_timed']['seconds']:.2f} s, "
         f"{interp['probe_timed']['n_iter']} iterations; phase {interp['seconds']:.1f} s; "
         f"{time.perf_counter() - t_start:.1f} s in all")
+    sp = ranks["results"]["2_0"]["sp"]
+    log(f"ranks summary: gloo on CUDA "
+        + ", ".join(f"{k} {'ok' if v == 'ok' else 'refused'}"
+                    for k, v in ranks["gloo_cuda"].items())
+        + f"; sp=2 update {sp['ms']:.1f} ms, {sp['peak'] / 1e9:.2f} GB per rank (offline "
+        f"{ranks['solo']['sp_offline']['ms']:.1f} ms, "
+        f"{ranks['solo']['sp_offline']['peak'] / 1e9:.2f} GB); phase {ranks['seconds']:.1f} s; "
+        f"{time.perf_counter() - t_start:.1f} s in all")
     main_shape = ("bfloat16", TRAIN_ROWS, 249, 16)
     fwd = next(r for r in fwd_rows if (r["dtype"], r["B"], r["L"], r["H"]) == main_shape)
     bwd = next(r for r in bwd_rows if (r["dtype"], r["B"], r["L"], r["H"]) == main_shape
@@ -3890,7 +4625,8 @@ def main() -> int:
                "train_rnnt": train_rnnt["launches"], "grads_rnnt": rnnt_grads,
                "gate_proof_rnnt_tone": rnnt_gate["launches"],
                "train_moe": moe["train"]["launches"], **stream["launches"],
-               **artifacts["launches"], **train_cli["launches"], **interp["launches"]}
+               **artifacts["launches"], **train_cli["launches"], **interp["launches"],
+               **ranks["launches"]}
     launches = dict(train_n2["launches"], ssd_fwd=full["engines"]["device"]["launches"],
                     rnnt_fwd=train_rnnt["launches"]["rnnt_fwd"],
                     rnnt_bwd=train_rnnt["launches"]["rnnt_bwd"])
@@ -3923,4 +4659,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--ranks-worker":
+        ranks_worker(Path(sys.argv[2]))          # one rank of phase 22
+        sys.exit(0)
+    if sys.argv[1:] == ["--gloo-probe"]:
+        gloo_probe()                             # one rank of phase 22's probe
+        sys.exit(0)
     sys.exit(main())

@@ -23,8 +23,11 @@ function of (seed, epoch, item index), shipped in the batch.
   ``max_frames`` budget, shuffled by (seed + epoch).
 - ``DataLoader`` fetches and collates the sampler's batches, in a
   background thread with a bounded queue when ``prefetch`` > 0 (order kept,
-  a worker's exception raised in the consumer). The JAX loader's
-  multi-process row sharding is not ported and raises.
+  a worker's exception raised in the consumer). ``row_shard=(rank, count)``
+  is the multi-process mode: every rank iterates the same unsharded batch
+  sequence and materializes only its contiguous row slice, padded to the
+  targets of all the batch's rows (from metadata), so every rank holds one
+  shape and the slices together are the one global batch.
 - ``ItemLoader`` / ``manifest_items`` batch items held in memory.
 """
 from __future__ import annotations
@@ -94,6 +97,16 @@ class ASRDataset:
         if self.perturb_cache_dir is not None:
             self.perturb_cache_dir.mkdir(parents=True, exist_ok=True)
         self.cache_hits = self.cache_misses = 0
+        self._tok_len_cache: dict[int, int] = {}
+
+    def token_len(self, item: int) -> int:
+        """Token count for item ``item`` from text alone (cached per entry)."""
+        idx, _ = self.items[item]
+        n = self._tok_len_cache.get(idx)
+        if n is None:
+            n = len(self.tokenizer.encode(self.entries[idx]["text"]))
+            self._tok_len_cache[idx] = n
+        return n
 
     def __len__(self) -> int:
         return len(self.items)
@@ -261,14 +274,29 @@ class DataLoader:
     """Sampler -> fetch -> collate, deterministic; ``set_epoch`` reshuffles
     and stamps the epoch for augmentation. ``prefetch`` > 0 builds batches in
     a background thread ahead of the consumer through a queue of that size
-    (order kept; a worker exception is raised in the consumer)."""
+    (order kept; a worker exception is raised in the consumer).
+
+    ``row_shard=(rank, count)``: the sampler is unsharded (every rank
+    iterates the same global batches) and this rank materializes rows
+    ``[rank * B_pad / count, (rank + 1) * B_pad / count)``; the pad targets
+    come from every row's metadata, so all ranks hold one padded shape. An
+    audio file whose length disagrees with its manifest raises: the shape
+    contract rests on the metadata."""
 
     def __init__(self, dataset: ASRDataset, sampler: BucketBatchSampler, *,
                  batch_multiple: int = 1, snap_lengths: bool = True,
                  prefetch: int = 0, row_shard: tuple[int, int] | None = None,
                  wire_dtype: str = "float32"):
-        if row_shard:
-            raise NotImplementedError("row_shard (multi-process loading) is not ported")
+        self.row_shard = tuple(row_shard) if row_shard else None
+        if self.row_shard:
+            rank, count = self.row_shard
+            if not 0 <= rank < count:
+                raise ValueError(f"row_shard rank {rank} not in [0, {count})")
+            if batch_multiple % count:
+                raise ValueError(
+                    f"row_shard needs batch_multiple ({batch_multiple}) "
+                    f"divisible by process count ({count}) so every process "
+                    f"gets an equal row slice")
         if wire_dtype not in ("float32", "int16"):
             raise ValueError(f"wire_dtype must be float32|int16, got {wire_dtype!r}")
         self.dataset = dataset
@@ -285,11 +313,35 @@ class DataLoader:
     def __len__(self) -> int:
         return len(self.sampler)
 
+    def _fetch_checked(self, item: int, expect_samples: int) -> dict:
+        s = self.dataset[item]
+        if s["n_samples"] != expect_samples:
+            e = self.dataset.entries[self.dataset.items[item][0]]
+            raise ValueError(
+                f"{e['audio']}: audio has {s['n_samples']} samples but the "
+                f"manifest-derived expectation is {expect_samples}. On a "
+                f"row-sharded (multi-process) run pad targets come from "
+                f"metadata, so a lying manifest would silently break the "
+                f"equal-shape contract; fix the manifest 'frames' field.")
+        return s
+
     def _make(self, batch_idx) -> dict:
-        return collate_batch([self.dataset[i] for i in batch_idx], pad_id=self.dataset.pad_id,
-                             seed=self.dataset.seed, epoch=self.dataset.epoch,
-                             batch_multiple=self.batch_multiple,
-                             snap_lengths=self.snap_lengths, wire_dtype=self.wire_dtype)
+        ds = self.dataset
+        if self.row_shard is None:
+            return collate_batch([ds[i] for i in batch_idx], pad_id=ds.pad_id,
+                                 seed=ds.seed, epoch=ds.epoch,
+                                 batch_multiple=self.batch_multiple,
+                                 snap_lengths=self.snap_lengths, wire_dtype=self.wire_dtype)
+        rank, count = self.row_shard
+        n_samps = [ds.samples[i] for i in batch_idx]
+        B_pad, n_pad, u_pad = pad_targets(
+            n_samps, [ds.token_len(i) for i in batch_idx],
+            batch_multiple=self.batch_multiple, snap_lengths=self.snap_lengths)
+        per = B_pad // count
+        rows = [self._fetch_checked(batch_idx[r], n_samps[r]) if r < len(batch_idx) else None
+                for r in range(rank * per, (rank + 1) * per)]
+        return _fill_rows(rows, n_pad, u_pad, pad_id=ds.pad_id, seed=ds.seed, epoch=ds.epoch,
+                          wire_dtype=self.wire_dtype)
 
     def __iter__(self) -> Iterator[dict]:
         if self.prefetch <= 0:
@@ -323,14 +375,17 @@ def make_dataloader(dataset: ASRDataset, max_frames: int, *, shuffle: bool = Fal
                     batch_multiple: int = 1, snap_lengths: bool = True,
                     prefetch: int = 0, row_shard: bool = False,
                     wire_dtype: str = "float32"):
-    """-> (DataLoader, BucketBatchSampler); ranks take disjoint batches.
-    ``row_shard`` (multi-process rows of one global batch) raises."""
-    if row_shard:
-        raise NotImplementedError("row_shard (multi-process loading) is not ported")
-    sampler = BucketBatchSampler(dataset.lengths, max_frames, num_replicas, rank,
+    """-> (DataLoader, BucketBatchSampler). ``row_shard=True`` turns (rank,
+    num_replicas) into row slices of one shared global batch sequence (the
+    multi-process contract, see DataLoader); otherwise ranks take disjoint
+    batches."""
+    sampler = BucketBatchSampler(dataset.lengths, max_frames,
+                                 1 if row_shard else num_replicas, 0 if row_shard else rank,
                                  shuffle=shuffle, seed=seed)
     loader = DataLoader(dataset, sampler, batch_multiple=batch_multiple,
-                        snap_lengths=snap_lengths, prefetch=prefetch, wire_dtype=wire_dtype)
+                        snap_lengths=snap_lengths, prefetch=prefetch,
+                        row_shard=(rank, num_replicas) if row_shard else None,
+                        wire_dtype=wire_dtype)
     return loader, sampler
 
 

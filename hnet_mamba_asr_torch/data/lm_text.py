@@ -13,8 +13,8 @@ unreadable, written to a per-process tmp and renamed into place.
 The JAX package counts tokens in a pool of forked workers; the port counts
 them in one process through its tokenizer (``data/tokenizer.py``). Collate
 gives a batch with ``row_mask`` (the ASR contract without the waveform
-keys), so the same ``Trainer`` trains the LM. Multi-process row sharding is
-not ported and raises.
+keys), so the same ``Trainer`` trains the LM. ``row_shard`` splits each
+global batch's rows between the processes of a multi-rank run.
 """
 from __future__ import annotations
 
@@ -234,17 +234,27 @@ def collate_lm(items: list[dict], *, pad_id: int, batch_multiple: int = 1,
 
 
 class LMDataLoader:
-    """Sampler -> items -> ``collate_lm``."""
+    """Sampler -> items -> ``collate_lm``. ``row_shard=(rank, count)`` is the
+    multi-process mode (see ``data/dataset.py::DataLoader``): the sampler is
+    unsharded, every rank takes the pad targets from the dataset's cached
+    token lengths and materializes only its contiguous row slice."""
 
     def __init__(self, dataset: LMTextDataset, sampler: BucketBatchSampler,
                  batch_multiple: int = 1, row_shard: tuple[int, int] | None = None,
                  token_multiple: int = 16):
-        if row_shard:
-            raise NotImplementedError("row_shard (multi-process loading) is not ported")
         self.dataset = dataset
         self.sampler = sampler
         self.batch_multiple = batch_multiple
         self.token_multiple = token_multiple
+        self.row_shard = tuple(row_shard) if row_shard else None
+        if self.row_shard:
+            rank, count = self.row_shard
+            if not 0 <= rank < count:
+                raise ValueError(f"row_shard rank {rank} not in [0, {count})")
+            if batch_multiple % count:
+                raise ValueError(
+                    f"row_shard needs batch_multiple ({batch_multiple}) "
+                    f"divisible by process count ({count})")
 
     def set_epoch(self, epoch: int) -> None:
         self.dataset.set_epoch(epoch)
@@ -255,18 +265,42 @@ class LMDataLoader:
 
     def __iter__(self) -> Iterator[dict]:
         for idxs in self.sampler:
-            yield collate_lm([self.dataset[i] for i in idxs], pad_id=self.dataset.pad_id,
-                             batch_multiple=self.batch_multiple,
-                             token_multiple=self.token_multiple)
+            if self.row_shard is None:
+                yield collate_lm([self.dataset[i] for i in idxs], pad_id=self.dataset.pad_id,
+                                 batch_multiple=self.batch_multiple,
+                                 token_multiple=self.token_multiple)
+                continue
+            rank, count = self.row_shard
+            B = len(idxs)
+            B_pad = -(-B // self.batch_multiple) * self.batch_multiple
+            u_max = max(self.dataset.lengths[i] for i in idxs)
+            u_pad = max(-(-u_max // self.token_multiple) * self.token_multiple,
+                        self.token_multiple)
+            per = B_pad // count
+            rows = []
+            for r in range(rank * per, (rank + 1) * per):
+                if r >= B:
+                    rows.append(None)
+                    continue
+                it = self.dataset[idxs[r]]
+                if len(it["tokens"]) != self.dataset.lengths[idxs[r]]:
+                    raise ValueError(
+                        f"line {idxs[r]}: cached token length "
+                        f"{self.dataset.lengths[idxs[r]]} != actual "
+                        f"{len(it['tokens'])}; a stale token-length cache "
+                        f"would break the multi-process equal-shape contract")
+                rows.append(it)
+            yield _fill_lm_rows(rows, u_pad, self.dataset.pad_id)
 
 
 def make_lm_dataloader(dataset: LMTextDataset, batch_tokens: int, *, shuffle: bool,
                        seed: int = 0, num_replicas: int = 1, rank: int = 0,
                        batch_multiple: int = 1, row_shard: bool = False):
-    """-> (LMDataLoader, BucketBatchSampler); ranks take disjoint batches.
-    ``row_shard`` (multi-process rows of one global batch) raises."""
-    if row_shard:
-        raise NotImplementedError("row_shard (multi-process loading) is not ported")
-    sampler = BucketBatchSampler(dataset.lengths, batch_tokens, num_replicas, rank,
+    """-> (LMDataLoader, BucketBatchSampler). ``row_shard=True`` makes (rank,
+    num_replicas) row slices of one shared global batch sequence; otherwise
+    ranks take disjoint batches."""
+    sampler = BucketBatchSampler(dataset.lengths, batch_tokens,
+                                 1 if row_shard else num_replicas, 0 if row_shard else rank,
                                  shuffle=shuffle, seed=seed)
-    return LMDataLoader(dataset, sampler, batch_multiple), sampler
+    return LMDataLoader(dataset, sampler, batch_multiple,
+                        row_shard=(rank, num_replicas) if row_shard else None), sampler

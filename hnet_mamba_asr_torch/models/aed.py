@@ -48,6 +48,7 @@ import torch.nn.functional as F
 from hnet_mamba_asr_torch.models.mamba2 import dense, new_linear
 from hnet_mamba_asr_torch.models.mamba_block import LN_EPS, layer_norm
 from hnet_mamba_asr_torch.models.moe import MoEFFN
+from hnet_mamba_asr_torch.parallel.collectives import batch_sum, row_slice
 
 NEG_INF = -1e9
 # the row block of every decode GEMM (models/mamba2.py::dense): the beam's
@@ -87,7 +88,15 @@ def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> 
     1 / (1 - rate); the identity without a generator (eval)."""
     if generator is None or rate <= 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    part = row_slice()
+    if part is None:
+        keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    else:                       # the global batch's draw, this rank's rows
+        rank, count = part
+        B = x.shape[0]
+        draw = torch.rand((B * count,) + tuple(x.shape[1:]), generator=generator,
+                          device=x.device)
+        keep = draw[rank * B:(rank + 1) * B] >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
                                                            device=x.device))
 
@@ -402,7 +411,8 @@ def label_smoothing_loss(logits: torch.Tensor, target: torch.Tensor,
                          target_lengths: torch.Tensor, lsm_weight: float,
                          row_mask: torch.Tensor | None = None) -> torch.Tensor:
     """Label-smoothed CE over [B, T, V] vs [B, T] in fp32; positions >= length
-    and rows outside ``row_mask`` contribute neither loss nor count."""
+    and rows outside ``row_mask`` contribute neither loss nor count; the
+    mean is over the global batch's tokens."""
     V = logits.shape[-1]
     logp = torch.log_softmax(logits.float(), dim=-1)
     on, off = 1.0 - lsm_weight, lsm_weight / (V - 1)
@@ -411,7 +421,9 @@ def label_smoothing_loss(logits: torch.Tensor, target: torch.Tensor,
     mask = ~pad_mask(target_lengths, target.shape[1])
     if row_mask is not None:
         mask = mask & row_mask[:, None]
-    return (nll * mask).sum() / mask.sum().clamp(min=1)
+    # the token count of the global batch (``batch_sum``: over the ranks that
+    # split its rows, else this batch's)
+    return batch_sum((nll * mask).sum()) / batch_sum(mask.sum()).clamp(min=1)
 
 
 def strip_hypothesis(ids, eos_id: int) -> list[int]:

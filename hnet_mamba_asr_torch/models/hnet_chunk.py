@@ -47,6 +47,7 @@ from torch.nn.utils import skip_init
 
 from hnet_mamba_asr_torch.models.mamba2 import STREAM_ROWS, dense
 from hnet_mamba_asr_torch.ops.ema_cuda import ema_cuda, ema_stream_cuda
+from hnet_mamba_asr_torch.parallel.collectives import batch_sum
 
 SLOT_MULTIPLE = 64              # the SSD kernel's chunk length
 
@@ -190,9 +191,11 @@ def ratio_loss(p: torch.Tensor, b: torch.Tensor, N: float,
     if mask is None:
         F, G = bf.mean(), pf.mean()
     else:
+        # F and G are means over the global batch (batch_sum), before the
+        # nonlinear loss is formed from them
         m = mask.float()
-        denom = m.sum().clamp(min=1.0)
-        F, G = (bf * m).sum() / denom, (pf * m).sum() / denom
+        denom = batch_sum(m.sum()).clamp(min=1.0)
+        F, G = batch_sum((bf * m).sum()) / denom, batch_sum((pf * m).sum()) / denom
     coef = N / (N - 1.0)
     return coef * ((N - 1.0) * F * G + (1.0 - F) * (1.0 - G))
 
@@ -222,7 +225,7 @@ class DynamicChunker(nn.Module):
         z = scatter_to_slots(x, memb, keep, M)
         z_mask = torch.arange(M, device=x.device)[None, :] < counts[:, None]
         valid = mask.sum() if mask is not None else torch.tensor(B * L, device=x.device)
-        kept = keep.sum().float() / valid.float().clamp(min=1.0)
+        kept = batch_sum(keep.sum().float()) / batch_sum(valid.float()).clamp(min=1.0)
         return ChunkOutput(z=z, z_mask=z_mask, p=p, b=b, membership=memb, ratio_loss=rl,
                            kept_fraction=kept)
 

@@ -34,6 +34,7 @@ from hnet_mamba_asr_torch.models.aed import (
 from hnet_mamba_asr_torch.models.mamba2 import dense, lecun_normal_, new_linear
 from hnet_mamba_asr_torch.models.mamba_block import LN_EPS, layer_norm
 from hnet_mamba_asr_torch.models.moe import MoEFFN
+from hnet_mamba_asr_torch.parallel.collectives import batch_sum
 
 
 class HeadsDense(nn.Module):
@@ -172,5 +173,6 @@ class TransformerLM(nn.Module):
         logits = self(ys_in, generator, mask if self.moe_experts > 0 else None, moe_stats)
         loss = label_smoothing_loss(logits, ys_out, out_lens, self.lsm_weight,
                                     row_mask=row_mask)
-        acc = ((logits.argmax(-1) == ys_out) & mask).sum() / mask.sum().clamp(min=1)
+        acc = (batch_sum(((logits.argmax(-1) == ys_out) & mask).sum())
+               / batch_sum(mask.sum()).clamp(min=1))
         return loss, acc

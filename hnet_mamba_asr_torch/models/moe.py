@@ -9,7 +9,11 @@ expert owns C = ceil(S k cf / E) slots (cf rounded to 1/1024), rounded up to
 a multiple of 8 and capped at S rounded up to 8; slots go in slot-major
 order (every token's first choice before any second choice, earlier tokens
 first within a choice), and a token over its expert's capacity is dropped
-from that expert (its branch adds 0 there).
+from that expert (its branch adds 0 there). When a global batch's rows
+are split over ranks (``parallel/collectives.py::rows_split_over``), the
+capacity is the global batch's and the positions are those of its global
+slot-major order (one all-gather of the ranks' per-choice expert counts),
+so that each rank keeps and drops what one process would.
 
 JAX builds [S, E, C] one-hot dispatch and combine tensors for the TPU's
 matrix unit; here the kept (token, slot) pairs are indexed into an [E, C, D]
@@ -33,6 +37,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from hnet_mamba_asr_torch.models.mamba2 import dense, lecun_normal_
+from hnet_mamba_asr_torch.parallel.collectives import (all_gather, batch_sum, row_slice,
+                                                       rows_group)
 
 
 def _round_up(n: int, m: int) -> int:
@@ -43,6 +49,18 @@ def capacity(S: int, k: int, n_experts: int, capacity_factor: float) -> int:
     """Slots per expert for S tokens (JAX's rule)."""
     C = max(1, -(-S * k * int(round(capacity_factor * 1024)) // (n_experts * 1024)))
     return min(_round_up(S, 8), _round_up(C, 8))
+
+
+def _global_offsets(onehot: torch.Tensor, k: int, S: int, rank: int) -> torch.Tensor:
+    """[k, E]: what a slot's position in its expert's queue gains when this
+    rank's S tokens are one block of a global batch split over ranks in
+    order: the earlier choices' entries of every rank, and this choice's
+    entries of the earlier ranks, less this rank's earlier choices."""
+    mine = onehot.reshape(k, S, -1).sum(1)                             # [k, E]
+    every = all_gather(mine, rows_group())                             # [W, k, E]
+    total = every.sum(0)
+    return (torch.cumsum(total, 0) - total + every[:rank].sum(0)
+            - (torch.cumsum(mine, 0) - mine))
 
 
 def top_k_stable(x: torch.Tensor, k: int):
@@ -98,7 +116,8 @@ class MoEFFN(nn.Module):
         valid = (torch.ones(S, dtype=torch.bool, device=dev) if token_mask is None
                  else token_mask.reshape(S))
         probs, gates, experts = self.route(xs, valid)
-        C = capacity(S, k, E, self.capacity_factor)
+        part = row_slice()                     # the rows of one global batch, split
+        C = capacity(S * (part[1] if part else 1), k, E, self.capacity_factor)
 
         # slot-major positions: choice j of token s is entry j * S + s
         flat_e = experts.T.reshape(-1)                                 # [k S]
@@ -106,6 +125,9 @@ class MoEFFN(nn.Module):
         flat_valid = valid.repeat(k) & (flat_gate > 0)
         onehot = F.one_hot(flat_e, E) * flat_valid[:, None]            # [k S, E]
         pos = ((torch.cumsum(onehot, dim=0) - onehot) * onehot).sum(-1)
+        if part:
+            pos = pos + _global_offsets(onehot, k, S, part[0])[
+                torch.arange(k * S, device=dev) // S, flat_e]
         keep = flat_valid & (pos < C)
 
         # dispatch the kept (token, slot) pairs into [E, C, D]; run the experts
@@ -122,12 +144,13 @@ class MoEFFN(nn.Module):
         y = (w[:, None] * picked).reshape(k, S, D).sum(0)
 
         # Switch load-balance aux and the dropped share
+        # the routing shares of the global batch (batch_sum) before the aux
         vf = valid.float()
-        n_valid = vf.sum().clamp(min=1.0)
-        f_e = (F.one_hot(experts[:, 0], E).float() * vf[:, None]).sum(0) / n_valid
-        p_e = (probs * vf[:, None]).sum(0) / n_valid
+        n_valid = batch_sum(vf.sum()).clamp(min=1.0)
+        f_e = batch_sum((F.one_hot(experts[:, 0], E).float() * vf[:, None]).sum(0)) / n_valid
+        p_e = batch_sum((probs * vf[:, None]).sum(0)) / n_valid
         aux = E * (f_e * p_e).sum()
-        dropped = 1.0 - keep.sum() / flat_valid.sum().clamp(min=1)
+        dropped = 1.0 - batch_sum(keep.sum()) / batch_sum(flat_valid.sum()).clamp(min=1)
         return y.reshape(*lead, D).to(x.dtype), aux, dropped.detach().float()
 
 

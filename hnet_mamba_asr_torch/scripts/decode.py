@@ -10,9 +10,14 @@ split (``<out-dir>/<cell>/<split>.jsonl``) plus an atomic per-run
 summary.json with provenance (safe for concurrent per-split decodes), as the
 JAX package's ``scripts/decode.py``. Manifests may mix WAV and FLAC.
 ``decode.share_encoder`` encodes each batch once for every cell; the LM
-cells read ``decode.lm_config`` (YAML) and ``decode.lm_checkpoint``. A
-multi-device decode (``decode.mesh``, ``decode.tp`` > 1,
-``decode.n_devices`` > 1) is not ported and raises.
+cells read ``decode.lm_config`` (YAML) and ``decode.lm_checkpoint``.
+
+Over ranks (``torchrun --nproc_per_node N ... decode.n_devices=N``, or
+``decode.mesh: true`` for every launched rank): each batch's rows are
+padded to a multiple of N and split, each rank encodes and searches its
+slice (a partial last batch too), and rank 0 gathers the records in row
+order and writes what one process writes. ``decode.tp`` > 1 is not ported
+and raises.
 """
 from __future__ import annotations
 
@@ -32,17 +37,25 @@ def parse_args(argv=None):
                     help="default: config data.eval_splits or dev_splits")
     ap.add_argument("--out-dir", default=None)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"))
     ap.add_argument("overrides", nargs="*")
     return ap.parse_args(argv)
 
 
-def refuse_mesh(dc: dict) -> None:
-    """The multi-device decode planes are not ported: refuse them as the
-    trainer refuses its planes."""
-    for key, off in (("mesh", (None, False, 0)), ("tp", (None, False, 0, 1)),
-                     ("n_devices", (None, False, 0, 1))):
-        if dc.get(key) not in off:
-            raise NotImplementedError(f"decode.{key}={dc.get(key)!r} is not ported")
+def decode_ranks(dc: dict) -> tuple[int, int]:
+    """(this rank, the rank count) that split each batch's rows: the
+    launched process group when ``decode.n_devices`` > 1 (which must equal
+    its size) or ``decode.mesh`` asks for it; ``decode.tp`` > 1 is not
+    ported and raises."""
+    from hnet_mamba_asr_torch.parallel.mesh import world
+    if dc.get("tp") not in (None, False, 0, 1):
+        raise NotImplementedError(f"decode.tp={dc.get('tp')!r} is not ported")
+    rank, n = world()
+    want = int(dc.get("n_devices") or 0)
+    if want > 1 and want != n:
+        raise ValueError(f"decode.n_devices={want} needs {want} ranks (got {n}): launch "
+                         f"them with torchrun --nproc_per_node {want}")
+    return (rank, n) if (want > 1 or dc.get("mesh")) else (0, 1)
 
 
 def run(args) -> dict:
@@ -58,10 +71,14 @@ def run(args) -> dict:
     from hnet_mamba_asr_torch.utils.logging_utils import get_logger, setup_logging
     from hnet_mamba_asr_torch.utils.provenance import collect_provenance
 
+    from hnet_mamba_asr_torch.parallel import mesh as pmesh
+
     device = require_device(args.device)
+    pmesh.init_distributed(device, args.dist_backend)
+    device = pmesh.rank_device(device)
     cfg = load_config(args.config, args.overrides)
     dc = cfg.get("decode", {}) or {}
-    refuse_mesh(dc)
+    ranks = decode_ranks(dc)
     name = (cfg.get("experiment", {}) or {}).get("name", Path(args.config).stem)
     out_dir = Path(args.out_dir) if args.out_dir \
         else REPO_ROOT / "experiments" / name / "decode"
@@ -99,23 +116,26 @@ def run(args) -> dict:
         audio_s = audio_seconds_from_manifest(manifest)
         loader = ItemLoader(manifest_items(manifest, tokenizer, sample_rate=sample_rate),
                             batch_bins, pad_id=tokenizer.pad_id, shuffle=False,
-                            wire_dtype=str(data.get("wire_dtype", "float32")))
+                            wire_dtype=str(data.get("wire_dtype", "float32")),
+                            batch_multiple=ranks[1])
         if bool(dc.get("share_encoder", False)):
             # one encoder pass per batch fanned out to every cell
             for s in decode_split_shared(model, tokenizer, loader, cells, dc,
                                          audio_seconds=audio_s, out_dir=out_dir,
-                                         split=split, lm=lm):
+                                         split=split, lm=lm, ranks=ranks):
                 summaries.append({"split": split, **s})
         else:
             for cell in cells:
                 out_path = out_dir / cell["name"] / f"{split}.jsonl"
                 summaries.append({"split": split, **decode_split(
                     model, tokenizer, loader, cell, dc, audio_seconds=audio_s,
-                    out_path=out_path, lm=lm)})
+                    out_path=out_path, lm=lm, ranks=ranks)})
 
     summary = {"checkpoint": str(args.checkpoint), "weights_meta": meta,
                "cells": summaries,
-               "provenance": collect_provenance(cfg, repo_root=REPO_ROOT)}
+               "provenance": collect_provenance(cfg, repo_root=REPO_ROOT, n_devices=ranks[1])}
+    if ranks[0] != 0:
+        return summary                                   # rank 0 writes
     out_dir.mkdir(parents=True, exist_ok=True)
     tmp = out_dir / f"summary.{os.getpid()}.tmp"
     tmp.write_text(json.dumps(summary, indent=2, default=str))

@@ -3,14 +3,24 @@
     python -m hnet_mamba_asr_torch.scripts.train --config configs/typeA_small_N1.yaml \
         [--resume auto|<ckpt>] [--exp-dir DIR] [--device cuda] [key.path=value ...]
 
-The JAX package's ``scripts/train.py`` on one card: config -> tokenizer,
-CMVN and dataloaders (``tasks/build.py``: speed perturbation, the perturb
-cache, prefetch) -> ``build_model`` -> ``Trainer.train``. Artifacts land
-under ``experiments/<experiment.name>/`` (or ``--exp-dir``):
-``checkpoints/`` (``epoch%04d.ckpt``, ``latest.ckpt``, the best symlinks,
-the averaged ``*.ave.ckpt``), ``metrics.jsonl``, ``summary.json`` with the
-provenance, ``logs/``. The model-parallel planes (``train.tp``, ``sp``,
-``pp``, ``ep``, ``fsdp``) and ``scan_steps`` are not ported and raise.
+    torchrun --nproc_per_node 2 -m hnet_mamba_asr_torch.scripts.train --config ... \
+        [--dist-backend nccl|gloo] [train.fsdp=true | train.sp=2]
+
+The JAX package's ``scripts/train.py``: config -> tokenizer, CMVN and
+dataloaders (``tasks/build.py``: speed perturbation, the perturb cache,
+prefetch) -> ``build_model`` -> ``Trainer.train``. Artifacts land under
+``experiments/<experiment.name>/`` (or ``--exp-dir``): ``checkpoints/``
+(``epoch%04d.ckpt``, ``latest.ckpt``, the best symlinks, the averaged
+``*.ave.ckpt``), ``metrics.jsonl``, ``summary.json`` with the provenance,
+``logs/``.
+
+Under torchrun the process group is joined first (``parallel/mesh.py``:
+NCCL on the card, one rank per card; ``--dist-backend gloo`` lets ranks
+share a card, and is the CPU's), then the planes are validated, then the
+mesh is built: each train batch's rows are split over the dp axis,
+``train.fsdp`` shards the large leaves over every rank, ``train.sp`` runs
+the encoder sequence-parallel (``parallel/seq_parallel.py``). Rank 0
+alone writes. ``train.tp``, ``pp``, ``ep`` and ``scan_steps`` raise.
 """
 from __future__ import annotations
 
@@ -27,6 +37,8 @@ def parse_args(argv=None):
                     help="'auto' = the latest checkpoint; or an explicit path")
     ap.add_argument("--exp-dir", default=None, help="instead of experiments/<name>")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
+                    help="under torchrun; default NCCL on the card, gloo on the CPU")
     ap.add_argument("overrides", nargs="*", help="key.path=value dotlist")
     return ap.parse_args(argv)
 
@@ -41,8 +53,17 @@ def run(args):
     from hnet_mamba_asr_torch.utils.metrics_logger import MetricsLogger
     from hnet_mamba_asr_torch.utils.provenance import collect_provenance
 
+    from hnet_mamba_asr_torch.parallel import mesh as pmesh
+    from hnet_mamba_asr_torch.parallel.seq_parallel import SPModel
+
     device = require_device(args.device)
+    launched = pmesh.init_distributed(device, args.dist_backend)
+    device = pmesh.rank_device(device)
     cfg = load_config(args.config, args.overrides)
+    _, sp, _, _, _ = pmesh.validate_planes(flatten_config(cfg))
+    mesh = pmesh.make_mesh(sp, device) if launched else None
+    _, dp_rank, dp_size = pmesh.mesh_axis(mesh, "dp")
+    rank, n_ranks = pmesh.world()
     name = (cfg.get("experiment", {}) or {}).get("name", Path(args.config).stem)
     exp_dir = Path(args.exp_dir) if args.exp_dir else REPO_ROOT / "experiments" / name
     setup_logging("train", exp_dir / "logs")
@@ -51,19 +72,23 @@ def run(args):
 
     tokenizer = build_tokenizer(cfg, REPO_ROOT)
     cmvn = build_cmvn(cfg, REPO_ROOT)
-    train_loader, _, dev_loaders = build_dataloaders(cfg, REPO_ROOT, tokenizer, seed=seed)
+    train_loader, _, dev_loaders = build_dataloaders(cfg, REPO_ROOT, tokenizer, seed=seed,
+                                                     row_split=(dp_rank, dp_size))
     model = build_model(cfg, tokenizer.vocab_size, cmvn=cmvn, seed=seed, device=device)
-    metrics = MetricsLogger(exp_dir, resume=args.resume is not None)
-    prov = collect_provenance(cfg, repo_root=REPO_ROOT, seed=seed,
+    if sp > 1:
+        model = SPModel(model, mesh)
+    metrics = MetricsLogger(exp_dir, resume=args.resume is not None) if rank == 0 else None
+    prov = collect_provenance(cfg, repo_root=REPO_ROOT, seed=seed, n_devices=n_ranks,
                               artifacts={"tokenizer": cfg.get("bpemodel")})
     trainer = Trainer(model, train_loader, flatten_config(cfg), dev_loaders=dev_loaders,
                       tokenizer=tokenizer, metrics=metrics, ckpt_dir=exp_dir / "checkpoints",
                       seed=seed, provenance=prov, device=device)
-    logger.info("training %s -> %s", name, exp_dir)
+    logger.info("training %s -> %s (rank %d of %d)", name, exp_dir, rank, n_ranks)
     try:
         trainer.train(resume=args.resume)
     finally:
-        metrics.close()
+        if metrics is not None:
+            metrics.close()
     return trainer
 
 

@@ -4,14 +4,16 @@ vocabulary).
     python -m hnet_mamba_asr_torch.scripts.train_lm --config configs/lm_transformer_500.yaml \
         [--resume auto|<ckpt>] [--exp-dir DIR] [--device cuda] [key.path=value ...]
 
-The JAX package's ``scripts/train_lm.py`` on one card: the train loader reads
+The JAX package's ``scripts/train_lm.py``: the train loader reads
 ``data.lm_corpus`` (``data/lm_text.py``: a byte-offset line index and the
 token counts cached beside the file), the dev loaders the transcripts of
 ``data.dev_splits``' manifests; the same ``Trainer`` as ASR, whose LM emits
 ``batch_weight`` = scored tokens, so exp(valid/loss) is the token-weighted
 perplexity. ``valid.loss.ave.ckpt`` under ``checkpoints/`` is the file
-``decode.lm_checkpoint`` names. Expert parallelism (``train.ep`` > 1) is not
-ported and raises.
+``decode.lm_checkpoint`` names. Under torchrun (``--dist-backend`` as in
+``scripts/train.py``) each train batch's rows are split over the ranks and
+``train.fsdp`` shards the large leaves; tensor, pipeline, expert and
+sequence parallelism raise (the LM has no SSD encoder to split).
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ def parse_args(argv=None):
     ap.add_argument("--resume", default=None)
     ap.add_argument("--exp-dir", default=None)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"))
     ap.add_argument("overrides", nargs="*")
     return ap.parse_args(argv)
 
@@ -41,7 +44,12 @@ def run(args):
     from hnet_mamba_asr_torch.utils.metrics_logger import MetricsLogger
     from hnet_mamba_asr_torch.utils.provenance import collect_provenance
 
+    from hnet_mamba_asr_torch.parallel import mesh as pmesh
+
     device = require_device(args.device)
+    pmesh.init_distributed(device, args.dist_backend)
+    device = pmesh.rank_device(device)
+    rank, n_ranks = pmesh.world()
     cfg = load_config(args.config, args.overrides)
     name = (cfg.get("experiment", {}) or {}).get("name", Path(args.config).stem)
     exp_dir = Path(args.exp_dir) if args.exp_dir else REPO_ROOT / "experiments" / name
@@ -51,12 +59,14 @@ def run(args):
     flat = flatten_config(cfg)
     if int(flat.get("ep", 1) or 1) > 1:
         raise NotImplementedError(f"train.ep={flat['ep']!r} is not ported")
+    if pmesh.validate_planes(flat)[1] > 1:
+        raise ValueError("train.sp splits the ASR encoder's time axis; the LM has none")
 
     tokenizer = build_tokenizer(cfg, REPO_ROOT)
     train_loader, _, dev_loaders = build_lm_dataloaders(cfg, REPO_ROOT, tokenizer, seed=seed)
     model = build_lm(cfg, tokenizer.vocab_size, seed=seed, device=device)
-    metrics = MetricsLogger(exp_dir, resume=args.resume is not None)
-    prov = collect_provenance(cfg, repo_root=REPO_ROOT, seed=seed)
+    metrics = MetricsLogger(exp_dir, resume=args.resume is not None) if rank == 0 else None
+    prov = collect_provenance(cfg, repo_root=REPO_ROOT, seed=seed, n_devices=n_ranks)
     trainer = Trainer(model, train_loader, flat, dev_loaders=dev_loaders, tokenizer=None,
                       metrics=metrics, ckpt_dir=exp_dir / "checkpoints", seed=seed,
                       provenance=prov, device=device)
@@ -64,7 +74,8 @@ def run(args):
     try:
         trainer.train(resume=args.resume)
     finally:
-        metrics.close()
+        if metrics is not None:
+            metrics.close()
     return trainer
 
 

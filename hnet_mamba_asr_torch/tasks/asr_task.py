@@ -38,6 +38,7 @@ from hnet_mamba_asr_torch.models.rnnt import RNNTHead, rnnt_host_greedy
 from hnet_mamba_asr_torch.ops.ctc_loss import ctc_infeasible, ctc_loss
 from hnet_mamba_asr_torch.ops.melspec import log_mel_spectrogram
 from hnet_mamba_asr_torch.ops.specaug import seed_from, spec_augment, specaug_kwargs
+from hnet_mamba_asr_torch.parallel.collectives import batch_sum
 from hnet_mamba_asr_torch.training.loss import HybridLossWeights, combine_losses
 
 logger = logging.getLogger(__name__)
@@ -161,20 +162,29 @@ class DCASRModel(nn.Module):
         divided by their token length (torch's 'mean'), RNN-T rows by their
         token length + 1, then averaged over the real rows; the AED loss is
         the token-mean label-smoothed CE over real rows, plus the MoE aux
-        loss at its weight."""
+        loss at its weight. Every mean is over the global batch: with
+        ``parallel/collectives.py::rows_split_over`` set, the counts and
+        sums go over the ranks that split its rows."""
+        return self.heads_loss(self.encode(batch, train), batch, step, train)
+
+    def heads_loss(self, enc: EncoderOutput, batch: dict, step: int, train: bool):
+        """``loss_fn`` from an encoder output: the heads, their losses and the
+        stats (the sequence-parallel model encodes on its own, then calls
+        this on the gathered features)."""
         row_mask = batch["row_mask"]
         tokens, token_lens = batch["tokens"], batch["token_lens"]
-        enc = self.encode(batch, train)
-        n_real = row_mask.sum().float().clamp(min=1.0)
+        # every count and sum over rows is the global batch's (batch_sum): a
+        # rank of a multi-rank run forms the loss of the whole batch
+        n_real = batch_sum(row_mask.sum().float()).clamp(min=1.0)
         stats: dict = {}
         ctc = aed = rnnt = None
         if self.ctc is not None:
             logp = self.ctc.log_probs(enc.features)
             rows = ctc_loss(logp, enc.lengths, tokens, token_lens, blank_id=self.ctc.blank_id)
             rows = rows / token_lens.clamp(min=1)
-            ctc = (rows * row_mask).sum() / n_real
-            stats["ctc_infeasible"] = (ctc_infeasible(enc.lengths, tokens, token_lens)
-                                       & row_mask).sum()
+            ctc = batch_sum((rows * row_mask).sum()) / n_real
+            stats["ctc_infeasible"] = batch_sum((ctc_infeasible(enc.lengths, tokens, token_lens)
+                                                 & row_mask).sum())
         if self.aed is not None:
             ys_in, ys_out, out_lens = self.aed.add_sos_eos(tokens, token_lens)
             gen = step_generator(step, enc.features.device) if train else None
@@ -194,13 +204,13 @@ class DCASRModel(nn.Module):
         if self.rnnt is not None:
             rows = self.rnnt.loss(enc.features, enc.lengths, tokens, token_lens)
             rows = rows / (token_lens + 1).clamp(min=1)              # per symbol
-            rnnt = (rows * row_mask).sum() / n_real
+            rnnt = batch_sum((rows * row_mask).sum()) / n_real
         out = combine_losses(self.weights, ctc_loss=ctc, aed_loss=aed,
                              ratio_loss=enc.ratio_loss, rnnt_loss=rnnt)
         stats.update({k: v.detach() for k, v in out.items()})
         for i, kf in enumerate(enc.kept_fractions):
             stats["kept_fraction" if i == 0 else f"kept_fraction_{i}"] = kf.detach()
-        stats["batch_weight"] = row_mask.sum()
+        stats["batch_weight"] = batch_sum(row_mask.sum())
         return out["loss/total"], stats
 
     @torch.inference_mode()

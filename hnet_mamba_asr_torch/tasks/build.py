@@ -2,8 +2,10 @@
 training dataloaders.
 
 Counterpart of ``hnet_mamba_asr_tpu/tasks/build.py`` over the port's
-``data/`` modules, for one card: rows are not padded to a device count
-(``batch_multiple`` 1) and no loader is sharded across processes. Relative
+``data/`` modules. Over several ranks the train loader splits each global
+batch into equal row slices (``row_shard``, rows padded to a multiple of
+the rank count); dev loaders are never split, every rank scores each split
+whole. Relative
 paths resolve against ``repo_root``, for the command-line tools and the
 artifact loaders ``REPO_ROOT``, as the JAX scripts resolve them.
 """
@@ -16,6 +18,7 @@ from typing import Any, Mapping
 from hnet_mamba_asr_torch.data.dataset import ASRDataset, make_dataloader
 from hnet_mamba_asr_torch.data.features import GlobalCMVN
 from hnet_mamba_asr_torch.data.tokenizer import Tokenizer
+from hnet_mamba_asr_torch.parallel.mesh import world
 
 REPO_ROOT = Path(__file__).resolve().parents[2]
 logger = logging.getLogger(__name__)
@@ -49,12 +52,15 @@ def resolve_manifests(cfg: Mapping[str, Any], repo_root: str | Path):
     return train, dev
 
 
-def build_dataloaders(cfg, repo_root, tokenizer, *, seed: int = 0):
+def build_dataloaders(cfg, repo_root, tokenizer, *, seed: int = 0,
+                      row_split: tuple[int, int] | None = None):
     """-> (train loader, its sampler, {dev split: loader}). The train loader
     speed-perturbs (``train.speed_perturb``) through ``data.perturb_cache_dir``,
     prefetches ``train.prefetch`` batches (default 2) and ships waves as
     ``data.wire_dtype``; every dev split is scored whole, unperturbed and
-    unshuffled."""
+    unshuffled. ``row_split`` = (rank, count) of the ranks that split the
+    train rows (the process group's by default; the dp axis under sp)."""
+    rank, count = row_split if row_split is not None else world()
     batch_bins = int(cfg["batch_bins"])
     train_cfg = cfg.get("train", {}) or {}
     data = cfg.get("data", {}) or {}
@@ -65,8 +71,9 @@ def build_dataloaders(cfg, repo_root, tokenizer, *, seed: int = 0):
     train_ds = ASRDataset(train_manifest, tokenizer, augment=True, seed=seed,
                           speed_perturb=train_cfg.get("speed_perturb"),
                           perturb_cache_dir=_resolve(pcache, Path(repo_root)) if pcache else None)
-    train_loader, train_sampler = make_dataloader(train_ds, batch_bins, shuffle=True, seed=seed,
-                                                  prefetch=prefetch, wire_dtype=wire)
+    train_loader, train_sampler = make_dataloader(
+        train_ds, batch_bins, shuffle=True, seed=seed, num_replicas=count, rank=rank,
+        batch_multiple=count, row_shard=count > 1, prefetch=prefetch, wire_dtype=wire)
     dev_loaders = {}
     for name, mpath in dev_manifests.items():
         ds = ASRDataset(mpath, tokenizer, augment=False, seed=seed)

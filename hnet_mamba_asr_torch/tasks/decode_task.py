@@ -34,6 +34,7 @@ import json
 import logging
 import pickle
 import time
+from contextlib import nullcontext
 from pathlib import Path
 from typing import Any, Mapping
 
@@ -51,6 +52,7 @@ from hnet_mamba_asr_torch.decoders.rnnt_decode import rnnt_beam_search
 from hnet_mamba_asr_torch.models.aed import decode_groups
 from hnet_mamba_asr_torch.models.ctc_head import greedy_decode as ctc_host_greedy
 from hnet_mamba_asr_torch.models.rnnt import rnnt_host_greedy
+from hnet_mamba_asr_torch.parallel.mesh import rank_rows
 
 logger = logging.getLogger(__name__)
 
@@ -505,20 +507,41 @@ def _summary(cell: str, n: int, dec_s: float, aud_s: float, enc_s: float, search
             "encoder_s": enc_s, "search_s": search_s, "engine": engine}
 
 
+def _rows_records(ranks, batch: dict, decode) -> list[dict]:
+    """``decode(batch)``'s records over the ranks that split its rows: each
+    rank decodes its row slice (none where the slice holds no real row) and
+    rank 0 gets every rank's records in row order (the others get [])."""
+    rank, count = ranks
+    if count == 1:
+        return decode(batch)
+    import torch.distributed as dist
+    local = rank_rows(batch, rank, count)
+    mine = decode(local) if np.asarray(local["row_mask"]).any() else []
+    parts = [None] * count
+    dist.all_gather_object(parts, mine)
+    return [r for part in parts for r in part] if rank == 0 else []
+
+
 def decode_split(model, tokenizer, loader, cell, decode_cfg, *,
-                 audio_seconds: Mapping[str, float], out_path: str | Path, lm=None) -> dict:
+                 audio_seconds: Mapping[str, float], out_path: str | Path, lm=None,
+                 ranks: tuple[int, int] = (0, 1)) -> dict:
     """Decode one split through one cell; write per-utterance JSONL; return
-    the summary. The first batch is encoded once, untimed, as a warm-up."""
+    the summary. The first batch is encoded once, untimed, as a warm-up.
+    ``ranks`` = (rank, count): the batch rows are split over the ranks of
+    the process group and rank 0 writes every record (``_rows_records``)."""
     out_path = Path(out_path)
-    out_path.parent.mkdir(parents=True, exist_ok=True)
+    main = ranks[0] == 0
+    if main:
+        out_path.parent.mkdir(parents=True, exist_ok=True)
     warm = next(iter(loader), None)
     if warm is not None:
-        encode_batch(model, warm)
+        encode_batch(model, rank_rows(warm, *ranks))
     n, dec_s, aud_s, enc_s, search_s = 0, 0.0, 0.0, 0.0, 0.0
     engine = engine_for(decode_cfg, cell)
-    with open(out_path, "w", encoding="utf-8") as w:
+    with open(out_path, "w", encoding="utf-8") if main else nullcontext() as w:
         for batch in loader:
-            for r in decode_batch(model, tokenizer, batch, cell, decode_cfg, lm=lm):
+            for r in _rows_records(ranks, batch, lambda b: decode_batch(
+                    model, tokenizer, b, cell, decode_cfg, lm=lm)):
                 r["audio_s"] = round(audio_seconds.get(r["id"], 0.0), 3)
                 w.write(json.dumps(r) + "\n")
                 n += 1
@@ -533,28 +556,37 @@ def decode_split(model, tokenizer, loader, cell, decode_cfg, *,
 
 def decode_split_shared(model, tokenizer, loader, cells, decode_cfg, *,
                         audio_seconds: Mapping[str, float], out_dir: str | Path, split: str,
-                        lm=None) -> list[dict]:
+                        lm=None, ranks: tuple[int, int] = (0, 1)) -> list[dict]:
     """Decode one split through every cell with ONE encoder pass per batch:
     each batch is encoded once and fanned out to every cell, whose records
     are charged the encoder's seconds divided by the cell count. Writes
-    ``<out_dir>/<cell>/<split>.jsonl``."""
+    ``<out_dir>/<cell>/<split>.jsonl`` (rank 0; ``ranks`` as in
+    ``decode_split``)."""
     out_dir = Path(out_dir)
+    main = ranks[0] == 0
     writers = {}
-    for cell in cells:
+    for cell in cells if main else ():
         path = out_dir / cell["name"] / f"{split}.jsonl"
         path.parent.mkdir(parents=True, exist_ok=True)
         writers[cell["name"]] = open(path, "w", encoding="utf-8")
     totals = {c["name"]: [0, 0.0, 0.0, 0.0, 0.0] for c in cells}
+
+    def all_cells(local: dict) -> list[dict]:
+        enc, enc_s = encode_batch(model, local)
+        return [dict(r, cell=cell["name"]) for cell in cells
+                for r in decode_batch(model, tokenizer, local, cell, decode_cfg, lm=lm,
+                                      enc=enc, enc_s=enc_s / len(cells))]
+
     try:
         warm = False
         for batch in loader:
             if not warm:                                 # untimed warm-up
-                encode_batch(model, batch)
+                encode_batch(model, rank_rows(batch, *ranks))
                 warm = True
-            enc, enc_s = encode_batch(model, batch)
+            recs_all = _rows_records(ranks, batch, all_cells)
             for cell in cells:
-                recs = decode_batch(model, tokenizer, batch, cell, decode_cfg, lm=lm,
-                                    enc=enc, enc_s=enc_s / len(cells))
+                recs = [{k: v for k, v in r.items() if k != "cell"} for r in recs_all
+                        if r["cell"] == cell["name"]]
                 t = totals[cell["name"]]
                 for r in recs:
                     r["audio_s"] = round(audio_seconds.get(r["id"], 0.0), 3)

@@ -25,6 +25,8 @@ from hnet_mamba_asr_torch.data.lm_text import LMTextDataset, make_lm_dataloader
 from hnet_mamba_asr_torch.models.lm import TransformerLM
 from hnet_mamba_asr_torch.models.moe import moe_aux
 from hnet_mamba_asr_torch.ops.specaug import seed_from
+from hnet_mamba_asr_torch.parallel.collectives import batch_sum
+from hnet_mamba_asr_torch.parallel.mesh import world
 from hnet_mamba_asr_torch.tasks.build import _resolve, resolve_manifests
 
 DROPOUT_SEED = 23
@@ -49,7 +51,8 @@ class LMModel(nn.Module):
                if train else None)
         moe_stats = [] if self.lm.moe_experts > 0 else None
         loss, acc = self.lm.loss(tokens, lens, gen, row_mask=row_mask, moe_stats=moe_stats)
-        stats = {"lm/token_acc": acc.detach(), "batch_weight": ((lens + 1) * row_mask).sum()}
+        stats = {"lm/token_acc": acc.detach(),
+                 "batch_weight": batch_sum(((lens + 1) * row_mask).sum())}
         if moe_stats is not None:
             aux, mstats = moe_aux(moe_stats, self.moe_aux_weight)
             loss = loss + aux
@@ -78,18 +81,24 @@ def build_lm(config: Mapping[str, Any], vocab_size: int, max_tokens: int | None 
     return model.to(torch.device(device)).eval()
 
 
-def build_lm_dataloaders(cfg, repo_root, tokenizer, *, seed: int = 0):
+def build_lm_dataloaders(cfg, repo_root, tokenizer, *, seed: int = 0,
+                        row_split: tuple[int, int] | None = None):
     """-> (train loader over ``data.lm_corpus``, its sampler, {dev split:
     loader over the split manifest's transcripts}); batches of at most
     ``batch_tokens`` (rows x longest line), lines cut at
-    ``lm_conf.max_line_tokens``. Dev loaders are unshuffled."""
+    ``lm_conf.max_line_tokens``. Dev loaders are unshuffled. Over several
+    ranks (``row_split`` = (rank, count), by default the process group's)
+    each train batch is split into equal row slices (``row_shard``), rows
+    padded to a multiple of the rank count; dev is not split."""
+    rank, count = row_split if row_split is not None else world()
     data = cfg.get("data", {}) or {}
     batch_tokens = int(cfg["batch_tokens"])
     max_tokens = int((cfg.get("lm_conf", {}) or {}).get("max_line_tokens", 512))
     corpus = _resolve(data["lm_corpus"], Path(repo_root))
     train_ds = LMTextDataset(tokenizer, corpus_path=corpus, max_tokens=max_tokens)
-    train_loader, train_sampler = make_lm_dataloader(train_ds, batch_tokens, shuffle=True,
-                                                     seed=seed)
+    train_loader, train_sampler = make_lm_dataloader(
+        train_ds, batch_tokens, shuffle=True, seed=seed, num_replicas=count, rank=rank,
+        batch_multiple=count, row_shard=count > 1)
     _, dev_manifests = resolve_manifests(cfg, repo_root)
     dev_loaders = {}
     for name, mpath in dev_manifests.items():

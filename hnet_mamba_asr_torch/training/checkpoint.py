@@ -37,23 +37,28 @@ def _to_numpy(obj):
     return obj
 
 
-def optimizer_state(opt: torch.optim.Optimizer) -> dict:
-    """``opt.state_dict()`` with its tensors as numpy arrays."""
-    return _to_numpy(opt.state_dict())
+def optimizer_state(opt) -> dict:
+    """``opt.state_dict()`` (or a state dict given as such) with its tensors
+    as numpy arrays."""
+    return _to_numpy(opt.state_dict() if isinstance(opt, torch.optim.Optimizer) else opt)
 
 
-def load_optimizer_state(opt: torch.optim.Optimizer, saved: dict) -> None:
+def load_optimizer_state(opt: torch.optim.Optimizer, saved: dict, place=None) -> None:
     """Load what ``optimizer_state`` gave into ``opt`` (whose parameters set
     the device): each array back to a tensor, moments beside their
-    parameters."""
+    parameters; ``place(index, tensor)`` places a tensor of the parameter
+    of that index (a shard of it, under FSDP)."""
     def to_tensor(obj):
         if isinstance(obj, np.ndarray):
             return torch.from_numpy(np.array(obj))
         if isinstance(obj, dict):
             return {k: to_tensor(v) for k, v in obj.items()}
         return obj
-    opt.load_state_dict({"state": {k: to_tensor(v) for k, v in saved["state"].items()},
-                         "param_groups": saved["param_groups"]})
+    state = {k: to_tensor(v) for k, v in saved["state"].items()}
+    if place is not None:
+        state = {k: {n: place(int(k), t) if torch.is_tensor(t) else t for n, t in v.items()}
+                 for k, v in state.items()}
+    opt.load_state_dict({"state": state, "param_groups": saved["param_groups"]})
 
 
 def save_checkpoint(path: str | Path, state: dict) -> None:

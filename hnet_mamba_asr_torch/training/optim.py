@@ -213,9 +213,12 @@ def param_labels(named_params) -> dict[str, str]:
             for n, p in named_params}
 
 
-def _make_opt(key: str, groups: list[dict], conf: dict, on_card: bool) -> torch.optim.Optimizer:
+def _make_opt(key: str, groups: list[dict], conf: dict, on_card: bool,
+              per_tensor: bool = False) -> torch.optim.Optimizer:
     b1, b2 = (float(b) for b in conf.get("betas", (0.9, 0.999)))
     if key in ("adam", "adamw"):
+        if per_tensor:
+            return torch.optim.AdamW(groups, betas=(b1, b2), foreach=False, fused=False)
         return torch.optim.AdamW(groups, betas=(b1, b2), fused=on_card or None)
     if key == "sgd":
         momentum = float(conf.get("momentum", 0.0))
@@ -263,7 +266,11 @@ def build_optimizer(name: str, conf: Mapping | None, schedule_name: str | None,
         if key == "sgd":
             del g["eps"]
     groups = [g for g in groups if g["params"] or g["label"] != "router"]
-    opt = _make_opt(key, groups, conf, all(p.is_cuda for _, p in named))
+    # FSDP's shards (DTensors) beside whole tensors: a foreach or fused step
+    # cannot mix the two, so the step goes tensor by tensor
+    sharded = [type(p).__name__ == "DTensor" for _, p in named]
+    opt = _make_opt(key, groups, conf, all(p.is_cuda for _, p in named),
+                    per_tensor=any(sharded))
     return opt, build_schedule(schedule_name, base_lr, schedule_conf)
 
 
@@ -275,10 +282,24 @@ def set_lr(opt: torch.optim.Optimizer, lr: float) -> None:
 
 def clip_by_global_norm(params, max_norm: float) -> torch.Tensor:
     """Scale the gradients in place as ``optax.clip_by_global_norm`` does and
-    return their global L2 norm before the clip (fp32, on the device)."""
+    return their global L2 norm before the clip (fp32, on the device). FSDP's
+    sharded gradients (DTensors) count each shard once: their local squares
+    are summed over the ranks of their mesh."""
     grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+    shards = [g for g in grads if type(g).__name__ == "DTensor"]
+    if shards:
+        whole = [g for g in grads if type(g).__name__ != "DTensor"]
+        locals_ = [g.to_local() for g in shards]
+        sq = torch.stack([torch.linalg.vector_norm(t.float()) ** 2 for t in locals_]).sum()
+        torch.distributed.all_reduce(sq, group=shards[0].device_mesh.get_group())
+        if whole:
+            sq = sq + torch.stack([torch.linalg.vector_norm(g.float()) ** 2
+                                   for g in whole]).sum()
+        norm = torch.sqrt(sq)
+        grads = locals_ + whole
+    else:
+        norm = torch.linalg.vector_norm(
+            torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
     if max_norm and max_norm > 0:
         # optax's (g / ||g||) * max_norm where ||g|| >= max_norm, without a host read
         clip = norm >= max_norm

@@ -1,5 +1,5 @@
-"""Training loop, counterpart of ``hnet_mamba_asr_tpu/training/trainer.py``
-for one card.
+"""Training loop, counterpart of ``hnet_mamba_asr_tpu/training/trainer.py``,
+on one card or on the ranks of a process group.
 
 Model contract (the JAX one, built by ``tasks/asr_task.py`` and
 ``tasks/lm_task.py``): ``loss_fn(batch, step, train) -> (loss, stats)`` with
@@ -52,13 +52,33 @@ may have ``set_epoch``.
   and the gradient norm, so that it queues the next micro-step while the
   device runs the last.
 
-``scan_steps``, meshes (fsdp, tp, pp, sp, ep) and orbax raise.
+- Ranks (a ``torch.distributed`` process group, ``parallel/mesh.py``):
+  every rank holds its row slice of each global batch (``row_shard``
+  loaders); the losses' batch-wide sums run over the ranks that split the
+  rows (``parallel/collectives.py::rows_split_over``: the world, or the dp
+  axis of a model with ``rows_group``, ``parallel/seq_parallel.py::SPModel``),
+  so every rank forms the loss of the global batch. The model runs under
+  DDP (gradients averaged over every rank, not synchronized in the
+  micro-steps of an accumulation group but the last) or, with
+  ``train.fsdp``, FSDP2 (``parallel/mesh.py::shard_model``: large leaves
+  and their moments sharded over every rank, the others replicated and
+  their gradients averaged by ``sync_replicated_grads``; the optimizer then
+  steps tensor by tensor, for a foreach step cannot mix shards and whole
+  tensors). Only rank 0 writes: checkpoints (under FSDP gathered leaf by
+  leaf from every rank first, in the same JAX layout), ``metrics.jsonl``,
+  ``summary.json`` (``n_devices`` = the rank count) and the symlinks. A
+  resume loads the full state on every rank and re-shards it.
+
+``scan_steps``, tp, pp, ep and orbax raise.
 """
 from __future__ import annotations
 
 import copy
+import json
 import logging
+import os
 import time
+from contextlib import nullcontext
 from pathlib import Path
 
 import numpy as np
@@ -67,6 +87,8 @@ import torch
 from hnet_mamba_asr_torch.convert import jax_to_state_dict, state_dict_to_jax_tree
 from hnet_mamba_asr_torch.data.manifests import feat_frames
 from hnet_mamba_asr_torch.eval.metrics import char_errors, word_errors
+from hnet_mamba_asr_torch.parallel import mesh as pmesh
+from hnet_mamba_asr_torch.parallel.collectives import rows_split_over
 from hnet_mamba_asr_torch.training import checkpoint as ckpt
 from hnet_mamba_asr_torch.training.async_ckpt import AsyncWriter
 from hnet_mamba_asr_torch.training.optim import build_optimizer, clip_by_global_norm, set_lr
@@ -75,7 +97,7 @@ from hnet_mamba_asr_torch.utils.config import flatten_config  # noqa: F401 (re-e
 logger = logging.getLogger(__name__)
 
 DEVICE_KEYS = ("wave", "wave_lens", "tokens", "token_lens", "row_mask")
-NOT_PORTED = ("scan_steps", "fsdp", "tp", "pp", "sp", "ep")
+NOT_PORTED = ("scan_steps", "tp", "pp", "ep")
 
 
 def _owned(obj):
@@ -89,27 +111,49 @@ def _owned(obj):
     return obj
 
 
+class _LossModule(torch.nn.Module):
+    """The model's ``loss_fn`` as a module's forward, for DDP and FSDP to
+    wrap (their hooks run around a forward). ``net`` owns the parameters."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.net = model if isinstance(model, torch.nn.Module) else model.model
+        self.loss = model.loss_fn
+
+    def forward(self, batch, step, train):
+        return self.loss(batch, step, train)
+
+
 class Trainer:
-    """Single-card training loop over host batches."""
+    """Training loop over host batches, on one card or the ranks of a
+    process group."""
 
     def __init__(self, model, train_loader, cfg, *, dev_loaders=None, tokenizer=None,
                  metrics=None, ckpt_dir="checkpoints", seed: int = 0, provenance=None,
                  device="cuda"):
         self.device = torch.device(device)
-        self.model = model.to(self.device)
+        model.to(self.device)
+        self.model = model
+        self.rank, self.world = pmesh.world()
+        self.is_main = self.rank == 0
+        self.distributed = torch.distributed.is_available() and torch.distributed.is_initialized()
         self.train_loader = train_loader
         self.dev_loaders = dict(dev_loaders or {})
         self.tokenizer = tokenizer
-        self.metrics = metrics
+        self.metrics = metrics if self.is_main else None
         self.provenance = provenance
         self.cfg = dict(cfg)
         self.seed = int(seed)
         self.ckpt_dir = Path(ckpt_dir)
-        self.ckpt_dir.mkdir(parents=True, exist_ok=True)
+        if self.is_main:
+            self.ckpt_dir.mkdir(parents=True, exist_ok=True)
         g = self.cfg.get
         for key in NOT_PORTED:
             if g(key) not in (None, False, 0, 1):
                 raise NotImplementedError(f"train.{key}={g(key)!r} is not ported")
+        if int(g("sp", 1) or 1) > 1 and not hasattr(model, "rows_group"):
+            raise ValueError(f"train.sp={g('sp')} needs the model wrapped in "
+                             "parallel/seq_parallel.py::SPModel (scripts/train.py does)")
         if str(g("ckpt_backend", "pickle")) != "pickle":
             raise NotImplementedError("only the pickle checkpoint backend is ported")
         self.max_epoch = int(g("max_epoch", 120))
@@ -125,6 +169,22 @@ class Trainer:
         self.best_model_criterion = [tuple(c) for c in
                                      g("best_model_criterion", [["valid", "loss", "min"]])]
         self.early_stopping = dict(g("early_stopping", {}) or {})
+        # the ranks that split a batch's rows: the dp axis of an SPModel, else all
+        self.rows_group = (getattr(model, "rows_group", torch.distributed.group.WORLD)
+                           if self.distributed else None)
+        self.fsdp = bool(g("fsdp", False)) and self.distributed
+        self._ddp = self._root = None
+        if self.fsdp:
+            self._root = _LossModule(model)
+            plan = pmesh.shard_model(self._root, self.device,
+                                     int(g("fsdp_min_elems", pmesh._FSDP_MIN_ELEMS)),
+                                     units=getattr(model, "fsdp_units", True))
+            self.fsdp_plan = {k.split(".", 1)[1]: v for k, v in plan.items()}   # less "net."
+        elif self.distributed:
+            from torch.nn.parallel import DistributedDataParallel
+            self._ddp = DistributedDataParallel(
+                _LossModule(model), broadcast_buffers=False,
+                device_ids=[self.device.index or 0] if self.device.type == "cuda" else None)
         self.params = [p for p in self.model.parameters() if p.requires_grad]
         self.opt, self.lr_schedule = build_optimizer(
             g("optim", "adamw"), dict(g("optim_conf", {}) or {}), g("scheduler"),
@@ -132,11 +192,13 @@ class Trainer:
         self.epoch, self.global_step = 0, 0
         self.metric_history: dict[tuple[str, str], dict[int, float]] = {}
         self.history: list[dict] = []
-        self._ckpt_writer = AsyncWriter() if bool(g("async_ckpt", True)) else None
-        logger.info("Trainer: device=%s params=%.1fM accum_grad=%d optim=%s sched=%s "
-                    "dev_splits=%s", self.device, sum(p.numel() for p in self.params) / 1e6,
-                    self.accum_grad, g("optim", "adamw"), g("scheduler"),
-                    list(self.dev_loaders))
+        self._ckpt_writer = (AsyncWriter() if bool(g("async_ckpt", True)) and self.is_main
+                             else None)
+        logger.info("Trainer: device=%s rank %d of %d (%s) params=%.1fM accum_grad=%d "
+                    "optim=%s sched=%s dev_splits=%s", self.device, self.rank, self.world,
+                    "fsdp" if self.fsdp else "ddp" if self._ddp else "one process",
+                    sum(p.numel() for p in self.params) / 1e6, self.accum_grad,
+                    g("optim", "adamw"), g("scheduler"), list(self.dev_loaders))
 
     # ---- one update ------------------------------------------------------
     def _to_device(self, batch: dict) -> dict:
@@ -146,12 +208,26 @@ class Trainer:
                 out[k] = torch.as_tensor(batch[k]).to(self.device, non_blocking=True)
         return out
 
-    def _micro_step(self, batch: dict) -> dict:
-        loss, stats = self.model.loss_fn(self._to_device(batch), self.global_step, True)
-        (loss / self.accum_grad).backward()
+    def _micro_step(self, batch: dict, sync: bool = True) -> dict:
+        """One micro-step's forward and backward; ``sync`` False (a micro-step
+        of an accumulation group before its last) skips DDP's all-reduce."""
+        batch = self._to_device(batch)
+        with rows_split_over(self.rows_group):
+            if self._ddp is not None:
+                with nullcontext() if sync else self._ddp.no_sync():
+                    loss, stats = self._ddp(batch, self.global_step, True)
+                    (loss / self.accum_grad).backward()
+                return stats
+            if self._root is not None:
+                loss, stats = self._root(batch, self.global_step, True)
+            else:
+                loss, stats = self.model.loss_fn(batch, self.global_step, True)
+            (loss / self.accum_grad).backward()
         return stats
 
     def _apply_step(self) -> tuple[float, float]:
+        if self.fsdp:
+            pmesh.sync_replicated_grads(self.params)
         gnorm = clip_by_global_norm(self.params, self.grad_clip)
         lr = float(self.lr_schedule(self.global_step))
         set_lr(self.opt, lr)
@@ -224,6 +300,7 @@ class Trainer:
             return cols
 
         batches = iter(self.train_loader)
+        ids_log = os.environ.get("HMASR_CONSUMED_IDS")
         while True:
             t_wait = time.perf_counter()
             batch = next(batches, None)
@@ -231,10 +308,14 @@ class Trainer:
             if batch is None:
                 break
             batch = dict(batch)
-            batch.pop("ids", None)
+            ids = batch.pop("ids", None)
+            if ids_log and ids is not None:
+                # the per-rank audit of consumed utterances (tools/smoke_2proc.py)
+                with open(ids_log, "a") as f:
+                    f.write(json.dumps({"epoch": self.epoch, "ids": list(ids)}) + "\n")
             if start is None:
                 start = self._timer()
-            stats = self._micro_step(batch)
+            stats = self._micro_step(batch, sync=(micro + 1) % self.accum_grad == 0)
             self._stat_keys = list(stats)
             step_stats.append(torch.stack([stats[k].float() for k in self._stat_keys]))
             real = np.asarray(batch["row_mask"], bool)
@@ -264,6 +345,16 @@ class Trainer:
         """Per dev split: the weighted loss and, with a tokenizer and a model
         that has ``greedy_decode``, WER and CER (%) of the decoded text;
         ``valid/<metric>`` records the mean over the splits."""
+        root = getattr(self, "_root", None)
+        if root is not None:
+            root.unshard()                   # the root's leaves, for greedy_decode too
+        try:
+            return self._validate()
+        finally:
+            if root is not None:
+                root.reshard()
+
+    def _validate(self) -> dict:
         per_split, agg = {}, {"loss": [], "wer": [], "cer": []}
         score = self.tokenizer is not None and hasattr(self.model, "greedy_decode")
         for name, loader in self.dev_loaders.items():
@@ -312,7 +403,10 @@ class Trainer:
 
     # ---- selection / early stop --------------------------------------------------
     def _submit(self, fn) -> None:
-        """Run a checkpoint-directory job on the writer's queue (or now)."""
+        """Run a checkpoint-directory job on the writer's queue (or now); rank
+        0's alone."""
+        if not self.is_main:
+            return
         self._ckpt_writer.submit(fn) if self._ckpt_writer else fn()
 
     def _update_best_symlinks(self) -> None:
@@ -374,7 +468,7 @@ class Trainer:
         return stop
 
     def _average_nbest(self) -> None:
-        if self.keep_nbest <= 0:
+        if self.keep_nbest <= 0 or not self.is_main:
             return
         self.flush_checkpoints()                   # averaging reads the epoch files
         for phase, metric, mode in self.best_model_criterion:
@@ -391,10 +485,17 @@ class Trainer:
     def save_checkpoint(self) -> None:
         """``epoch%04d.ckpt`` and ``latest.ckpt``: the state is copied to the
         host here, so that later steps (which update it in place) cannot
-        reach into a save the writer thread still pickles."""
-        state = {"params": state_dict_to_jax_tree(self.model.state_dict()),
+        reach into a save the writer thread still pickles. Under FSDP every
+        rank takes part in gathering each leaf; rank 0 alone writes."""
+        params, opt_state = self.model.state_dict(), self.opt.state_dict()
+        if self.fsdp:
+            params = pmesh.full_state(params, keep=self.is_main)
+            opt_state = pmesh.full_state(opt_state, keep=self.is_main)
+        if not self.is_main:
+            return
+        state = {"params": state_dict_to_jax_tree(params),
                  "opt_state_format": "torch",
-                 "torch_opt_state": ckpt.optimizer_state(self.opt),
+                 "torch_opt_state": ckpt.optimizer_state(opt_state),
                  "epoch": self.epoch, "global_step": self.global_step,
                  "metric_history": copy.deepcopy(self.metric_history),
                  "config": self.cfg, "seed": self.seed}
@@ -414,8 +515,18 @@ class Trainer:
         if state.get("opt_state_format") != "torch":
             raise ValueError(f"{path}: not a checkpoint of the port (its optimizer state "
                              "is optax's); load its params with convert.load_jax_params")
-        self.model.load_state_dict(jax_to_state_dict(state["params"]), strict=True)
-        ckpt.load_optimizer_state(self.opt, state["torch_opt_state"])
+        params = jax_to_state_dict(state["params"])
+        place = None
+        if self.fsdp:                       # re-shard the full state, moments too
+            current = self.model.state_dict()
+            params = {k: pmesh.like(v, current[k]) for k, v in params.items()}
+            flat = [p for g in self.opt.param_groups for p in g["params"]]
+
+            def place(idx, t):
+                p = flat[idx]
+                return pmesh.like(t, p) if tuple(t.shape) == tuple(p.shape) else t
+        self.model.load_state_dict(params, strict=True)
+        ckpt.load_optimizer_state(self.opt, state["torch_opt_state"], place=place)
         self.global_step = int(state["global_step"])
         self.metric_history = state.get("metric_history", {})
         self.epoch = int(state["epoch"]) + 1          # the saved epoch completed
@@ -452,10 +563,14 @@ class Trainer:
         if self._ckpt_writer is not None:
             self._ckpt_writer.close()
             self._ckpt_writer = None                  # later saves run synchronously
+        if self.distributed:
+            # rank 0's files are on disk before any rank goes on (to read
+            # them: a resume, a decode of latest.ckpt)
+            torch.distributed.barrier()
         self.model.eval()
         if self.metrics is not None:
             summary = {"final_step": self.global_step, "epochs": self.epoch + 1,
-                       "n_devices": 1, "config": self.cfg}
+                       "n_devices": self.world, "config": self.cfg}
             for phase, metric, mode in self.best_model_criterion:
                 be = self._best_epoch(phase, metric, mode)
                 if be is not None:

@@ -72,6 +72,9 @@ def env_info() -> dict:
                            "kind": torch.cuda.get_device_name(0) if n else None,
                            "platform": "gpu" if n else "cpu"}
         info["card"] = _safe(card_info) if n else None
+        dist = torch.distributed
+        info["process_count"] = (dist.get_world_size() if dist.is_available()
+                                 and dist.is_initialized() else 1)
         return info
 
     return _safe(collect)

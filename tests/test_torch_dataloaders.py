@@ -111,5 +111,7 @@ def test_prefetch_matches_serial_and_raises_worker_errors(tree):
     ahead.dataset.perturb_cache_dir = None
     with pytest.raises(FileNotFoundError):
         list(ahead)
-    with pytest.raises(NotImplementedError, match="row_shard"):
-        tdataset.make_dataloader(ahead.dataset, 500, row_shard=True)
+    # row_shard over one process: the unsharded batches, row for row
+    one, _ = tdataset.make_dataloader(serial.dataset, 500, row_shard=True)
+    plain, _ = tdataset.make_dataloader(serial.dataset, 500)
+    _assert_same(list(one), list(plain))

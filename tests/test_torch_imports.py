@@ -12,11 +12,16 @@ loader, the LM corpus reader, the optimizer registry, checkpoints, the async
 writer, the trainer, the metrics sink) with PyYAML blocked as well, as the card's
 machine has none; the interpretability slice (interp/, eval/efficiency.py, the
 run_interp / efficiency / run_mfa CLIs, tools/interp_e2e.py) with jax, flax,
-hnet_mamba_asr_tpu, PyYAML and scikit-learn blocked."""
+hnet_mamba_asr_tpu, PyYAML and scikit-learn blocked; the multi-rank planes
+(parallel/, tools/smoke_2proc.py's two processes) with jax, flax, the JAX
+package and PyYAML blocked."""
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -240,3 +245,42 @@ def test_interp_slice_runs_without_jax_pyyaml_or_sklearn():
     assert "no CUDA device" in out["errors"]["torch"]  # the card by default, no fall-back
     assert "no CUDA device" in out["errors"]["run_interp"]
     assert out["fit"] == ["torch", 1.0]
+
+
+RANKS_SCRIPT = """
+import json, sys, tempfile
+for name in ("jax", "jaxlib", "flax", "optax", "hnet_mamba_asr_tpu", "yaml"):
+    sys.modules[name] = None            # none of them on the card's machine
+import torch
+torch.set_num_threads(1)
+import hnet_mamba_asr_torch.parallel.collectives, hnet_mamba_asr_torch.parallel.mesh
+import hnet_mamba_asr_torch.parallel.seq_parallel
+import hnet_mamba_asr_torch.scripts.train, hnet_mamba_asr_torch.scripts.train_lm
+import hnet_mamba_asr_torch.scripts.decode
+from hnet_mamba_asr_torch.tools import smoke_2proc
+with tempfile.TemporaryDirectory() as tmp:
+    code = smoke_2proc.main(["--device", "cpu", "--root", tmp, "--timeout", "240"]
+                            + sys.argv[1:])
+print(json.dumps({"code": code,
+                  "absent": sorted(m for m in sys.modules if m.split(".")[0] in
+                                   ("jax", "jaxlib", "flax", "hnet_mamba_asr_tpu", "yaml")
+                                   and sys.modules[m] is not None)}))
+"""
+
+
+@pytest.mark.parametrize("plane", [[], ["--fsdp"], ["--sp"]], ids=["ddp", "fsdp", "sp"])
+def test_multi_rank_planes_run_without_jax(plane):
+    """parallel/ and tools/smoke_2proc.py with jax, flax, the JAX package and
+    PyYAML blocked; the smoke's two processes (gloo, one thread each) train
+    through the train CLI (DDP, ``train.fsdp=true`` or ``train.sp=2``),
+    resume, and decode over both ranks and alone, and pass its checks
+    (disjoint equal row slices covering the corpus, or equal ones under sp;
+    ranks bitwise equal, one provenance record per run, the resume marker,
+    equal transcripts)."""
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", RANKS_SCRIPT, *plane], cwd=REPO,
+                          capture_output=True, text=True, timeout=300, env=env)
+    assert proc.returncode == 0, proc.stderr[-3000:] + proc.stdout[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out == {"code": 0, "absent": []}
+    assert "ALL CHECKS PASSED" in proc.stdout
