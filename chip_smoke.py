@@ -242,7 +242,24 @@ calls, at the full width of ``configs/typeA_small_N1.yaml`` and
                s): features, ratio loss, kept fraction, loss and every
                gradient against the offline update's, each rank's ssd_fwd
                (return_final) / ssd_bwd (ds_final) / ema_fwd / ema_bwd
-               launches, the bf16 gap recorded; the gate config's ctc_greedy
+               launches, and in bf16 the boundaries first (a flip only
+               within the router's own rounding gap of 0.5), then the
+               features; tp = 2 (dp = 1): the gate config's gradient of one
+               micro-step against the one-process witness (a virtual plane:
+               both shards in turn; 1e-5 of each leaf's max in fp32, phase
+               7's bounds in bf16) and against one process (phase 7's
+               bounds in fp32), each rank's ssd_fwd / ssd_bwd launches at 6
+               and 8 heads, micro-step and optimizer ms, peak, params +
+               moments; the N=2 config in bf16 with random routers, one
+               forward: the ranks' boundaries equal, against one process
+               within the router's gap, the EMA kernels on the replicated
+               dechunk; ep = 2 on the MoE config (fp32): the loss, moe/aux,
+               moe/dropped and every gradient against one process (1e-5 of
+               each leaf's max); decode.tp = 2 in fp32 (the AED at
+               DECODE_AED_LAYERS layers) in ctc_greedy, ctc_beam and
+               joint_beam == one process (transcripts, beam scores within
+               1e-5) and ctc_greedy alone == batched in bf16; the gate
+               config's ctc_greedy
                and aed_beam decoded over 2 ranks == one process (transcripts
                and beam scores); one rank under NCCL: the fp32 gradients,
                DDP and FSDP updates (no checkpoint written), FSDP's
@@ -321,8 +338,12 @@ GRAD_NAMES = ("x", "dt", "A", "B", "C", "initial_state")
 TRAIN_SHAPES = BWD_SHAPES[:2]
 # serving (B 8 and 1 at 10 s, 35 s, 40 s), the full-width decode batch (8
 # utterances of up to 15.2 s: L 380, six chunks) and the training step
+# a tp = 2 rank's heads at the training shape (6 of the encoder's 12, 8 of the
+# main stack's 16; phase 22)
+TP_SHAPES = ((32, 249, 6), (32, 249, 8))
 FWD_SHAPES = (tuple((Bsz, L, H) for Bsz in (8, 1) for L in (248, 873, 1000)
-                    for H in (12, 16)) + ((8, 380, 12), (8, 380, 16)) + TRAIN_SHAPES)
+                    for H in (12, 16)) + ((8, 380, 12), (8, 380, 16)) + TRAIN_SHAPES
+              + TP_SHAPES)
 # the tone models' (P, N) = (16, 16) build, fp32 only: the tone gate's
 # training and decode batch (24 utterances of up to 63 frames, 4 heads) and
 # the N=2 tone run's batches of batch_bins 1500 (3, 8 and 13 utterances)
@@ -482,7 +503,7 @@ def phase_backward():
     from hnet_mamba_asr_torch.tools.measure import cuda_ms, kernel_ms, ssd_bwd_cost, ssd_inputs
     rows = []
     cases = [(dtype, intra, 64, 128, s) for dtype in (torch.bfloat16, torch.float32)
-             for intra in ("bf16", None) for s in BWD_SHAPES]
+             for intra in ("bf16", None) for s in BWD_SHAPES + TP_SHAPES]
     cases += [(torch.float32, intra, 16, 16, s) for intra in ("bf16", None)
               for s in TONE_SHAPES]
     for dtype, intra, P, N, (Bsz, L, H) in cases:
@@ -3823,7 +3844,7 @@ def phase_interp(cmvn) -> dict:
 
 
 # ── phase 22: the multi-rank planes ──────────────────────────────────────────
-RANKS_BUDGET_S = 75.0           # the phase's own time budget
+RANKS_BUDGET_S = 110.0          # the phase's own time budget
 RANKS_ROWS = 8                  # 7 real utterances of 10 s and a padding row
 SP_SECONDS = 35.0               # 2 x 35 s, one shard of 17.5 s per rank
 # fp32, TF32 off, one card: DDP's mean of two half-batch gradients against
@@ -3850,6 +3871,38 @@ FSDP_RTOL, FSDP_ATOL = 2e-4, 2e-5         # tests/test_fsdp.py:92
 # its max)
 SP_FEATURE_BOUND, SP_SCALAR_BOUND, SP_LOSS_RTOL, SP_GRAD_RTOL = 2e-4, 1e-6, 2e-4, 5e-3
 RANKS_CELLS = ("ctc_greedy", "aed_beam")
+# tp = 2 and ep = 2 on the pair (the ranks share the card; dp = 1, so both
+# ranks of the model group hold every row): the gate config's gradient
+# against the witness (one process computing both shards in turn, a
+# virtual plane of parallel/model_parallel.py) within RANKS_SPLIT_BOUND of
+# each leaf's max in fp32 and phase 7's bounds in bf16; and in fp32 against
+# plain one process within RANKS_SPLIT_BOUND of each leaf's max, except the
+# leaves a rounding control moves further: those within ULP_RATIO times the
+# control's gap, and never past phase 7's bounds. The control is plain one
+# process again with every weight moved one ulp, up or down at random
+# (ulp_twin): the size of rounding the narrower GEMMs and the ranks' fp32
+# partial sums bring in, through the plain code (on an H100 it moved 424 of
+# the 563 leaves past 1e-5, and tp's gap read at most 2.16 times its gap on
+# any leaf, a main-stack a_log). The
+# MoE config's (8 experts, top 2) under ep against one process, bitwise where
+# the expert GEMMs agree, else within EP_GRAD_BOUND of each leaf's max;
+# decode.tp = 2 in fp32 (TF32 off) against one process in TP_CELLS with the
+# AED at DECODE_AED_LAYERS of its 6 layers (phase 13's cut), and ctc_greedy
+# alone == batched under tp in bf16
+EP_GRAD_BOUND = 1e-5
+ULP_RATIO = 4.0
+TP_CELLS = ("ctc_greedy", "ctc_beam", "joint_beam")
+# the H-Net's hard boundaries (p >= 0.5) under sp and tp against one
+# process. In fp32 (TF32 off) the boundaries are equal and the router's
+# probabilities p within BOUNDARY_CLIFF (tests/torch_parity.py's 1e-4), the
+# features within SP_FEATURE_BOUND (sp, JAX's) or RANKS_SPLIT_BOUND (tp) of
+# their max. In bf16 one process's own p lies ~1e-3 from its fp32 p, so a
+# flip near 0.5 says nothing; a path is held instead to be as close to the
+# fp32 pass as one process in bf16 is, within BF16_RATIO: max|p - p_fp32|
+# on every valid frame, and the features' max|d| / max|f| to the fp32 pass
+# on the rows whose boundaries agree in all three passes
+BOUNDARY_CLIFF = 1e-4
+BF16_RATIO = 2.0
 
 
 def decode_model(model):
@@ -3875,8 +3928,11 @@ def ranks_batch(rng, seconds: float, rows: int, real: int, base: int = 0) -> dic
 
 def ranks_configs() -> dict:
     """The phase's configs: the gate config in fp32 (intra off, TF32 off)
-    and as it is (bf16), and configs/typeA_small_N2.yaml in fp32 for sp, all
-    at full width and depth, remat full (three processes share the card)."""
+    and as it is (bf16), configs/typeA_small_N2.yaml in fp32 for sp and as
+    it is for sp and tp in bf16, the MoE config in fp32 for ep, all at full
+    width and depth, remat full (three processes share the card); and the
+    gate config in fp32 with its AED at DECODE_AED_LAYERS layers for
+    decode.tp."""
     def cut(config, precision):
         cfg = copy.deepcopy(config)
         cfg["encoder_conf"]["remat_policy"] = "full"
@@ -3884,8 +3940,12 @@ def ranks_configs() -> dict:
             cfg["encoder_conf"]["ssd_intra_dtype"] = None
             cfg["train"]["precision"] = "fp32"
         return cfg
+    from hnet_mamba_asr_torch.tools.gate import MOE_CONFIG
+    dec = cut(GATE_CONFIG, "fp32")
+    dec["aed_conf"].update(n_layers=DECODE_AED_LAYERS, max_decode_len=DECODE_CAP)
     return {"fp32": cut(GATE_CONFIG, "fp32"), "bf16": cut(GATE_CONFIG, "bf16"),
-            "sp": cut(N2_CONFIG, "fp32"), "sp_bf16": cut(N2_CONFIG, "bf16")}
+            "sp": cut(N2_CONFIG, "fp32"), "sp_bf16": cut(N2_CONFIG, "bf16"),
+            "moe": cut(MOE_CONFIG, "fp32"), "dec": dec}
 
 
 # the updates of DDP against FSDP: Adam's eps 0.1 makes an update near-linear
@@ -3918,6 +3978,105 @@ def _grad_gap(got: dict, ref: dict) -> list:
         rows.append(((d.max() / g.float().abs().max().clamp(min=1e-30)).item(), name,
                      (d.mean() / g.float().abs().mean().clamp(min=1e-30)).item()))
     return sorted(rows, reverse=True)
+
+
+def boundary_gap(p, b, p_ref, b_ref, lengths) -> dict:
+    """The hard boundaries of one pass against a reference pass on each
+    row's valid frames: how many differ, their distances |p_ref - 0.5| (the
+    10 largest), the router's gap max|p - p_ref| over the valid frames
+    (p comes from the encoder stack before any chunking, so it measures
+    that stack's rounding), and which rows agree on every frame."""
+    L = min(b.shape[1], b_ref.shape[1])
+    valid = torch.arange(L)[None, :] < torch.as_tensor(lengths).cpu()[:, None]
+    diff = (b[:, :L].float().cpu() != b_ref[:, :L].float().cpu()) & valid
+    p, p_ref = p[:, :L].float().cpu(), p_ref[:, :L].float().cpu()
+    dist = (p_ref - 0.5).abs()[diff]
+    return {"differ": int(diff.sum()), "frames": int(valid.sum()),
+            "max_dist": float(dist.max()) if len(dist) else 0.0,
+            "dists": sorted(dist.tolist(), reverse=True)[:10],
+            "p_gap": float((p - p_ref).abs()[valid].max()),
+            "rows_agree": [bool(x) for x in ~diff.any(1)]}
+
+
+def encoded(enc, group=None) -> dict:
+    """An encoder output's router p and boundaries b of the first stage and
+    its features, on the host (an sp rank's p and b gathered over
+    ``group`` into whole rows)."""
+    p, b = enc.boundaries[0]
+    if group is not None:
+        from hnet_mamba_asr_torch.parallel.collectives import all_gather
+        p, b = (all_gather(t, group).permute(1, 0, 2).reshape(t.shape[0], -1) for t in (p, b))
+    return {"p": p.float().cpu(), "b": b.float().cpu(), "features": enc.features.float().cpu(),
+            "kept": float(enc.kept_fractions[0])}
+
+
+def bf16_against_fp32(got: dict, ref16: dict, ref32: dict, lengths) -> dict:
+    """A bf16 pass ``got`` and one process's bf16 pass ``ref16`` each
+    against one process's fp32 pass ``ref32`` of the same rows (module
+    constants, BF16_RATIO): the boundaries of ``got`` against ``ref16``,
+    both passes' router gaps to fp32, and both passes' feature gaps to
+    fp32 on the rows whose boundaries agree in all three."""
+    bg = boundary_gap(got["p"], got["b"], ref16["p"], ref16["b"], lengths)
+    mine = boundary_gap(got["p"], got["b"], ref32["p"], ref32["b"], lengths)
+    ctrl = boundary_gap(ref16["p"], ref16["b"], ref32["p"], ref32["b"], lengths)
+    rows = [a and m and c for a, m, c in zip(bg["rows_agree"], mine["rows_agree"],
+                                             ctrl["rows_agree"])]
+    return {"boundaries": bg, "p_gap": mine["p_gap"], "ctrl_p_gap": ctrl["p_gap"],
+            "ctrl_flips": ctrl["dists"], "rows": sum(rows),
+            "feature_gap": row_feature_gap(got["features"], ref32["features"], lengths, rows),
+            "ctrl_feature_gap": row_feature_gap(ref16["features"], ref32["features"], lengths,
+                                                rows),
+            "gap_to_ref16": row_feature_gap(got["features"], ref16["features"], lengths,
+                                            bg["rows_agree"])}
+
+
+def bf16_ok(r: dict) -> bool:
+    """``bf16_against_fp32``'s holds: p and, where rows agree, the features
+    as close to fp32 as one process in bf16 is, within BF16_RATIO."""
+    return r["p_gap"] <= BF16_RATIO * r["ctrl_p_gap"] and (
+        r["rows"] == 0 or r["feature_gap"] <= BF16_RATIO * r["ctrl_feature_gap"])
+
+
+def bf16_line(r: dict) -> str:
+    bg = r["boundaries"]
+    return (f"boundaries first, {bg['differ']} of {bg['frames']} valid frames differ from one "
+            f"process in bf16, their |p - 0.5| (largest first) "
+            f"{[f'{d:.3e}' for d in bg['dists']]}, max|p - p_ref| {bg['p_gap']:.3e}; against "
+            f"one process in fp32 max|p - p_fp32| {r['p_gap']:.3e}, one process in bf16 "
+            f"{r['ctrl_p_gap']:.3e} (its own flips at |p - 0.5| "
+            f"{[f'{d:.3e}' for d in r['ctrl_flips'][:5]]}), ratio "
+            f"{r['p_gap'] / max(r['ctrl_p_gap'], 1e-30):.3f} (bound {BF16_RATIO:g}); features "
+            f"to fp32 on the {r['rows']} rows all three agree on {r['feature_gap']:.3e}, one "
+            f"process in bf16 {r['ctrl_feature_gap']:.3e}; to one process in bf16 on the "
+            f"{sum(bg['rows_agree'])} rows that agree with it {r['gap_to_ref16']:.3e}")
+
+
+def ulp_twin(model, seed: int):
+    """A copy of ``model`` whose every weight moved one ulp, up or down at
+    random from ``seed``: the same function up to rounding."""
+    twin = copy.deepcopy(model)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in twin.parameters():
+            up = (torch.rand(p.shape, generator=g) < 0.5).to(p.device)
+            p.copy_(torch.nextafter(p, torch.where(up, math.inf, -math.inf).to(p.dtype)))
+    return twin
+
+
+def row_feature_gap(f, ref, lengths, rows) -> float:
+    """max over ``rows`` of max|d| / max|ref| on each row's valid frames."""
+    f, ref = f.float().cpu(), ref.float().cpu()
+    gaps = [((f[i, :n].float() - ref[i, :n].float()).abs().max()
+             / ref[i, :n].float().abs().max()).item()
+            for i, n in enumerate(int(x) for x in lengths) if rows[i] and n > 0]
+    return max(gaps) if gaps else float("nan")
+
+
+def gathered_grads(tr) -> dict:
+    """The gradients of a tp / ep trainer's model, whole (every rank of a
+    plane takes part in each split leaf's gather), on the host."""
+    return {n: (tr._gather_leaf(n, p.grad) if n in tr.mp_plan else p.grad).detach().cpu()
+            for n, p in tr.model.named_parameters()}
 
 
 def split_grads(model, batch: dict, world: int, on_card) -> dict:
@@ -4092,29 +4251,31 @@ def ranks_worker(tmp: Path) -> None:
             g = p.grad.detach().clone()
             dist.all_reduce(g)
             grads[name] = g / world
-        out["sp"] = {"feature_gap": gap, "ratio": float(enc.ratio_loss),
+        got = encoded(enc, sp.shards.group)
+        out["sp"] = {"boundaries": boundary_gap(got["p"], got["b"], ref["p"], ref["b"], n),
+                     "feature_gap": gap, "ratio": float(enc.ratio_loss),
                      "ref_ratio": ref["ratio"], "kept": float(enc.kept_fractions[0]),
                      "ref_kept": ref["kept"], "loss": loss.item(), "ref_loss": ref["loss"],
                      "grad_gap": _grad_gap(grads, ref["grads"]), "launches": launches,
                      "ms": t0.elapsed_time(t1),
                      "peak": torch.cuda.max_memory_allocated(dev) - before}
         shards = sp.shards
+        ref32 = {k: ref[k].cpu() for k in ("p", "b", "features")}
         del model, sp, ref, grads, loss
-        # the config's own bf16: the gap to offline is recorded, not bounded
+        # the config's own bf16, against one process in bf16 and in fp32
         model = model_of("sp_bf16").eval()
-        ref = torch.load(_wait_for(tmp / "ref_sp16.pt"), map_location=dev)
+        ref = torch.load(_wait_for(tmp / "ref_sp16.pt"), map_location="cpu")
         with torch.no_grad():
             feats, flens = model.features(batch, False)
-            enc = sp_encode(model.encoder, feats, flens, shards)
-        f = enc.features[:, :ref["features"].shape[1]].float()
+            got = encoded(sp_encode(model.encoder, feats, flens, shards), shards.group)
         n = ref["lengths"]
-        out["sp_bf16"] = {
-            "feature_gap": max(((f[i, :n[i]] - ref["features"][i, :n[i]]).abs().max()
-                                / ref["features"][i, :n[i]].abs().max()).item()
-                               for i in range(len(n))),
-            "kept": float(enc.kept_fractions[0]), "ref_kept": ref["kept"]}
-        del model, ref, enc
+        out["sp_bf16"] = dict(bf16_against_fp32(got, ref, ref32, n),
+                              all_rows_gap=row_feature_gap(got["features"], ref["features"], n,
+                                                           [True] * len(n)),
+                              kept=got["kept"], ref_kept=ref["kept"])
+        del model, ref, got
         torch.cuda.empty_cache()
+        tp_stages(out, tmp, job, dev, model_of, fresh, stage)
     # DDP gradients of one micro-step against one rank's (train mode: the
     # row-keyed SpecAugment and AED dropout); bf16's gap on the gloo pair only
     for label in ("fp32", "bf16")[:2 if world > 1 else 1]:
@@ -4146,6 +4307,125 @@ def ranks_worker(tmp: Path) -> None:
     (tmp / f"out{world}_{rank}.pkl").write_bytes(pickle.dumps(out))
     dist.barrier()
     dist.destroy_process_group()
+
+
+def tp_stages(out: dict, tmp: Path, job: dict, dev, model_of, fresh, stage) -> None:
+    """The pair's tp = 2 and ep = 2 stages (phase 22): dp = 1, so both ranks
+    of the model group hold every row of the batch."""
+    from hnet_mamba_asr_torch.data.dataset import ItemLoader
+    from hnet_mamba_asr_torch.ops.ema_cuda import ema_cuda
+    from hnet_mamba_asr_torch.ops.ssd_cuda import ssd_cuda
+    from hnet_mamba_asr_torch.parallel import mesh as pmesh
+    from hnet_mamba_asr_torch.parallel.model_parallel import place_model, plane_of
+    from hnet_mamba_asr_torch.tasks.decode_task import decode_batch, decode_split
+    from hnet_mamba_asr_torch.tools.gate import seeded_tokenizer
+    tp_mesh = pmesh.make_mesh(device=dev, tp=2)
+
+    def timed_step(tr, batch) -> dict:
+        """One micro-step, then the update, on CUDA events: launches,
+        seconds, peak memory above the start, the gathered gradients."""
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        ssd_cuda.launches = ssd_cuda.bwd_launches = ema_cuda.launches = ema_cuda.bwd_launches = 0
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        stats = tr._micro_step(batch)
+        ev[1].record()
+        launches = {"ssd_fwd": ssd_cuda.launches, "ssd_bwd": ssd_cuda.bwd_launches,
+                    "ema_fwd": ema_cuda.launches, "ema_bwd": ema_cuda.bwd_launches}
+        grads = gathered_grads(tr)
+        ev[1].synchronize()
+        t_apply = torch.cuda.Event(enable_timing=True)
+        t_apply.record()
+        tr._apply_step()
+        ev[2].record()
+        ev[2].synchronize()
+        return {"stats": {k: float(v) for k, v in stats.items()}, "launches": launches,
+                "grads": grads, "ms": ev[0].elapsed_time(ev[1]),
+                "apply_ms": t_apply.elapsed_time(ev[2]),
+                "peak": torch.cuda.max_memory_allocated(dev) - before,
+                "state_bytes": 12 * sum(p.numel() for p in tr.model.parameters())}
+
+    for label in ("fp32", "bf16"):
+        stage(f"tp {label}")
+        tr = unsaved_trainer(fresh(label), [], dict(RANKS_TRAIN, tp=2),
+                             ckpt_dir=tmp / f"tp{label}", seed=SEED, device=dev, mesh=tp_mesh)
+        r = timed_step(tr, job["batch"])
+        ref = torch.load(_wait_for(tmp / f"ref_{label}.pt"), map_location="cpu")
+        wit = torch.load(_wait_for(tmp / f"ref_tpw_{label}.pt"), map_location="cpu")
+        grads = r.pop("grads")
+        out[f"tp_{label}"] = dict(r, gap=_grad_gap(grads, ref["grads"]), ref_loss=ref["loss"],
+                                  witness_gap=_grad_gap(grads, wit["grads"]),
+                                  witness_loss=wit["loss"],
+                                  bitwise=sum(torch.equal(grads[n], g)
+                                              for n, g in wit["grads"].items()))
+        del tr, grads, ref, wit
+        torch.cuda.empty_cache()
+    # N=2 with random routers: one forward of the 8 rows of 10 s in fp32 and
+    # in bf16 against one process (and in bf16 against the witness)
+    batch = {k: torch.as_tensor(v).to(dev) if isinstance(v, np.ndarray) else v
+             for k, v in job["batch"].items() if k != "ids"}
+    refs = {k: torch.load(_wait_for(tmp / f"ref_tpn2_{k}.pt"), map_location="cpu")
+            for k in ("fp32", "bf16", "witness")}
+    n = refs["fp32"]["lengths"]
+    for label, base in (("fp32", "sp"), ("bf16", "sp_bf16")):
+        stage(f"tp n2 {label}")
+        model = model_of(base).eval()
+        place_model(model, plane_of(tp_mesh, "tp", 2))
+        ssd_cuda.launches = ema_cuda.launches = 0
+        with torch.no_grad():
+            got = encoded(model.encoder(*model.features(batch, False)))
+        r = {"launches": {"ssd_fwd": ssd_cuda.launches, "ema_fwd": ema_cuda.launches},
+             "b": got["b"], "kept": got["kept"], "ref_kept": refs[label]["kept"]}
+        if label == "fp32":
+            r.update(boundaries=boundary_gap(got["p"], got["b"], refs["fp32"]["p"],
+                                             refs["fp32"]["b"], n),
+                     feature_gap=row_feature_gap(got["features"], refs["fp32"]["features"], n,
+                                                 [True] * len(n)))
+        else:
+            w = refs["witness"]
+            r.update(bf16_against_fp32(got, refs["bf16"], refs["fp32"], n),
+                     witness_equal=all(torch.equal(got[k], w[k]) for k in ("p", "b", "features")))
+        out[f"tp_n2_{label}"] = r
+        del model, got
+    del refs
+    # ep = 2 on the MoE config: one update against one process
+    stage("ep")
+    tr = unsaved_trainer(model_of("moe"), [], dict(RANKS_TRAIN, ep=2), ckpt_dir=tmp / "ep",
+                         seed=SEED, device=dev, mesh=pmesh.make_mesh(device=dev, ep=2))
+    r = timed_step(tr, job["batch"])
+    ref = torch.load(_wait_for(tmp / "ref_moe.pt"), map_location="cpu")
+    grads = r.pop("grads")
+    out["ep"] = dict(r, gap=_grad_gap(grads, ref["grads"]), ref_stats=ref["stats"],
+                     bitwise=sum(torch.equal(grads[n], g) for n, g in ref["grads"].items()))
+    del tr, grads, ref
+    torch.cuda.empty_cache()
+    # decode.tp = 2: fp32 against one process; ctc_greedy alone == batched in bf16
+    stage("decode tp")
+    rank = int(os.environ["RANK"])
+    tok = seeded_tokenizer(tmp / f"tok_tp{rank}.json")
+    model = decode_model(model_of("dec"))
+    place_model(model, plane_of(tp_mesh, "tp", 2))
+    out["decode_tp"] = {}
+    for cell in job["tp_cells"]:
+        where = tmp / f"tp{rank}_{cell['name']}.jsonl"
+        loader = ItemLoader(job["decode_items"], 32000, pad_id=tok.pad_id, shuffle=False)
+        decode_split(model, tok, loader, cell, job["decode_cfg"], audio_seconds={},
+                     out_path=where, ranks=(0, 1, 2))
+        out["decode_tp"][cell["name"]] = where.read_text() if where.exists() else None
+    model = decode_model(fresh("bf16"))
+    place_model(model, plane_of(tp_mesh, "tp", 2))
+    cell = next(c for c in job["tp_cells"] if c["name"] == "ctc_greedy")
+    items = job["decode_items"]
+    batched = decode_batch(model, tok, next(iter(ItemLoader(items, 10 ** 7, shuffle=False))),
+                           cell, job["decode_cfg"])
+    alone = [decode_batch(model, tok, next(iter(ItemLoader([it], 10 ** 7, shuffle=False))),
+                          cell, job["decode_cfg"])[0] for it in items]
+    out["tp_alone"] = {"same": {r["id"]: r["hyp"] for r in alone}     # the loader sorts rows
+                       == {r["id"]: r["hyp"] for r in batched}, "n": len(items)}
+    del model
+    torch.cuda.empty_cache()
 
 
 def gloo_probe() -> None:
@@ -4214,6 +4494,111 @@ def _spawn_ranks(tmp: Path, world: int, port: int, log_name: str,
     return procs
 
 
+def tp_checks(res: dict, out: dict, solo_dec: dict, job: dict) -> list:
+    """Phase 22's tp and ep checks on the pair's results, logged with their
+    bounds."""
+    checks = []
+    ulp = {n: v for v, n, _ in out["ulp_fp32"]}
+    bound = {n: max(RANKS_SPLIT_BOUND, min(ULP_RATIO * v, CONV1_GRAD_BOUND if n in CONV1_LEAVES
+                                           else PARAM_GRAD_BOUND)) for n, v in ulp.items()}
+    log(f"  rounding control, gate config fp32: one process with every weight one ulp away "
+        f"against one process, max|d|/max|g| worst "
+        + ", ".join(f"{v:.2e} ({n})" for v, n, _ in out["ulp_fp32"][:3])
+        + f"; {sum(v > RANKS_SPLIT_BOUND for v in ulp.values())} of {len(ulp)} leaves over "
+        f"{RANKS_SPLIT_BOUND:g} (each leaf's bound below: {RANKS_SPLIT_BOUND:g}, or "
+        f"{ULP_RATIO:g} x the control's gap up to phase 7's); N=2 config fp32 forward, the "
+        f"same rows as tp N=2: features {out['ulp_n2']['feature_gap']:.3e} of max, max|p - "
+        f"p_ref| {out['ulp_n2']['p_gap']:.3e}")
+    for key in ("2_0", "2_1"):
+        who = f"tp=2 rank {key[-1]}"
+        for label in ("fp32", "bf16"):
+            t = res[key][f"tp_{label}"]
+            gap, wit = t["gap"], {n: v for v, n, _ in t["witness_gap"]}
+            if label == "fp32":
+                # the witness's gradient within RANKS_SPLIT_BOUND of each leaf's
+                # max (as DDP's split), one process's within the control's bound
+                over = [(v, n) for n, v in wit.items() if v > RANKS_SPLIT_BOUND] + [
+                    (v, n) for v, n, _ in gap if v > bound[n]]
+                loss_ok = abs(t["stats"]["loss/total"] - t["ref_loss"]) <= 1e-5 * abs(
+                    t["ref_loss"])
+                ratio = sorted(((v / max(ulp[n], 1e-30), n, v) for v, n, _ in gap
+                                if v > RANKS_SPLIT_BOUND), reverse=True)
+                log(f"    {who} fp32: {len(ratio)} leaves over {RANKS_SPLIT_BOUND:g} of max "
+                    f"against one process, the largest ratios to the control's gap: "
+                    + ", ".join(f"{r:.2f} ({n}, {v:.2e})" for r, n, v in ratio[:5]))
+            else:
+                over = [(v, n) for n, v in wit.items() if v > (
+                    CONV1_GRAD_BOUND if n in CONV1_LEAVES else PARAM_GRAD_BOUND)]
+                loss_ok = t["stats"]["loss/total"] == t["witness_loss"]
+            log(f"  {who} gate config {label}, one update of {RANKS_ROWS} rows (both ranks "
+                f"every row): loss {t['stats']['loss/total']:.7f} vs one process "
+                f"{t['ref_loss']:.7f}, witness {t['witness_loss']:.7f}; vs one process "
+                f"max|d|/max|g| worst " + ", ".join(f"{v:.2e} ({n})" for v, n, _ in gap[:3])
+                + "; vs the witness worst " + ", ".join(
+                    f"{v:.2e} ({n})" for v, n, _ in t["witness_gap"][:3])
+                + f", {t['bitwise']} of {len(gap)} leaves bitwise; over the bounds "
+                + ("(the witness 1e-5, one process the control's)" if label == "fp32"
+                   else "(phase 7s)") + f": {len(over)} leaves "
+                f"{sorted(over, reverse=True)[:5]}; launches "
+                f"{t['launches']}; micro-step {t['ms']:.1f} ms, update step "
+                f"{t['apply_ms']:.1f} ms, peak above the start {t['peak'] / 1e9:.3f} GB, "
+                f"params + moments {t['state_bytes'] / 1e9:.3f} GB a rank")
+            checks += [(f"{who} {label} gradients", not over and loss_ok),
+                       (f"{who} {label} launches", t["launches"]["ssd_fwd"] == 2 * 40
+                        and t["launches"]["ssd_bwd"] == 40)]
+        n2, bg = res[key]["tp_n2_fp32"], res[key]["tp_n2_fp32"]["boundaries"]
+        log(f"  {who} configs/typeA_small_N2.yaml fp32, random routers, one forward of "
+            f"{RANKS_ROWS} rows (7 x 10 s and a pad) vs one process: boundaries first, "
+            f"{bg['differ']} of {bg['frames']} differ, max|p - p_ref| {bg['p_gap']:.3e} (bound "
+            f"{BOUNDARY_CLIFF:g}); features {n2['feature_gap']:.3e} of max (bound "
+            f"{RANKS_SPLIT_BOUND:g}); kept {n2['kept']:.7f} vs {n2['ref_kept']:.7f}; launches "
+            f"{n2['launches']}")
+        checks.append((f"{who} n2 fp32", bg["differ"] == 0 and bg["p_gap"] <= BOUNDARY_CLIFF
+                       and n2["feature_gap"] <= RANKS_SPLIT_BOUND))
+        n2 = res[key]["tp_n2_bf16"]
+        log(f"  {who} configs/typeA_small_N2.yaml bf16, the same rows: equal to the witness "
+            f"(p, b, features bitwise) {n2['witness_equal']}; " + bf16_line(n2)
+            + f"; kept {n2['kept']:.7f} vs {n2['ref_kept']:.7f}; launches {n2['launches']}")
+        checks.append((f"{who} n2 bf16", n2["witness_equal"] and bf16_ok(n2)))
+        checks += [(f"{who} n2 {label} launches", res[key][f"tp_n2_{label}"]["launches"] == {
+            "ssd_fwd": N2_SSD_CALLS, "ema_fwd": 1}) for label in ("fp32", "bf16")]
+        e = res[key]["ep"]
+        over = [(v, n) for v, n, _ in e["gap"] if v > EP_GRAD_BOUND]
+        st, ref = e["stats"], e["ref_stats"]
+        log(f"  ep=2 rank {key[-1]} MoE config fp32 (8 experts, top 2), one update vs one "
+            f"process: loss {st['loss/total']:.7f} vs {ref['loss/total']:.7f}, moe/aux "
+            f"{st['moe/aux']:.7f} vs {ref['moe/aux']:.7f}, moe/dropped {st['moe/dropped']:.7f} "
+            f"vs {ref['moe/dropped']:.7f}; {e['bitwise']} of {len(e['gap'])} leaves bitwise, "
+            f"worst " + ", ".join(f"{v:.2e} ({n})" for v, n, _ in e["gap"][:3])
+            + f"; over {EP_GRAD_BOUND:g} of max: {len(over)} leaves {over[:5]}; launches "
+            f"{e['launches']}; micro-step "
+            f"{e['ms']:.1f} ms, peak above the start {e['peak'] / 1e9:.3f} GB, params + "
+            f"moments {e['state_bytes'] / 1e9:.3f} GB a rank")
+        checks.append((f"ep rank {key[-1]}", not over and st["moe/dropped"] == ref["moe/dropped"]
+                       and abs(st["loss/total"] - ref["loss/total"]) <= 1e-6 * abs(
+                           ref["loss/total"])
+                       and abs(st["moe/aux"] - ref["moe/aux"]) <= 1e-6 * abs(ref["moe/aux"])))
+    checks += [(f"tp n2 {label} ranks' boundaries equal", torch.equal(
+        res["2_0"][f"tp_n2_{label}"]["b"], res["2_1"][f"tp_n2_{label}"]["b"]))
+        for label in ("fp32", "bf16")]
+    for cell in job["tp_cells"]:
+        name = cell["name"]
+        got = [json.loads(x) for x in res["2_0"]["decode_tp"][name].splitlines()]
+        want = [json.loads(x) for x in solo_dec["tp_" + name].splitlines()]
+        same = [(r["id"], r["hyp"]) for r in got] == [(r["id"], r["hyp"]) for r in want]
+        worst = max((abs(a["score"] - b["score"]) / max(abs(b["score"]), 1e-30)
+                     for a, b in zip(got, want) if b["score"] is not None), default=0.0)
+        log(f"  decode.tp=2 fp32 {name}: {len(got)} utterances, transcripts equal to one "
+            f"process: {same}; beam scores' worst relative gap {worst:.2e} (bound 1e-5)")
+        checks.append((f"decode.tp {name}", same and worst <= 1e-5
+                       and res["2_1"]["decode_tp"][name] is None))
+    a = res["2_0"]["tp_alone"]
+    log(f"  decode.tp=2 bf16 ctc_greedy: each of {a['n']} utterances alone == batched: "
+        f"{a['same']}")
+    checks.append(("decode.tp alone == batched", a["same"] and res["2_1"]["tp_alone"]["same"]))
+    return checks
+
+
 def phase_ranks(cmvn) -> dict:
     """Phase 22, the multi-rank planes (module docstring). Every process
     starts at once on the one card: a pair of processes per gloo probe, two
@@ -4228,6 +4613,7 @@ def phase_ranks(cmvn) -> dict:
 
     from hnet_mamba_asr_torch.data.dataset import ItemLoader
     from hnet_mamba_asr_torch.parallel.mesh import fsdp_plan
+    from hnet_mamba_asr_torch.parallel.model_parallel import Plane, place_model
     from hnet_mamba_asr_torch.tasks.asr_task import build_model
     from hnet_mamba_asr_torch.tasks.decode_task import decode_split, expand_cells
     from hnet_mamba_asr_torch.tools.gate import seeded_tokenizer
@@ -4246,7 +4632,10 @@ def phase_ranks(cmvn) -> dict:
            "decode_cfg": {"beam_size": 4},
            "cells": [c for c in expand_cells({"read_outs": ["ctc", "aed"],
                                               "search": ["greedy", "beam"], "lm": "none"})
-                     if c["name"] in RANKS_CELLS]}
+                     if c["name"] in RANKS_CELLS],
+           "tp_cells": [c for c in expand_cells({"read_outs": ["ctc", "joint"],
+                                                 "search": ["greedy", "beam"], "lm": "none"})
+                        if c["name"] in TP_CELLS]}
     (tmp / "job.pkl").write_bytes(pickle.dumps(job))
     secs, out = {}, {}
 
@@ -4319,21 +4708,64 @@ def phase_ranks(cmvn) -> dict:
         ev[1].synchronize()
         out["sp_offline"] = {"ms": ev[0].elapsed_time(ev[1]),
                              "peak": torch.cuda.max_memory_allocated() - before}
-        _save_atomic({"features": enc.features.cpu(), "lengths": enc.lengths.cpu(),
-                      "ratio": float(enc.ratio_loss), "kept": float(enc.kept_fractions[0]),
-                      "loss": loss.item(), "grads": {n: p.grad.detach().cpu()
-                                                     for n, p in model.named_parameters()}},
+        _save_atomic(dict(encoded(enc), lengths=enc.lengths.cpu(), ratio=float(enc.ratio_loss),
+                          loss=loss.item(), grads={n: p.grad.detach().cpu()
+                                                   for n, p in model.named_parameters()}),
                      tmp / "ref_sp.pt")
-        del model, enc, loss
+        del enc, loss
+        with torch.no_grad():                      # tp N=2's fp32 reference
+            enc = model.eval().encode(on_card(job["batch"]))
+            ref32 = dict(encoded(enc), lengths=enc.lengths.cpu())
+            _save_atomic(ref32, tmp / "ref_tpn2_fp32.pt")
+            twin = encoded(ulp_twin(model, SEED + 25).encode(on_card(job["batch"])))
+        out["ulp_n2"] = {"p_gap": boundary_gap(twin["p"], twin["b"], ref32["p"], ref32["b"],
+                                               ref32["lengths"])["p_gap"],
+                         "feature_gap": row_feature_gap(twin["features"], ref32["features"],
+                                                        ref32["lengths"],
+                                                        [True] * len(ref32["lengths"]))}
+        del model, enc, twin, ref32
         model = build_model(cfgs["sp_bf16"], VOCAB, cmvn=cmvn, seed=SEED).eval()
         draw_routers(model, SEED + 23)
         _save_atomic(model, tmp / "base_sp_bf16.pt")
+        for rows, name in ((b, "ref_sp16"), (on_card(job["batch"]), "ref_tpn2_bf16")):
+            with torch.no_grad():
+                enc = model.encode(rows)
+            _save_atomic(dict(encoded(enc), lengths=enc.lengths.cpu()), tmp / f"{name}.pt")
+        place_model(model, Plane("tp", 2))         # tp N=2's bf16 witness
         with torch.no_grad():
-            enc = model.encode(b)
-        _save_atomic({"features": enc.features.float().cpu(), "lengths": enc.lengths.cpu(),
-                      "kept": float(enc.kept_fractions[0])}, tmp / "ref_sp16.pt")
+            enc = model.encode(on_card(job["batch"]))
+        _save_atomic(encoded(enc), tmp / "ref_tpn2_witness.pt")
         del model, enc
+        # tp's witnesses: a virtual plane computes both shards in turn here
+        for label in ("fp32", "bf16"):
+            model = torch.load(tmp / f"base_{label}.pt", map_location="cuda",
+                               weights_only=False).train()
+            place_model(model, Plane("tp", 2))
+            loss, _ = model.loss_fn(on_card(job["batch"]), 0, True)
+            loss.backward()
+            _save_atomic({"loss": loss.item(), "grads": {n: p.grad.detach().cpu() for n, p in
+                                                         model.named_parameters()}},
+                         tmp / f"ref_tpw_{label}.pt")
+            del model, loss
+        model = build_model(cfgs["moe"], VOCAB, cmvn=cmvn, seed=SEED).train()
+        _save_atomic(model, tmp / "base_moe.pt")
+        loss, st = model.loss_fn(on_card(job["batch"]), 0, True)
+        loss.backward()
+        _save_atomic({"stats": {k: float(st[k]) for k in ("loss/total", "moe/aux", "moe/dropped")},
+                      "grads": {n: p.grad.detach().cpu() for n, p in model.named_parameters()}},
+                     tmp / "ref_moe.pt")
+        del model, loss
+        dec_model = build_model(cfgs["dec"], VOCAB, cmvn=cmvn, seed=SEED)
+        _save_atomic(dec_model, tmp / "base_dec.pt")
         secs["references"] = time.perf_counter() - t0
+        # the rounding control of tp's fp32 gradients: one process, every
+        # weight one ulp away
+        model = ulp_twin(bases["fp32"], SEED + 24)
+        loss, _ = model.loss_fn(on_card(job["batch"]), 0, True)
+        loss.backward()
+        out["ulp_fp32"] = _grad_gap({n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+                                    torch.load(tmp / "ref_fp32.pt")["grads"])
+        del model, loss
         waiter.join()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -4353,6 +4785,14 @@ def phase_ranks(cmvn) -> dict:
                          out_path=where)
             solo_dec[cell["name"]] = where.read_text()
         del model
+        model = decode_model(dec_model)
+        for cell in job["tp_cells"]:                   # decode.tp's reference
+            loader = ItemLoader(job["decode_items"], 32000, pad_id=tok.pad_id, shuffle=False)
+            where = tmp / f"solo_tp_{cell['name']}.jsonl"
+            decode_split(model, tok, loader, cell, job["decode_cfg"], audio_seconds={},
+                         out_path=where)
+            solo_dec["tp_" + cell["name"]] = where.read_text()
+        del model, dec_model
         torch.cuda.empty_cache()
         secs["one_process"] = time.perf_counter() - t0
         codes = {}
@@ -4422,9 +4862,11 @@ def phase_ranks(cmvn) -> dict:
                    == res["2_1"]["ddp_tree_digest"]))
     for key in ("2_0", "2_1"):
         s = res[key]["sp"]
-        gap = s["grad_gap"]
+        gap, bg = s["grad_gap"], s["boundaries"]
         log(f"  sp=2 rank {key[-1]} vs offline, configs/typeA_small_N2.yaml fp32, 2 x "
-            f"{SP_SECONDS:g} s: features {s['feature_gap']:.2e} of max, ratio "
+            f"{SP_SECONDS:g} s: boundaries first, {bg['differ']} of {bg['frames']} differ, "
+            f"max|p - p_ref| {bg['p_gap']:.3e} (bound {BOUNDARY_CLIFF:g}); features "
+            f"{s['feature_gap']:.2e} of max, ratio "
             f"{s['ratio']:.7f} vs {s['ref_ratio']:.7f}, kept {s['kept']:.7f} vs "
             f"{s['ref_kept']:.7f}, loss {s['loss']:.6f} vs {s['ref_loss']:.6f}, gradients worst "
             + ", ".join(f"{v:.2e} ({n})" for v, n, _ in gap[:3])
@@ -4432,6 +4874,7 @@ def phase_ranks(cmvn) -> dict:
             f"update's start {s['peak'] / 1e9:.3f} GB (offline {out['sp_offline']['ms']:.1f} ms, "
             f"{out['sp_offline']['peak'] / 1e9:.3f} GB)")
         checks += [
+            (f"sp rank {key} boundaries", bg["differ"] == 0 and bg["p_gap"] <= BOUNDARY_CLIFF),
             (f"sp rank {key} features", s["feature_gap"] <= SP_FEATURE_BOUND),
             (f"sp rank {key} ratio and kept", abs(s["ratio"] - s["ref_ratio"]) <= SP_SCALAR_BOUND
              and abs(s["kept"] - s["ref_kept"]) <= SP_SCALAR_BOUND),
@@ -4442,10 +4885,12 @@ def phase_ranks(cmvn) -> dict:
                 "ssd_fwd": 2 * N2_SSD_CALLS, "ssd_bwd": N2_SSD_CALLS, "ema_fwd": 1,
                 "ema_bwd": 1})]
     s16 = res["2_0"]["sp_bf16"]
-    log(f"  sp=2 vs offline in the config's bf16 (encoder only, recorded): features "
-        f"{s16['feature_gap']:.3e} of max on valid frames, kept {s16['kept']:.7f} vs "
+    log(f"  sp=2 in the config's bf16 (encoder only), the same rows: " + bf16_line(s16)
+        + f"; features to one process in bf16 on every row {s16['all_rows_gap']:.3e} of max "
+        f"(recorded: a flip moves every later slot); kept {s16['kept']:.7f} vs "
         f"{s16['ref_kept']:.7f}")
-    checks.append(("sp bf16 finite", math.isfinite(s16["feature_gap"])))
+    checks.append(("sp bf16 as close to fp32 as one process", bf16_ok(s16)))
+    checks += tp_checks(res, out, solo_dec, job)
     for cell in job["cells"]:
         name = cell["name"]
         got = [json.loads(x) for x in res["2_0"]["decode"][name].splitlines()]
@@ -4470,7 +4915,11 @@ def phase_ranks(cmvn) -> dict:
     if failed:
         raise AssertionError(f"phase 22 checks failed: {failed}")
     log("phase 22 ranks: ok")
-    return {"seconds": phase_s, "launches": {"sp_update_rank0": res["2_0"]["sp"]["launches"]},
+    return {"seconds": phase_s, "launches": {
+                "sp_update_rank0": res["2_0"]["sp"]["launches"],
+                "tp_update_rank0": res["2_0"]["tp_bf16"]["launches"],
+                "tp_n2_forward_rank0": res["2_0"]["tp_n2_bf16"]["launches"],
+                "ep_update_rank0": res["2_0"]["ep"]["launches"]},
             "results": res, "solo": out, "gloo_cuda": gloo}
 
 
@@ -4595,8 +5044,11 @@ def main() -> int:
                     for k, v in ranks["gloo_cuda"].items())
         + f"; sp=2 update {sp['ms']:.1f} ms, {sp['peak'] / 1e9:.2f} GB per rank (offline "
         f"{ranks['solo']['sp_offline']['ms']:.1f} ms, "
-        f"{ranks['solo']['sp_offline']['peak'] / 1e9:.2f} GB); phase {ranks['seconds']:.1f} s; "
-        f"{time.perf_counter() - t_start:.1f} s in all")
+        f"{ranks['solo']['sp_offline']['peak'] / 1e9:.2f} GB); tp=2 bf16 micro-step "
+        f"{ranks['results']['2_0']['tp_bf16']['ms']:.1f} ms, params + moments "
+        f"{ranks['results']['2_0']['tp_bf16']['state_bytes'] / 1e9:.3f} GB a rank; ep=2 "
+        f"micro-step {ranks['results']['2_0']['ep']['ms']:.1f} ms; phase "
+        f"{ranks['seconds']:.1f} s; {time.perf_counter() - t_start:.1f} s in all")
     main_shape = ("bfloat16", TRAIN_ROWS, 249, 16)
     fwd = next(r for r in fwd_rows if (r["dtype"], r["B"], r["L"], r["H"]) == main_shape)
     bwd = next(r for r in bwd_rows if (r["dtype"], r["B"], r["L"], r["H"]) == main_shape

@@ -178,3 +178,39 @@ def load_jax_params(model: torch.nn.Module, params) -> torch.nn.Module:
         raise ValueError(f"param shapes do not match the model: {bad}")
     model.load_state_dict(sd, strict=True)
     return model
+
+
+def shard_state(state, plan: dict, rank: int) -> dict[str, torch.Tensor]:
+    """Rank ``rank``'s shard of a full state: a JAX param tree (converted
+    first) or the port's state_dict, by a tp / ep plan
+    (``parallel/mesh.py::tp_plan`` / ``ep_plan``: {name: (dim, [indices per
+    rank], ...)}); the leaves the plan does not name stay whole."""
+    if any(isinstance(v, (dict, list)) for v in state.values()):
+        state = jax_to_state_dict(state)
+    out = {}
+    for k, v in state.items():
+        v = torch.as_tensor(v)
+        if k in plan:
+            dim, idx = plan[k][0], plan[k][1]
+            v = v.index_select(dim, idx[rank].to(v.device))
+        out[k] = v
+    return out
+
+
+def gather_state(shards: list, plan: dict) -> dict[str, torch.Tensor]:
+    """The full state_dict from every rank's shard (``shard_state``'s
+    inverse, in rank order): each planned leaf's rows are put back at their
+    global indices (the rows every rank holds, B and C's, from the last)."""
+    out = {}
+    for k, v in shards[0].items():
+        if k not in plan:
+            out[k] = v
+            continue
+        dim, idx = plan[k][0], plan[k][1]
+        shape = list(v.shape)
+        shape[dim] = int(torch.cat(idx).max()) + 1
+        full = v.new_empty(shape)
+        for r, shard in enumerate(shards):
+            full.index_copy_(dim, idx[r].to(v.device), shard[k])
+        out[k] = full
+    return out

@@ -35,6 +35,18 @@ With ``moe_experts`` > 0 every layer's FFN is the routed ``MoEFFN``
 (aux, dropped) to the ``moe_stats`` list a caller passes. A decode step
 routes every row, as JAX's does; where capacity drops tokens, a row's
 result depends on the rows routed beside it, by design.
+
+Under tensor parallelism (``mp``, ``parallel/model_parallel.py``) q, k and
+v are column-split by heads (the QK RMSNorm is per head: no collective),
+``out_proj`` and ``linear2`` are row-split and their fp32 partial products
+summed over the ranks before the bias and the cast, ``linear1`` is
+column-split; the inputs of the column-split GEMMs (the LayerNorms'
+outputs, the memory before the cross-attention's k / v) pass
+``copy_to_model``, and so do the QK norms' gains, which every head shares.
+The decode caches hold the rank's heads. Dropout on the
+attention weights and on the FFN's hidden layer draws the whole tensor and
+keeps the rank's heads or columns, so that tp trains the model one process
+trains.
 """
 from __future__ import annotations
 
@@ -45,10 +57,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from hnet_mamba_asr_torch.models.mamba2 import dense, new_linear
+from hnet_mamba_asr_torch.models.mamba2 import dense, dense_w, new_linear, row_partial
 from hnet_mamba_asr_torch.models.mamba_block import LN_EPS, layer_norm
 from hnet_mamba_asr_torch.models.moe import MoEFFN
 from hnet_mamba_asr_torch.parallel.collectives import batch_sum, row_slice
+from hnet_mamba_asr_torch.parallel.model_parallel import column_row_plan
 
 NEG_INF = -1e9
 # the row block of every decode GEMM (models/mamba2.py::dense): the beam's
@@ -83,20 +96,28 @@ def pad_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
     return torch.arange(max_len, device=lengths.device)[None, :] >= lengths[:, None]
 
 
-def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
+            cols: tuple[int, int, int] | None = None) -> torch.Tensor:
     """flax ``nn.Dropout``: keep with probability 1 - rate and scale by
-    1 / (1 - rate); the identity without a generator (eval)."""
+    1 / (1 - rate); the identity without a generator (eval). ``cols`` =
+    (dim, full, start): ``x`` holds [start, start + its size) of a tensor
+    ``full`` wide along ``dim`` (a tp rank's heads or columns), and the draw
+    is the whole tensor's."""
     if generator is None or rate <= 0.0:
         return x
+    shape = list(x.shape)
+    if cols is not None:
+        shape[cols[0]] = cols[1]
     part = row_slice()
     if part is None:
-        keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+        keep = torch.rand(shape, generator=generator, device=x.device) >= rate
     else:                       # the global batch's draw, this rank's rows
         rank, count = part
-        B = x.shape[0]
-        draw = torch.rand((B * count,) + tuple(x.shape[1:]), generator=generator,
-                          device=x.device)
+        B = shape[0]
+        draw = torch.rand([B * count] + shape[1:], generator=generator, device=x.device)
         keep = draw[rank * B:(rank + 1) * B] >= rate
+    if cols is not None:
+        keep = keep.narrow(cols[0], cols[2], x.shape[cols[0]])
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
                                                            device=x.device))
 
@@ -130,28 +151,51 @@ class MHAQKNorm(nn.Module):
         dh = d_model // n_heads
         self.q_g = nn.Parameter(torch.ones(dh))
         self.k_g = nn.Parameter(torch.ones(dh))
+        self.mp = None                       # a tp Plane (parallel/model_parallel.py)
+
+    def tp_plan(self, tp: int, prefix: str = "") -> dict:
+        """q, k and v split by heads (weight rows and bias), out_proj by the
+        same heads' columns."""
+        return column_row_plan(prefix, ("q_proj", "k_proj", "v_proj"), ("out_proj",),
+                               self.n_heads, tp, self.d_model // self.n_heads)
+
+    @property
+    def heads(self) -> int:
+        """The heads this module computes per shard: H, or H / tp."""
+        return self.n_heads // (self.mp.size if self.mp is not None else 1)
+
+    def _lin(self, name: str, s: int | None):
+        """(weight, bias) of a column-split projection at shard ``s``."""
+        layer = getattr(self, name)
+        if self.mp is None or s is None:
+            return layer.weight, layer.bias
+        return (self.mp.take(layer.weight, f"{name}.weight", s),
+                self.mp.take(layer.bias, f"{name}.bias", s))
 
     def _rms(self, x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         xf = x.float()
         n = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + self.eps)
         return (n * g).to(self.dtype)
 
-    def project_q(self, query, rows: int = 0) -> torch.Tensor:
+    def project_q(self, query, rows: int = 0, s: int | None = None,
+                  gain: torch.Tensor | None = None) -> torch.Tensor:
         B, Tq, _ = query.shape
-        q = dense(query, self.q_proj, self.dtype, row_block=rows)
-        return self._rms(q.reshape(B, Tq, self.n_heads, -1), self.q_g)
+        q = dense_w(query, *self._lin("q_proj", s), self.dtype, row_block=rows)
+        return self._rms(q.reshape(B, Tq, self.heads, -1), self.q_g if gain is None else gain)
 
-    def project_kv(self, key, value, rows: int = 0):
+    def project_kv(self, key, value, rows: int = 0, s: int | None = None,
+                   gain: torch.Tensor | None = None):
         B, Tk, _ = key.shape
-        k = dense(key, self.k_proj, self.dtype, row_block=rows)
-        v = dense(value, self.v_proj, self.dtype, row_block=rows)
-        return (self._rms(k.reshape(B, Tk, self.n_heads, -1), self.k_g),
-                v.reshape(B, Tk, self.n_heads, -1))
+        k = dense_w(key, *self._lin("k_proj", s), self.dtype, row_block=rows)
+        v = dense_w(value, *self._lin("v_proj", s), self.dtype, row_block=rows)
+        return (self._rms(k.reshape(B, Tk, self.heads, -1), self.k_g if gain is None else gain),
+                v.reshape(B, Tk, self.heads, -1))
 
     def mix(self, q, k, v, attn_mask=None, key_padding_mask=None,
-            generator: torch.Generator | None = None) -> torch.Tensor:
+            generator: torch.Generator | None = None, s: int | None = None) -> torch.Tensor:
         """q [B,Tq,H,dh] (RMS'd), k/v [B,Tk,H,dh] (k RMS'd) -> the heads'
-        weighted values [B,Tq,d], before the output projection."""
+        weighted values [B,Tq,H dh], before the output projection; ``s``:
+        the tp shard whose heads these are (this rank's by default)."""
         B, Tq = q.shape[0], q.shape[1]
         logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() / math.sqrt(q.shape[-1])
         if key_padding_mask is not None:                 # [B, Tk] True = pad
@@ -159,22 +203,55 @@ class MHAQKNorm(nn.Module):
         if attn_mask is not None:                        # [Tq, Tk] additive
             logits = logits + attn_mask[None, None]
         w = torch.softmax(logits, dim=-1).to(self.dtype)
-        w = dropout(w, self.dropout, generator)
-        return torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(B, Tq, self.d_model)
+        cols = None
+        if self.mp is not None:
+            shard = self.mp.rank if s is None else s
+            cols = (1, self.n_heads, shard * self.heads)
+        w = dropout(w, self.dropout, generator, cols)
+        return torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(B, Tq, -1)
+
+    def project_out(self, out, rows: int = 0) -> torch.Tensor:
+        """The output projection of ``mix``'s heads; under tp the ranks'
+        fp32 partial products summed, then the bias and the cast."""
+        if self.mp is None:
+            return dense(out, self.out_proj, self.dtype, row_block=rows)
+        return self._sum_out([row_partial(out, self.out_proj.weight, self.dtype, rows)])
+
+    def _sum_out(self, parts: list) -> torch.Tensor:
+        return (self.mp.reduce(parts) + self.out_proj.bias.to(self.dtype).float()).to(self.dtype)
 
     def attend(self, q, k, v, attn_mask=None, key_padding_mask=None,
                generator: torch.Generator | None = None, rows: int = 0) -> torch.Tensor:
         """``mix`` then the output projection -> [B,Tq,d]; ``rows``: the
         GEMM's row block (``models/mamba2.py::dense``)."""
         out = self.mix(q, k, v, attn_mask, key_padding_mask, generator)
-        return dense(out, self.out_proj, self.dtype, row_block=rows)
+        return self.project_out(out, rows)
 
     def forward(self, query, key, value, attn_mask=None, key_padding_mask=None,
                 generator: torch.Generator | None = None) -> torch.Tensor:
+        if self.mp is not None:
+            return self._forward_tp(query, key, value, attn_mask, key_padding_mask, generator)
         q = self.project_q(query)
         k, v = self.project_kv(key, value)
         return self.attend(q, k, v, attn_mask=attn_mask, key_padding_mask=key_padding_mask,
                            generator=generator)
+
+
+    def _forward_tp(self, query, key, value, attn_mask, key_padding_mask, generator):
+        mp = self.mp
+        qc = mp.fan(query)
+        kc = qc if key is query else mp.fan(key)
+        vc = kc if value is key else mp.fan(value)
+        # one gain for every head: its gradient sums the shards'
+        gq, gk = mp.fan(self.q_g), mp.fan(self.k_g)
+        parts = []
+        for i, s in enumerate(mp.each_shard(generator)):
+            k, v = self.project_kv(kc[i], vc[i], s=s, gain=gk[i])
+            out = self.mix(self.project_q(qc[i], s=s, gain=gq[i]), k, v, attn_mask,
+                           key_padding_mask, generator, s)
+            parts.append(row_partial(out, mp.take(self.out_proj.weight, "out_proj.weight", s),
+                                     self.dtype))
+        return self._sum_out(parts)
 
 
 class DecoderLayerQKNorm(nn.Module):
@@ -184,7 +261,7 @@ class DecoderLayerQKNorm(nn.Module):
                  dtype: torch.dtype = torch.float32, generator=None, moe_experts: int = 0,
                  moe_top_k: int = 2, moe_capacity_factor: float = 1.25):
         super().__init__()
-        self.dropout, self.dtype = dropout, dtype
+        self.dropout, self.dtype, self.d_ff = dropout, dtype, d_ff
         self.self_attn = MHAQKNorm(d_model, n_heads, dropout, dtype=dtype, generator=generator)
         self.cross_attn = MHAQKNorm(d_model, n_heads, dropout, dtype=dtype,
                                     generator=generator)
@@ -197,6 +274,13 @@ class DecoderLayerQKNorm(nn.Module):
             self.moe = None
             self.linear1 = new_linear(d_model, d_ff, True, generator)
             self.linear2 = new_linear(d_ff, d_model, True, generator)
+        self.mp = None              # a tp Plane of the FFN (parallel/model_parallel.py)
+
+    def tp_plan(self, tp: int, prefix: str = "") -> dict | None:
+        """The dense FFN's hidden layer by columns (an MoE FFN is ep's)."""
+        if self.moe is not None:
+            return None
+        return column_row_plan(prefix, ("linear1",), ("linear2",), self.d_ff, tp)
 
     def _ffn(self, x, generator=None, rows: int = 0, token_mask=None,
              moe_stats: list | None = None) -> torch.Tensor:
@@ -207,9 +291,25 @@ class DecoderLayerQKNorm(nn.Module):
             if moe_stats is not None:
                 moe_stats.append((aux, dropped))
             return x + dropout(y, rate, generator)
+        if self.mp is not None:
+            return x + dropout(self._ffn_tp(h, generator, rows), rate, generator)
         ff = dropout(F.gelu(dense(h, self.linear1, cd, row_block=rows), approximate="tanh"),
                      rate, generator)
         return x + dropout(dense(ff, self.linear2, cd, row_block=rows), rate, generator)
+
+    def _ffn_tp(self, h, generator, rows: int) -> torch.Tensor:
+        """The FFN on the shards of ``mp``: linear1's columns, linear2's rows."""
+        mp, cd = self.mp, self.dtype
+        hc = mp.fan(h)
+        parts = []
+        for i, s in enumerate(mp.each_shard(generator)):
+            w1 = mp.take(self.linear1.weight, "linear1.weight", s)
+            ff = F.gelu(dense_w(hc[i], w1, mp.take(self.linear1.bias, "linear1.bias", s), cd,
+                                row_block=rows), approximate="tanh")
+            ff = dropout(ff, self.dropout, generator, (ff.dim() - 1, self.d_ff, s * w1.shape[0]))
+            parts.append(row_partial(ff, mp.take(self.linear2.weight, "linear2.weight", s), cd,
+                                     rows))
+        return (mp.reduce(parts) + self.linear2.bias.to(cd).float()).to(cd)
 
     def forward(self, x, memory, tgt_mask, memory_key_padding_mask,
                 generator: torch.Generator | None = None, token_mask=None,
@@ -229,8 +329,8 @@ class DecoderLayerQKNorm(nn.Module):
         """Self-attention K/V rings [B, cap, H, dh] (zeros) and the memory K/V
         projected once."""
         B = memory.shape[0]
-        H = self.self_attn.n_heads
-        dh = self.self_attn.d_model // H
+        H = self.self_attn.heads                         # the rank's heads under tp
+        dh = self.self_attn.d_model // self.self_attn.n_heads
         mem_k, mem_v = self.cross_attn.project_kv(memory, memory, rows=DECODE_ROWS)
         zeros = torch.zeros(B, cap, H, dh, dtype=self.dtype, device=memory.device)
         return {"self_k": zeros, "self_v": zeros.clone(), "mem_k": mem_k, "mem_v": mem_v}
@@ -288,7 +388,7 @@ def _attend_groups(mha: MHAQKNorm, q, k, v, key_padding_mask, groups) -> torch.T
         return mha.attend(q, k, v, key_padding_mask=key_padding_mask, rows=DECODE_ROWS)
     out = torch.cat([mha.mix(q[a:b], k[a:b, :n], v[a:b, :n],
                              key_padding_mask=key_padding_mask[a:b, :n]) for a, b, n in groups])
-    return dense(out, mha.out_proj, mha.dtype, row_block=DECODE_ROWS)
+    return mha.project_out(out, DECODE_ROWS)
 
 
 class AEDHead(nn.Module):

@@ -8,6 +8,12 @@ Mamba stack. Type B nests two sqrt(N) chunk levels with mid stacks at
 d_main. At N = 1 every chunker is the identity and the encoder is pure
 bidirectional Mamba (the no-chunk control).
 
+Under tensor parallelism (``mp``, Type A) ``proj_in`` is column-split and
+gathered (the main stack's LayerNorm needs the whole d_main) and
+``proj_out`` row-split over each rank's slice of its replicated input, then
+summed over the ranks; the subsampling, the router and the EMA dechunk stay
+replicated: their inputs are equal on every rank.
+
 Returns per-stage boundaries, chunk embeddings (on the trimmed buffer of
 ``models/hnet_chunk.py``: compare valid slots only) and kept fractions, and
 the summed ratio loss.
@@ -24,8 +30,9 @@ import torch.nn.functional as F
 
 from hnet_mamba_asr_torch.models.fixed_pool import FixedPoolChunker
 from hnet_mamba_asr_torch.models.hnet_chunk import DynamicChunker
-from hnet_mamba_asr_torch.models.mamba2 import dense, lecun_normal_, new_linear
+from hnet_mamba_asr_torch.models.mamba2 import dense, dense_w, lecun_normal_, new_linear, row_partial
 from hnet_mamba_asr_torch.models.mamba_block import MambaStack
+from hnet_mamba_asr_torch.parallel.model_parallel import column_row_plan
 
 CHUNKERS = {"dynamic": DynamicChunker, "fixed": FixedPoolChunker}
 
@@ -148,6 +155,14 @@ class DCASREncoder(nn.Module):
             self.mid_dec = MambaStack(n_mid, d_main, **stack_kw)
             self.proj1_out = new_linear(d_main, d_outer, True, generator)
         self.dec = MambaStack(n_dec, d_outer, **stack_kw)
+        self.mp = None                       # a tp Plane (parallel/model_parallel.py)
+
+    def tp_plan(self, tp: int, prefix: str = "") -> dict | None:
+        """Type A's proj_in by columns and proj_out by rows (Type B's
+        proj1_in / proj1_out stay whole: JAX's rule names neither)."""
+        if self.arch_type != "A":
+            return None
+        return column_row_plan(prefix, ("proj_in",), ("proj_out",), self.d_main, tp)
 
     def forward(self, feats: torch.Tensor, feat_lengths: torch.Tensor) -> EncoderOutput:
         x, lengths = self.subsample(feats, feat_lengths)
@@ -159,12 +174,30 @@ class DCASREncoder(nn.Module):
 
     def _forward_a(self, x_enc, mask, lengths) -> EncoderOutput:
         co = self.chunk.chunk(x_enc, mask)
-        z = dense(co.z, self.proj_in, self.dtype)
+        z = self._proj_in(co.z)
         z = self.main(z, co.z_mask.sum(dim=1))
-        x_dech = self.chunk.dechunk(dense(z, self.proj_out, self.dtype), co)
+        x_dech = self.chunk.dechunk(self._proj_out(z), co)
         x_out = self.dec(x_enc + x_dech, lengths)               # fine-detail bypass
         return EncoderOutput(x_out, lengths, co.ratio_loss, ((co.p, co.b),),
                              (co.z,), (co.kept_fraction,))
+
+    def _proj_in(self, z: torch.Tensor) -> torch.Tensor:
+        mp, cd = self.mp, self.dtype
+        if mp is None:
+            return dense(z, self.proj_in, cd)
+        return mp.gather([dense_w(zc, mp.take(self.proj_in.weight, "proj_in.weight", s),
+                                  mp.take(self.proj_in.bias, "proj_in.bias", s), cd)
+                          for zc, s in zip(mp.fan(z), mp.shards)])
+
+    def _proj_out(self, z: torch.Tensor) -> torch.Tensor:
+        mp, cd = self.mp, self.dtype
+        if mp is None:
+            return dense(z, self.proj_out, cd)
+        width = self.d_main // mp.size
+        parts = [row_partial(zc[..., s * width:(s + 1) * width],
+                             mp.take(self.proj_out.weight, "proj_out.weight", s), cd)
+                 for zc, s in zip(mp.fan(z), mp.shards)]
+        return (mp.reduce(parts) + self.proj_out.bias.to(cd).float()).to(cd)
 
     def _forward_b(self, x_enc, mask, lengths) -> EncoderOutput:
         co1 = self.chunk1.chunk(x_enc, mask)                    # frames -> units

@@ -11,6 +11,16 @@
 ``step`` streams the layer: one block of a stream from a carried state (the
 conv tail and the SSD state), as JAX's ``models/streaming.py::_mamba2_stream``.
 
+Under tensor parallelism (``mp``, ``parallel/model_parallel.py``) a rank
+holds H / tp heads: its in_proj rows [z_r | x_r | dt_r | B | C] run as two
+GEMMs, the rank's z | x | dt on ``copy_to_model(u)`` and B | C (one group,
+whole on every rank) on u itself, whose gradient is whole already; B and C
+pass ``copy_to_model`` after the conv, so that their gradient, and their
+rows' and conv channels', is the sum over every rank's heads. The SSD runs
+the rank's heads, the gated RMSNorm's fp32 mean-square is (the ranks' sum
+of squares) / d_inner, and the row-split out_proj's partial product is
+summed over the ranks in fp32, then cast.
+
 Parameters keep the JAX names and are stored in fp32; ``dtype`` is the
 compute dtype (bf16 for the gate config), to which weights are cast at use,
 as flax does with ``param_dtype=float32``. Initialization follows the same
@@ -28,10 +38,16 @@ import torch.nn.functional as F
 
 from hnet_mamba_asr_torch.ops.ssd import ssd
 from hnet_mamba_asr_torch.ops.ssd_cuda import ssd_cuda
+from hnet_mamba_asr_torch.parallel.model_parallel import even_split
 
 # the row block of the streaming step's GEMMs (dense(row_block=)): a
 # session's rows give the same bits alone and pooled with others
 STREAM_ROWS = 64
+# the row block of a row-split GEMM's fp32 partial product outside training
+# (tp): cuBLAS picks the fp32 kernel, and with it the summation order, by
+# the row count, and a request alone parted from the same request in a
+# batch in bf16 without the blocks (measured on an H100)
+TP_ROWS = 256
 
 
 def lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator | None):
@@ -51,10 +67,29 @@ def new_linear(d_in: int, d_out: int, bias: bool, generator) -> nn.Linear:
     return layer
 
 
-def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype, *,
-          row_multiple: int = 1, col_multiple: int = 1, row_block: int = 0,
-          keep_pad: bool = False) -> torch.Tensor:
-    """``layer(x)`` in the compute ``dtype`` from fp32 weights, as a flax
+def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype, **kw) -> torch.Tensor:
+    """``dense_w`` of a layer's weight and bias."""
+    return dense_w(x, layer.weight, layer.bias, dtype, **kw)
+
+
+def row_partial(x: torch.Tensor, w: torch.Tensor, dtype: torch.dtype,
+                row_block: int = 0) -> torch.Tensor:
+    """A row-split GEMM's partial product x @ w.T in fp32 from operands
+    rounded to ``dtype``: the ranks' partials are summed in fp32 and cast
+    once, as one GEMM accumulates and rounds (two bf16 partials summed
+    would round twice). Outside training the rows run in blocks of
+    ``TP_ROWS`` at least (``row_block``), so that a row's result does not
+    depend on the batch."""
+    if not row_block and not torch.is_grad_enabled():
+        row_block = TP_ROWS
+    return dense_w(x.to(dtype).float(), w.to(dtype).float(), None, torch.float32,
+                   row_block=row_block)
+
+
+def dense_w(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None, dtype: torch.dtype, *,
+            row_multiple: int = 1, col_multiple: int = 1, row_block: int = 0,
+            keep_pad: bool = False) -> torch.Tensor:
+    """x @ w.T + b in the compute ``dtype`` from fp32 weights, as a flax
     Dense with ``param_dtype=float32`` computes.
 
     ``row_multiple`` / ``col_multiple`` keep each row's result independent
@@ -74,7 +109,7 @@ def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype, *,
     rows and bias), without a slice whose backward would copy the gradient
     into a zero-filled buffer of the padded shape.
     """
-    w, b = layer.weight.to(dtype), layer.bias
+    w = w.to(dtype)
     b = None if b is None else b.to(dtype)
     n_out = w.shape[0]
     if col_multiple > 1 and n_out % col_multiple:
@@ -141,22 +176,81 @@ class Mamba2(nn.Module):
         self.d_skip = nn.Parameter(torch.ones(H))
         self.norm_scale = nn.Parameter(torch.ones(d_inner))
         self.out_proj = new_linear(d_inner, d_model, False, generator)
+        self.mp = None                       # a tp Plane (parallel/model_parallel.py)
 
     def forward(self, u: torch.Tensor) -> torch.Tensor:
+        if self.mp is not None:
+            return self._forward_tp(u)
         cd = self.dtype
-        L = u.shape[1]
         z, xBC, dt_raw = self._project(u, cd)
 
         # causal depthwise conv over the concatenated x|B|C channels
-        conv = F.conv1d(xBC.transpose(1, 2), self.conv_w.to(cd), self.conv_b.to(cd),
-                        padding=self.d_conv - 1, groups=xBC.shape[-1])
-        x, B_mat, C_mat = self._heads(F.silu(conv[..., :L].transpose(1, 2)))
+        x, B_mat, C_mat = self._heads(self._conv(xBC, self.conv_w, self.conv_b, cd))
 
         dt = F.softplus(dt_raw.float() + self.dt_bias)               # [B,L,H] fp32
         A = -torch.exp(self.a_log)                                   # [H], < 0
         y = ssd(x, dt, A, B_mat, C_mat, chunk_size=self.chunk_size,
                 intra_dtype=self.ssd_intra_dtype)                    # [B,L,H,P]
         return self._output(y, x, z, cd)
+
+    def _conv(self, xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor, cd: torch.dtype):
+        """The causal depthwise conv + bias, then SiLU, over [B, L, C]."""
+        L = xbc.shape[1]
+        conv = F.conv1d(xbc.transpose(1, 2), w.to(cd), b.to(cd), padding=self.d_conv - 1,
+                        groups=xbc.shape[-1])
+        return F.silu(conv[..., :L].transpose(1, 2))
+
+    def tp_plan(self, tp: int, prefix: str = "") -> dict:
+        """The tp split of this layer's leaves, in the layout ``_forward_tp``
+        reads: z, x, dt and the per-head leaves by heads, B and C whole on
+        every rank; rank r's in_proj rows are [z_r | x_r | dt_r | B | C] and
+        its conv channels [x_r | B | C]."""
+        di, H, dbc = self.d_inner, self.n_heads, self.ngroups * self.d_state
+        heads = even_split(H, tp, f"{prefix}.n_heads", 0, (H,))
+        chans = [torch.arange(h[0] * self.headdim, (h[-1] + 1) * self.headdim) for h in heads]
+        bc = torch.arange(2 * di, 2 * di + 2 * dbc)
+        rows = [torch.cat([c, di + c, 2 * di + 2 * dbc + h, bc]) for c, h in zip(chans, heads)]
+        conv = [torch.cat([c, torch.arange(di, di + 2 * dbc)]) for c in chans]
+        plan = {"in_proj.weight": (0, rows), "conv_w": (0, conv), "conv_b": (0, conv),
+                "norm_scale": (0, chans), "out_proj.weight": (1, chans)}
+        plan.update({leaf: (0, heads) for leaf in ("dt_bias", "a_log", "d_skip")})
+        return plan
+
+    def _forward_tp(self, u: torch.Tensor) -> torch.Tensor:
+        """``forward`` on the shards of ``mp`` (module docstring), in
+        ``tp_plan``'s layout."""
+        mp, cd = self.mp, self.dtype
+        Bsz, L = u.shape[:2]
+        dl, Hl = self.d_inner // mp.size, self.n_heads // mp.size
+        G, N, own = self.ngroups, self.d_state, 2 * dl + Hl
+        take = mp.take
+        first = mp.shards[0]
+        w_in, cw, cb = (take(self.in_proj.weight, "in_proj.weight", first),
+                        take(self.conv_w, "conv_w", first), take(self.conv_b, "conv_b", first))
+        bc = self._conv(dense_w(u, w_in[own:], None, cd), cw[dl:], cb[dl:], cd)
+        B_mat, C_mat = (mp.fan(t.reshape(Bsz, L, G, N).contiguous())
+                        for t in bc.split(G * N, dim=-1))
+        uc = mp.fan(u)
+        gated, squares = [], []
+        for i, s in enumerate(mp.shards):
+            w_in = take(self.in_proj.weight, "in_proj.weight", s)
+            z, x, dt_raw = dense_w(uc[i], w_in[:own], None, cd).split([dl, dl, Hl], dim=-1)
+            x = self._conv(x, take(self.conv_w, "conv_w", s)[:dl],
+                           take(self.conv_b, "conv_b", s)[:dl], cd)
+            x = x.reshape(Bsz, L, Hl, self.headdim).contiguous()
+            dt = F.softplus(dt_raw.float() + take(self.dt_bias, "dt_bias", s))
+            A = -torch.exp(take(self.a_log, "a_log", s))
+            y = ssd(x, dt, A, B_mat[i], C_mat[i], chunk_size=self.chunk_size,
+                    intra_dtype=self.ssd_intra_dtype)
+            y = y + take(self.d_skip, "d_skip", s)[None, None, :, None].to(y.dtype) * x
+            g = y.reshape(Bsz, L, dl) * F.silu(z).to(y.dtype)
+            gated.append(g)
+            squares.append(g.float().square().sum(dim=-1, keepdim=True))
+        parts = [row_partial((g.float() * torch.rsqrt(sq / self.d_inner + 1e-5)
+                              * take(self.norm_scale, "norm_scale", s)).to(cd),
+                             take(self.out_proj.weight, "out_proj.weight", s), cd)
+                 for s, g, sq in zip(mp.shards, gated, mp.sum(squares))]
+        return mp.reduce(parts).to(cd)
 
     def _project(self, u: torch.Tensor, cd: torch.dtype, row_block: int = 0):
         """in_proj, split -> (z, x|B|C, dt before its bias)."""

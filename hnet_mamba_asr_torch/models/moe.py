@@ -26,6 +26,17 @@ loss E sum_e f_e p_e and the dropped share with the output; ``moe_aux``
 averages a list of them over layers, as ``moe_aux_from_vars`` does.
 Parameters keep the JAX names and stacked layouts: ``router`` [D, E],
 ``w1`` [E, D, F], ``b1`` [E, F], ``w2`` [E, F, D], ``b2`` [E, D].
+
+Under expert parallelism (``mp``, ``parallel/model_parallel.py``) a rank
+holds experts [r E / ep, (r + 1) E / ep) and the router whole. The ranks of
+an ep group hold the same rows (the batch splits over dp only), so they
+route alike (capacity and slot order over the dp group's global batch) and
+need no all-to-all: each rank fills and runs its own experts' slots from
+``copy_to_model`` of the tokens (the router reads them as they are), and
+the picked outputs, zeros where an expert is not the rank's, are summed
+over the ranks in fp32 (``reduce_from_model``: x + 0 = x) before the
+gate-weighted sum over each token's choices, in choice order, so that ep
+computes one process's bits where the expert GEMMs agree.
 """
 from __future__ import annotations
 
@@ -37,6 +48,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from hnet_mamba_asr_torch.models.mamba2 import dense, lecun_normal_
+from hnet_mamba_asr_torch.parallel.model_parallel import even_split
 from hnet_mamba_asr_torch.parallel.collectives import (all_gather, batch_sum, row_slice,
                                                        rows_group)
 
@@ -90,6 +102,14 @@ class MoEFFN(nn.Module):
         lecun_normal_(self.router, D, generator)
         lecun_normal_(self.w1, D, generator)
         lecun_normal_(self.w2, Fh, generator)
+        self.mp = None                       # an ep Plane (parallel/model_parallel.py)
+
+    def ep_plan(self, ep: int, prefix: str = "") -> dict:
+        """The stacked expert leaves split over their expert axis: rank r
+        holds experts [r E / ep, (r + 1) E / ep); the router stays whole."""
+        return {leaf: (0, even_split(getattr(self, leaf).shape[0], ep, f"{prefix}.{leaf}", 0,
+                                     getattr(self, leaf).shape))
+                for leaf in ("w1", "b1", "w2", "b2")}
 
     def route(self, xs: torch.Tensor, valid: torch.Tensor):
         """xs [S, D], valid [S] -> (probs [S, E] fp32, gates [S, k], experts
@@ -99,12 +119,32 @@ class MoEFFN(nn.Module):
         gates = gates / gates.sum(-1, keepdim=True).clamp(min=1e-9)
         return probs, torch.where(valid[:, None], gates, 0.0), experts
 
-    def experts(self, xin: torch.Tensor) -> torch.Tensor:
-        """[E, C, D] -> every expert's FFN over its slots [E, C, D]."""
+    def experts(self, xin: torch.Tensor, s: int | None = None) -> torch.Tensor:
+        """[E, C, D] -> every expert's FFN over its slots [E, C, D] (the
+        experts of ep shard ``s``: [E / ep, C, D])."""
         cd = self.dtype
-        h = F.gelu(torch.bmm(xin, self.w1.to(cd)) + self.b1.to(cd)[:, None, :],
-                   approximate="tanh")
-        return torch.bmm(h, self.w2.to(cd)) + self.b2.to(cd)[:, None, :]
+        w1, b1, w2, b2 = ((self.w1, self.b1, self.w2, self.b2) if s is None else
+                          (self.mp.take(getattr(self, n), n, s) for n in ("w1", "b1", "w2", "b2")))
+        h = F.gelu(torch.bmm(xin, w1.to(cd)) + b1.to(cd)[:, None, :], approximate="tanh")
+        return torch.bmm(h, w2.to(cd)) + b2.to(cd)[:, None, :]
+
+    def _picked_ep(self, xs, flat_e, pos, keep, token, C: int) -> torch.Tensor:
+        """[k S, D]: each (choice, token)'s expert output, from the shards of
+        ``mp``, zeros where the token was dropped (module docstring)."""
+        mp, cd = self.mp, self.dtype
+        El, D = self.n_experts // mp.size, xs.shape[-1]
+        xes = mp.fan(xs)
+        parts = []
+        for xe, s in zip(xes, mp.shards):
+            mine = keep & (flat_e >= s * El) & (flat_e < (s + 1) * El)
+            kept = mine.nonzero()[:, 0]
+            e, slot = flat_e[kept] - s * El, pos[kept]
+            xin = torch.zeros(El, C, D, dtype=cd, device=xs.device)
+            xin[e, slot] = xe[token[kept]].to(cd)
+            out = self.experts(xin, s)
+            picked = torch.zeros(flat_e.shape[0], D, dtype=torch.float32, device=xs.device)
+            parts.append(picked.index_put((kept,), out[e, slot].float()))
+        return mp.reduce(parts).to(cd)
 
     def forward(self, x: torch.Tensor, token_mask: torch.Tensor | None = None):
         E, D = self.n_experts, x.shape[-1]
@@ -133,13 +173,16 @@ class MoEFFN(nn.Module):
         # dispatch the kept (token, slot) pairs into [E, C, D]; run the experts
         cd = self.dtype
         token = torch.arange(k * S, device=dev) % S
-        kept = keep.nonzero()[:, 0]
-        xin = torch.zeros(E, C, D, dtype=cd, device=dev)
-        xin[flat_e[kept], pos[kept]] = xs[token[kept]].to(cd)
-        out = self.experts(xin)
+        if self.mp is not None:
+            picked = self._picked_ep(xs, flat_e, pos, keep, token, C)
+        else:
+            kept = keep.nonzero()[:, 0]
+            xin = torch.zeros(E, C, D, dtype=cd, device=dev)
+            xin[flat_e[kept], pos[kept]] = xs[token[kept]].to(cd)
+            out = self.experts(xin)
+            picked = out[flat_e, pos.clamp(max=C - 1)]                 # [k S, D]
 
         # combine: each token's k choices, gate-weighted, summed in choice order
-        picked = out[flat_e, pos.clamp(max=C - 1)]                     # [k S, D]
         w = torch.where(keep, flat_gate, 0.0).to(cd)
         y = (w[:, None] * picked).reshape(k, S, D).sum(0)
 

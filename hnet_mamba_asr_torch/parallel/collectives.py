@@ -10,6 +10,24 @@ with its adjoint:
 - ``all_gather``: y [W, ...] = every rank's x stacked in rank order; the
   backward sums the gradients of y over the group and keeps this rank's row.
 
+The model-axis collectives of tp and ep (Megatron's), for ranks that hold
+the same rows and compute the same loss, so that a replicated tensor's
+gradient is already whole on every rank:
+
+- ``copy_to_model``: identity; the backward sums the gradients over the
+  group (the input of a column-split GEMM, or of a rank's own experts);
+- ``reduce_from_model``: y = sum over the group; the backward is the
+  identity (the partial products of a row-split GEMM, the ranks' experts);
+- ``gather_from_model``: every rank's x concatenated along a dim in rank
+  order; the backward keeps this rank's slice.
+
+They sum in fp32 whatever the tensor's dtype (a bf16 gradient of a
+replicated input is summed once and rounded once).
+
+``all_reduce_sum``'s backward would multiply such a gradient by the group's
+size; it stays right where each rank uses the sum for its own channels (the
+gated RMSNorm's sum of squares under tp).
+
 Both run on ``all_reduce`` under gloo (the gather as a sum of zero-padded
 stacks, exact in floating point: x + 0 = x), which gloo takes on CPU
 tensors and on CUDA tensors alike, and on ``all_gather_into_tensor`` under
@@ -97,6 +115,76 @@ class _AllGather(torch.autograd.Function):
     def backward(ctx, g):
         g = _reduce_(g.contiguous().clone(), ctx.group)
         return g[dist.get_rank(ctx.group)], None
+
+
+def _reduce32(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over the group in fp32, cast back to x's dtype."""
+    return _reduce_(x.float().contiguous().clone(), group).to(x.dtype)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce32(g, ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _reduce32(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _cat_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every rank's x concatenated along dim (gathered in fp32: exact)."""
+    return torch.cat(list(_gather(x.float(), group).unbind(0)), dim=dim).to(x.dtype)
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.width = group, dim, x.shape[dim]
+        return _cat_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        r = dist.get_rank(ctx.group)
+        return g.narrow(ctx.dim, r * ctx.width, ctx.width).contiguous(), None, None
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` itself; its gradient is summed over ``group`` (tp / ep)."""
+    if group_size(group) == 1 or not (torch.is_grad_enabled() and x.requires_grad):
+        return x
+    return _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over ``group``; the gradient passes unchanged."""
+    if group_size(group) == 1:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _ReduceFromModel.apply(x, group)
+    return _reduce32(x.detach(), group)
+
+
+def gather_from_model(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in rank order; the
+    gradient keeps this rank's slice."""
+    if group_size(group) == 1:
+        return x
+    dim = dim % x.dim()
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _GatherFromModel.apply(x, group, dim)
+    return _cat_gather(x.detach(), group, dim)
 
 
 def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:

@@ -10,9 +10,18 @@ counterpart of ``hnet_mamba_asr_tpu/parallel/mesh.py`` over
   card, gloo on the CPU, and gloo over CUDA tensors only when asked for (one
   card cannot hold two NCCL ranks; two processes sharing one card run gloo).
 - ``validate_planes`` parses train.{tp, sp, pp, ep, fsdp} with the JAX
-  package's return value and error texts; tp, ep and pp are not ported yet
-  and raise.
-- ``make_mesh`` is a ``DeviceMesh`` over (dp,) or (dp, sp), sp ranks adjacent.
+  package's return value and error texts; pp, and fsdp composed with tp or
+  ep, are not ported yet and raise.
+- ``make_mesh`` is a ``DeviceMesh`` over (dp,), (dp, sp), (dp, tp), (dp,
+  ep) or (dp, tp, ep), in JAX's rank order (the last axis fastest).
+- ``tp_plan`` / ``ep_plan`` are JAX's ``tp_specs`` / ``ep_specs`` on the
+  port's parameter names: {leaf: (dim, [the global indices along dim that
+  rank r holds, in its local order])}, collected from the modules' own
+  ``tp_plan`` / ``ep_plan`` (each beside the code that reads its layout):
+  Mamba-2's fused ``in_proj`` by hand (z, x and dt by heads, B and C
+  whole), attention by heads, the FFN's hidden layer and the H-Net
+  ``proj_in`` / ``proj_out`` by columns, MoE experts by their leading
+  axis. An indivisible dimension raises.
 - ``fsdp_plan`` / ``shard_model`` are JAX's ``fsdp_specs`` /
   ``place_params(fsdp=True)``: every leaf of at least ``_FSDP_MIN_ELEMS``
   elements with a dimension the rank count divides is sharded over that
@@ -38,9 +47,11 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from hnet_mamba_asr_torch.parallel.model_parallel import module_plan
+
 _FSDP_MIN_ELEMS = 8192          # below this, all-gather latency > bytes saved
 REPLICATED_BATCH_KEYS = frozenset({"aug_ref"})
-NOT_PORTED_PLANES = ("tp", "pp", "ep")
+NOT_PORTED_PLANES = ("pp",)
 ENV_KEYS = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK")
 
 
@@ -113,8 +124,8 @@ def validate_planes(flat: dict) -> tuple[int, int, int, int, bool]:
 
     Returns ``(tp, sp, pp, ep, fsdp)`` with JAX's composition rules and
     errors (sp and pp exclude every other model-parallel plane; tp and ep
-    compose; sp / pp with scan_steps raise). tp, pp and ep are not ported
-    and raise NotImplementedError after those checks."""
+    compose; sp / pp with scan_steps raise). pp, and fsdp with tp or ep,
+    are not ported and raise NotImplementedError after those checks."""
     tp = int(flat.get("tp", 1))
     sp = int(flat.get("sp", 1))
     pp = int(flat.get("pp", 1))
@@ -133,25 +144,38 @@ def validate_planes(flat: dict) -> tuple[int, int, int, int, bool]:
     for name in NOT_PORTED_PLANES:
         if int(flat.get(name, 1)) > 1:
             raise NotImplementedError(f"train.{name}={flat[name]} is not ported")
+    if fsdp and (tp > 1 or ep > 1):
+        raise NotImplementedError("train.fsdp with train.tp / train.ep is not ported (a "
+                                  "later slice, after pp)")
     return tp, sp, pp, ep, fsdp
 
 
-def make_mesh(sp: int = 1, device="cuda"):
-    """A ``DeviceMesh`` over (dp,), or (dp, sp) when ``sp`` > 1, of every
-    rank of the process group (sp ranks adjacent: rank = dp_index * sp +
-    sp_index); None without a process group."""
+def make_mesh(sp: int = 1, device="cuda", tp: int = 1, ep: int = 1):
+    """A ``DeviceMesh`` of every rank of the process group: (dp,), (dp, sp)
+    when ``sp`` > 1, (dp, tp), (dp, ep) or (dp, tp, ep) when ``tp`` / ``ep``
+    > 1, in JAX's rank order (``reshape(n // model, tp, ep)``: the last axis
+    fastest, rank = (dp_index * tp + tp_index) * ep + ep_index); None
+    without a process group."""
+    model = sp * tp * ep
     if not (dist.is_available() and dist.is_initialized()):
-        if sp > 1:
-            raise ValueError(f"train.sp={sp} needs {sp} ranks; launch them with torchrun")
+        if model > 1:
+            what = f"train.sp={sp}" if sp > 1 else f"tp*ep={tp}*{ep}"
+            raise ValueError(f"{what} needs {model} ranks; launch them with torchrun")
         return None
     from torch.distributed.device_mesh import init_device_mesh
     n = dist.get_world_size()
-    if n % sp:
-        raise ValueError(f"{n} ranks not divisible by sp={sp}")
     dev_type = torch.device(device).type
     if sp > 1:
+        if n % sp:
+            raise ValueError(f"{n} ranks not divisible by sp={sp}")
         return init_device_mesh(dev_type, (n // sp, sp), mesh_dim_names=("dp", "sp"))
-    return init_device_mesh(dev_type, (n,), mesh_dim_names=("dp",))
+    if model <= 1:
+        return init_device_mesh(dev_type, (n,), mesh_dim_names=("dp",))
+    if n % model:
+        raise ValueError(f"{n} devices not divisible by tp*ep={tp}*{ep}")
+    axes = [(name, size) for name, size in (("tp", tp), ("ep", ep)) if size > 1]
+    return init_device_mesh(dev_type, (n // model, *(size for _, size in axes)),
+                            mesh_dim_names=("dp", *(name for name, _ in axes)))
 
 
 def mesh_axis(mesh, name: str):
@@ -161,6 +185,33 @@ def mesh_axis(mesh, name: str):
         return None, 0, 1
     return (mesh.get_group(name), mesh.get_local_rank(name),
             mesh.size(mesh.mesh_dim_names.index(name)))
+
+
+# ── tensor- and expert-parallel parameters ───────────────────────────────────
+def _collect(model: torch.nn.Module, plane: str, n: int) -> dict:
+    plan = {}
+    for prefix, m in model.named_modules():
+        local = module_plan(m, plane, n, prefix)
+        for key, entry in (local or {}).items():
+            plan[f"{prefix}.{key}" if prefix else key] = entry
+    return plan
+
+
+def tp_plan(model: torch.nn.Module, tp: int) -> dict:
+    """JAX's ``tp_specs`` (``_TP_COLUMN`` in_proj, linear1, q/k/v_proj,
+    proj_in; ``_TP_ROW`` out_proj, linear2, proj_out) on the port's leaves:
+    {name: (dim, [rank r's global indices along dim])}; the leaves it does
+    not name stay whole on every rank. The router, the EMA dechunk, the
+    subsampling, the heads' read-outs and every LayerNorm stay replicated,
+    as do Type B's ``proj1_in`` / ``proj1_out`` (JAX's rule names neither)."""
+    return _collect(model, "tp", tp)
+
+
+def ep_plan(model: torch.nn.Module, ep: int) -> dict:
+    """JAX's ``ep_specs``: every MoE FFN's stacked ``w1``, ``b1``, ``w2``,
+    ``b2`` split over their expert axis (rank r holds experts [r E / ep,
+    (r + 1) E / ep)); the router stays replicated."""
+    return _collect(model, "ep", ep)
 
 
 # ── fully-sharded parameters (FSDP2 over every rank) ─────────────────────────

@@ -16,8 +16,12 @@ Over ranks (``torchrun --nproc_per_node N ... decode.n_devices=N``, or
 ``decode.mesh: true`` for every launched rank): each batch's rows are
 padded to a multiple of N and split, each rank encodes and searches its
 slice (a partial last batch too), and rank 0 gathers the records in row
-order and writes what one process writes. ``decode.tp`` > 1 is not ported
-and raises.
+order and writes what one process writes. ``decode.tp`` = T > 1 splits the
+ASR model over a (dp, tp) mesh of the ranks (``parallel/model_parallel.py``:
+Mamba-2 heads, the H-Net projections, the AED's heads and FFN; the LM stays
+whole, as JAX's ``place_params`` of the model's params leaves it): the rows
+split over the dp groups, the T ranks of a tp group decode the same rows,
+and only rank 0 writes.
 """
 from __future__ import annotations
 
@@ -42,20 +46,27 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def decode_ranks(dc: dict) -> tuple[int, int]:
-    """(this rank, the rank count) that split each batch's rows: the
-    launched process group when ``decode.n_devices`` > 1 (which must equal
-    its size) or ``decode.mesh`` asks for it; ``decode.tp`` > 1 is not
-    ported and raises."""
-    from hnet_mamba_asr_torch.parallel.mesh import world
-    if dc.get("tp") not in (None, False, 0, 1):
-        raise NotImplementedError(f"decode.tp={dc.get('tp')!r} is not ported")
+def decode_ranks(dc: dict, device="cuda"):
+    """((this rank's dp index, the dp count, tp), the mesh): the rows of each
+    batch split over the dp axis of the launched process group when
+    ``decode.n_devices`` > 1 (which must equal its size), ``decode.mesh``
+    or ``decode.tp`` > 1 asks for it; the mesh (dp, tp) under tp, else
+    None."""
+    from hnet_mamba_asr_torch.parallel.mesh import make_mesh, mesh_axis, world
+    tp = int(dc.get("tp") or 1)
     rank, n = world()
     want = int(dc.get("n_devices") or 0)
     if want > 1 and want != n:
         raise ValueError(f"decode.n_devices={want} needs {want} ranks (got {n}): launch "
                          f"them with torchrun --nproc_per_node {want}")
-    return (rank, n) if (want > 1 or dc.get("mesh")) else (0, 1)
+    if tp > 1:
+        if n % tp:
+            raise ValueError(f"decode.tp={tp} needs {tp} ranks (got {n}): launch them with "
+                             f"torchrun --nproc_per_node {tp}")
+        mesh = make_mesh(device=device, tp=tp)
+        _, dp_rank, dp_size = mesh_axis(mesh, "dp")
+        return (dp_rank, dp_size, tp), mesh
+    return ((rank, n) if (want > 1 or dc.get("mesh")) else (0, 1)), None
 
 
 def run(args) -> dict:
@@ -78,7 +89,7 @@ def run(args) -> dict:
     device = pmesh.rank_device(device)
     cfg = load_config(args.config, args.overrides)
     dc = cfg.get("decode", {}) or {}
-    ranks = decode_ranks(dc)
+    ranks, mesh = decode_ranks(dc, device)
     name = (cfg.get("experiment", {}) or {}).get("name", Path(args.config).stem)
     out_dir = Path(args.out_dir) if args.out_dir \
         else REPO_ROOT / "experiments" / name / "decode"
@@ -90,6 +101,9 @@ def run(args) -> dict:
     model = build_model(cfg, tokenizer.vocab_size, cmvn=cmvn, device=device)
     params, meta = load_model_params(args.checkpoint)
     load_jax_params(model, params)
+    if mesh is not None:                                 # decode.tp: the ASR model only
+        from hnet_mamba_asr_torch.parallel.model_parallel import place_model, plane_of
+        place_model(model, plane_of(mesh, "tp", ranks[2]))
     cells = expand_cells(dc)
     check_heads(model, cells)
 
@@ -133,8 +147,9 @@ def run(args) -> dict:
 
     summary = {"checkpoint": str(args.checkpoint), "weights_meta": meta,
                "cells": summaries,
-               "provenance": collect_provenance(cfg, repo_root=REPO_ROOT, n_devices=ranks[1])}
-    if ranks[0] != 0:
+               "provenance": collect_provenance(cfg, repo_root=REPO_ROOT,
+                                                 n_devices=pmesh.world()[1])}
+    if pmesh.world()[0] != 0:
         return summary                                   # rank 0 writes
     out_dir.mkdir(parents=True, exist_ok=True)
     tmp = out_dir / f"summary.{os.getpid()}.tmp"

@@ -4,7 +4,7 @@
         [--resume auto|<ckpt>] [--exp-dir DIR] [--device cuda] [key.path=value ...]
 
     torchrun --nproc_per_node 2 -m hnet_mamba_asr_torch.scripts.train --config ... \
-        [--dist-backend nccl|gloo] [train.fsdp=true | train.sp=2]
+        [--dist-backend nccl|gloo] [train.fsdp=true | train.sp=2 | train.tp=2 | train.ep=2]
 
 The JAX package's ``scripts/train.py``: config -> tokenizer, CMVN and
 dataloaders (``tasks/build.py``: speed perturbation, the perturb cache,
@@ -19,8 +19,12 @@ NCCL on the card, one rank per card; ``--dist-backend gloo`` lets ranks
 share a card, and is the CPU's), then the planes are validated, then the
 mesh is built: each train batch's rows are split over the dp axis,
 ``train.fsdp`` shards the large leaves over every rank, ``train.sp`` runs
-the encoder sequence-parallel (``parallel/seq_parallel.py``). Rank 0
-alone writes. ``train.tp``, ``pp``, ``ep`` and ``scan_steps`` raise.
+the encoder sequence-parallel (``parallel/seq_parallel.py``), ``train.tp``
+splits the Mamba-2 heads, the H-Net projections and the AED's attention
+heads and FFN over the tp axis and ``train.ep`` the MoE AED's experts over
+the ep axis (both together on a (dp, tp, ep) mesh; ``parallel/
+model_parallel.py``). Rank 0 alone writes. ``train.pp``, ``train.fsdp``
+with tp / ep, and ``scan_steps`` raise.
 """
 from __future__ import annotations
 
@@ -60,9 +64,7 @@ def run(args):
     launched = pmesh.init_distributed(device, args.dist_backend)
     device = pmesh.rank_device(device)
     cfg = load_config(args.config, args.overrides)
-    _, sp, _, _, _ = pmesh.validate_planes(flatten_config(cfg))
-    mesh = pmesh.make_mesh(sp, device) if launched else None
-    _, dp_rank, dp_size = pmesh.mesh_axis(mesh, "dp")
+    tp, sp, _, ep, _ = pmesh.validate_planes(flatten_config(cfg))
     rank, n_ranks = pmesh.world()
     name = (cfg.get("experiment", {}) or {}).get("name", Path(args.config).stem)
     exp_dir = Path(args.exp_dir) if args.exp_dir else REPO_ROOT / "experiments" / name
@@ -72,9 +74,14 @@ def run(args):
 
     tokenizer = build_tokenizer(cfg, REPO_ROOT)
     cmvn = build_cmvn(cfg, REPO_ROOT)
+    model = build_model(cfg, tokenizer.vocab_size, cmvn=cmvn, seed=seed, device=device)
+    if ep > 1 and getattr(model.aed, "moe_experts", 0) <= 0:
+        raise ValueError("train.ep > 1 needs an MoE AED decoder "
+                         "(set aed_conf.moe.n_experts)")
+    mesh = pmesh.make_mesh(sp, device, tp=tp, ep=ep) if launched or tp * ep > 1 else None
+    _, dp_rank, dp_size = pmesh.mesh_axis(mesh, "dp")
     train_loader, _, dev_loaders = build_dataloaders(cfg, REPO_ROOT, tokenizer, seed=seed,
                                                      row_split=(dp_rank, dp_size))
-    model = build_model(cfg, tokenizer.vocab_size, cmvn=cmvn, seed=seed, device=device)
     if sp > 1:
         model = SPModel(model, mesh)
     metrics = MetricsLogger(exp_dir, resume=args.resume is not None) if rank == 0 else None
@@ -82,7 +89,7 @@ def run(args):
                               artifacts={"tokenizer": cfg.get("bpemodel")})
     trainer = Trainer(model, train_loader, flatten_config(cfg), dev_loaders=dev_loaders,
                       tokenizer=tokenizer, metrics=metrics, ckpt_dir=exp_dir / "checkpoints",
-                      seed=seed, provenance=prov, device=device)
+                      seed=seed, provenance=prov, device=device, mesh=mesh)
     logger.info("training %s -> %s (rank %d of %d)", name, exp_dir, rank, n_ranks)
     try:
         trainer.train(resume=args.resume)

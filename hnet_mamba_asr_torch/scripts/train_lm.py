@@ -12,8 +12,11 @@ token counts cached beside the file), the dev loaders the transcripts of
 perplexity. ``valid.loss.ave.ckpt`` under ``checkpoints/`` is the file
 ``decode.lm_checkpoint`` names. Under torchrun (``--dist-backend`` as in
 ``scripts/train.py``) each train batch's rows are split over the ranks and
-``train.fsdp`` shards the large leaves; tensor, pipeline, expert and
-sequence parallelism raise (the LM has no SSD encoder to split).
+``train.fsdp`` shards the large leaves; ``train.ep`` splits an MoE LM's
+experts (``lm_conf.moe``) over an ep axis of the ranks, the dense layers
+staying whole, as JAX's train_lm's (dp, ep) mesh; tensor, pipeline and
+sequence parallelism raise (JAX's LM trainer builds no tp mesh, and the LM
+has no SSD encoder to split).
 """
 from __future__ import annotations
 
@@ -57,19 +60,24 @@ def run(args):
     logger = get_logger("train_lm")
     seed = int((cfg.get("experiment", {}) or {}).get("seed", 0))
     flat = flatten_config(cfg)
-    if int(flat.get("ep", 1) or 1) > 1:
-        raise NotImplementedError(f"train.ep={flat['ep']!r} is not ported")
-    if pmesh.validate_planes(flat)[1] > 1:
+    tp, sp, _, ep, _ = pmesh.validate_planes(flat)
+    if sp > 1:
         raise ValueError("train.sp splits the ASR encoder's time axis; the LM has none")
-
+    if tp > 1:
+        raise ValueError("train.tp splits the ASR model; the LM trainer takes train.ep only")
     tokenizer = build_tokenizer(cfg, REPO_ROOT)
-    train_loader, _, dev_loaders = build_lm_dataloaders(cfg, REPO_ROOT, tokenizer, seed=seed)
     model = build_lm(cfg, tokenizer.vocab_size, seed=seed, device=device)
+    if ep > 1 and model.lm.moe_experts <= 0:
+        raise ValueError("train.ep > 1 needs an MoE LM (lm_conf.moe)")
+    mesh = pmesh.make_mesh(device=device, ep=ep) if ep > 1 else None
+    _, dp_rank, dp_size = pmesh.mesh_axis(mesh, "dp")
+    train_loader, _, dev_loaders = build_lm_dataloaders(
+        cfg, REPO_ROOT, tokenizer, seed=seed, row_split=(dp_rank, dp_size) if mesh else None)
     metrics = MetricsLogger(exp_dir, resume=args.resume is not None) if rank == 0 else None
     prov = collect_provenance(cfg, repo_root=REPO_ROOT, seed=seed, n_devices=n_ranks)
     trainer = Trainer(model, train_loader, flat, dev_loaders=dev_loaders, tokenizer=None,
                       metrics=metrics, ckpt_dir=exp_dir / "checkpoints", seed=seed,
-                      provenance=prov, device=device)
+                      provenance=prov, device=device, mesh=mesh)
     logger.info("training LM %s -> %s", name, exp_dir)
     try:
         trainer.train(resume=args.resume)

@@ -510,16 +510,27 @@ def _summary(cell: str, n: int, dec_s: float, aud_s: float, enc_s: float, search
 def _rows_records(ranks, batch: dict, decode) -> list[dict]:
     """``decode(batch)``'s records over the ranks that split its rows: each
     rank decodes its row slice (none where the slice holds no real row) and
-    rank 0 gets every rank's records in row order (the others get [])."""
-    rank, count = ranks
-    if count == 1:
+    rank 0 gets every rank's records in row order (the others get []).
+    ``ranks`` = (dp index, dp count[, tp]): under decode.tp the tp ranks of
+    a dp index decode the same rows, and the first one's records count."""
+    rank, count = ranks[:2]
+    tp = ranks[2] if len(ranks) > 2 else 1
+    if count * tp == 1:
         return decode(batch)
     import torch.distributed as dist
     local = rank_rows(batch, rank, count)
     mine = decode(local) if np.asarray(local["row_mask"]).any() else []
-    parts = [None] * count
+    parts = [None] * dist.get_world_size()
     dist.all_gather_object(parts, mine)
-    return [r for part in parts for r in part] if rank == 0 else []
+    return [r for part in parts[::tp] for r in part] if dist.get_rank() == 0 else []
+
+
+def _writes(ranks) -> bool:
+    """Whether this rank writes a split's records: rank 0 of the group."""
+    if len(ranks) > 2 and ranks[2] > 1:
+        import torch.distributed as dist
+        return dist.get_rank() == 0
+    return ranks[0] == 0
 
 
 def decode_split(model, tokenizer, loader, cell, decode_cfg, *,
@@ -527,15 +538,16 @@ def decode_split(model, tokenizer, loader, cell, decode_cfg, *,
                  ranks: tuple[int, int] = (0, 1)) -> dict:
     """Decode one split through one cell; write per-utterance JSONL; return
     the summary. The first batch is encoded once, untimed, as a warm-up.
-    ``ranks`` = (rank, count): the batch rows are split over the ranks of
-    the process group and rank 0 writes every record (``_rows_records``)."""
+    ``ranks`` = (rank, count[, tp]): the batch rows are split over the
+    ranks of the process group (its dp axis under decode.tp) and rank 0
+    writes every record (``_rows_records``)."""
     out_path = Path(out_path)
-    main = ranks[0] == 0
+    main = _writes(ranks)
     if main:
         out_path.parent.mkdir(parents=True, exist_ok=True)
     warm = next(iter(loader), None)
     if warm is not None:
-        encode_batch(model, rank_rows(warm, *ranks))
+        encode_batch(model, rank_rows(warm, *ranks[:2]))
     n, dec_s, aud_s, enc_s, search_s = 0, 0.0, 0.0, 0.0, 0.0
     engine = engine_for(decode_cfg, cell)
     with open(out_path, "w", encoding="utf-8") if main else nullcontext() as w:
@@ -563,7 +575,7 @@ def decode_split_shared(model, tokenizer, loader, cells, decode_cfg, *,
     ``<out_dir>/<cell>/<split>.jsonl`` (rank 0; ``ranks`` as in
     ``decode_split``)."""
     out_dir = Path(out_dir)
-    main = ranks[0] == 0
+    main = _writes(ranks)
     writers = {}
     for cell in cells if main else ():
         path = out_dir / cell["name"] / f"{split}.jsonl"
@@ -581,7 +593,7 @@ def decode_split_shared(model, tokenizer, loader, cells, decode_cfg, *,
         warm = False
         for batch in loader:
             if not warm:                                 # untimed warm-up
-                encode_batch(model, rank_rows(batch, *ranks))
+                encode_batch(model, rank_rows(batch, *ranks[:2]))
                 warm = True
             recs_all = _rows_records(ranks, batch, all_cells)
             for cell in cells:

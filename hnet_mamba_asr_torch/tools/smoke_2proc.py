@@ -4,20 +4,26 @@ launch (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``,
 and the decode CLI, on the synthetic tone corpus at d 32.
 
     python -m hnet_mamba_asr_torch.tools.smoke_2proc [--device cuda|cpu]
-        [--backend gloo|nccl] [--fsdp | --sp] [--root DIR] [--timeout S]
+        [--backend gloo|nccl] [--fsdp | --sp | --tp | --ep] [--root DIR] [--timeout S]
 
 Counterpart of the JAX package's ``scripts/smoke_2proc.py``. After both
 children exit 0 the parent checks, from their files:
 
 - per epoch, the two ranks consumed equal counts of batches whose row
-  slices are disjoint and together the corpus (with ``--sp`` both ranks of
-  the sp group consume the same rows: the check is that they are equal);
+  slices are disjoint and together the corpus (with ``--sp``, ``--tp`` or
+  ``--ep`` both ranks of the model group consume the same rows: the check
+  is that they are equal);
 - the parameters are bitwise equal across the ranks after training and
-  after the resume (a sha256 of the full state, gathered under FSDP);
+  after the resume (a sha256 of the full state, gathered under FSDP, tp
+  and ep);
 - ``summary.json`` holds one provenance record per run, written by rank 0,
   with ``process_count`` 2, and ``metrics.jsonl`` a resume marker;
-- the decode over both ranks (``decode.n_devices=2``, written by rank 0)
-  equals each rank's own whole-split decode, transcript for transcript.
+- the decode over both ranks (``decode.n_devices=2``, or ``decode.tp=2``
+  with ``--tp``; written by rank 0) equals each rank's own whole-split
+  decode, transcript for transcript.
+
+``--tp`` and ``--ep`` train with ``train.tp=2`` / ``train.ep=2`` a config
+with an AED head (with ``--ep`` an MoE AED of 4 experts).
 
 Exit 0 when every check passes. Two ranks on one card run gloo
 (``--backend gloo``, the default): NCCL refuses two ranks on one device.
@@ -34,13 +40,17 @@ import tempfile
 from pathlib import Path
 
 N_PROC = 2
+PLANES = {None: [], "fsdp": ["train.fsdp=true", "train.fsdp_min_elems=512"],
+          "sp": ["train.sp=2"], "tp": ["train.tp=2"], "ep": ["train.ep=2"]}
 
 
-def _digest(model) -> str:
+def _digest(trainer) -> str:
     import hashlib
 
     from hnet_mamba_asr_torch.parallel.mesh import full_state
-    state = full_state(model.state_dict(), keep=True)
+    state = full_state(trainer.model.state_dict(), keep=True)
+    if trainer.mp_plan:                          # tp / ep: the gathered whole
+        state = trainer._gathered(state, trainer.opt.state_dict())[0]
     h = hashlib.sha256()
     for k in sorted(state):
         h.update(k.encode())
@@ -48,33 +58,34 @@ def _digest(model) -> str:
     return h.hexdigest()
 
 
-def child_main(rank: int, root: Path, device: str, backend: str, fsdp: bool, sp: bool):
+def child_main(rank: int, root: Path, device: str, backend: str, plane: str | None):
     from hnet_mamba_asr_torch.scripts import decode, train
     cfg, exp = str(root / "cfg.json"), str(root / "exp")
     common = ["--device", device, "--dist-backend", backend]
-    planes = (["train.fsdp=true", "train.fsdp_min_elems=512"] if fsdp else []) + \
-        (["train.sp=2"] if sp else [])
+    planes = PLANES[plane]
     trainer = train.run(train.parse_args(["--config", cfg, "--exp-dir", exp, *common, *planes]))
     if trainer.world != N_PROC:
         raise AssertionError(f"rank {rank}: world {trainer.world} != {N_PROC}")
-    fresh = _digest(trainer.model)
+    fresh = _digest(trainer)
     trainer = train.run(train.parse_args(["--config", cfg, "--exp-dir", exp, "--resume",
                                           "auto", *common, "train.max_epoch=3", *planes]))
-    resumed = _digest(trainer.model)
+    resumed = _digest(trainer)
     (root / f"digest_rank{rank}.json").write_text(json.dumps({"fresh": fresh,
                                                               "resumed": resumed}))
     ckpt = f"{exp}/checkpoints/latest.ckpt"
     decode.run(decode.parse_args(["--config", cfg, "--checkpoint", ckpt, "--splits",
                                   "dev-clean", "--out-dir", str(root / "decode_ranks"),
-                                  *common, "decode.n_devices=2"]))
+                                  *common, "decode.tp=2" if plane == "tp" else
+                                  "decode.n_devices=2"]))
     decode.run(decode.parse_args(["--config", cfg, "--checkpoint", ckpt, "--splits",
                                   "dev-clean", "--out-dir", str(root / f"decode_rank{rank}"),
                                   *common]))
     print(f"[child {rank}] all stages OK", flush=True)
 
 
-def prep(root: Path) -> None:
-    """The tone corpus, its tokenizer, CMVN (on the CPU) and a d-32 config."""
+def prep(root: Path, plane: str | None = None) -> None:
+    """The tone corpus, its tokenizer, CMVN (on the CPU) and a d-32 config
+    (with an AED head for tp and ep, of MoE experts for ep)."""
     from hnet_mamba_asr_torch.data.audio import load_manifest
     from hnet_mamba_asr_torch.data.features import compute_cmvn
     from hnet_mamba_asr_torch.data.synthetic import build_tone_corpus, overfit_config
@@ -84,8 +95,16 @@ def prep(root: Path) -> None:
     Tokenizer.train([e["text"] for e in load_manifest(train)], root / "tok" / "bpe",
                     vocab_size=12, hard_vocab_limit=False)
     compute_cmvn(train, n_mels=20, device="cpu", out=root / "cmvn.npz")
-    cfg = overfit_config(root, max_epoch=2, valid_interval=1, batch_bins=2000)
+    cfg = overfit_config(root, max_epoch=2, valid_interval=1, batch_bins=2000,
+                         **({"ctc_weight": 0.7, "aed_weight": 0.3} if plane in ("tp", "ep")
+                            else {}))
     cfg["experiment"]["name"] = "smoke_2proc"
+    if plane in ("tp", "ep"):
+        cfg["aed_conf"] = {"n_layers": 1, "n_heads": 2, "d_ff": 64, "dropout": 0.1,
+                           "max_decode_len": 8}
+        if plane == "ep":
+            cfg["aed_conf"]["moe"] = {"n_experts": 4, "top_k": 2, "capacity_factor": 1.25,
+                                      "aux_weight": 0.01}
     (root / "cfg.json").write_text(json.dumps(cfg, indent=1))
 
 
@@ -95,7 +114,7 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def launch(root: Path, device: str, backend: str, fsdp: bool, sp: bool,
+def launch(root: Path, device: str, backend: str, plane: str | None,
            timeout: float) -> list[int]:
     """Start the two children, wait for both (killing them past ``timeout``)."""
     port = _free_port()
@@ -108,7 +127,7 @@ def launch(root: Path, device: str, backend: str, fsdp: bool, sp: bool,
                    HMASR_LOG_DIR=str(root / "logs"))
         args = [sys.executable, "-m", "hnet_mamba_asr_torch.tools.smoke_2proc", "--child",
                 "--rank", str(r), "--root", str(root), "--device", device,
-                "--backend", backend] + (["--fsdp"] if fsdp else []) + (["--sp"] if sp else [])
+                "--backend", backend] + ([f"--{plane}"] if plane else [])
         children.append(subprocess.Popen(args, env=env, stdout=open(root / f"child{r}.log", "w"),
                                          stderr=subprocess.STDOUT))
     codes = []
@@ -122,7 +141,7 @@ def launch(root: Path, device: str, backend: str, fsdp: bool, sp: bool,
     return codes
 
 
-def check(root: Path, sp: bool) -> dict:
+def check(root: Path, same_rows: bool) -> dict:
     """The parent's checks over the children's files -> counts."""
     by_epoch: dict = {}
     for r in range(N_PROC):
@@ -138,9 +157,10 @@ def check(root: Path, sp: bool) -> dict:
         if len(set(counts)) != 1:
             raise AssertionError(f"epoch {epoch}: unequal batch counts per rank {counts}")
         ids = [set(i for b in x for i in b) for x in per_rank]
-        if sp:
+        if same_rows:
             if per_rank[0] != per_rank[1]:
-                raise AssertionError(f"epoch {epoch}: the sp ranks consumed different rows")
+                raise AssertionError(f"epoch {epoch}: the model group's ranks consumed "
+                                     "different rows")
         elif ids[0] & ids[1]:
             raise AssertionError(f"epoch {epoch}: ranks consumed overlapping utterances "
                                  f"{sorted(ids[0] & ids[1])[:5]}")
@@ -175,24 +195,25 @@ def main(argv=None) -> int:
     ap.add_argument("--root", default=None)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--backend", default="gloo", choices=("gloo", "nccl"))
-    ap.add_argument("--fsdp", action="store_true")
-    ap.add_argument("--sp", action="store_true")
+    which = ap.add_mutually_exclusive_group()
+    for name in ("fsdp", "sp", "tp", "ep"):
+        which.add_argument(f"--{name}", dest="plane", action="store_const", const=name)
     ap.add_argument("--timeout", type=float, default=600.0)
     args = ap.parse_args(argv)
     if args.child:
-        child_main(args.rank, Path(args.root), args.device, args.backend, args.fsdp, args.sp)
+        child_main(args.rank, Path(args.root), args.device, args.backend, args.plane)
         return 0
     root = Path(args.root) if args.root else Path(tempfile.mkdtemp(prefix="smoke2p_"))
     root.mkdir(parents=True, exist_ok=True)
-    prep(root)
-    codes = launch(root, args.device, args.backend, args.fsdp, args.sp, args.timeout)
+    prep(root, args.plane)
+    codes = launch(root, args.device, args.backend, args.plane, args.timeout)
     if any(codes):
         for r in range(N_PROC):
             print(f"----- child {r} log tail -----\n"
                   + (root / f"child{r}.log").read_text()[-4000:])
         print(f"[smoke_2proc] children exited {codes}")
         return 1
-    out = check(root, args.sp)
+    out = check(root, args.plane in ("sp", "tp", "ep"))
     print(f"[smoke_2proc] ALL CHECKS PASSED {json.dumps(out)} root={root}", flush=True)
     return 0
 

@@ -280,14 +280,38 @@ def set_lr(opt: torch.optim.Optimizer, lr: float) -> None:
         group["lr"] = lr * group.get("lr_mult", 1.0)
 
 
-def clip_by_global_norm(params, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm(params, max_norm: float, split=()) -> torch.Tensor:
     """Scale the gradients in place as ``optax.clip_by_global_norm`` does and
     return their global L2 norm before the clip (fp32, on the device). FSDP's
     sharded gradients (DTensors) count each shard once: their local squares
-    are summed over the ranks of their mesh."""
+    are summed over the ranks of their mesh. ``split``: the (parameter,
+    plane, dim, share) of each leaf a tp / ep rank holds a shard of
+    (``parallel/model_parallel.py::split_leaves``): its squares, each row
+    weighted by the share of the plane's ranks that hold it, are summed over
+    the plane's group, so that every element counts once and every rank
+    takes the same clip scale."""
     grads = [p.grad for p in params if p.grad is not None]
     shards = [g for g in grads if type(g).__name__ == "DTensor"]
-    if shards:
+    if split:
+        owned, planes = set(), {}
+        for p, plane, dim, share in split:
+            if p.grad is None:
+                continue
+            owned.add(id(p.grad))
+            shape = [1] * p.grad.dim()
+            shape[dim] = -1
+            sq = (p.grad.float().square() * share.to(p.grad.device).view(shape)).sum()
+            planes.setdefault(plane.name, (plane.group, []))[1].append(sq)
+        sq = torch.zeros((), device=grads[0].device)
+        whole = [g for g in grads if id(g) not in owned]
+        if whole:
+            sq = torch.stack([torch.linalg.vector_norm(g.float()) ** 2 for g in whole]).sum()
+        for group, parts in planes.values():
+            part = torch.stack(parts).sum()
+            torch.distributed.all_reduce(part, group=group)
+            sq = sq + part
+        norm = torch.sqrt(sq)
+    elif shards:
         whole = [g for g in grads if type(g).__name__ != "DTensor"]
         locals_ = [g.to_local() for g in shards]
         sq = torch.stack([torch.linalg.vector_norm(t.float()) ** 2 for t in locals_]).sum()

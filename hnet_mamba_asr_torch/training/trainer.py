@@ -68,8 +68,19 @@ may have ``set_epoch``.
   leaf from every rank first, in the same JAX layout), ``metrics.jsonl``,
   ``summary.json`` (``n_devices`` = the rank count) and the symlinks. A
   resume loads the full state on every rank and re-shards it.
+- tp / ep (``mesh`` with a tp and / or an ep axis, ``parallel/mesh.py::
+  make_mesh``): the trainer builds its planes and keeps each rank's shard
+  of the model (``parallel/model_parallel.py::place_model``, by
+  ``tp_plan`` / ``ep_plan``). The rows split over the dp axis only: DDP
+  runs over the dp group and ``rows_split_over`` is the dp group, for the
+  ranks of a tp / ep group hold the same rows. Before the clip, the
+  gradients that several ranks of a plane hold are averaged over it
+  (``sync_replicas``), and the clip's norm counts each element once
+  (``clip_by_global_norm(split=)``). Checkpoints are gathered to the full
+  JAX-layout state on rank 0 (``convert.gather_state``, moments too); a
+  resume re-shards them (``shard_state``). ``summary.json`` holds the mesh.
 
-``scan_steps``, tp, pp, ep and orbax raise.
+``scan_steps``, pp, fsdp with tp / ep and orbax raise.
 """
 from __future__ import annotations
 
@@ -84,10 +95,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from hnet_mamba_asr_torch.convert import jax_to_state_dict, state_dict_to_jax_tree
+from hnet_mamba_asr_torch.convert import (gather_state, jax_to_state_dict, shard_state,
+                                          state_dict_to_jax_tree)
 from hnet_mamba_asr_torch.data.manifests import feat_frames
 from hnet_mamba_asr_torch.eval.metrics import char_errors, word_errors
 from hnet_mamba_asr_torch.parallel import mesh as pmesh
+from hnet_mamba_asr_torch.parallel import model_parallel as mpar
 from hnet_mamba_asr_torch.parallel.collectives import rows_split_over
 from hnet_mamba_asr_torch.training import checkpoint as ckpt
 from hnet_mamba_asr_torch.training.async_ckpt import AsyncWriter
@@ -97,7 +110,7 @@ from hnet_mamba_asr_torch.utils.config import flatten_config  # noqa: F401 (re-e
 logger = logging.getLogger(__name__)
 
 DEVICE_KEYS = ("wave", "wave_lens", "tokens", "token_lens", "row_mask")
-NOT_PORTED = ("scan_steps", "tp", "pp", "ep")
+NOT_PORTED = ("scan_steps", "pp")
 
 
 def _owned(obj):
@@ -130,7 +143,7 @@ class Trainer:
 
     def __init__(self, model, train_loader, cfg, *, dev_loaders=None, tokenizer=None,
                  metrics=None, ckpt_dir="checkpoints", seed: int = 0, provenance=None,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         self.device = torch.device(device)
         model.to(self.device)
         self.model = model
@@ -156,6 +169,19 @@ class Trainer:
                              "parallel/seq_parallel.py::SPModel (scripts/train.py does)")
         if str(g("ckpt_backend", "pickle")) != "pickle":
             raise NotImplementedError("only the pickle checkpoint backend is ported")
+        tp, _, _, ep, _ = pmesh.validate_planes(self.cfg)
+        self.mp_plan = {}
+        if tp > 1 or ep > 1:
+            if mesh is None or "dp" not in (mesh.mesh_dim_names or ()):
+                raise ValueError(f"train.tp={tp} / train.ep={ep} need the (dp, tp, ep) mesh of "
+                                 "their ranks (parallel/mesh.py::make_mesh; scripts/train.py "
+                                 "builds it)")
+            self.mp_plan = mpar.place_model(model, mpar.plane_of(mesh, "tp", tp),
+                                            mpar.plane_of(mesh, "ep", ep))
+        self.planes = mpar.model_planes(model)
+        self.split = list(mpar.split_leaves(model))
+        self.mesh_shape = (dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+                           if mesh is not None else {"dp": self.world})
         self.max_epoch = int(g("max_epoch", 120))
         self.grad_clip = float(g("grad_clip", 5.0))
         if float(g("grad_clip_type", 2.0)) != 2.0:
@@ -169,9 +195,13 @@ class Trainer:
         self.best_model_criterion = [tuple(c) for c in
                                      g("best_model_criterion", [["valid", "loss", "min"]])]
         self.early_stopping = dict(g("early_stopping", {}) or {})
-        # the ranks that split a batch's rows: the dp axis of an SPModel, else all
-        self.rows_group = (getattr(model, "rows_group", torch.distributed.group.WORLD)
-                           if self.distributed else None)
+        # the ranks that split a batch's rows: the dp axis of an SPModel or of
+        # a tp / ep mesh, else all
+        self.rows_group = None
+        if self.distributed:
+            self.rows_group = getattr(model, "rows_group", torch.distributed.group.WORLD)
+            if self.mp_plan:
+                self.rows_group = mesh.get_group("dp")
         self.fsdp = bool(g("fsdp", False)) and self.distributed
         self._ddp = self._root = None
         if self.fsdp:
@@ -180,10 +210,14 @@ class Trainer:
                                      int(g("fsdp_min_elems", pmesh._FSDP_MIN_ELEMS)),
                                      units=getattr(model, "fsdp_units", True))
             self.fsdp_plan = {k.split(".", 1)[1]: v for k, v in plan.items()}   # less "net."
-        elif self.distributed:
+        elif self.distributed and torch.distributed.get_world_size(
+                self.rows_group if self.mp_plan else None) > 1:
+            # every rank's gradient is averaged (an sp rank's is its shard's
+            # part), but a tp / ep group's ranks share theirs: the dp group only
             from torch.nn.parallel import DistributedDataParallel
             self._ddp = DistributedDataParallel(
                 _LossModule(model), broadcast_buffers=False,
+                process_group=self.rows_group if self.mp_plan else None,
                 device_ids=[self.device.index or 0] if self.device.type == "cuda" else None)
         self.params = [p for p in self.model.parameters() if p.requires_grad]
         self.opt, self.lr_schedule = build_optimizer(
@@ -196,7 +230,8 @@ class Trainer:
                              else None)
         logger.info("Trainer: device=%s rank %d of %d (%s) params=%.1fM accum_grad=%d "
                     "optim=%s sched=%s dev_splits=%s", self.device, self.rank, self.world,
-                    "fsdp" if self.fsdp else "ddp" if self._ddp else "one process",
+                    ("fsdp" if self.fsdp else "ddp" if self._ddp else "one process")
+                    + f", mesh {self.mesh_shape}",
                     sum(p.numel() for p in self.params) / 1e6, self.accum_grad,
                     g("optim", "adamw"), g("scheduler"), list(self.dev_loaders))
 
@@ -228,7 +263,9 @@ class Trainer:
     def _apply_step(self) -> tuple[float, float]:
         if self.fsdp:
             pmesh.sync_replicated_grads(self.params)
-        gnorm = clip_by_global_norm(self.params, self.grad_clip)
+        if self.split:
+            mpar.sync_replicas(self.model, self.split)
+        gnorm = clip_by_global_norm(self.params, self.grad_clip, self.split)
         lr = float(self.lr_schedule(self.global_step))
         set_lr(self.opt, lr)
         self.opt.step()
@@ -491,6 +528,8 @@ class Trainer:
         if self.fsdp:
             params = pmesh.full_state(params, keep=self.is_main)
             opt_state = pmesh.full_state(opt_state, keep=self.is_main)
+        if self.mp_plan:
+            params, opt_state = self._gathered(params, opt_state)
         if not self.is_main:
             return
         state = {"params": state_dict_to_jax_tree(params),
@@ -503,6 +542,46 @@ class Trainer:
             state = _owned(state)                 # CPU tensors' numpy views share memory
         paths = [self.ckpt_dir / f"epoch{self.epoch:04d}.ckpt", self.ckpt_dir / "latest.ckpt"]
         self._submit(lambda: [ckpt.save_checkpoint(p, state) for p in paths])
+
+    def _param_names(self) -> list:
+        """The optimizer's parameter indices' names (its state_dict's keys)."""
+        names = {id(p): n for n, p in self.model.named_parameters()}
+        return [names[id(p)] for grp in self.opt.param_groups for p in grp["params"]]
+
+    def _gather_leaf(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """A tp / ep leaf (or its moment) gathered whole from its plane's ranks."""
+        dim, idx, plane = self.mp_plan[name]
+        group = self.planes[plane].group
+        parts = [torch.empty_like(t) for _ in range(self.planes[plane].size)]
+        torch.distributed.all_gather(parts, t.contiguous(), group=group)
+        return gather_state([{name: p} for p in parts], {name: (dim, idx)})[name]
+
+    def _gathered(self, params: dict, opt_state: dict):
+        """The full parameters and moments of a tp / ep run (every rank takes
+        part in each leaf's gather)."""
+        params = {k: self._gather_leaf(k, v) if k in self.mp_plan else v
+                  for k, v in params.items()}
+        names = self._param_names()
+        state = {i: {k: self._gather_leaf(names[int(i)], t) if torch.is_tensor(t)
+                     and names[int(i)] in self.mp_plan and t.dim() > 0 else t
+                     for k, t in st.items()} for i, st in opt_state["state"].items()}
+        return params, dict(opt_state, state=state)
+
+    def _sharded(self, params: dict):
+        """A full state's shard for this rank, and the optimizer's ``place``."""
+        ranks = {name: plane.rank for name, plane in self.planes.items()}
+        params = {k: shard_state({k: v}, {k: self.mp_plan[k][:2]}, ranks[self.mp_plan[k][2]])[k]
+                  if k in self.mp_plan else v for k, v in params.items()}
+        names = self._param_names()
+        flat = [p for grp in self.opt.param_groups for p in grp["params"]]
+
+        def place(idx, t):
+            name = names[idx]
+            if name not in self.mp_plan or t.dim() == 0 or t.shape == flat[idx].shape:
+                return t
+            return shard_state({name: t}, {name: self.mp_plan[name][:2]},
+                               ranks[self.mp_plan[name][2]])[name]
+        return params, place
 
     def flush_checkpoints(self) -> None:
         """Wait for pending saves; raise a writer failure."""
@@ -525,6 +604,8 @@ class Trainer:
             def place(idx, t):
                 p = flat[idx]
                 return pmesh.like(t, p) if tuple(t.shape) == tuple(p.shape) else t
+        if self.mp_plan:                    # this rank's shard of the full state
+            params, place = self._sharded(params)
         self.model.load_state_dict(params, strict=True)
         ckpt.load_optimizer_state(self.opt, state["torch_opt_state"], place=place)
         self.global_step = int(state["global_step"])
@@ -570,7 +651,7 @@ class Trainer:
         self.model.eval()
         if self.metrics is not None:
             summary = {"final_step": self.global_step, "epochs": self.epoch + 1,
-                       "n_devices": self.world, "config": self.cfg}
+                       "n_devices": self.world, "mesh": self.mesh_shape, "config": self.cfg}
             for phase, metric, mode in self.best_model_criterion:
                 be = self._best_epoch(phase, metric, mode)
                 if be is not None:

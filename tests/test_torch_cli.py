@@ -216,7 +216,7 @@ def test_decode_and_score_cli(ws, tmp_path):
     assert set(scores["splits"]["test-clean"]["cells"]) == set(cells)
     assert scores["gate"]["evaluated"] and not scores["gate"]["passed"]
     assert "GATE" in (out / "score" / "report.txt").read_text()
-    with pytest.raises(NotImplementedError, match=r"decode\.tp=2 is not ported"):
+    with pytest.raises(ValueError, match=r"decode\.tp=2 needs 2 ranks \(got 1\)"):
         decode.run(decode.parse_args(["--config", str(ws["cfg"]), "--checkpoint",
                                       str(ws["ckpt"]), "--device", "cpu", "decode.tp=2"]))
 

@@ -268,13 +268,15 @@ print(json.dumps({"code": code,
 """
 
 
-@pytest.mark.parametrize("plane", [[], ["--fsdp"], ["--sp"]], ids=["ddp", "fsdp", "sp"])
+@pytest.mark.parametrize("plane", [[], ["--fsdp"], ["--sp"], ["--tp"], ["--ep"]],
+                         ids=["ddp", "fsdp", "sp", "tp", "ep"])
 def test_multi_rank_planes_run_without_jax(plane):
     """parallel/ and tools/smoke_2proc.py with jax, flax, the JAX package and
     PyYAML blocked; the smoke's two processes (gloo, one thread each) train
-    through the train CLI (DDP, ``train.fsdp=true`` or ``train.sp=2``),
-    resume, and decode over both ranks and alone, and pass its checks
-    (disjoint equal row slices covering the corpus, or equal ones under sp;
+    through the train CLI (DDP, ``train.fsdp=true``, ``train.sp=2``,
+    ``train.tp=2`` or ``train.ep=2``), resume, and decode over both ranks
+    (``decode.tp=2`` under tp) and alone, and pass its checks (disjoint
+    equal row slices covering the corpus, or equal ones under sp, tp, ep;
     ranks bitwise equal, one provenance record per run, the resume marker,
     equal transcripts)."""
     env = dict(os.environ, OMP_NUM_THREADS="1")

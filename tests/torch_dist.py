@@ -1,8 +1,9 @@
-"""Two gloo ranks on the CPU for the multi-rank parity tests
-(tests/test_torch_dist.py, test_torch_fsdp.py, test_torch_seq_parallel.py).
+"""Gloo ranks on the CPU for the multi-rank parity tests
+(tests/test_torch_dist.py, test_torch_fsdp.py, test_torch_seq_parallel.py,
+test_torch_tp.py, test_torch_ep.py).
 
-``run_pair(suite, job, tmp)`` pickles ``job`` (numpy only: JAX-layout param
-trees, host batches, configs), starts two processes of this file with a
+``run_pair(suite, job, tmp, world=2)`` pickles ``job`` (numpy only: JAX-layout param
+trees, host batches, configs), starts ``world`` processes of this file with a
 torchrun environment (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``,
 ``RANK``, ``LOCAL_RANK``; one thread each) and returns each rank's result
 dict. A rank runs ``SUITES[suite](job, rank, tmp)``, which may compute its
@@ -22,7 +23,8 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[1]
 
 
-def run_pair(suite: str, job: dict, tmp: Path, timeout: float = 300.0) -> list[dict]:
+def run_pair(suite: str, job: dict, tmp: Path, timeout: float = 300.0,
+             world: int = 2) -> list[dict]:
     tmp = Path(tmp)
     tmp.mkdir(parents=True, exist_ok=True)
     (tmp / "job.pkl").write_bytes(pickle.dumps(job))
@@ -30,9 +32,10 @@ def run_pair(suite: str, job: dict, tmp: Path, timeout: float = 300.0) -> list[d
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     procs = []
-    for r in range(2):
-        env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE="2",
-                   RANK=str(r), LOCAL_RANK=str(r), LOCAL_WORLD_SIZE="2", OMP_NUM_THREADS="1",
+    for r in range(world):
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   WORLD_SIZE=str(world), RANK=str(r), LOCAL_RANK=str(r),
+                   LOCAL_WORLD_SIZE=str(world), OMP_NUM_THREADS="1",
                    PYTHONPATH=os.pathsep.join([str(REPO), str(REPO / "tests")]))
         procs.append(subprocess.Popen([sys.executable, __file__, suite, str(tmp)], env=env,
                                       stdout=open(tmp / f"rank{r}.log", "w"),
@@ -47,9 +50,9 @@ def run_pair(suite: str, job: dict, tmp: Path, timeout: float = 300.0) -> list[d
             codes.append("timeout")
     if any(codes):
         logs = "\n".join(f"--- rank {r} ---\n" + (tmp / f"rank{r}.log").read_text()[-3000:]
-                         for r in range(2))
+                         for r in range(world))
         raise AssertionError(f"ranks exited {codes}\n{logs}")
-    return [pickle.loads((tmp / f"out{r}.pkl").read_bytes()) for r in range(2)]
+    return [pickle.loads((tmp / f"out{r}.pkl").read_bytes()) for r in range(world)]
 
 
 # ── the ranks' side ─────────────────────────────────────────────────────────
@@ -251,7 +254,167 @@ def suite_sp(job, rank, tmp):
     return out
 
 
-SUITES = {"dist": suite_dist, "fsdp": suite_fsdp, "sp": suite_sp}
+def _local(model):
+    return {k: v.detach().clone().numpy() for k, v in model.state_dict().items()}
+
+
+def _mp_trainer(case, batches, ckpt_dir, mesh, planes):
+    """A tp / ep Trainer on ``mesh`` (the config's train.tp / train.ep set)."""
+    from hnet_mamba_asr_torch.training.trainer import Trainer
+    model = _model(case["config"], case["vocab"], case["tree"])
+    return Trainer(model, ListLoader(batches), dict(case["train_cfg"], **planes),
+                   ckpt_dir=ckpt_dir, seed=0, device="cpu", mesh=mesh)
+
+
+def _mp_train(case, batches, ckpt_dir, mesh, planes):
+    tr = _mp_trainer(case, batches, ckpt_dir, mesh, planes)
+    tr.train()
+    return tr
+
+
+def _ckpt_tree(path):
+    from hnet_mamba_asr_torch.training import checkpoint as ckpt
+    return ckpt.load_checkpoint(path)["params"]
+
+
+def suite_tp(job, rank, tmp):
+    """tp = 2: updates against one process and the virtual-plane witness,
+    the gathered checkpoint and its re-sharded resume, the N=2 encoder's
+    boundaries and features, and decode.tp over the cells."""
+    import torch
+
+    from hnet_mamba_asr_torch.parallel.mesh import init_distributed, make_mesh
+    from hnet_mamba_asr_torch.parallel.model_parallel import Plane, place_model, plane_of
+    from hnet_mamba_asr_torch.tasks.decode_task import decode_batch
+    out = {"solo": {}, "witness": {}, "tp": {}, "local": {}, "encode": {}, "decode": {}}
+    if rank == 0:                               # one-process references first
+        for name, case in job["update"].items():
+            out["solo"][name] = _tree(_train(case, case["batches"], tmp / f"solo_{name}").model)
+            witness = _model(case["config"], case["vocab"], case["tree"])
+            place_model(witness, Plane("tp", 2))        # every shard in one process
+            out["witness"][name] = _tree(_train(case, case["batches"], tmp / f"wit_{name}",
+                                                model=witness).model)
+        enc = job["encode"]
+        model = _model(enc["config"], enc["vocab"], enc["tree"])
+        with torch.no_grad():
+            e = model.encoder(torch.from_numpy(enc["feats"]), torch.from_numpy(enc["flens"]))
+        out["encode_solo"] = {"features": e.features.numpy(), "p": e.boundaries[0][0].numpy(),
+                              "b": e.boundaries[0][1].numpy()}
+    init_distributed("cpu", timeout_s=120)
+    mesh = make_mesh(device="cpu", tp=2)
+    for name, case in job["update"].items():
+        ckpt_dir = tmp / f"tp_{name}_rank{rank}"
+        tr = _mp_train(case, case["batches"], ckpt_dir, mesh, {"tp": 2})
+        out["local"][name] = _local(tr.model)
+        out["files"] = _listing(ckpt_dir)
+        if rank == 0:
+            out["tp"][name] = _ckpt_tree(ckpt_dir / "latest.ckpt")
+        torch.distributed.barrier()
+        again = _mp_trainer(dict(case, tree=None), [], tmp / f"again_{name}_rank{rank}", mesh,
+                            {"tp": 2})
+        again.load_checkpoint(tmp / f"tp_{name}_rank0" / "latest.ckpt")
+        out.setdefault("resumed", {})[name] = _local(again.model)
+        out.setdefault("mesh", tr.mesh_shape)
+    enc = job["encode"]
+    model = _model(enc["config"], enc["vocab"], enc["tree"])
+    place_model(model, plane_of(mesh, "tp", 2))
+    with torch.no_grad():
+        e = model.encoder(torch.from_numpy(enc["feats"]), torch.from_numpy(enc["flens"]))
+    out["encode"] = {"features": e.features.numpy(), "p": e.boundaries[0][0].numpy(),
+                     "b": e.boundaries[0][1].numpy()}
+    dec = job["decode"]
+    model = _model(dec["config"], dec["vocab"], dec["tree"]).eval()
+    place_model(model, plane_of(mesh, "tp", 2))
+
+    class Tok:
+        bos_id, eos_id, pad_id = 1, 2, 3
+
+        def decode(self, ids):
+            return " ".join(str(int(i)) for i in ids)
+
+    for cell in dec["cells"]:
+        for engine, dc in dec["engines"].items():
+            recs = decode_batch(model, Tok(), dict(dec["batch"]), cell, dc)
+            out["decode"][(cell["name"], engine)] = [(r["hyp"], r["score"]) for r in recs]
+    return out
+
+
+def suite_ep(job, rank, tmp):
+    """World 4: the MoE FFN over ep = 2 (rows whole) and (dp, ep) = (2, 2)
+    (rows split), the (dp, tp, ep) = (1, 2, 2) and (2, 1, 2) updates, and
+    the LM trainer's train.ep through scripts/train_lm.py."""
+    import torch
+    import torch.distributed as dist
+
+    from hnet_mamba_asr_torch import convert
+    from hnet_mamba_asr_torch.models.moe import MoEFFN, moe_aux
+    from hnet_mamba_asr_torch.parallel.collectives import rows_split_over
+    from hnet_mamba_asr_torch.parallel.mesh import (init_distributed, make_mesh, mesh_axis,
+                                                    rank_rows)
+    from hnet_mamba_asr_torch.parallel.model_parallel import place_model, plane_of
+    from hnet_mamba_asr_torch.scripts import train_lm
+    out = {"moe": {}, "update": {}, "local": {}}
+    lm_args = ["--config", str(job["lm_yaml"]), "--device", "cpu"]
+    if rank == 0:                 # the CLI alone: no launch in its environment
+        from hnet_mamba_asr_torch.parallel.mesh import ENV_KEYS
+        launch = {k: os.environ.pop(k) for k in ENV_KEYS}
+        try:
+            solo = train_lm.run(train_lm.parse_args(lm_args + ["--exp-dir",
+                                                               str(tmp / "lm_solo")]))
+        finally:
+            os.environ.update(launch)
+        out["lm_solo"] = _tree(solo.model)
+    init_distributed("cpu", timeout_s=120)
+    mesh = make_mesh(device="cpu", ep=2)
+    dp_group, dp_rank, _ = mesh_axis(mesh, "dp")
+    f = job["moe"]
+    for name, split in (("ep2", False), ("dp2ep2", True)):
+        m = MoEFFN(f["D"], f["F"], f["E"], top_k=2, capacity_factor=2.0)
+        m.load_state_dict(convert.jax_to_state_dict(f["tree"]))
+        place_model(m, ep=plane_of(mesh, "ep", 2))
+        x = torch.from_numpy(f["x"])
+        with rows_split_over(dp_group if split else None):
+            xs = rank_rows({"x": x}, dp_rank, 2)["x"] if split else x
+            y, aux, dropped = m(xs)
+            loss = (y ** 2).sum()
+            if split:
+                from hnet_mamba_asr_torch.parallel.collectives import batch_sum
+                loss = batch_sum(loss)
+            loss = loss + moe_aux([(aux, dropped)], 0.01)[0]
+            loss.backward()
+        grads = {}
+        for n, p in m.named_parameters():
+            g = p.grad.clone()
+            if split:                               # DDP's mean over the dp group
+                dist.all_reduce(g, group=dp_group)
+                g /= 2
+            if n != "router":
+                parts = [torch.empty_like(g) for _ in range(2)]
+                dist.all_gather(parts, g, group=mesh.get_group("ep"))
+                g = torch.cat(parts)
+            grads[n] = g.numpy()
+        out["moe"][name] = {"loss": float(loss), "grads": grads, "dropped": float(dropped)}
+    meshes = {"tp2ep2": make_mesh(device="cpu", tp=2, ep=2), "dp2ep2": mesh}
+    case = job["update"]
+    for name, planes in (("tp2ep2", {"tp": 2, "ep": 2}), ("dp2ep2", {"ep": 2})):
+        m3 = meshes[name]
+        _, r, n = mesh_axis(m3, "dp")
+        ckpt_dir = tmp / f"{name}_rank{rank}"
+        tr = _mp_train(case, _rows(case["batches"], r, n), ckpt_dir, m3, planes)
+        out["local"][name] = _local(tr.model)
+        if rank == 0:
+            out["update"][name] = _ckpt_tree(ckpt_dir / "latest.ckpt")
+        out.setdefault("mesh", {})[name] = tr.mesh_shape
+    tr = train_lm.run(train_lm.parse_args(lm_args + ["--exp-dir", str(tmp / f"lm_ep{rank}"),
+                                                     "--dist-backend", "gloo", "train.ep=2"]))
+    if rank == 0:
+        out["lm_ep"] = _ckpt_tree(tmp / "lm_ep0" / "checkpoints" / "latest.ckpt")
+    out["lm_mesh"] = tr.mesh_shape
+    return out
+
+
+SUITES = {"dist": suite_dist, "fsdp": suite_fsdp, "sp": suite_sp, "tp": suite_tp,
+          "ep": suite_ep}
 
 
 def main(suite: str, tmp: str) -> None:
