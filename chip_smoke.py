@@ -196,7 +196,10 @@ calls, at the full width of ``configs/typeA_small_N1.yaml`` and
                step k + 1 at the schedule's rate for k and whose early
                stopping (patience 0, an unbeatable min_delta) ends it after
                epoch 2; the best symlinks, pruning, the .ave files,
-               metrics.jsonl and summary.json with provenance;
+               metrics.jsonl and summary.json with provenance; one epoch
+               at accum_grad 1 with train.scan_steps 1 and 2: the same
+               parameters bitwise, one host read a group (the card's
+               synchronizing calls counted in torch's sync debug mode);
                ``configs/typeA_large_N1.yaml`` through the train CLI for one
                update (4 micro-steps of 16k frames, remat dots;
                210,967,945 parameters); ``configs/lm_transformer_500.yaml``
@@ -258,7 +261,20 @@ calls, at the full width of ``configs/typeA_small_N1.yaml`` and
                each leaf's max); decode.tp = 2 in fp32 (the AED at
                DECODE_AED_LAYERS layers) in ctc_greedy, ctc_beam and
                joint_beam == one process (transcripts, beam scores within
-               1e-5) and ctc_greedy alone == batched in bf16; the gate
+               1e-5) and ctc_greedy alone == batched in bf16; pp = 2 (dp =
+               1, 6 of the 12 main blocks a stage, 2 microbatches): the
+               gate config's micro-step (fp32, bf16) against the one-process
+               witness running both stages in turn (loss, features and
+               gradients bitwise, or within a one-ulp control's gap) and
+               plain one process (fp32, as tp), each stage's launches, ms,
+               peak and params + moments; the N=2 config's forwards (fp32:
+               boundaries equal, features 1e-5; bf16 as sp's); two Trainer
+               updates gathered to rank 0 against the witness's and one
+               process's (within 4x a two-update one-ulp control); a second
+               probe pair for gloo's send / recv; in the parent,
+               train.scan_steps = 2 over the two global batches (one host
+               read, counted as the card's synchronizing calls; bitwise
+               those of scan_steps = 1); the gate
                config's ctc_greedy
                and aed_beam decoded over 2 ranks == one process (transcripts
                and beam scores); one rank under NCCL: the fp32 gradients,
@@ -274,13 +290,15 @@ the RNN-T training run (rnnt_fwd, rnnt_bwd) and of the N = 2 training run
 (the others), and every path's counts (the streaming paths' as stream_*,
 the artifacts' as artifacts_*, the training CLIs' as train_cli_*, the
 interpretability runs' as interp_*, a rank's sp update as
-sp_update_rank0; a streaming path's ema_fwd is the carried form);
+sp_update_rank0, a pp stage's micro-step as pp_update_stage0 / 1; a
+streaming path's ema_fwd is the carried form);
 the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
@@ -291,6 +309,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -3384,7 +3403,7 @@ def phase_artifacts(cmvn) -> dict:
 
 # phase 20: the training entry points on a synthetic LibriSpeech tree
 TRAIN_CLI_SPLITS = {"train-clean-100": 48, "dev-clean": 4}
-TRAIN_CLI_BUDGET_S = 90.0       # the phase's own time budget
+TRAIN_CLI_BUDGET_S = 105.0      # the phase's own time budget (scan_steps' two runs: ~15 s)
 LM_CORPUS_LINES = 3000
 GATE_N_PARAMS = 78_858_409
 LARGE_N_PARAMS = 210_967_945    # tests/test_torch_train_configs.py holds it to JAX's
@@ -3458,8 +3477,8 @@ def phase_train_clis() -> dict:
                  "data.dev_splits=[dev-clean]", f"data.perturb_cache_dir={root / 'perturb'}"]
         exp = root / "exp_gate"
 
-        def gate_args(*extra):
-            return train.parse_args(["--config", str(yaml_gate), "--exp-dir", str(exp),
+        def gate_args(*extra, exp_dir=exp):
+            return train.parse_args(["--config", str(yaml_gate), "--exp-dir", str(exp_dir),
                                      *extra, *paths])
         first = counted("train_cli_gate", train.run, gate_args(
             "train.max_epoch=2", "eval.valid_interval_epoch=1", "keep_all_checkpoints=false",
@@ -3525,6 +3544,31 @@ def phase_train_clis() -> dict:
             if launches[path] != want:
                 raise AssertionError(f"{path}: ssd launches {launches[path]}, want {want} "
                                      f"({epochs} epochs of {n_batches} batches, {n_dev} dev)")
+        # train.scan_steps (which excludes the config's accum_grad 2): one
+        # epoch at scan_steps 1, then 2, the groups' updates in a row between
+        # host reads; the parameters equal bit for bit
+        runs = {}
+        for K in (1, 2):
+            with syncs_per_read() as (syncs, _):
+                tr = counted(f"train_cli_gate_scan{K}", train.run, gate_args(
+                    "train.max_epoch=1", "accum_grad=1", f"train.scan_steps={K}",
+                    "keep_nbest_models=0", exp_dir=root / f"exp_scan{K}"))
+            runs[K] = {"params": {k: v.detach().cpu() for k, v in tr.model.state_dict().items()},
+                       "reads": tr.host_reads, "steps": tr.global_step,
+                       "groups": [h["group"] for h in tr.history], "syncs": syncs}
+            del tr
+            torch.cuda.empty_cache()
+        one, two = runs[1], runs[2]
+        checks["scan_steps=2 parameters bitwise"] = all(
+            torch.equal(v, one["params"][key]) for key, v in two["params"].items())
+        # the groups form (one read for each 2 updates), and the card's
+        # synchronizing calls show one read a group
+        checks["scan_steps=2 one host read a group"] = (
+            one["reads"] == one["steps"] == two["steps"] >= 2
+            and two["reads"] == len(two["syncs"]) == -(-two["steps"] // 2)
+            and one_read_a_group(one["syncs"], two["syncs"], 2))
+        out["scan"] = {K: {k: v for k, v in r.items() if k != "params"} for K, r in runs.items()}
+        del runs, one, two
         ave_params = load_checkpoint(exp / "checkpoints" / "valid.loss.ave.ckpt")["averaged"]
         out["gate"] = dict(history=hist, k=k, cache=cache, best=best, files=files,
                            averaged=ave_params, checks=checks, n_params=n_params,
@@ -3600,7 +3644,13 @@ def phase_train_clis() -> dict:
         f"peak {out['train_cli_gate_peak'] / 1e9:.2f} / {out['train_cli_gate_resume_peak'] / 1e9:.2f}"
         f" GB; cache misses / hits {cache}; valid {dict(metric_history[('valid', 'loss')])} "
         f"(loss), {dict(metric_history[('valid', 'wer')])} (WER); runs "
-        f"{secs['train_cli_gate']:.1f} + {secs['train_cli_gate_resume']:.1f} s; files {files}")
+        f"{secs['train_cli_gate']:.1f} + {secs['train_cli_gate_resume']:.1f} s; files {files}; "
+        f"one epoch at accum_grad 1, train.scan_steps=1 / 2: "
+        f"{secs['train_cli_gate_scan1']:.1f} / {secs['train_cli_gate_scan2']:.1f} s, "
+        f"{out['scan'][1]['steps']} / {out['scan'][2]['steps']} updates in "
+        f"{out['scan'][1]['reads']} / {out['scan'][2]['reads']} host reads (updates a read "
+        f"{out['scan'][2]['groups']} at 2); synchronizing CUDA calls a read (the first from "
+        f"the run's start) {out['scan'][1]['syncs']} / {out['scan'][2]['syncs']}")
     lr = out["large"]["history"][0]
     log(f"  typeA_large_N1 ({n_large:,} parameters, remat {out['large']['remat']}): one update "
         f"of 4 micro-steps {lr['ms']:.1f} ms, {lr['frames'] / lr['ms'] * 1e3:.0f} "
@@ -3903,6 +3953,21 @@ TP_CELLS = ("ctc_greedy", "ctc_beam", "joint_beam")
 # on the rows whose boundaries agree in all three passes
 BOUNDARY_CLIFF = 1e-4
 BF16_RATIO = 2.0
+# pp = 2 on the pair (dp = 1, both ranks every row): the gate config's 12
+# main-stack blocks, 6 a stage, over PP_MICROBATCHES microbatches of the 8
+# rows. The witness is one process running both stages in turn on the same
+# microbatches with the same gradient sums in the same order
+# (parallel/pipeline.py without a group): a rank's loss, features and
+# gradients equal it bitwise, or a leaf lies within the one-ulp control's gap
+# (ulp_twin, fp32 and bf16), and is named; in fp32 the ranks are also held to
+# plain one process as tp is (1e-5 of each leaf's max, or ULP_RATIO times the
+# control's gap up to phase 7's bounds). Two Trainer updates: the gathered
+# parameters equal the witness's two updates bitwise, or within a two-update
+# control's gap (one process's updates from weights one ulp away), and one
+# process's within ULP_RATIO times that gap. A rank's SSD calls a pass: 2
+# directions x (the 8 outer blocks + its 6 blocks per microbatch)
+PP_MICROBATCHES = 2
+PP_SSD_PER_PASS = 2 * (8 + 6 * PP_MICROBATCHES)
 
 
 def decode_model(model):
@@ -3912,6 +3977,12 @@ def decode_model(model):
     return model.eval()
 GLOO_CUDA_OPS = ("all_reduce", "broadcast", "all_gather", "all_gather_into_tensor",
                  "reduce_scatter_tensor")
+# the point-to-point ops, in a pair of their own after those (a probe ends at
+# its first refusal, and gloo refuses reduce_scatter_tensor): a refusal may
+# crash the group (gloo's send / recv hand the tensor's pointer to its TCP
+# transport), so they come last in their pair too
+GLOO_P2P_OPS = ("send_recv", "batch_isend_irecv")
+GLOO_P2P_TIMEOUT_S = 20.0
 
 
 def ranks_batch(rng, seconds: float, rows: int, real: int, base: int = 0) -> dict:
@@ -3955,6 +4026,46 @@ def ranks_configs() -> dict:
 RANKS_TRAIN = dict(GATE_TRAIN, accum_grad=1, max_epoch=1, max_steps=2, scheduler=None,
                    log_interval=1, async_ckpt=False, valid_interval_epoch=1,
                    optim_conf=dict(GATE_TRAIN["optim_conf"], eps=0.1))
+
+
+@contextlib.contextmanager
+def syncs_per_read():
+    """Counts the synchronizing CUDA calls (torch's sync debug mode: a copy
+    to the host, ``.item()``, ``nonzero()``, a stream or device sync) that
+    a ``Trainer`` makes up to each host read of its records. Yields a list
+    that gets, at each ``Trainer._commit``, the calls since the one before
+    (the first: since the block began), that read's own included, and a
+    dict that gets, on leaving, {"file:line" of the Python call: calls}."""
+    from hnet_mamba_asr_torch.training.trainer import Trainer
+    counts, sites, commit = [], {}, Trainer._commit
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+
+        def syncs():
+            return [w for w in caught if "synchronizing CUDA operation" in str(w.message)]
+
+        def marked(self, updates, sums):
+            commit(self, updates, sums)
+            counts.append(len(syncs()) - sum(counts))
+
+        Trainer._commit = marked
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield counts, sites
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            Trainer._commit = commit
+            for w in syncs():
+                site = f"{Path(w.filename).name}:{w.lineno}"
+                sites[site] = sites.get(site, 0) + 1
+
+
+def one_read_a_group(one: list, two: list, K: int) -> bool:
+    """Whether a run at scan_steps = K made, for each group of K updates
+    (the last may hold fewer), the synchronizing calls of those updates at
+    scan_steps = 1 (``one``, a list a read) less one for each update but
+    the first: the model's own calls stay, the trainer reads once a group."""
+    return two == [sum(one[i:i + K]) - len(one[i:i + K]) + 1 for i in range(0, len(one), K)]
 
 
 def unsaved_trainer(*args, **kw):
@@ -4276,6 +4387,7 @@ def ranks_worker(tmp: Path) -> None:
         del model, ref, got
         torch.cuda.empty_cache()
         tp_stages(out, tmp, job, dev, model_of, fresh, stage)
+        pp_stages(out, tmp, job, dev, model_of, fresh, stage)
     # DDP gradients of one micro-step against one rank's (train mode: the
     # row-keyed SpecAugment and AED dropout); bf16's gap on the gloo pair only
     for label in ("fp32", "bf16")[:2 if world > 1 else 1]:
@@ -4428,11 +4540,106 @@ def tp_stages(out: dict, tmp: Path, job: dict, dev, model_of, fresh, stage) -> N
     torch.cuda.empty_cache()
 
 
-def gloo_probe() -> None:
-    """One rank of the probe (``chip_smoke.py --gloo-probe``): each of
-    GLOO_CUDA_OPS in turn under gloo on CUDA tensors, its result checked,
-    "<op> ok" printed; the first that raises ends the process (a group that
-    has refused a collective may crash on the next one)."""
+def pp_stages(out: dict, tmp: Path, job: dict, dev, model_of, fresh, stage) -> None:
+    """The pair's pp = 2 stages (phase 22): dp = 1, both ranks hold every
+    row; rank r holds the main stack's blocks [6 r, 6 r + 6). Each rank
+    compares the leaves it holds."""
+    from hnet_mamba_asr_torch.ops.ema_cuda import ema_cuda
+    from hnet_mamba_asr_torch.ops.ssd_cuda import ssd_cuda
+    from hnet_mamba_asr_torch.parallel import mesh as pmesh
+    from hnet_mamba_asr_torch.parallel.pipeline import PPModel
+    rank = int(os.environ["RANK"])
+    pp_mesh = pmesh.make_mesh(device=dev, pp=2)
+    batch = {k: torch.as_tensor(v).to(dev) if isinstance(v, np.ndarray) else v
+             for k, v in job["batch"].items() if k != "ids"}
+
+    def held_bytes(tr) -> int:
+        tensors = list(tr.model.parameters()) + [t for st in tr.opt.state.values()
+                                                 for k, t in st.items()
+                                                 if torch.is_tensor(t) and k != "step"]
+        return sum(t.numel() * t.element_size() for t in tensors)
+
+    for label in ("fp32", "bf16"):
+        stage(f"pp {label}")
+        pm = PPModel(fresh(label), pp_mesh, microbatches=PP_MICROBATCHES)
+        tr = unsaved_trainer(pm, [], dict(RANKS_TRAIN, pp=2), ckpt_dir=tmp / f"pp{label}",
+                             seed=SEED, device=dev)
+        with torch.no_grad():                       # the same rows and SpecAugment draw
+            feats = pm.encode(batch, True).features.float().cpu()
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        ssd_cuda.launches = ssd_cuda.bwd_launches = ema_cuda.launches = ema_cuda.bwd_launches = 0
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        stats = tr._micro_step(job["batch"])
+        ev[1].record()
+        launches = {"ssd_fwd": ssd_cuda.launches, "ssd_bwd": ssd_cuda.bwd_launches,
+                    "ema_fwd": ema_cuda.launches, "ema_bwd": ema_cuda.bwd_launches}
+        grads = {n: p.grad.detach().cpu() for n, p in tr.model.named_parameters()}
+        tr._apply_step()
+        ev[2].record()
+        ev[2].synchronize()
+        r = {"stats": {k: float(v) for k, v in stats.items()}, "launches": launches,
+             "ms": ev[0].elapsed_time(ev[1]), "apply_ms": ev[1].elapsed_time(ev[2]),
+             "peak": torch.cuda.max_memory_allocated(dev) - before,
+             "state_bytes": held_bytes(tr), "leaves": len(grads)}
+        wit = torch.load(_wait_for(tmp / f"ref_ppw_{label}.pt"), map_location="cpu")
+        ref = torch.load(_wait_for(tmp / f"ref_{label}.pt"), map_location="cpu")
+        mine = {n: wit["grads"][n] for n in grads}
+        out[f"pp_{label}"] = dict(
+            r, witness_gap=_grad_gap(grads, mine), witness_loss=wit["loss"],
+            bitwise=sum(torch.equal(grads[n], g) for n, g in mine.items()),
+            features_equal=torch.equal(feats, wit["features"]),
+            gap=_grad_gap(grads, {n: ref["grads"][n] for n in grads}), ref_loss=ref["loss"])
+        del tr, pm, grads, wit, ref
+        torch.cuda.empty_cache()
+    # configs/typeA_small_N2.yaml, routers drawn: one forward of the rows
+    refs = {k: torch.load(_wait_for(tmp / f"ref_tpn2_{k}.pt"), map_location="cpu")
+            for k in ("fp32", "bf16")}
+    n = refs["fp32"]["lengths"]
+    for label, base in (("fp32", "sp"), ("bf16", "sp_bf16")):
+        stage(f"pp n2 {label}")
+        pm = PPModel(model_of(base).eval(), pp_mesh, microbatches=PP_MICROBATCHES)
+        ssd_cuda.launches = ema_cuda.launches = 0
+        with torch.no_grad():
+            got = encoded(pm.encode(batch))
+        r = {"launches": {"ssd_fwd": ssd_cuda.launches, "ema_fwd": ema_cuda.launches},
+             "b": got["b"], "kept": got["kept"], "ref_kept": refs[label]["kept"]}
+        if label == "fp32":
+            r.update(boundaries=boundary_gap(got["p"], got["b"], refs["fp32"]["p"],
+                                             refs["fp32"]["b"], n),
+                     feature_gap=row_feature_gap(got["features"], refs["fp32"]["features"], n,
+                                                 [True] * len(n)))
+        else:
+            r.update(bf16_against_fp32(got, refs["bf16"], refs["fp32"], n))
+        out[f"pp_n2_{label}"] = r
+        del pm, got
+    del refs
+    # two updates through Trainer (train.pp = 2) on the two global batches;
+    # the stages gathered to rank 0 for the parent
+    stage("pp updates")
+    tr = unsaved_trainer(PPModel(fresh("fp32"), pp_mesh, microbatches=PP_MICROBATCHES),
+                         job["updates"],
+                         dict(RANKS_TRAIN, pp=2), ckpt_dir=tmp / "ppu", seed=SEED, device=dev)
+    tr.train()
+    params, _ = tr._stages_gathered(tr.model.state_dict(), tr.opt.state_dict())
+    if rank == 0:
+        _save_atomic({k: v.detach().cpu() for k, v in params.items()}, tmp / "pp_updates.pt")
+    out["pp_updates"] = {"ms": [h["ms"] for h in tr.history],
+                         "loss": [h["loss/total"] for h in tr.history],
+                         "host_reads": tr.host_reads, "steps": tr.global_step}
+    del tr, params
+    torch.cuda.empty_cache()
+
+
+def gloo_probe(ops=GLOO_CUDA_OPS) -> None:
+    """One rank of a probe (``chip_smoke.py --gloo-probe [p2p]``): each of
+    ``ops`` in turn under gloo on CUDA tensors, its result checked, "<op>
+    ok" printed; the first that raises ends the process (a group that has
+    refused a collective may crash on the next one)."""
+    from datetime import timedelta
+
     import torch.distributed as dist
 
     from hnet_mamba_asr_torch.parallel import mesh as pmesh
@@ -4460,11 +4667,23 @@ def gloo_probe() -> None:
             y = x.new_empty(4 * world)
             dist.all_gather_into_tensor(y, x)
             return y, full
-        y = x.new_empty(4 // world)                # reduce_scatter_tensor
-        dist.reduce_scatter_tensor(y, full.clone())
-        return y, world * full[rank * 4 // world:(rank + 1) * 4 // world]
+        if op == "reduce_scatter_tensor":
+            y = x.new_empty(4 // world)
+            dist.reduce_scatter_tensor(y, full.clone())
+            return y, world * full[rank * 4 // world:(rank + 1) * 4 // world]
+        # the ring shift rank r -> r + 1, as pp's stage shift would use it
+        y = torch.empty_like(x)
+        peer_to, peer_from = (rank + 1) % world, (rank - 1) % world
+        if op == "send_recv":
+            works = [dist.isend(x, peer_to), dist.irecv(y, peer_from)]
+        else:
+            works = dist.batch_isend_irecv([dist.P2POp(dist.isend, x, peer_to),
+                                            dist.P2POp(dist.irecv, y, peer_from)])
+        for w in works:
+            w.wait(timedelta(seconds=GLOO_P2P_TIMEOUT_S))
+        return y, full[peer_from * 4:(peer_from + 1) * 4]
 
-    for op in GLOO_CUDA_OPS:
+    for op in ops:
         try:
             got, want = run(op)
             torch.cuda.synchronize(dev)
@@ -4614,6 +4833,7 @@ def phase_ranks(cmvn) -> dict:
     from hnet_mamba_asr_torch.data.dataset import ItemLoader
     from hnet_mamba_asr_torch.parallel.mesh import fsdp_plan
     from hnet_mamba_asr_torch.parallel.model_parallel import Plane, place_model
+    from hnet_mamba_asr_torch.parallel.pipeline import PPModel
     from hnet_mamba_asr_torch.tasks.asr_task import build_model
     from hnet_mamba_asr_torch.tasks.decode_task import decode_split, expand_cells
     from hnet_mamba_asr_torch.tools.gate import seeded_tokenizer
@@ -4645,7 +4865,8 @@ def phase_ranks(cmvn) -> dict:
             return s.getsockname()[1]
 
     t_spawn = time.time()
-    probe = _spawn_ranks(tmp, 2, free_port(), "probe", ("--gloo-probe",))
+    probe = (_spawn_ranks(tmp, 2, free_port(), "probe", ("--gloo-probe",))
+             + _spawn_ranks(tmp, 2, free_port(), "probe_p2p", ("--gloo-probe", "p2p")))
     pair = _spawn_ranks(tmp, 2, free_port(), "pair")
     single = _spawn_ranks(tmp, 1, free_port(), "single")
     smoke = subprocess.Popen(
@@ -4658,11 +4879,20 @@ def phase_ranks(cmvn) -> dict:
 
     def publish_probe():
         """gloo.json for the ranks as soon as the probe ends: each op's
-        verdict from its log ("not probed" after a refusal)."""
-        [p.wait(120) for p in probe]
-        lines = (tmp / "probe0.log").read_text().splitlines()
-        gloo.update({op: next((ln.split(" ", 1)[1] for ln in lines if ln.startswith(op + " ")),
-                              "not probed") for op in GLOO_CUDA_OPS})
+        verdict from its log ("not probed" after a refusal; a probe still
+        running after 120 s is stopped)."""
+        for p in probe:
+            try:
+                p.wait(120)
+            except subprocess.TimeoutExpired:
+                p.kill()
+        # a refusal from either rank (the other may have crashed on it)
+        lines = [ln for name in ("probe", "probe_p2p") for r in range(2)
+                 for ln in (tmp / f"{name}{r}.log").read_text().splitlines()]
+        for op in GLOO_CUDA_OPS + GLOO_P2P_OPS:
+            said = [ln.split(" ", 1)[1] for ln in lines if ln.startswith(op + " ")]
+            gloo[op] = next((v for v in said if v != "ok"), said[0] if said else "not probed")
+        out["probe_codes"] = [p.returncode for p in probe]
         (tmp / "gloo.json.tmp").write_text(json.dumps(gloo))
         os.replace(tmp / "gloo.json.tmp", tmp / "gloo.json")
         secs["gloo_probes"] = time.perf_counter() - t0
@@ -4747,6 +4977,19 @@ def phase_ranks(cmvn) -> dict:
                                                          model.named_parameters()}},
                          tmp / f"ref_tpw_{label}.pt")
             del model, loss
+        # pp's witnesses: both stages in turn here, on the same microbatches
+        for label in ("fp32", "bf16"):
+            pm = PPModel(torch.load(tmp / f"base_{label}.pt", map_location="cuda",
+                                    weights_only=False).train(), pp=2,
+                         microbatches=PP_MICROBATCHES)
+            loss, _ = pm.loss_fn(on_card(job["batch"]), 0, True)
+            loss.backward()
+            with torch.no_grad():
+                feats = pm.encode(on_card(job["batch"]), True).features.float().cpu()
+            _save_atomic({"loss": loss.item(), "features": feats,
+                          "grads": {n: p.grad.detach().cpu() for n, p in
+                                    pm.model.named_parameters()}}, tmp / f"ref_ppw_{label}.pt")
+            del pm, loss
         model = build_model(cfgs["moe"], VOCAB, cmvn=cmvn, seed=SEED).train()
         _save_atomic(model, tmp / "base_moe.pt")
         loss, st = model.loss_fn(on_card(job["batch"]), 0, True)
@@ -4766,6 +5009,22 @@ def phase_ranks(cmvn) -> dict:
         out["ulp_fp32"] = _grad_gap({n: p.grad.detach().cpu() for n, p in model.named_parameters()},
                                     torch.load(tmp / "ref_fp32.pt")["grads"])
         del model, loss
+        model = ulp_twin(bases["bf16"], SEED + 26)          # and of pp's bf16 gradients
+        loss, _ = model.loss_fn(on_card(job["batch"]), 0, True)
+        loss.backward()
+        out["ulp_bf16"] = _grad_gap({n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+                                    torch.load(tmp / "ref_bf16.pt")["grads"])
+        del model, loss
+        # pp's two updates: the witness's, from the untouched base
+        pp_refs = {}
+        wit = unsaved_trainer(PPModel(torch.load(tmp / "base_fp32.pt", map_location="cuda",
+                                                 weights_only=False), pp=2,
+                                      microbatches=PP_MICROBATCHES),
+                              job["updates"], RANKS_TRAIN, ckpt_dir=tmp / "ppw", seed=SEED)
+        wit.train()
+        pp_refs["witness"] = {k: v.detach().cpu() for k, v in wit.model.state_dict().items()}
+        pp_refs["witness_loss"] = [h["loss/total"] for h in wit.history]
+        del wit
         waiter.join()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -4774,7 +5033,35 @@ def phase_ranks(cmvn) -> dict:
         solo.train()
         out["solo"] = {"ms": [h["ms"] for h in solo.history],
                        "peak": torch.cuda.max_memory_allocated()}
+        pp_refs["solo"] = {k: v.detach().cpu() for k, v in solo.model.state_dict().items()}
         del solo
+        # the rounding control of two updates: one process from weights one
+        # ulp away
+        ctrl = unsaved_trainer(ulp_twin(torch.load(tmp / "base_fp32.pt", map_location="cuda",
+                                                   weights_only=False), SEED + 27),
+                               job["updates"], RANKS_TRAIN, ckpt_dir=tmp / "ppc", seed=SEED)
+        ctrl.train()
+        pp_refs["control"] = {k: v.detach().cpu() for k, v in ctrl.model.state_dict().items()}
+        del ctrl
+        # train.scan_steps: the two global batches as one group of 2
+        # updates (one host read) against 2 single updates, bf16 (whose
+        # gradients repeat bitwise)
+        scans = {}
+        for K in (1, 2):
+            tr = unsaved_trainer(torch.load(tmp / "base_bf16.pt", map_location="cuda",
+                                            weights_only=False), job["updates"],
+                                 dict(RANKS_TRAIN, scan_steps=K), ckpt_dir=tmp / f"scan{K}",
+                                 seed=SEED)
+            with syncs_per_read() as (syncs, sites):
+                tr.train()
+            scans[K] = {"params": {k: v.detach().cpu() for k, v in tr.model.state_dict().items()},
+                        "reads": tr.host_reads, "groups": [h["group"] for h in tr.history],
+                        "ms": [h["ms"] for h in tr.history], "syncs": syncs, "sites": sites}
+            del tr
+        out["scan"] = {K: {k: v for k, v in r.items() if k != "params"} for K, r in scans.items()}
+        out["scan"]["bitwise"] = all(torch.equal(v, scans[1]["params"][k])
+                                     for k, v in scans[2]["params"].items())
+        del scans
         tok = seeded_tokenizer(tmp / "tok.json")
         model = decode_model(bases.pop("bf16"))
         solo_dec = {}
@@ -4809,11 +5096,12 @@ def phase_ranks(cmvn) -> dict:
         raise AssertionError(f"phase 22 processes exited {codes}")
     res = {k: pickle.loads((tmp / f"out{k}.pkl").read_bytes())
            for k in ("2_0", "2_1", "1_0")}
+    pp_refs["pp"] = torch.load(tmp / "pp_updates.pt")
     smoke_line = [ln for ln in (tmp / "smoke2p.log").read_text().splitlines()
                   if "ALL CHECKS PASSED" in ln]
     shutil.rmtree(tmp, ignore_errors=True)
     log(f"  gloo on CUDA tensors (torch {torch.__version__}): " + ", ".join(
-        f"{k} {v}" for k, v in gloo.items()))
+        f"{k} {v}" for k, v in gloo.items()) + f"; the probe pair exited {out['probe_codes']}")
     checks = []
     for key, who in (("2_0", "DDP 2 ranks gloo"), ("1_0", "DDP 1 rank NCCL")):
         r = res[key]
@@ -4891,6 +5179,19 @@ def phase_ranks(cmvn) -> dict:
         f"{s16['ref_kept']:.7f}")
     checks.append(("sp bf16 as close to fp32 as one process", bf16_ok(s16)))
     checks += tp_checks(res, out, solo_dec, job)
+    checks += pp_checks(res, out, pp_refs)
+    sc = out["scan"]
+    log(f"  train.scan_steps=2, gate config bf16, one process, the two global batches of "
+        f"{RANKS_ROWS} rows: {len(sc[2]['groups'])} updates in {sc[2]['reads']} host read(s) "
+        f"(updates a read {sc[2]['groups']}; scan_steps=1: {sc[1]['reads']} reads), parameters "
+        f"bitwise those of scan_steps=1: {sc['bitwise']}; update ms {[round(m, 1) for m in sc[2]['ms']]}"
+        f" (scan_steps=1: {[round(m, 1) for m in sc[1]['ms']]}); synchronizing CUDA calls a "
+        f"read (from the run's start) {sc[2]['syncs']} (scan_steps=1: {sc[1]['syncs']}; their "
+        f"Python call sites: " + ", ".join(f"{k} x{v}" for k, v in sorted(
+            sc[1]["sites"].items(), key=lambda kv: -kv[1])) + ")")
+    checks.append(("scan_steps=2 one read for the group of 2, bitwise",
+                   sc["bitwise"] and sc[2]["reads"] == 1 and sc[2]["groups"] == [2, 2]
+                   and sc[1]["reads"] == 2 and one_read_a_group(sc[1]["syncs"], sc[2]["syncs"], 2)))
     for cell in job["cells"]:
         name = cell["name"]
         got = [json.loads(x) for x in res["2_0"]["decode"][name].splitlines()]
@@ -4919,8 +5220,101 @@ def phase_ranks(cmvn) -> dict:
                 "sp_update_rank0": res["2_0"]["sp"]["launches"],
                 "tp_update_rank0": res["2_0"]["tp_bf16"]["launches"],
                 "tp_n2_forward_rank0": res["2_0"]["tp_n2_bf16"]["launches"],
-                "ep_update_rank0": res["2_0"]["ep"]["launches"]},
+                "ep_update_rank0": res["2_0"]["ep"]["launches"],
+                "pp_update_stage0": res["2_0"]["pp_bf16"]["launches"],
+                "pp_update_stage1": res["2_1"]["pp_bf16"]["launches"],
+                "pp_n2_forward_stage0": res["2_0"]["pp_n2_bf16"]["launches"]},
             "results": res, "solo": out, "gloo_cuda": gloo}
+
+
+def pp_checks(res: dict, out: dict, refs: dict) -> list:
+    """Phase 22's pp checks on the pair's results, logged with their bounds."""
+    checks = []
+    ulp = {label: {n: v for v, n, _ in out[f"ulp_{label}"]} for label in ("fp32", "bf16")}
+    bound = {n: max(RANKS_SPLIT_BOUND, min(ULP_RATIO * v, CONV1_GRAD_BOUND if n in CONV1_LEAVES
+                                           else PARAM_GRAD_BOUND)) for n, v in ulp["fp32"].items()}
+    log(f"  rounding control, gate config bf16: one process with every weight one ulp away "
+        f"against one process, max|d|/max|g| worst "
+        + ", ".join(f"{v:.2e} ({n})" for v, n, _ in out["ulp_bf16"][:3]))
+    for key in ("2_0", "2_1"):
+        who = f"pp=2 stage {key[-1]}"
+        for label in ("fp32", "bf16"):
+            t = res[key][f"pp_{label}"]
+            apart = sorted(((v, n) for v, n, _ in t["witness_gap"] if v > 0), reverse=True)
+            over = [(v, n) for v, n in apart if v > ulp[label][n]]
+            ok = (not over and t["features_equal"]
+                  and t["stats"]["loss/total"] == t["witness_loss"])
+            line = (f"  {who} gate config {label}, one micro-step of {RANKS_ROWS} rows in "
+                    f"{PP_MICROBATCHES} microbatches: loss {t['stats']['loss/total']:.7f}, the "
+                    f"witness {t['witness_loss']:.7f}, one process {t['ref_loss']:.7f}; "
+                    f"features equal to the witness {t['features_equal']}; {t['bitwise']} of "
+                    f"{t['leaves']} leaves bitwise, the others (within the {label} ulp "
+                    f"control's gap?) " + ", ".join(
+                        f"{n} {v:.2e} (control {ulp[label][n]:.2e})" for v, n in apart[:6])
+                    + f"; over: {over[:5]}")
+            if label == "fp32":
+                plain = [(v, n) for v, n, _ in t["gap"] if v > bound[n]]
+                ok = ok and not plain and abs(t["stats"]["loss/total"] - t["ref_loss"]) <= (
+                    1e-5 * abs(t["ref_loss"]))
+                line += (f"; vs one process worst " + ", ".join(
+                    f"{v:.2e} ({n})" for v, n, _ in t["gap"][:3])
+                    + f", over the bounds (1e-5 or {ULP_RATIO:g} x the control's, up to "
+                    f"phase 7's): {plain[:5]}")
+            log(line + f"; launches {t['launches']}; micro-step {t['ms']:.1f} ms, update step "
+                f"{t['apply_ms']:.1f} ms, peak above the start {t['peak'] / 1e9:.3f} GB, "
+                f"params + moments {t['state_bytes'] / 1e9:.3f} GB a rank")
+            checks += [(f"{who} {label} gradients", ok),
+                       (f"{who} {label} launches", t["launches"] == {
+                           "ssd_fwd": 2 * PP_SSD_PER_PASS, "ssd_bwd": PP_SSD_PER_PASS,
+                           "ema_fwd": 0, "ema_bwd": 0})]
+        n2, bg = res[key]["pp_n2_fp32"], res[key]["pp_n2_fp32"]["boundaries"]
+        log(f"  {who} configs/typeA_small_N2.yaml fp32, random routers, one forward of "
+            f"{RANKS_ROWS} rows vs one process: boundaries first, {bg['differ']} of "
+            f"{bg['frames']} differ, max|p - p_ref| {bg['p_gap']:.3e} (bound "
+            f"{BOUNDARY_CLIFF:g}); features {n2['feature_gap']:.3e} of max (bound "
+            f"{RANKS_SPLIT_BOUND:g}); kept {n2['kept']:.7f} vs {n2['ref_kept']:.7f}; launches "
+            f"{n2['launches']}")
+        checks.append((f"{who} n2 fp32", bg["differ"] == 0 and bg["p_gap"] <= BOUNDARY_CLIFF
+                       and n2["feature_gap"] <= RANKS_SPLIT_BOUND))
+        n2 = res[key]["pp_n2_bf16"]
+        log(f"  {who} configs/typeA_small_N2.yaml bf16, the same rows: " + bf16_line(n2)
+            + f"; kept {n2['kept']:.7f} vs {n2['ref_kept']:.7f}; launches {n2['launches']}")
+        checks.append((f"{who} n2 bf16", bf16_ok(n2)))
+        checks += [(f"{who} n2 {label} launches", res[key][f"pp_n2_{label}"]["launches"] == {
+            "ssd_fwd": PP_SSD_PER_PASS, "ema_fwd": 1}) for label in ("fp32", "bf16")]
+    checks += [(f"pp n2 {label} stages' boundaries equal", torch.equal(
+        res["2_0"][f"pp_n2_{label}"]["b"], res["2_1"][f"pp_n2_{label}"]["b"]))
+        for label in ("fp32", "bf16")]
+    # two Trainer updates: each leaf's max|p - p_ref| against the witness's
+    # (bitwise, or within the control's) and one process's (within
+    # ULP_RATIO times the control's), the control being one process's two
+    # updates from weights one ulp away: its gap to one process is the
+    # rounding scale of two updates (a leaf near 1 that moves by ~1e-6
+    # keeps few bits of its change; a key bias's gradient is rounding noise)
+    upd, ctrl, solo = refs["pp"], refs["control"], refs["solo"]
+    rows, bitwise, over = [], 0, []
+    for n in ulp["fp32"]:
+        scale = (ctrl[n].float() - solo[n].float()).abs().max().item()
+        gaps = [(upd[n].float() - refs[k][n].float()).abs().max().item() / max(scale, 1e-30)
+                for k in ("witness", "solo")]
+        bitwise += torch.equal(upd[n], refs["witness"][n])
+        rows.append((*gaps, n))
+        if gaps[0] > 1 or gaps[1] > ULP_RATIO:
+            over.append((n, *gaps))
+    u = res["2_0"]["pp_updates"]
+    log(f"  pp=2 two Trainer updates of the gate config fp32 ({u['steps']} steps, "
+        f"{u['host_reads']} host reads): losses {[round(x, 7) for x in u['loss']]}, the witness "
+        f"{[round(x, 7) for x in refs['witness_loss']]}; gathered parameters: {bitwise} of "
+        f"{len(rows)} bitwise equal to the witness's; max|p - p_ref| over the control's "
+        f"max|p_ulp - p_one| vs the witness worst "
+        + ", ".join(f"{g:.3f} ({n})" for g, _, n in sorted(rows, reverse=True)[:3])
+        + f" (bound 1), vs one process worst " + ", ".join(
+            f"{g:.3f} ({n})" for _, g, n in sorted(rows, key=lambda r: -r[1])[:3])
+        + f" (bound {ULP_RATIO:g}); over: {over[:5]}; update ms stage 0 "
+        f"{[round(m, 1) for m in u['ms']]}, stage 1 "
+        f"{[round(m, 1) for m in res['2_1']['pp_updates']['ms']]}")
+    checks.append(("pp two updates", not over and u["steps"] == 2))
+    return checks
 
 
 def main() -> int:
@@ -5040,14 +5434,18 @@ def main() -> int:
         f"{time.perf_counter() - t_start:.1f} s in all")
     sp = ranks["results"]["2_0"]["sp"]
     log(f"ranks summary: gloo on CUDA "
-        + ", ".join(f"{k} {'ok' if v == 'ok' else 'refused'}"
+        + ", ".join(f"{k} {v if v in ('ok', 'not probed') else 'refused'}"
                     for k, v in ranks["gloo_cuda"].items())
         + f"; sp=2 update {sp['ms']:.1f} ms, {sp['peak'] / 1e9:.2f} GB per rank (offline "
         f"{ranks['solo']['sp_offline']['ms']:.1f} ms, "
         f"{ranks['solo']['sp_offline']['peak'] / 1e9:.2f} GB); tp=2 bf16 micro-step "
         f"{ranks['results']['2_0']['tp_bf16']['ms']:.1f} ms, params + moments "
         f"{ranks['results']['2_0']['tp_bf16']['state_bytes'] / 1e9:.3f} GB a rank; ep=2 "
-        f"micro-step {ranks['results']['2_0']['ep']['ms']:.1f} ms; phase "
+        f"micro-step {ranks['results']['2_0']['ep']['ms']:.1f} ms; pp=2 bf16 micro-step "
+        f"{ranks['results']['2_0']['pp_bf16']['ms']:.1f} / "
+        f"{ranks['results']['2_1']['pp_bf16']['ms']:.1f} ms (stage 0 / 1), params + moments "
+        f"{ranks['results']['2_0']['pp_bf16']['state_bytes'] / 1e9:.3f} / "
+        f"{ranks['results']['2_1']['pp_bf16']['state_bytes'] / 1e9:.3f} GB; phase "
         f"{ranks['seconds']:.1f} s; {time.perf_counter() - t_start:.1f} s in all")
     main_shape = ("bfloat16", TRAIN_ROWS, 249, 16)
     fwd = next(r for r in fwd_rows if (r["dtype"], r["B"], r["L"], r["H"]) == main_shape)
@@ -5114,7 +5512,8 @@ if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--ranks-worker":
         ranks_worker(Path(sys.argv[2]))          # one rank of phase 22
         sys.exit(0)
-    if sys.argv[1:] == ["--gloo-probe"]:
-        gloo_probe()                             # one rank of phase 22's probe
+    if sys.argv[1:2] == ["--gloo-probe"]:
+        # one rank of phase 22's probes: the collectives, or the p2p ops
+        gloo_probe(GLOO_P2P_OPS if sys.argv[2:] == ["p2p"] else GLOO_CUDA_OPS)
         sys.exit(0)
     sys.exit(main())

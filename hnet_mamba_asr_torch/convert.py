@@ -24,6 +24,11 @@ MoE FFNs keep their stacked leaves as they are (``router`` [D, E], ``w1``
 ``aed``, ``rnnt``) is skipped when the model lacks that head; a log line
 says so. int8-quantized artifacts raise, and so does any key that the model
 does not have or that it has and the tree lacks.
+
+``shard_state`` / ``gather_state`` split a full state into a tp / ep rank's
+shards and back; ``stage_state`` / ``gather_stages`` into a pp rank's stage
+(the main stack's blocks of the stage, keyed by their global index, and
+every other leaf) and back.
 """
 from __future__ import annotations
 
@@ -213,4 +218,28 @@ def gather_state(shards: list, plan: dict) -> dict[str, torch.Tensor]:
         for r, shard in enumerate(shards):
             full.index_copy_(dim, idx[r].to(v.device), shard[k])
         out[k] = full
+    return out
+
+
+def stage_state(state, pp: int, s: int) -> dict[str, torch.Tensor]:
+    """Stage ``s``'s share of a full state (a JAX param tree, converted
+    first, or the port's state_dict) over ``pp`` stages: the main stack's
+    blocks [s k, (s + 1) k), k = n_main / pp, under their global names, and
+    every leaf outside the main stack's blocks."""
+    from hnet_mamba_asr_torch.parallel.pipeline import main_block, stage_range
+    if any(isinstance(v, (dict, list)) for v in state.values()):
+        state = jax_to_state_dict(state)
+    blocks = [i for i in map(main_block, state) if i is not None]
+    keep = stage_range(max(blocks) + 1 if blocks else 0, pp, s)
+    return {k: v for k, v in state.items() if main_block(k) is None or main_block(k) in keep}
+
+
+def gather_stages(states: list) -> dict[str, torch.Tensor]:
+    """The full state_dict from every stage's (``stage_state``'s inverse,
+    in stage order): each main-stack block from the stage that holds it,
+    every other leaf from the first."""
+    from hnet_mamba_asr_torch.parallel.pipeline import main_block
+    out = dict(states[0])
+    for st in states[1:]:
+        out.update({k: v for k, v in st.items() if main_block(k) is not None})
     return out

@@ -164,18 +164,23 @@ class DCASREncoder(nn.Module):
             return None
         return column_row_plan(prefix, ("proj_in",), ("proj_out",), self.d_main, tp)
 
-    def forward(self, feats: torch.Tensor, feat_lengths: torch.Tensor) -> EncoderOutput:
+    def forward(self, feats: torch.Tensor, feat_lengths: torch.Tensor,
+                main=None) -> EncoderOutput:
+        """``main``: a callable (z, lengths) -> the main stack's output, in
+        place of ``self.main`` (Type A; ``parallel/pipeline.py``'s stages)."""
         x, lengths = self.subsample(feats, feat_lengths)
         mask = lengths_to_mask(lengths, x.shape[1])
         x_enc = self.enc(x, lengths)
         if self.arch_type == "A":
-            return self._forward_a(x_enc, mask, lengths)
+            return self._forward_a(x_enc, mask, lengths, main or self.main)
+        if main is not None:
+            raise ValueError("a main-stack override takes a Type A encoder")
         return self._forward_b(x_enc, mask, lengths)
 
-    def _forward_a(self, x_enc, mask, lengths) -> EncoderOutput:
+    def _forward_a(self, x_enc, mask, lengths, main) -> EncoderOutput:
         co = self.chunk.chunk(x_enc, mask)
         z = self._proj_in(co.z)
-        z = self.main(z, co.z_mask.sum(dim=1))
+        z = main(z, co.z_mask.sum(dim=1))
         x_dech = self.chunk.dechunk(self._proj_out(z), co)
         x_out = self.dec(x_enc + x_dech, lengths)               # fine-detail bypass
         return EncoderOutput(x_out, lengths, co.ratio_loss, ((co.p, co.b),),

@@ -24,6 +24,15 @@ gradient is already whole on every rank:
 They sum in fp32 whatever the tensor's dtype (a bf16 gradient of a
 replicated input is summed once and rounded once).
 
+The pipeline's exchanges over a pp group (``parallel/pipeline.py``): into
+the pipeline ``copy_to_model`` (only stage 0 reads its input, the other
+stages' gradients of it are zeros, so the sum is stage 0's on every rank),
+out of it ``reduce_from_model`` (the last stage's buffer, zeros on the
+other stages), and between stages ``stage_shift``: rank r receives rank r -
+step's tensor. Its adjoint is the shift by -step, which the pipeline's
+written-out backward applies (the shift runs outside autograd, so that
+every rank makes it at every tick in the same order).
+
 ``all_reduce_sum``'s backward would multiply such a gradient by the group's
 size; it stays right where each rank uses the sum for its own channels (the
 gated RMSNorm's sum of squares under tp).
@@ -92,6 +101,18 @@ def _gather(x: torch.Tensor, group) -> torch.Tensor:
     out = x.new_zeros((W,) + tuple(x.shape))
     out[r] = x
     return _reduce_(out, group)
+
+
+def stage_shift(x: torch.Tensor, group, step: int = 1) -> torch.Tensor:
+    """Rank r of ``group`` receives rank r - ``step``'s ``x`` (zeros where
+    r - step lies outside the group), in x's dtype: a gather in fp32 (exact),
+    which gloo takes on CUDA tensors; no gradient. Its adjoint is
+    ``stage_shift(g, group, -step)``."""
+    src = dist.get_rank(group) - step
+    got = _gather(x.detach().float().contiguous(), group)
+    if 0 <= src < dist.get_world_size(group):
+        return got[src].to(x.dtype)
+    return torch.zeros_like(x)
 
 
 class _AllReduceSum(torch.autograd.Function):

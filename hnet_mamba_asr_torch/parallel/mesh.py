@@ -10,10 +10,11 @@ counterpart of ``hnet_mamba_asr_tpu/parallel/mesh.py`` over
   card, gloo on the CPU, and gloo over CUDA tensors only when asked for (one
   card cannot hold two NCCL ranks; two processes sharing one card run gloo).
 - ``validate_planes`` parses train.{tp, sp, pp, ep, fsdp} with the JAX
-  package's return value and error texts; pp, and fsdp composed with tp or
-  ep, are not ported yet and raise.
-- ``make_mesh`` is a ``DeviceMesh`` over (dp,), (dp, sp), (dp, tp), (dp,
-  ep) or (dp, tp, ep), in JAX's rank order (the last axis fastest).
+  package's return value and error texts; fsdp composed with tp, ep or pp
+  is not ported yet and raises.
+- ``make_mesh`` is a ``DeviceMesh`` over (dp,), (dp, sp), (dp, pp), (dp,
+  tp), (dp, ep) or (dp, tp, ep), in JAX's rank order (the last axis
+  fastest).
 - ``tp_plan`` / ``ep_plan`` are JAX's ``tp_specs`` / ``ep_specs`` on the
   port's parameter names: {leaf: (dim, [the global indices along dim that
   rank r holds, in its local order])}, collected from the modules' own
@@ -51,7 +52,6 @@ from hnet_mamba_asr_torch.parallel.model_parallel import module_plan
 
 _FSDP_MIN_ELEMS = 8192          # below this, all-gather latency > bytes saved
 REPLICATED_BATCH_KEYS = frozenset({"aug_ref"})
-NOT_PORTED_PLANES = ("pp",)
 ENV_KEYS = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK")
 
 
@@ -124,8 +124,8 @@ def validate_planes(flat: dict) -> tuple[int, int, int, int, bool]:
 
     Returns ``(tp, sp, pp, ep, fsdp)`` with JAX's composition rules and
     errors (sp and pp exclude every other model-parallel plane; tp and ep
-    compose; sp / pp with scan_steps raise). pp, and fsdp with tp or ep,
-    are not ported and raise NotImplementedError after those checks."""
+    compose; sp / pp with scan_steps raise). fsdp with tp, ep or pp is not
+    ported and raises NotImplementedError after those checks."""
     tp = int(flat.get("tp", 1))
     sp = int(flat.get("sp", 1))
     pp = int(flat.get("pp", 1))
@@ -141,34 +141,37 @@ def validate_planes(flat: dict) -> tuple[int, int, int, int, bool]:
         raise ValueError("train.sp/pp with train.scan_steps is not "
                          "supported (shard_map inside the fused scan is "
                          "untested); use accum_grad instead")
-    for name in NOT_PORTED_PLANES:
-        if int(flat.get(name, 1)) > 1:
-            raise NotImplementedError(f"train.{name}={flat[name]} is not ported")
-    if fsdp and (tp > 1 or ep > 1):
-        raise NotImplementedError("train.fsdp with train.tp / train.ep is not ported (a "
-                                  "later slice, after pp)")
+    if fsdp and (tp > 1 or ep > 1 or pp > 1):
+        raise NotImplementedError("train.fsdp with train.tp / train.ep / train.pp is not "
+                                  "ported (a later slice: FSDP2 over the dp sub-mesh of a "
+                                  "2-D mesh)")
     return tp, sp, pp, ep, fsdp
 
 
-def make_mesh(sp: int = 1, device="cuda", tp: int = 1, ep: int = 1):
+def make_mesh(sp: int = 1, device="cuda", tp: int = 1, ep: int = 1, pp: int = 1):
     """A ``DeviceMesh`` of every rank of the process group: (dp,), (dp, sp)
-    when ``sp`` > 1, (dp, tp), (dp, ep) or (dp, tp, ep) when ``tp`` / ``ep``
-    > 1, in JAX's rank order (``reshape(n // model, tp, ep)``: the last axis
-    fastest, rank = (dp_index * tp + tp_index) * ep + ep_index); None
-    without a process group."""
-    model = sp * tp * ep
+    when ``sp`` > 1, (dp, pp) when ``pp`` > 1, (dp, tp), (dp, ep) or (dp,
+    tp, ep) when ``tp`` / ``ep`` > 1, in JAX's rank order (``reshape(n //
+    model, tp, ep)``: the last axis fastest, rank = (dp_index * tp +
+    tp_index) * ep + ep_index, or dp_index * pp + stage); None without a
+    process group."""
+    model = sp * tp * ep * pp
     if not (dist.is_available() and dist.is_initialized()):
         if model > 1:
-            what = f"train.sp={sp}" if sp > 1 else f"tp*ep={tp}*{ep}"
+            what = (f"train.sp={sp}" if sp > 1 else f"train.pp={pp}" if pp > 1
+                    else f"tp*ep={tp}*{ep}")
             raise ValueError(f"{what} needs {model} ranks; launch them with torchrun")
         return None
     from torch.distributed.device_mesh import init_device_mesh
     n = dist.get_world_size()
     dev_type = torch.device(device).type
-    if sp > 1:
-        if n % sp:
-            raise ValueError(f"{n} ranks not divisible by sp={sp}")
-        return init_device_mesh(dev_type, (n // sp, sp), mesh_dim_names=("dp", "sp"))
+    for name, size in (("sp", sp), ("pp", pp)):
+        if size > 1:
+            if n % size:
+                # pp: JAX's make_mesh(tp=pp, tp_axis="pp") text
+                raise ValueError(f"{n} devices not divisible by tp*ep={size}*1" if name == "pp"
+                                 else f"{n} ranks not divisible by sp={size}")
+            return init_device_mesh(dev_type, (n // size, size), mesh_dim_names=("dp", name))
     if model <= 1:
         return init_device_mesh(dev_type, (n,), mesh_dim_names=("dp",))
     if n % model:

@@ -60,9 +60,12 @@ def run(args):
     logger = get_logger("train_lm")
     seed = int((cfg.get("experiment", {}) or {}).get("seed", 0))
     flat = flatten_config(cfg)
-    tp, sp, _, ep, _ = pmesh.validate_planes(flat)
+    tp, sp, pp, ep, _ = pmesh.validate_planes(flat)
     if sp > 1:
         raise ValueError("train.sp splits the ASR encoder's time axis; the LM has none")
+    if pp > 1:
+        raise ValueError("train.pp pipelines the ASR encoder's main stack; the LM trainer "
+                         "takes train.ep only")
     if tp > 1:
         raise ValueError("train.tp splits the ASR model; the LM trainer takes train.ep only")
     tokenizer = build_tokenizer(cfg, REPO_ROOT)

@@ -214,11 +214,12 @@ class DCASRModel(nn.Module):
         return out["loss/total"], stats
 
     @torch.inference_mode()
-    def greedy_decode(self, batch: dict) -> list[list[int]]:
+    def greedy_decode(self, batch: dict, encode=None) -> list[list[int]]:
         """CTC greedy when a CTC head exists, else the RNN-T head's greedy
         search, else the AED head's KV-cached greedy decode (JAX's order):
-        host-side id lists for every row."""
-        enc = self.encode(batch)
+        host-side id lists for every row. ``encode``: the encoder pass in
+        place of ``self.encode`` (the pipelined one)."""
+        enc = (encode or self.encode)(batch)
         if self.ctc is not None:
             ids = self.ctc.frame_argmax(enc.features)
             return ctc_host_greedy(ids.cpu(), enc.lengths.cpu(), self.ctc.blank_id)

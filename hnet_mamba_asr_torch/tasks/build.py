@@ -53,13 +53,16 @@ def resolve_manifests(cfg: Mapping[str, Any], repo_root: str | Path):
 
 
 def build_dataloaders(cfg, repo_root, tokenizer, *, seed: int = 0,
-                      row_split: tuple[int, int] | None = None):
+                      row_split: tuple[int, int] | None = None, rows_multiple: int = 1):
     """-> (train loader, its sampler, {dev split: loader}). The train loader
     speed-perturbs (``train.speed_perturb``) through ``data.perturb_cache_dir``,
     prefetches ``train.prefetch`` batches (default 2) and ships waves as
     ``data.wire_dtype``; every dev split is scored whole, unperturbed and
     unshuffled. ``row_split`` = (rank, count) of the ranks that split the
-    train rows (the process group's by default; the dp axis under sp)."""
+    train rows (the process group's by default; the dp axis under sp, pp,
+    tp and ep); each rank's train rows and every dev batch are padded to a
+    multiple of ``rows_multiple`` (the pipeline's microbatches under pp, as
+    JAX pads a batch to its device count)."""
     rank, count = row_split if row_split is not None else world()
     batch_bins = int(cfg["batch_bins"])
     train_cfg = cfg.get("train", {}) or {}
@@ -73,12 +76,13 @@ def build_dataloaders(cfg, repo_root, tokenizer, *, seed: int = 0,
                           perturb_cache_dir=_resolve(pcache, Path(repo_root)) if pcache else None)
     train_loader, train_sampler = make_dataloader(
         train_ds, batch_bins, shuffle=True, seed=seed, num_replicas=count, rank=rank,
-        batch_multiple=count, row_shard=count > 1, prefetch=prefetch, wire_dtype=wire)
+        batch_multiple=count * rows_multiple, row_shard=count > 1, prefetch=prefetch,
+        wire_dtype=wire)
     dev_loaders = {}
     for name, mpath in dev_manifests.items():
         ds = ASRDataset(mpath, tokenizer, augment=False, seed=seed)
         dev_loaders[name], _ = make_dataloader(ds, batch_bins, shuffle=False, seed=seed,
-                                               wire_dtype=wire)
+                                               batch_multiple=rows_multiple, wire_dtype=wire)
     logger.info("dataloaders: train=%d batches (%s), dev=%s", len(train_sampler),
                 train_manifest.name, {k: len(v) for k, v in dev_loaders.items()})
     return train_loader, train_sampler, dev_loaders

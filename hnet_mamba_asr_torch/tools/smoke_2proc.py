@@ -4,17 +4,18 @@ launch (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``,
 and the decode CLI, on the synthetic tone corpus at d 32.
 
     python -m hnet_mamba_asr_torch.tools.smoke_2proc [--device cuda|cpu]
-        [--backend gloo|nccl] [--fsdp | --sp | --tp | --ep] [--root DIR] [--timeout S]
+        [--backend gloo|nccl] [--fsdp | --sp | --pp | --tp | --ep] [--root DIR]
+        [--timeout S]
 
 Counterpart of the JAX package's ``scripts/smoke_2proc.py``. After both
 children exit 0 the parent checks, from their files:
 
 - per epoch, the two ranks consumed equal counts of batches whose row
-  slices are disjoint and together the corpus (with ``--sp``, ``--tp`` or
-  ``--ep`` both ranks of the model group consume the same rows: the check
-  is that they are equal);
+  slices are disjoint and together the corpus (with ``--sp``, ``--pp``,
+  ``--tp`` or ``--ep`` both ranks of the model group consume the same rows:
+  the check is that they are equal);
 - the parameters are bitwise equal across the ranks after training and
-  after the resume (a sha256 of the full state, gathered under FSDP, tp
+  after the resume (a sha256 of the full state, gathered under FSDP, pp, tp
   and ep);
 - ``summary.json`` holds one provenance record per run, written by rank 0,
   with ``process_count`` 2, and ``metrics.jsonl`` a resume marker;
@@ -23,7 +24,8 @@ children exit 0 the parent checks, from their files:
   decode, transcript for transcript.
 
 ``--tp`` and ``--ep`` train with ``train.tp=2`` / ``train.ep=2`` a config
-with an AED head (with ``--ep`` an MoE AED of 4 experts).
+with an AED head (with ``--ep`` an MoE AED of 4 experts); ``--pp`` with
+``train.pp=2`` the config with 2 main-stack blocks, one a stage.
 
 Exit 0 when every check passes. Two ranks on one card run gloo
 (``--backend gloo``, the default): NCCL refuses two ranks on one device.
@@ -41,7 +43,9 @@ from pathlib import Path
 
 N_PROC = 2
 PLANES = {None: [], "fsdp": ["train.fsdp=true", "train.fsdp_min_elems=512"],
-          "sp": ["train.sp=2"], "tp": ["train.tp=2"], "ep": ["train.ep=2"]}
+          "sp": ["train.sp=2"], "pp": ["train.pp=2"], "tp": ["train.tp=2"],
+          "ep": ["train.ep=2"]}
+SAME_ROWS = ("sp", "pp", "tp", "ep")         # the planes whose ranks hold the same rows
 
 
 def _digest(trainer) -> str:
@@ -51,6 +55,8 @@ def _digest(trainer) -> str:
     state = full_state(trainer.model.state_dict(), keep=True)
     if trainer.mp_plan:                          # tp / ep: the gathered whole
         state = trainer._gathered(state, trainer.opt.state_dict())[0]
+    if trainer.pp_ranks:                         # pp: every stage's blocks
+        state = trainer._stages_gathered(state, trainer.opt.state_dict())[0]
     h = hashlib.sha256()
     for k in sorted(state):
         h.update(k.encode())
@@ -85,7 +91,8 @@ def child_main(rank: int, root: Path, device: str, backend: str, plane: str | No
 
 def prep(root: Path, plane: str | None = None) -> None:
     """The tone corpus, its tokenizer, CMVN (on the CPU) and a d-32 config
-    (with an AED head for tp and ep, of MoE experts for ep)."""
+    (with an AED head for tp and ep, of MoE experts for ep, 2 main-stack
+    blocks for pp)."""
     from hnet_mamba_asr_torch.data.audio import load_manifest
     from hnet_mamba_asr_torch.data.features import compute_cmvn
     from hnet_mamba_asr_torch.data.synthetic import build_tone_corpus, overfit_config
@@ -99,6 +106,8 @@ def prep(root: Path, plane: str | None = None) -> None:
                          **({"ctc_weight": 0.7, "aed_weight": 0.3} if plane in ("tp", "ep")
                             else {}))
     cfg["experiment"]["name"] = "smoke_2proc"
+    if plane == "pp":
+        cfg["encoder_conf"]["n_main"] = 2
     if plane in ("tp", "ep"):
         cfg["aed_conf"] = {"n_layers": 1, "n_heads": 2, "d_ff": 64, "dropout": 0.1,
                            "max_decode_len": 8}
@@ -196,7 +205,7 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--backend", default="gloo", choices=("gloo", "nccl"))
     which = ap.add_mutually_exclusive_group()
-    for name in ("fsdp", "sp", "tp", "ep"):
+    for name in ("fsdp", "sp", "pp", "tp", "ep"):
         which.add_argument(f"--{name}", dest="plane", action="store_const", const=name)
     ap.add_argument("--timeout", type=float, default=600.0)
     args = ap.parse_args(argv)
@@ -213,7 +222,7 @@ def main(argv=None) -> int:
                   + (root / f"child{r}.log").read_text()[-4000:])
         print(f"[smoke_2proc] children exited {codes}")
         return 1
-    out = check(root, args.plane in ("sp", "tp", "ep"))
+    out = check(root, args.plane in SAME_ROWS)
     print(f"[smoke_2proc] ALL CHECKS PASSED {json.dumps(out)} root={root}", flush=True)
     return 0
 

@@ -213,6 +213,15 @@ def param_labels(named_params) -> dict[str, str]:
             for n, p in named_params}
 
 
+def label_names(named_params) -> dict[str, list[str]]:
+    """{group label: its parameters' names in the given order}:
+    ``build_optimizer``'s groups, whose concatenation in label order is its
+    parameters' index order (its state_dict's keys)."""
+    labels = param_labels(named_params)
+    return {label: [n for n, _ in named_params if labels[n] == label]
+            for label in ("default", "no_decay", "router")}
+
+
 def _make_opt(key: str, groups: list[dict], conf: dict, on_card: bool,
               per_tensor: bool = False) -> torch.optim.Optimizer:
     b1, b2 = (float(b) for b in conf.get("betas", (0.9, 0.999)))
@@ -254,14 +263,14 @@ def build_optimizer(name: str, conf: Mapping | None, schedule_name: str | None,
     base_lr = float(conf.get("lr", 1e-3))
     eps = float(conf.get("eps", 1e-8))
     wd = float(conf.get("weight_decay", 0.0)) if key in ("adam", "adamw") else 0.0
-    labels = param_labels(named)
+    by_label, params = label_names(named), dict(named)
     groups = [{"label": "default", "weight_decay": wd, "eps": eps, "lr_mult": 1.0},
               {"label": "no_decay", "weight_decay": 0.0, "eps": eps, "lr_mult": 1.0},
               {"label": "router", "weight_decay": wd,
                "eps": eps if router_eps is None else float(router_eps),
                "lr_mult": router_mult}]
     for g in groups:
-        g["params"] = [p for n, p in named if labels[n] == g["label"]]
+        g["params"] = [params[n] for n in by_label[g["label"]]]
         g["lr"] = base_lr * g["lr_mult"]
         if key == "sgd":
             del g["eps"]
@@ -280,7 +289,7 @@ def set_lr(opt: torch.optim.Optimizer, lr: float) -> None:
         group["lr"] = lr * group.get("lr_mult", 1.0)
 
 
-def clip_by_global_norm(params, max_norm: float, split=()) -> torch.Tensor:
+def clip_by_global_norm(params, max_norm: float, split=(), leaf_norms=None) -> torch.Tensor:
     """Scale the gradients in place as ``optax.clip_by_global_norm`` does and
     return their global L2 norm before the clip (fp32, on the device). FSDP's
     sharded gradients (DTensors) count each shard once: their local squares
@@ -289,10 +298,15 @@ def clip_by_global_norm(params, max_norm: float, split=()) -> torch.Tensor:
     (``parallel/model_parallel.py::split_leaves``): its squares, each row
     weighted by the share of the plane's ranks that hold it, are summed over
     the plane's group, so that every element counts once and every rank
-    takes the same clip scale."""
+    takes the same clip scale. ``leaf_norms``: every leaf's norm of the
+    whole model in one process's order (a pp rank's,
+    ``parallel/pipeline.py::PPModel.leaf_norms``), whose norm is the
+    global one."""
     grads = [p.grad for p in params if p.grad is not None]
     shards = [g for g in grads if type(g).__name__ == "DTensor"]
-    if split:
+    if leaf_norms is not None:
+        norm = torch.linalg.vector_norm(leaf_norms)
+    elif split:
         owned, planes = set(), {}
         for p, plane, dim, share in split:
             if p.grad is None:

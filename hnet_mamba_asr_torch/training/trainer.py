@@ -47,10 +47,19 @@ may have ``set_epoch``.
 - ``history`` keeps one record per update: step, epoch, loss, grad norm, lr,
   mel frames of the real rows, the update's time (CUDA events on the card,
   from its first micro-step to the end of the optimizer step) and
-  ``wait_ms``, the host time the loop waited on the loader in the update.
-  The host waits for the device once per update, when it reads the stats
-  and the gradient norm, so that it queues the next micro-step while the
-  device runs the last.
+  ``wait_ms``, the host time the loop waited on the loader for its batches,
+  and ``group``, the updates its host read committed. The host reads the
+  device once per update (``host_reads``): the gradient norm and the stats
+  of its micro-steps in one copy, after which its CUDA events are read, so
+  that it queues the next micro-step while the device runs the last. Each
+  micro-step runs as soon as its batch arrives.
+- ``scan_steps`` = K > 1 (JAX's fused scan of K updates): the updates run
+  as their batches arrive, and their gradient norms, stats and timings stay
+  on the device until one host read commits K records, or fewer at the
+  epoch's end or at ``max_steps``. JAX groups only batches of one shape
+  because its K updates are one traced call; eager updates have no trace,
+  so any batches group, and the parameters are those of K single updates.
+  It excludes ``accum_grad`` (JAX's error).
 
 - Ranks (a ``torch.distributed`` process group, ``parallel/mesh.py``):
   every rank holds its row slice of each global batch (``row_shard``
@@ -80,7 +89,19 @@ may have ``set_epoch``.
   JAX-layout state on rank 0 (``convert.gather_state``, moments too); a
   resume re-shards them (``shard_state``). ``summary.json`` holds the mesh.
 
-``scan_steps``, pp, fsdp with tp / ep and orbax raise.
+- pp (``parallel/pipeline.py::PPModel``, on the (dp, pp) mesh of
+  ``make_mesh(pp=)``): a rank holds its stage's main-stack blocks and the
+  replicated rest; the rows split over the dp axis (DDP and
+  ``rows_split_over`` take the dp group). Before the clip the replicated
+  leaves' gradients are averaged over the pp group (equal up to the CTC
+  backward's atomics), and the clip's norm is the norm of every leaf's
+  norm in one process's order (``PPModel.leaf_norms``: the stage leaves
+  from their stage, the replicated ones once). The optimizer holds the
+  rank's leaves only. Checkpoints gather the stages to rank 0 (parameters
+  and moments, in one process's layout and optimizer order); a resume
+  keeps the rank's stage.
+
+fsdp with tp / ep / pp and the orbax backend raise.
 """
 from __future__ import annotations
 
@@ -95,22 +116,23 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from hnet_mamba_asr_torch.convert import (gather_state, jax_to_state_dict, shard_state,
-                                          state_dict_to_jax_tree)
+from hnet_mamba_asr_torch.convert import (gather_stages, gather_state, jax_to_state_dict,
+                                          shard_state, stage_state, state_dict_to_jax_tree)
 from hnet_mamba_asr_torch.data.manifests import feat_frames
 from hnet_mamba_asr_torch.eval.metrics import char_errors, word_errors
 from hnet_mamba_asr_torch.parallel import mesh as pmesh
 from hnet_mamba_asr_torch.parallel import model_parallel as mpar
 from hnet_mamba_asr_torch.parallel.collectives import rows_split_over
+from hnet_mamba_asr_torch.parallel.pipeline import main_block
 from hnet_mamba_asr_torch.training import checkpoint as ckpt
 from hnet_mamba_asr_torch.training.async_ckpt import AsyncWriter
-from hnet_mamba_asr_torch.training.optim import build_optimizer, clip_by_global_norm, set_lr
+from hnet_mamba_asr_torch.training.optim import (build_optimizer, clip_by_global_norm,
+                                                 label_names, set_lr)
 from hnet_mamba_asr_torch.utils.config import flatten_config  # noqa: F401 (re-export)
 
 logger = logging.getLogger(__name__)
 
 DEVICE_KEYS = ("wave", "wave_lens", "tokens", "token_lens", "row_mask")
-NOT_PORTED = ("scan_steps", "pp")
 
 
 def _owned(obj):
@@ -161,15 +183,19 @@ class Trainer:
         if self.is_main:
             self.ckpt_dir.mkdir(parents=True, exist_ok=True)
         g = self.cfg.get
-        for key in NOT_PORTED:
-            if g(key) not in (None, False, 0, 1):
-                raise NotImplementedError(f"train.{key}={g(key)!r} is not ported")
         if int(g("sp", 1) or 1) > 1 and not hasattr(model, "rows_group"):
             raise ValueError(f"train.sp={g('sp')} needs the model wrapped in "
                              "parallel/seq_parallel.py::SPModel (scripts/train.py does)")
         if str(g("ckpt_backend", "pickle")) != "pickle":
             raise NotImplementedError("only the pickle checkpoint backend is ported")
-        tp, _, _, ep, _ = pmesh.validate_planes(self.cfg)
+        tp, _, pp, ep, _ = pmesh.validate_planes(self.cfg)
+        # the pipeline's stages (parallel/pipeline.py::PPModel); on ranks when
+        # they have a group, else every stage in this process
+        self.pp = getattr(model, "stages", None)
+        if pp > 1 and self.pp is None:
+            raise ValueError(f"train.pp={pp} needs the model wrapped in "
+                             "parallel/pipeline.py::PPModel (scripts/train.py does)")
+        self.pp_ranks = self.pp is not None and self.pp.group is not None
         self.mp_plan = {}
         if tp > 1 or ep > 1:
             if mesh is None or "dp" not in (mesh.mesh_dim_names or ()):
@@ -187,6 +213,10 @@ class Trainer:
         if float(g("grad_clip_type", 2.0)) != 2.0:
             raise ValueError("only L2 grad clipping is supported")
         self.accum_grad = max(1, int(g("accum_grad", 1)))
+        self.scan_steps = max(1, int(g("scan_steps", 1) or 1))
+        if self.scan_steps > 1 and self.accum_grad > 1:
+            raise ValueError("scan_steps and accum_grad are mutually exclusive")
+        self.host_reads = 0
         self.log_interval = int(g("log_interval", 50))
         self.valid_interval = int(g("valid_interval_epoch", 10))
         self.keep_nbest = int(g("keep_nbest_models", 5))
@@ -195,13 +225,17 @@ class Trainer:
         self.best_model_criterion = [tuple(c) for c in
                                      g("best_model_criterion", [["valid", "loss", "min"]])]
         self.early_stopping = dict(g("early_stopping", {}) or {})
-        # the ranks that split a batch's rows: the dp axis of an SPModel or of
-        # a tp / ep mesh, else all
+        # the ranks that split a batch's rows: the dp axis of an SPModel, a
+        # PPModel or a tp / ep mesh, else all
         self.rows_group = None
         if self.distributed:
             self.rows_group = getattr(model, "rows_group", torch.distributed.group.WORLD)
             if self.mp_plan:
                 self.rows_group = mesh.get_group("dp")
+        # DDP averages over every rank (an sp rank's gradient is its shard's
+        # part), but the ranks of a tp / ep / pp group share theirs: the dp
+        # group only
+        ddp_group = self.rows_group if self.mp_plan or self.pp_ranks else None
         self.fsdp = bool(g("fsdp", False)) and self.distributed
         self._ddp = self._root = None
         if self.fsdp:
@@ -210,14 +244,10 @@ class Trainer:
                                      int(g("fsdp_min_elems", pmesh._FSDP_MIN_ELEMS)),
                                      units=getattr(model, "fsdp_units", True))
             self.fsdp_plan = {k.split(".", 1)[1]: v for k, v in plan.items()}   # less "net."
-        elif self.distributed and torch.distributed.get_world_size(
-                self.rows_group if self.mp_plan else None) > 1:
-            # every rank's gradient is averaged (an sp rank's is its shard's
-            # part), but a tp / ep group's ranks share theirs: the dp group only
+        elif self.distributed and torch.distributed.get_world_size(ddp_group) > 1:
             from torch.nn.parallel import DistributedDataParallel
             self._ddp = DistributedDataParallel(
-                _LossModule(model), broadcast_buffers=False,
-                process_group=self.rows_group if self.mp_plan else None,
+                _LossModule(model), broadcast_buffers=False, process_group=ddp_group,
                 device_ids=[self.device.index or 0] if self.device.type == "cuda" else None)
         self.params = [p for p in self.model.parameters() if p.requires_grad]
         self.opt, self.lr_schedule = build_optimizer(
@@ -230,7 +260,8 @@ class Trainer:
                              else None)
         logger.info("Trainer: device=%s rank %d of %d (%s) params=%.1fM accum_grad=%d "
                     "optim=%s sched=%s dev_splits=%s", self.device, self.rank, self.world,
-                    ("fsdp" if self.fsdp else "ddp" if self._ddp else "one process")
+                    ("fsdp" if self.fsdp else "ddp" if self._ddp
+                     else "no DDP" if self.distributed else "one process")
                     + f", mesh {self.mesh_shape}",
                     sum(p.numel() for p in self.params) / 1e6, self.accum_grad,
                     g("optim", "adamw"), g("scheduler"), list(self.dev_loaders))
@@ -260,18 +291,24 @@ class Trainer:
             (loss / self.accum_grad).backward()
         return stats
 
-    def _apply_step(self) -> tuple[float, float]:
+    def _apply_step(self) -> tuple[torch.Tensor, float]:
+        """The update from the accumulated gradients -> (the gradient norm
+        before the clip, on the device; the rate)."""
         if self.fsdp:
             pmesh.sync_replicated_grads(self.params)
         if self.split:
             mpar.sync_replicas(self.model, self.split)
-        gnorm = clip_by_global_norm(self.params, self.grad_clip, self.split)
+        norms = None
+        if self.pp_ranks:
+            pmesh.sync_replicated_grads(self.model.replicated(), group=self.pp.group)
+            norms = self.model.leaf_norms()
+        gnorm = clip_by_global_norm(self.params, self.grad_clip, self.split, leaf_norms=norms)
         lr = float(self.lr_schedule(self.global_step))
         set_lr(self.opt, lr)
         self.opt.step()
         self.opt.zero_grad(set_to_none=True)
         self.global_step += 1
-        return float(gnorm), lr
+        return gnorm, lr
 
     def _timer(self):
         if self.device.type == "cuda":
@@ -308,40 +345,74 @@ class Trainer:
         self.history.append(record)
         win = self._window
         win["rows"] += rows
-        if self.global_step % self.log_interval:
+        step = record["step"]
+        if step % self.log_interval:
             return
         dt = time.time() - win["t0"]
-        logger.info("step %d: %s", self.global_step, record)
+        logger.info("step %d: %s", step, record)
         if self.metrics is not None:
             payload = {k: record[k] for k in self._stat_keys}
             payload.update({"train/lr": record["lr"], "train/grad_norm": record["grad_norm"],
                             "train/samples_per_s": win["rows"] / dt if dt > 0 else 0.0})
-            self.metrics.log_scalars(payload, self.global_step, split="train",
-                                     epoch=self.epoch)
+            self.metrics.log_scalars(payload, step, split="train", epoch=self.epoch)
         win["rows"], win["t0"] = 0, time.time()
 
     # ---- one epoch --------------------------------------------------------
+    def _add_micro_step(self, u: dict, batch: dict) -> None:
+        """A micro-step of the update ``u``; what the device computes for the
+        record stays there until ``_commit``."""
+        stats = self._micro_step(batch, sync=len(u["stats"]) + 1 == self.accum_grad)
+        self._stat_keys = list(stats)
+        u["stats"].append(torch.stack([stats[k].detach().float() for k in self._stat_keys]))
+        real = np.asarray(batch["row_mask"], bool)
+        u["rows"] += int(real.sum())
+        if "wave_lens" in batch:
+            u["frames"] += sum(feat_frames(int(n)) for n in np.asarray(batch["wave_lens"])[real])
+
+    def _commit(self, updates: list, sums: np.ndarray) -> None:
+        """One host read for ``updates``: their gradient norms and their
+        micro-steps' stats in one copy; then each applied update's record.
+        A group's stats count in the epoch's loss either way."""
+        parts = [torch.stack(u["stats"]).reshape(-1) for u in updates]
+        parts += [u["gnorm"].reshape(1).float() for u in updates if "gnorm" in u]
+        host = torch.cat(parts).cpu().numpy()
+        self.host_reads += 1
+        off, n_keys = 0, len(self._stat_keys)
+        group = sum("gnorm" in u for u in updates)
+        rows = []
+        for u in updates:
+            m = len(u["stats"]) * n_keys
+            cols = dict(zip(self._stat_keys, host[off:off + m].reshape(-1, n_keys).T))
+            off += m
+            sums[:] += ((cols["loss/total"] * cols["batch_weight"]).sum(),
+                        cols["batch_weight"].sum())
+            rows.append(cols)
+        for u, cols in zip(updates, rows):
+            if "gnorm" not in u:
+                continue
+            record = {"step": u["step"], "epoch": self.epoch, "grad_norm": float(host[off]),
+                      "lr": u["lr"], "frames": u["frames"],
+                      "ms": self._elapsed_ms(u["start"], u["end"]), "wait_ms": u["wait"] * 1e3,
+                      "group": group}
+            off += 1
+            record.update({k: float(v.mean()) for k, v in cols.items()})
+            self._finish_step(record, u["rows"])
+
     def _train_epoch(self) -> None:
         if hasattr(self.train_loader, "set_epoch"):
             self.train_loader.set_epoch(self.epoch)
         self._window = {"rows": 0, "t0": time.time()}
         sums = np.zeros(2)                         # epoch's sum of loss x weight, weight
-        micro, step_stats, frames, rows, wait, start = 0, [], 0, 0, 0.0, None
         self._stat_keys = []
-
-        def fold() -> dict:
-            # the micro-steps' stats to the host, one copy per update
-            cols = dict(zip(self._stat_keys, torch.stack(step_stats).cpu().numpy().T))
-            sums[:] += ((cols["loss/total"] * cols["batch_weight"]).sum(),
-                        cols["batch_weight"].sum())
-            return cols
-
+        # the update whose micro-steps run, and the applied updates that
+        # wait for their host read (scan_steps of them)
+        update, pending = None, []
         batches = iter(self.train_loader)
         ids_log = os.environ.get("HMASR_CONSUMED_IDS")
         while True:
             t_wait = time.perf_counter()
             batch = next(batches, None)
-            wait += time.perf_counter() - t_wait
+            wait = time.perf_counter() - t_wait
             if batch is None:
                 break
             batch = dict(batch)
@@ -350,31 +421,28 @@ class Trainer:
                 # the per-rank audit of consumed utterances (tools/smoke_2proc.py)
                 with open(ids_log, "a") as f:
                     f.write(json.dumps({"epoch": self.epoch, "ids": list(ids)}) + "\n")
-            if start is None:
-                start = self._timer()
-            stats = self._micro_step(batch, sync=(micro + 1) % self.accum_grad == 0)
-            self._stat_keys = list(stats)
-            step_stats.append(torch.stack([stats[k].float() for k in self._stat_keys]))
-            real = np.asarray(batch["row_mask"], bool)
-            rows += int(real.sum())
-            if "wave_lens" in batch:
-                frames += sum(feat_frames(int(n)) for n in np.asarray(batch["wave_lens"])[real])
-            micro += 1
-            if micro % self.accum_grad:
+            if update is None:
+                update = {"start": self._timer(), "stats": [], "frames": 0, "rows": 0,
+                          "wait": 0.0}
+            update["wait"] += wait
+            self._add_micro_step(update, batch)
+            if len(update["stats"]) < self.accum_grad:
                 continue
-            gnorm, lr = self._apply_step()
-            end = self._timer()
-            record = {"step": self.global_step, "epoch": self.epoch, "grad_norm": gnorm,
-                      "lr": lr, "frames": frames, "ms": self._elapsed_ms(start, end),
-                      "wait_ms": wait * 1e3}
-            record.update({k: float(v.mean()) for k, v in fold().items()})
-            self._finish_step(record, rows)
-            step_stats, frames, rows, wait, start = [], 0, 0, 0.0, None
-            if self.max_steps and self.global_step >= self.max_steps:
+            update["gnorm"], update["lr"] = self._apply_step()
+            update["step"], update["end"] = self.global_step, self._timer()
+            pending.append(update)
+            update = None
+            done = bool(self.max_steps) and self.global_step >= self.max_steps
+            if len(pending) == self.scan_steps or done:
+                self._commit(pending, sums)
+                pending = []
+            if done:
                 break
-        if step_stats:
-            fold()
-        self.opt.zero_grad(set_to_none=True)      # a partial group is dropped
+        if update is not None:                    # a partial accumulation: dropped
+            pending.append(update)
+            self.opt.zero_grad(set_to_none=True)
+        if pending:
+            self._commit(pending, sums)
         self._record("train", "loss", sums[0] / max(1.0, sums[1]))
 
     # ---- validation ------------------------------------------------------------
@@ -530,6 +598,8 @@ class Trainer:
             opt_state = pmesh.full_state(opt_state, keep=self.is_main)
         if self.mp_plan:
             params, opt_state = self._gathered(params, opt_state)
+        if self.pp_ranks:
+            params, opt_state = self._stages_gathered(params, opt_state)
         if not self.is_main:
             return
         state = {"params": state_dict_to_jax_tree(params),
@@ -583,6 +653,52 @@ class Trainer:
                                ranks[self.mp_plan[name][2]])[name]
         return params, place
 
+    def _full_order(self) -> tuple[list, dict]:
+        """One process's optimizer order of the whole model's leaves, and
+        {group label: their names} (``PPModel.layout``)."""
+        meta = [(n, torch.empty(shape, device="meta")) for n, shape in self.model.layout]
+        by_label = label_names(meta)
+        return [n for names in by_label.values() for n in names], by_label
+
+    def _stages_gathered(self, params: dict, opt_state: dict):
+        """The whole model's parameters and moments from every stage of this
+        rank's pp group (every rank takes part), in one process's optimizer
+        order."""
+        names = self._param_names()
+        state = {names[int(i)]: st for i, st in opt_state["state"].items()}
+
+        def host(v):
+            return v.detach().cpu() if torch.is_tensor(v) else v
+
+        mine = ({k: host(v) for k, v in params.items() if main_block(k) is not None},
+                {n: {k: host(t) for k, t in st.items()} for n, st in state.items()
+                 if main_block(n) is not None})
+        parts = [None] * self.pp.n
+        torch.distributed.all_gather_object(parts, mine, group=self.pp.group)
+        params = gather_stages([params] + [p for p, _ in parts])
+        for _, st in parts:
+            state.update(st)
+        order, by_label = self._full_order()
+        index = {n: i for i, n in enumerate(order)}
+        groups = [dict(g, params=[index[n] for n in by_label[g["label"]]])
+                  for g in opt_state["param_groups"]]
+        return params, {"state": {index[n]: state[n] for n in order if n in state},
+                        "param_groups": groups}
+
+    def _stage_of(self, params: dict, saved: dict):
+        """This rank's stage of a whole state: the parameters and, in the
+        rank's optimizer order, the moments."""
+        params = stage_state(params, self.pp.n, self.pp.rank)
+        order, _ = self._full_order()
+        pos = {n: i for i, n in enumerate(self._param_names())}
+        by_label = label_names([(n, p) for n, p in self.model.named_parameters()
+                                if p.requires_grad])
+        state = {pos[order[int(i)]]: st for i, st in saved["state"].items()
+                 if order[int(i)] in pos}
+        groups = [dict(g, params=[pos[n] for n in by_label[g["label"]]])
+                  for g in saved["param_groups"]]
+        return params, {"state": state, "param_groups": groups}
+
     def flush_checkpoints(self) -> None:
         """Wait for pending saves; raise a writer failure."""
         if self._ckpt_writer is not None:
@@ -595,6 +711,7 @@ class Trainer:
             raise ValueError(f"{path}: not a checkpoint of the port (its optimizer state "
                              "is optax's); load its params with convert.load_jax_params")
         params = jax_to_state_dict(state["params"])
+        opt_state = state["torch_opt_state"]
         place = None
         if self.fsdp:                       # re-shard the full state, moments too
             current = self.model.state_dict()
@@ -606,8 +723,10 @@ class Trainer:
                 return pmesh.like(t, p) if tuple(t.shape) == tuple(p.shape) else t
         if self.mp_plan:                    # this rank's shard of the full state
             params, place = self._sharded(params)
+        if self.pp_ranks:                   # this rank's stage of the full state
+            params, opt_state = self._stage_of(params, opt_state)
         self.model.load_state_dict(params, strict=True)
-        ckpt.load_optimizer_state(self.opt, state["torch_opt_state"], place=place)
+        ckpt.load_optimizer_state(self.opt, opt_state, place=place)
         self.global_step = int(state["global_step"])
         self.metric_history = state.get("metric_history", {})
         self.epoch = int(state["epoch"]) + 1          # the saved epoch completed

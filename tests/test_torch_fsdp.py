@@ -138,8 +138,8 @@ def test_validate_planes_matches_jax(pair_):
             pmesh.validate_planes(flat)
         assert str(got.value) == str(e)
         return
-    later = flat.get("fsdp") and (flat.get("tp", 1) > 1 or flat.get("ep", 1) > 1)
-    if later or any(flat.get(k, 1) > 1 for k in pmesh.NOT_PORTED_PLANES):
+    later = flat.get("fsdp") and any(flat.get(k, 1) > 1 for k in ("tp", "ep", "pp"))
+    if later:
         with pytest.raises(NotImplementedError, match="is not ported"):
             pmesh.validate_planes(flat)
     else:

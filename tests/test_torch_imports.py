@@ -254,7 +254,7 @@ for name in ("jax", "jaxlib", "flax", "optax", "hnet_mamba_asr_tpu", "yaml"):
 import torch
 torch.set_num_threads(1)
 import hnet_mamba_asr_torch.parallel.collectives, hnet_mamba_asr_torch.parallel.mesh
-import hnet_mamba_asr_torch.parallel.seq_parallel
+import hnet_mamba_asr_torch.parallel.seq_parallel, hnet_mamba_asr_torch.parallel.pipeline
 import hnet_mamba_asr_torch.scripts.train, hnet_mamba_asr_torch.scripts.train_lm
 import hnet_mamba_asr_torch.scripts.decode
 from hnet_mamba_asr_torch.tools import smoke_2proc
@@ -268,13 +268,13 @@ print(json.dumps({"code": code,
 """
 
 
-@pytest.mark.parametrize("plane", [[], ["--fsdp"], ["--sp"], ["--tp"], ["--ep"]],
-                         ids=["ddp", "fsdp", "sp", "tp", "ep"])
+@pytest.mark.parametrize("plane", [[], ["--fsdp"], ["--sp"], ["--pp"], ["--tp"], ["--ep"]],
+                         ids=["ddp", "fsdp", "sp", "pp", "tp", "ep"])
 def test_multi_rank_planes_run_without_jax(plane):
     """parallel/ and tools/smoke_2proc.py with jax, flax, the JAX package and
     PyYAML blocked; the smoke's two processes (gloo, one thread each) train
     through the train CLI (DDP, ``train.fsdp=true``, ``train.sp=2``,
-    ``train.tp=2`` or ``train.ep=2``), resume, and decode over both ranks
+    ``train.pp=2``, ``train.tp=2`` or ``train.ep=2``), resume, and decode over both ranks
     (``decode.tp=2`` under tp) and alone, and pass its checks (disjoint
     equal row slices covering the corpus, or equal ones under sp, tp, ep;
     ranks bitwise equal, one provenance record per run, the resume marker,

@@ -285,7 +285,7 @@ def test_shard_gather_round_trip_a_jax_tree(planes):
 
 
 # tests/test_plane_composition.py's matrix on the port's validate_planes:
-# JAX's return values and error texts; pp and fsdp with tp / ep raise
+# JAX's return values and error texts; fsdp with tp / ep / pp raises
 _OK = [({}, (1, 1, 1, 1, False)), ({"tp": 2}, (2, 1, 1, 1, False)),
        ({"sp": 2}, (1, 2, 1, 1, False)), ({"pp": 2}, (1, 1, 2, 1, False)),
        ({"ep": 2}, (1, 1, 1, 2, False)), ({"fsdp": True}, (1, 1, 1, 1, True)),
@@ -305,8 +305,7 @@ _EXCLUDED = [({"tp": 2, "sp": 2}, "mutually exclusive"), ({"tp": 2, "pp": 2}, "m
 @pytest.mark.parametrize("flat,expect", _OK, ids=["+".join(sorted(f)) or "dp" for f, _ in _OK])
 def test_composable_planes_validate(flat, expect):
     assert jmesh.validate_planes(flat) == expect
-    later = flat.get("pp", 1) > 1 or (flat.get("fsdp") and (flat.get("tp", 1) > 1
-                                                            or flat.get("ep", 1) > 1))
+    later = flat.get("fsdp") and any(flat.get(k, 1) > 1 for k in ("tp", "ep", "pp"))
     if later:
         with pytest.raises(NotImplementedError, match="is not ported"):
             pmesh.validate_planes(flat)

@@ -1,6 +1,6 @@
 """Gloo ranks on the CPU for the multi-rank parity tests
 (tests/test_torch_dist.py, test_torch_fsdp.py, test_torch_seq_parallel.py,
-test_torch_tp.py, test_torch_ep.py).
+test_torch_tp.py, test_torch_ep.py, test_torch_pp.py).
 
 ``run_pair(suite, job, tmp, world=2)`` pickles ``job`` (numpy only: JAX-layout param
 trees, host batches, configs), starts ``world`` processes of this file with a
@@ -413,8 +413,113 @@ def suite_ep(job, rank, tmp):
     return out
 
 
+def _by_name(tr) -> dict:
+    """A trainer's optimizer state keyed by parameter name, as numpy."""
+    import torch
+    names = tr._param_names()
+    return {names[int(i)]: {k: t.numpy() for k, t in st.items() if torch.is_tensor(t)}
+            for i, st in tr.opt.state_dict()["state"].items()}
+
+
+def suite_pp(job, rank, tmp):
+    """World 4, a (dp, pp) = (2, 2) mesh: the shift's adjoint; the stack, the
+    encoder, the loss and its gradients and the MoE-AED loss under pp = 2
+    (every row on both dp groups); one Trainer update with the rows split
+    over dp, its gathered checkpoint, and one process's checkpoint resumed
+    under pp; the guards that need a process group."""
+    import torch
+    import torch.distributed as dist
+
+    from hnet_mamba_asr_torch import convert
+    from hnet_mamba_asr_torch.models.mamba_block import MambaStack
+    from hnet_mamba_asr_torch.parallel.collectives import stage_shift
+    from hnet_mamba_asr_torch.parallel.mesh import init_distributed, make_mesh, mesh_axis
+    from hnet_mamba_asr_torch.parallel.pipeline import (PPModel, Stages, keep_stage, pp_encode,
+                                                        pp_stack_apply)
+    from hnet_mamba_asr_torch.training.trainer import Trainer
+    out = {"stack": {}, "stack_keys": {}, "encode": {}, "errors": {}}
+
+    def tensors(batch):
+        return {k: torch.as_tensor(v) if k in ("wave", "wave_lens", "tokens", "token_lens",
+                                               "row_mask") else v for k, v in batch.items()}
+
+    step = job["step"]
+    if rank == 0:                                # one process's update and checkpoint
+        tr = _train(step, [step["batch"]], tmp / "solo")
+        out["solo"] = _tree(tr.model)
+        out["solo_opt"] = _by_name(tr)
+    moe = job["moe"]
+    plain = _model(moe["config"], moe["vocab"], moe["tree"])
+    loss, stats = plain.loss_fn(tensors(moe["batch"]), 0, False)
+    out["moe_plain"] = {"loss": float(loss), "aux": float(stats["moe/aux"])}
+    init_distributed("cpu", timeout_s=120)
+    mesh = make_mesh(device="cpu", pp=2)
+    pp_group, stage, _ = mesh_axis(mesh, "pp")
+    _, dp_rank, dp = mesh_axis(mesh, "dp")
+    out["where"] = (dp_rank, stage, dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)))
+    st = Stages(pp_group, stage, 2)
+    # the shift and its adjoint: <S x, y> = <x, S^T y> summed over the group
+    gen = torch.Generator().manual_seed(rank)
+    x, y = torch.randn(6, generator=gen), torch.randn(6, generator=gen)
+    sx = stage_shift(x, pp_group, 1)
+    dots = torch.stack([(sx * y).sum(), (x * stage_shift(y, pp_group, -1)).sum()]).double()
+    dist.all_reduce(dots, group=pp_group)
+    out["shift"] = {"x": x.numpy(), "sx": sx.numpy(), "dots": dots.tolist()}
+    for bid, case in job["stack"].items():
+        stack = MambaStack(4, 36, bidirectional=bid, d_state=16, headdim=12, chunk_size=16,
+                           remat_policy="none")
+        stack.load_state_dict(convert.jax_to_state_dict(case["tree"]))
+        keep_stage(stack, 2, stage)
+        out["stack_keys"][bid] = sorted(stack.state_dict())
+        with torch.no_grad():
+            out["stack"][bid] = pp_stack_apply(stack, torch.from_numpy(case["x"]),
+                                               torch.from_numpy(case["lengths"]), st).numpy()
+    for n, case in job["encode"].items():
+        pm = PPModel(_model(case["config"], case["vocab"], case["tree"]), mesh)
+        with torch.no_grad():
+            enc = pp_encode(pm.encoder, torch.from_numpy(case["feats"]),
+                            torch.from_numpy(case["flens"]), pm.stages)
+        out["encode"][n] = {"features": enc.features.numpy(), "lengths": enc.lengths.numpy(),
+                            "ratio": float(enc.ratio_loss)}
+    case = job["loss"]
+    pm = PPModel(_model(case["config"], case["vocab"], case["tree"]), mesh)
+    loss, _ = pm.loss_fn(tensors(case["batch"]), 0, False)
+    loss.backward()
+    out["loss"] = {"loss": float(loss), "grads": {n: p.grad.numpy() for n, p in
+                                                  pm.model.named_parameters()}}
+    pm = PPModel(_model(moe["config"], moe["vocab"], moe["tree"]), mesh)
+    loss, stats = pm.loss_fn(tensors(moe["batch"]), 0, False)
+    out["moe_pp"] = {"loss": float(loss), "aux": float(stats["moe/aux"])}
+    # one update at (dp, pp) = (2, 2), each dp group on its rows
+    ckpt_dir = tmp / f"pp_rank{rank}"
+    tr = Trainer(PPModel(_model(step["config"], step["vocab"], step["tree"]), mesh),
+                 ListLoader(_rows([step["batch"]], dp_rank, dp)),
+                 dict(step["train_cfg"], pp=2), ckpt_dir=ckpt_dir, seed=0, device="cpu")
+    tr.train()
+    out["local"], out["local_opt"] = _local(tr.model), _by_name(tr)
+    out["files"] = _listing(ckpt_dir)
+    out["ddp"] = tr._ddp is not None
+    out["history"] = [h["loss/total"] for h in tr.history]
+    # one process's checkpoint resumed under pp: this rank's stage of it
+    again = Trainer(PPModel(_model(step["config"], step["vocab"], None), mesh), ListLoader([]),
+                    dict(step["train_cfg"], pp=2), ckpt_dir=tmp / f"again{rank}", seed=0,
+                    device="cpu")
+    again.load_checkpoint(tmp / "solo" / "latest.ckpt")
+    out["resumed"], out["resumed_opt"] = _local(again.model), _by_name(again)
+    out["resumed_step"] = again.global_step
+    for name, fn in (("no_pp_axis", lambda: PPModel(_model(step["config"], step["vocab"], None),
+                                                    make_mesh(device="cpu"))),
+                     ("pp3", lambda: make_mesh(device="cpu", pp=3))):
+        try:
+            fn()
+            out["errors"][name] = None
+        except ValueError as e:
+            out["errors"][name] = str(e)
+    return out
+
+
 SUITES = {"dist": suite_dist, "fsdp": suite_fsdp, "sp": suite_sp, "tp": suite_tp,
-          "ep": suite_ep}
+          "ep": suite_ep, "pp": suite_pp}
 
 
 def main(suite: str, tmp: str) -> None:
